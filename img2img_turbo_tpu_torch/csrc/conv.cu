@@ -1,0 +1,521 @@
+// The conv engine: kernels K1 and K4 of the TPU package, as one bf16
+// implicit-GEMM convolution for Hopper (sm_90a) over channels-last (NHWC)
+// memory, on the warpgroup tensor-core instruction (wgmma).
+//
+// Replaces
+//   K1  img2img_turbo_tpu/ops/fused_conv.py:889 fused_gn_silu_conv3x3
+//       y = conv3x3_same(silu(x*a + b)) + bias [+ extra_bias] [+ skip_x@skip_w]
+//           [+ residual], optional per-tile sum / sum^2 of the stored y;
+//   K4  img2img_turbo_tpu/ops/fused_conv.py:1688 upsample2x_conv3x3
+//       y = conv3x3(nearest_up2x(x)) + bias [+ skip_x@skip_w], as four phase
+//       2x2 convolutions on the low-resolution x with folded weights.
+//
+// A block (two warpgroups) owns a 16 x 8 tile of (low-resolution, for K4)
+// pixels and 128 output channels. For each 32-channel chunk it loads the
+// tile's input with a one-pixel halo ONCE into shared memory, applying the
+// GroupNorm affine + SiLU prologue in fp32 on the way and rounding once to
+// bf16; outside the image the halo is zero AFTER activation (SAME padding
+// of the activated tensor). Every tap then reads that halo in place: the 9
+// taps of K1, or for K4 phase (a, b) the 4 taps at offsets (a+p, b+q) with
+// the folded weights. The halo is stored as wgmma's no-swizzle core
+// matrices ([channel/8][pixel][8]): a tile row is 8 pixels, so the 64 rows
+// of one warpgroup's m64 operand are 8 core matrices at a fixed stride (one
+// halo row) for every tap. Weights are packed once at load as
+// (taps, C/8, Co, 8), the K-major core-matrix layout of the B operand, and
+// stream through a 4-stage cp.async ring. The 1x1 skip (resnet shortcut or
+// VAE zero-conv) continues the same accumulation over a tile of skip_x. The
+// epilogue sums bias, the per-(batch, channel) extra bias and the residual
+// in fp32 and rounds once; stats are per-block partial sums of the stored
+// (rounded) y, written as (B, n_tiles, 2, Co) without atomics, so every run
+// is bit-identical.
+//
+// What bounds it on the H100: the UNet/VAE convolutions are compute bound
+// (hundreds of FLOPs per byte). Each step waits for its wgmma group before
+// the next barrier, and loads share the compute warps (no TMA, no warp
+// specialisation yet). Grids under one wave of blocks (the UNet's 8x8 and
+// 16x16 levels) split the channel chunks over several blocks (split-K):
+// each writes fp32 partial sums to a workspace the wrapper allocates, and a
+// second kernel adds them in a fixed order and runs the epilogue.
+
+#include "common.cuh"
+
+using i2i::bf16;
+using i2i::Pack8;
+
+namespace {
+
+constexpr int TH = 16, TW = 8;          // pixel tile: 16 rows x 8 columns
+constexpr int BM = TH * TW;             // GEMM rows per block (2 x m64)
+constexpr int BN = 128;                 // output channels per block
+constexpr int BK = 32;                  // channels per chunk
+constexpr int KCH = BK / 8;             // 8-channel core-matrix columns
+constexpr int NT = 256;                 // threads: two warpgroups
+constexpr int HWD = TW + 2;             // halo width
+constexpr int HALO_PIX = (TH + 2) * HWD;
+constexpr int A_CHUNKS = HALO_PIX * KCH;
+constexpr int A_PER_T = (A_CHUNKS + NT - 1) / NT;
+constexpr int STAGES = 4;               // weight-tile ring depth
+constexpr int B_STAGE = KCH * BN * 8;   // bf16 elements per weight tile
+constexpr int B_PER_T = KCH * BN / NT;
+constexpr int NUM_SMS = 132;
+constexpr int SMEM_BYTES = KCH * HALO_PIX * 16 + STAGES * B_STAGE * 2 + 8 * 2 * BN * 4;
+
+struct ConvArgs {
+  const bf16* x;      // (B, H, W, C); the low-resolution input for K4
+  const bf16* w;      // packed (taps, C/8, CoP, 8); K4: 16 = 4 phases x 4 taps
+  const float* bias;  // (Co)
+  const float* ga;    // (B, C) folded GroupNorm scale, or null
+  const float* gb;    // (B, C) folded GroupNorm shift
+  const float* eb;    // (B, Co) or null
+  const bf16* res;    // (B, Ho, Wo, Co) or null
+  const bf16* skx;    // (B, Ho, Wo, Csk) or null
+  const bf16* skw;    // packed (1, Csk/8, CoP, 8)
+  bf16* y;            // (B, Ho, Wo, Co)
+  float* stats;       // (B, n_tiles, 2, Co) or null
+  float* ws;          // split-K: (splits, B, Ho, Wo, Co) fp32 partial sums
+  int splits, chunks_per_split;
+  int B, H, W, C, Co, Csk, CoP;
+  int tiles_w, tiles;  // pixel tiles per row of tiles / per image (phase)
+  int vec_a;           // C and Csk are multiples of 8
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+// make this thread's shared-memory writes visible to the wgmma (async) proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle: start address, the
+// leading (K-direction core-matrix) and stride (8-row group) byte offsets.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo, unsigned sbo) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Two blocks per SM: caps the kernel at 128 registers a thread (uncapped it
+// takes 135, and one block alone cannot hide its own barrier stalls).
+template <bool UP, bool NORM>
+__global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
+  constexpr int T = UP ? 4 : 9;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* halo = reinterpret_cast<bf16*>(smem);             // [KCH][HALO_PIX][8]
+  bf16* Bs = halo + KCH * HALO_PIX * 8;                   // STAGES x [KCH][BN][8]
+  float* red = reinterpret_cast<float*>(Bs + STAGES * B_STAGE);  // [8][2][BN]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7;  // warpgroup: tile rows 8*wg .. 8*wg+7
+  const int b = blockIdx.z % p.B, split = blockIdx.z / p.B;
+  const int ph = UP ? (int)blockIdx.x / p.tiles : 0;
+  const int tile = (int)blockIdx.x - ph * p.tiles;
+  const int i0 = (tile / p.tiles_w) * TH, j0 = (tile % p.tiles_w) * TW;
+  const int n0 = blockIdx.y * BN;
+  const int Ho = UP ? 2 * p.H : p.H, Wo = UP ? 2 * p.W : p.W;
+  const int pa = ph >> 1, pb = ph & 1;
+  const int KC = (p.C + BK - 1) / BK;
+  const int KS = (p.Csk + BK - 1) / BK;
+  const int kbeg = split * p.chunks_per_split;
+  const int kend = min(kbeg + p.chunks_per_split, KC + KS);
+  const int C8 = (p.C + 7) / 8, Csk8 = (p.Csk + 7) / 8;
+
+  // ---- A operand: the chunk's halo tile (or the skip tile), via registers
+  Pack8 ra[A_PER_T];
+  bool rok[A_PER_T];
+  int rdst[A_PER_T], rc[A_PER_T];
+  bool rskip = false;
+
+  auto fetch_a = [&](int k) {
+    const bool skip = k >= KC;
+    const int c0 = (skip ? k - KC : k) * BK;
+    rskip = skip;
+#pragma unroll
+    for (int t = 0; t < A_PER_T; ++t) {
+      const int q = tid + t * NT;
+      const int pix = q >> 2, kc = q & 3;
+      const bf16* src = nullptr;
+      int cx = 0;
+      bool ok = false;
+      int dst = -1;
+      if (!skip) {
+        if (pix < HALO_PIX) {
+          const int hr = pix / HWD, hc = pix - hr * HWD;
+          const int ih = i0 - 1 + hr, iw = j0 - 1 + hc;
+          ok = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
+          src = p.x + (((size_t)b * p.H + ih) * p.W + iw) * p.C;
+          cx = p.C;
+          dst = kc * HALO_PIX + pix;
+        }
+      } else if (pix < BM) {
+        const int r = pix / TW, c = pix - r * TW;
+        const int i = i0 + r, j = j0 + c;
+        ok = i < p.H && j < p.W;
+        const int ho = UP ? 2 * i + pa : i, wo = UP ? 2 * j + pb : j;
+        src = p.skx + (((size_t)b * Ho + ho) * Wo + wo) * p.Csk;
+        cx = p.Csk;
+        dst = kc * HALO_PIX + (r + 1) * HWD + c + 1;
+      }
+      const int c = c0 + kc * 8;
+      rok[t] = ok;
+      rc[t] = c;
+      rdst[t] = dst;
+      if (ok && p.vec_a) {
+        ra[t] = c < cx ? *reinterpret_cast<const Pack8*>(src + c) : i2i::zero8();
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          ra[t].h[e] = (ok && c + e < cx) ? src[c + e] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  auto store_a = [&]() {
+#pragma unroll
+    for (int t = 0; t < A_PER_T; ++t) {
+      if (rdst[t] < 0) continue;
+      Pack8 v = ra[t];
+      if (NORM && !rskip) {
+        const float* ga = p.ga + (size_t)b * p.C;
+        const float* gb = p.gb + (size_t)b * p.C;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = rc[t] + e;
+          float f = 0.f;
+          if (rok[t] && c < p.C)
+            f = i2i::silu(__bfloat162float(v.h[e]) * ga[c] + gb[c]);
+          v.h[e] = __float2bfloat16(f);
+        }
+      }
+      *reinterpret_cast<Pack8*>(&halo[rdst[t] * 8]) = v;
+    }
+  };
+
+  // ---- B operand: one (chunk, tap) weight tile, [KCH][BN][8], into a stage
+  auto load_b = [&](int k, int tap, int stage) {
+    const bool skip = k >= KC;
+    const int c8 = (skip ? k - KC : k) * KCH;
+    const int kx8 = skip ? Csk8 : C8;
+    const bf16* wbase = skip ? p.skw
+                             : p.w + (size_t)(UP ? ph * 4 + tap : tap) * C8 * p.CoP * 8;
+#pragma unroll
+    for (int t = 0; t < B_PER_T; ++t) {
+      const int q = tid + t * NT;
+      const int kc = q / BN, n = q % BN;
+      const bool ok = c8 + kc < kx8 && n0 + n < p.CoP;
+      const bf16* src = wbase + ((size_t)(c8 + kc) * p.CoP + n0 + n) * 8;
+      cp_async16(&Bs[stage * B_STAGE + (kc * BN + n) * 8], ok ? src : wbase, ok);
+    }
+  };
+
+  float d[64];
+#pragma unroll
+  for (int r = 0; r < 64; ++r) d[r] = 0.f;
+
+  // Steps walk (chunk, tap) pairs of this block's chunk range; a skip
+  // chunk has one tap.
+  const int tap_steps = max(0, min(kend, KC) - kbeg) * T;
+  const int nsteps = tap_steps + max(0, kend - max(kbeg, KC));
+  auto step_at = [&](int i, int& k, int& tap) {
+    if (i < tap_steps) {
+      k = kbeg + i / T;
+      tap = i % T;
+    } else {
+      k = max(kbeg, KC) + (i - tap_steps);
+      tap = 0;
+    }
+  };
+
+  fetch_a(kbeg);
+  store_a();
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) {
+      int k, tap;
+      step_at(st, k, tap);
+      load_b(k, tap, st);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < nsteps; ++i) {
+    int k, tap;
+    step_at(i, k, tap);
+    cp_async_wait_ring();
+    fence_proxy_async();
+    __syncthreads();  // B(i) and the halo are visible; step i-1 is done
+    if (i + STAGES - 1 < nsteps) {
+      int k2, tap2;
+      step_at(i + STAGES - 1, k2, tap2);
+      load_b(k2, tap2, (i + STAGES - 1) % STAGES);
+    }
+    cp_async_commit();
+    const int ntaps = k < KC ? T : 1;
+    const bool more = k + 1 < kend;
+    if (tap == 0 && more) fetch_a(k + 1);
+    int di = 1, dj = 1;  // the skip tile sits at the halo's centre
+    if (k < KC) {
+      if (UP) {
+        di = pa + (tap >> 1);
+        dj = pb + (tap & 1);
+      } else {
+        di = tap / 3;
+        dj = tap % 3;
+      }
+    }
+    const bf16* a0 = halo + ((wg * 8 + di) * HWD + dj) * 8;
+    const bf16* b0 = Bs + (i % STAGES) * B_STAGE;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < KCH / 2; ++ks) {
+      const uint64_t da = smem_desc(a0 + 2 * ks * HALO_PIX * 8, HALO_PIX * 16, HWD * 16);
+      const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
+      wgmma_m64n128k16(d, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (tap == ntaps - 1 && more) {
+      __syncthreads();  // every warp is done with this chunk's halo
+      store_a();        // the next chunk's; published at the next step
+    }
+  }
+  cp_async_wait_all();
+
+  // ---- Epilogue, from the wgmma accumulator layout: register 4j+2h+e of
+  // thread (warp w of the warpgroup, lane l) holds row 16w + l/4 + 8h,
+  // column 8j + 2(l%4) + e of the warpgroup's 64 x 128 tile.
+  const int wq = warp & 3;
+  const size_t split_off = (size_t)split * p.B * Ho * Wo * p.Co;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * wq + (lane >> 2) + 8 * h;   // row in the m64 tile
+      const int pi = i0 + wg * 8 + (r >> 3), pj = j0 + (r & 7);
+      const bool in = pi < p.H && pj < p.W;
+      const int ho = UP ? 2 * pi + pa : pi, wo = UP ? 2 * pj + pb : pj;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * j + 2 * (lane & 3) + e;
+        if (!in || n >= p.Co) continue;
+        const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
+        const float acc = d[4 * j + 2 * h + e];
+        if (p.splits > 1) {
+          p.ws[split_off + o] = acc;
+          continue;
+        }
+        float v = acc + p.bias[n];
+        if (p.eb) v += p.eb[(size_t)b * p.Co + n];
+        if (p.res) v += __bfloat162float(p.res[o]);
+        const bf16 yb = __float2bfloat16(v);
+        p.y[o] = yb;
+        const float f = __bfloat162float(yb);
+        s1[e] += f;
+        s2[e] += f * f;
+      }
+    }
+    if (p.stats && p.splits == 1) {
+      // sum the warp's 16 rows: lanes that share l%4 hold the same columns
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
+          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
+        }
+      }
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * lane + e;
+          red[(warp * 2 + 0) * BN + col] = s1[e];
+          red[(warp * 2 + 1) * BN + col] = s2[e];
+        }
+      }
+    }
+  }
+  if (p.stats && p.splits == 1) {
+    __syncthreads();
+    for (int nl = tid; nl < BN; nl += NT) {
+      const int n = n0 + nl;
+      if (n < p.Co) {
+        float t1 = 0.f, t2 = 0.f;
+        for (int w8 = 0; w8 < NT / 32; ++w8) {
+          t1 += red[(w8 * 2 + 0) * BN + nl];
+          t2 += red[(w8 * 2 + 1) * BN + nl];
+        }
+        float* st = p.stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * p.Co;
+        st[n] = t1;
+        st[p.Co + n] = t2;
+      }
+    }
+  }
+}
+
+// Split-K second pass: add the splits' fp32 partial sums in a fixed order,
+// then the same epilogue (bias, extra bias, residual, one rounding, stats
+// of the stored y per pixel tile) as the single-pass kernel.
+constexpr int EBN = 64;  // channels per epilogue block
+
+template <bool UP>
+__global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
+  __shared__ float rs[2][NT];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int ph = UP ? (int)blockIdx.x / p.tiles : 0;
+  const int tile = (int)blockIdx.x - ph * p.tiles;
+  const int i0 = (tile / p.tiles_w) * TH, j0 = (tile % p.tiles_w) * TW;
+  const int Ho = UP ? 2 * p.H : p.H, Wo = UP ? 2 * p.W : p.W;
+  const int pa = ph >> 1, pb = ph & 1;
+  const int nl = tid % EBN, n = blockIdx.y * EBN + nl;
+  const size_t split_stride = (size_t)p.B * Ho * Wo * p.Co;
+  float s1 = 0.f, s2 = 0.f;
+  if (n < p.Co) {
+    for (int r = tid / EBN; r < BM; r += NT / EBN) {
+      const int pi = i0 + r / TW, pj = j0 + r % TW;
+      if (pi >= p.H || pj >= p.W) continue;
+      const int ho = UP ? 2 * pi + pa : pi, wo = UP ? 2 * pj + pb : pj;
+      const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
+      float v = 0.f;
+      for (int sp = 0; sp < p.splits; ++sp) v += p.ws[sp * split_stride + o];
+      v += p.bias[n];
+      if (p.eb) v += p.eb[(size_t)b * p.Co + n];
+      if (p.res) v += __bfloat162float(p.res[o]);
+      const bf16 yb = __float2bfloat16(v);
+      p.y[o] = yb;
+      const float f = __bfloat162float(yb);
+      s1 += f;
+      s2 += f * f;
+    }
+  }
+  if (!p.stats) return;
+  rs[0][tid] = s1;
+  rs[1][tid] = s2;
+  __syncthreads();
+  if (tid < EBN && n < p.Co) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int g = 0; g < NT / EBN; ++g) {
+      t1 += rs[0][g * EBN + tid];
+      t2 += rs[1][g * EBN + tid];
+    }
+    float* st = p.stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * p.Co;
+    st[n] = t1;
+    st[p.Co + n] = t2;
+  }
+}
+
+struct Plan {
+  int splits, chunks_per_split;
+};
+
+// Below one wave of blocks, split the channel chunks so that about two
+// waves run, keeping at least 2 chunks per split.
+Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
+  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1) * B *
+                  ((Co + BN - 1) / BN);
+  const int nchunks = (C + BK - 1) / BK + (Csk + BK - 1) / BK;
+  Plan pl;
+  pl.splits = 1;
+  if (nb < NUM_SMS) {
+    pl.splits = (int)((2 * NUM_SMS + nb - 1) / nb);
+    pl.splits = max(1, min(pl.splits, min(8, nchunks / 2)));
+  }
+  pl.chunks_per_split = (nchunks + pl.splits - 1) / pl.splits;
+  pl.splits = (nchunks + pl.chunks_per_split - 1) / pl.chunks_per_split;
+  return pl;
+}
+
+template <bool UP, bool NORM>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_kernel<UP, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.tiles * (UP ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
+  conv_kernel<UP, NORM><<<grid, NT, SMEM_BYTES, stream>>>(a);
+  if (a.splits > 1) {
+    dim3 eg(a.tiles * (UP ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
+    split_epilogue<UP><<<eg, NT, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of stats tiles per image: (H/16 x W/8 pixel tiles, rounded up),
+// times 4 phases for the upsample.
+int conv_stats_tiles(int H, int W, int up) {
+  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1);
+}
+
+// Bytes of fp32 split-K workspace conv3x3_bf16 needs for this call (0 when
+// the call does not split).
+long conv_workspace_bytes(int B, int H, int W, int C, int Co, int Csk, int up) {
+  const Plan pl = plan(B, H, W, C, Co, Csk, up);
+  if (pl.splits == 1) return 0;
+  return (long)pl.splits * B * (up ? 4 : 1) * H * W * Co * 4;
+}
+
+// up = 0: K1, w packed from (3,3,C,Co); up = 1: K4, w packed from the folded
+// (2,2,2,2,C,Co), and the GroupNorm prologue is not taken. Packed weights
+// are (taps, ceil(C/8), ceil(Co/8)*8, 8) bf16. Pointers that an option does
+// not use are null; workspace holds conv_workspace_bytes() bytes (null when
+// that is 0). Returns the first CUDA error of the launches, else 0.
+int conv3x3_bf16(const void* x, const void* w, const void* bias, const void* ga,
+                 const void* gb, const void* eb, const void* res, const void* skx,
+                 const void* skw, void* y, void* stats, void* workspace, int B,
+                 int H, int W, int C, int Co, int Csk, int up, void* stream) {
+  ConvArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.ga = static_cast<const float*>(ga);
+  a.gb = static_cast<const float*>(gb);
+  a.eb = static_cast<const float*>(eb);
+  a.res = static_cast<const bf16*>(res);
+  a.skx = static_cast<const bf16*>(skx);
+  a.skw = static_cast<const bf16*>(skw);
+  a.y = static_cast<bf16*>(y);
+  a.stats = static_cast<float*>(stats);
+  a.B = B; a.H = H; a.W = W; a.C = C; a.Co = Co; a.Csk = skx ? Csk : 0;
+  a.CoP = (Co + 7) / 8 * 8;
+  a.tiles_w = (W + TW - 1) / TW;
+  a.tiles = ((H + TH - 1) / TH) * a.tiles_w;
+  a.vec_a = (C % 8 == 0) && (a.Csk % 8 == 0);
+  const Plan pl = plan(B, H, W, C, Co, a.Csk, up);
+  a.splits = pl.splits;
+  a.chunks_per_split = pl.chunks_per_split;
+  a.ws = static_cast<float*>(workspace);
+  if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (up) return launch<true, false>(a, s);
+  if (ga) return launch<false, true>(a, s);
+  return launch<false, false>(a, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,182 @@
+"""The port's serving slice end to end on the CPU: img2img_turbo_tpu_torch's
+ServingEngine(mode="edge_to_image") against the JAX package's
+ServingEngine(dtype=float32, donate_input=False), uint8 in and uint8 out,
+at configs.TINY_UNET / TINY_VAE widths with the same weights and the same
+posterior noise (recomputed from the JAX key). Tolerance: at most 1 level
+of difference, on at most 0.1% of the output values.
+"""
+
+import importlib.util
+import os
+import collections
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from img2img_turbo_tpu import configs
+from img2img_turbo_tpu.models import unet as junet
+from img2img_turbo_tpu.models import vae as jvae
+from img2img_turbo_tpu.pipelines import pix2pix as jp2p
+from img2img_turbo_tpu.serving import engine as jengine
+from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
+from img2img_turbo_tpu_torch.ops import (attention, fused_conv, fused_matmul,
+                                         groupnorm)
+from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+from img2img_turbo_tpu_torch.weights import from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAX_LEVELS, MAX_FRACTION = 1, 1e-3
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def setup():
+    k1, k2 = jax.random.split(jax.random.PRNGKey(1))
+    unet_p = jax.tree_util.tree_map(np.asarray,
+                                    junet.init_unet(k1, configs.TINY_UNET))
+    vae_p = jax.tree_util.tree_map(np.asarray,
+                                   jvae.init_vae(k2, configs.TINY_VAE))
+    rng = np.random.RandomState(1)
+    for conv in vae_p["decoder"]["skip_convs"]:
+        conv["kernel"] = (rng.randn(*conv["kernel"].shape) * 0.1).astype(
+            np.float32)
+    jcfgs = jp2p.GeneratorConfigs(configs.TINY_UNET, configs.TINY_VAE)
+    jeng = jengine.ServingEngine({"unet": unet_p, "vae": vae_p}, jcfgs,
+                                 dtype=jnp.float32, donate_input=False)
+    cfgs = GeneratorConfigs(configs.TINY_UNET, configs.TINY_VAE)
+    params = {
+        "unet": from_jax.load(UNet2DConditionModel(cfgs.unet),
+                              from_jax.unet_state_dict(unet_p)),
+        "vae": from_jax.load(AutoencoderKL(cfgs.vae),
+                             from_jax.vae_state_dict(vae_p))}
+    engines = {k: ServingEngine(params, cfgs, dtype=torch.float32,
+                                use_kernels=k) for k in (True, False)}
+    caption = rng.randn(1, 77, 32).astype(np.float32)
+    return jeng, engines, caption
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (40, 56)])
+@pytest.mark.parametrize("kernels", [True, False])
+def test_matches_jax_engine_on_uint8(setup, hw, kernels):
+    jeng, engines, caption = setup
+    smoke = _chip_smoke()
+    img = smoke.synth_image(*hw, seed=hw[1])
+    key = jax.random.PRNGKey(5)
+    want = np.asarray(jeng(jnp.asarray(img), jnp.asarray(caption), rng=key))
+    # the JAX engine draws the posterior noise inside vae.encode as
+    # jax.random.normal(key, mean.shape, mean.dtype)
+    noise = np.array(jax.random.normal(key, (1, hw[0] // 8, hw[1] // 8, 4),
+                                       jnp.float32))
+    got = engines[kernels](img, torch.from_numpy(caption),
+                           noise=torch.from_numpy(noise)).numpy()
+    assert got.shape == want.shape == (1, *hw, 3) and got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= MAX_LEVELS, diff.max()
+    assert (diff > 0).mean() <= MAX_FRACTION, (diff > 0).mean()
+    assert want.std() > 0  # a constant image would prove nothing
+
+
+def test_generator_seed_decides_the_noise(setup):
+    _, engines, caption = setup
+    img = _chip_smoke().synth_image(64, 64, 0)
+    cap = torch.from_numpy(caption)
+
+    def run(seed):
+        return engines[True](img, cap, torch.Generator().manual_seed(seed))
+
+    a, b, c = run(3), run(3), run(4)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+
+
+def test_generate_deterministic_is_the_clamped_engine_image(setup):
+    from img2img_turbo_tpu_torch.ops import canny as tcanny
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import (
+        generate_deterministic)
+    _, engines, caption = setup
+    eng = engines[True]
+    img = _chip_smoke().synth_image(40, 56, 2)
+    noise = torch.randn(1, 5, 7, 4, generator=torch.Generator().manual_seed(0))
+    cap = torch.from_numpy(caption)
+    c_t = tcanny.canny_3ch_unit(torch.from_numpy(img))
+    with torch.no_grad():
+        got = generate_deterministic(eng.unet, eng.vae, eng.cfgs, eng.alphas,
+                                     c_t, cap, noise=noise)
+    want = eng.run(img, cap, noise=noise)["img"].clamp(-1, 1)
+    assert torch.equal(got, want)
+    assert got.min() >= -1 and got.max() <= 1
+
+
+def test_launch_table_matches_call_sites(setup, monkeypatch):
+    """chip_smoke.py's expected per-request launch counts, checked here by
+    counting the kernel wrappers' calls (the TINY configs share SD-Turbo's
+    topology, so the counts are the same)."""
+    _, engines, caption = setup
+    smoke = _chip_smoke()
+    calls = collections.Counter()
+
+    def spy(mod, fn, key):
+        orig = getattr(mod, fn)
+
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return orig(*a, **k)
+        monkeypatch.setattr(mod, fn, wrapped)
+
+    spy(fused_conv, "fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3")
+    spy(fused_conv, "upsample2x_conv3x3", "upsample2x_conv3x3")
+    spy(fused_matmul, "fused", "fused_matmul")
+    spy(attention, "flash_attention_folded", "flash_attention_folded")
+    spy(groupnorm, "partial_stats", "group_norm_stats")
+    cap = torch.from_numpy(caption)
+    for (h, w), want in (((64, 64), smoke.EXPECTED_LAUNCHES),
+                         ((560, 840), smoke.EXPECTED_LAUNCHES_840x560)):
+        calls.clear()
+        engines[True](smoke.synth_image(h, w, 0), cap)
+        assert dict(calls) == want, (h, w)
+    calls.clear()
+    engines[False](smoke.synth_image(64, 64, 0), cap)
+    assert not calls  # the plain path reaches no kernel wrapper
+
+
+def test_rejects_what_it_does_not_serve(setup):
+    _, engines, caption = setup
+    eng = engines[True]
+    cap = torch.from_numpy(caption)
+    with pytest.raises(ValueError):
+        eng(np.zeros((1, 60, 64, 3), np.uint8), cap)
+    with pytest.raises(ValueError):
+        eng(np.zeros((1, 64, 64, 3), np.float32), cap)
+    with pytest.raises(NotImplementedError):
+        ServingEngine({"unet": eng.unet, "vae": eng.vae}, eng.cfgs,
+                      mode="sketch")
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """Without a CUDA device the smoke exits non-zero and prints no result
+    line, and a lone copy of it (no package beside it) fails too."""
+    import shutil
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0 and '"ok"' not in out.stdout
