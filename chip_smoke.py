@@ -1,12 +1,14 @@
 """Chip smoke for the PyTorch port: the edge_to_image serving path on one GPU.
 
-    python3 chip_smoke.py                 # all phases (one CUDA card)
-    python3 chip_smoke.py --kernels-only  # build + kernel phase only
+    python3 chip_smoke.py    # one CUDA card
 
 Phases, each fatal on failure:
 1. build every CUDA kernel of the package from `csrc/` (nvcc, sm_90a);
 2. kernel phase: each kernel wrapper against its plain PyTorch version on
-   the card, at the main path's shapes, in bf16, with stated tolerances;
+   the card, at the main path's shapes, in bf16, with stated tolerances.
+   Errors are taken against the exact plain version (`*_ref`, fp32 with one
+   rounding); times against the composition the plain engine runs
+   (`*_plain`, or `mha_ref` for attention);
 3. engine phase: `ServingEngine(mode="edge_to_image")` at the full
    SD-Turbo widths with seeded random weights, serving 512x512 b1 requests
    and one 840x560 request, checked for shape, range, determinism, launch
@@ -20,7 +22,6 @@ no CUDA device is present or any check fails.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
@@ -78,7 +79,6 @@ def _rel(a, b) -> tuple:
 
 def kernel_phase(dev, results: list):
     import torch
-    import torch.nn.functional as F
     from img2img_turbo_tpu_torch.ops import (
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
@@ -88,6 +88,11 @@ def kernel_phase(dev, results: list):
 
     def rn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def oihw(w):
+        """HWIO (3, 3, C, Co) or (C, Co) -> nn.Conv2d's (Co, C, kh, kw)."""
+        w = w if w.ndim == 4 else w[None, None]
+        return w.permute(3, 2, 0, 1).contiguous()
 
     def record(name, route, source, replaces, case, err, rel, tol, ms,
                plain_ms):
@@ -106,19 +111,6 @@ def kernel_phase(dev, results: list):
     k1 = ("fused_gn_silu_conv3x3", "cuda",
           "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1083")
-
-    def plain_k1(x, w, bias, a, b, eb, res, skx, skw):
-        h = x if a is None else F.silu(x * a[:, None, None].to(bf)
-                                       + b[:, None, None].to(bf))
-        y = F.conv2d(h.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                     bias.to(bf), padding=1).permute(0, 2, 3, 1)
-        if eb is not None:
-            y = y + eb[:, None, None].to(bf)
-        if skx is not None:
-            y = y + skx @ skw
-        if res is not None:
-            y = y + res
-        return y
 
     k1_cases = [
         # (case, B, H, W, C, Co, norm, eb, res, Csk)
@@ -169,7 +161,10 @@ def kernel_phase(dev, results: list):
         ms = _time_ms(lambda: fc.fused_gn_silu_conv3x3(
             x, w, bias, a, b, eb, res, skx, skw, emit_stats=True,
             w_packed=wp, skip_w_packed=skwp))
-        pms = _time_ms(lambda: plain_k1(x, w, bias, a, b, eb, res, skx, skw))
+        w_oihw = oihw(w)
+        skw_oihw = None if skw is None else oihw(skw)
+        pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(
+            x, w_oihw, bias, a, b, eb, res, skx, skw_oihw))
         record(*k1, case, err, rel, REL_TOL, ms, pms)
 
     # ---- K4 -------------------------------------------------------------
@@ -201,17 +196,14 @@ def kernel_phase(dev, results: list):
         serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
         if serr > STATS_TOL:
             _fail(f"K4 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
-
-        def plain_k4():
-            up = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
-            yp = F.conv2d(up.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                          bias.to(bf), padding=1).permute(0, 2, 3, 1)
-            return yp if skx is None else yp + skx @ skw
-
         ms = _time_ms(lambda: fc.upsample2x_conv3x3(
             x, w, bias, skx, skw, emit_stats=True, w_packed=wp,
             skip_w_packed=skwp))
-        record(*k4, case, err, rel, REL_TOL, ms, _time_ms(plain_k4))
+        w_oihw = oihw(w)
+        skw_oihw = None if skw is None else oihw(skw)
+        pms = _time_ms(lambda: fc.upsample2x_conv3x3_plain(
+            x, w_oihw, bias, skx, skw_oihw))
+        record(*k4, case, err, rel, REL_TOL, ms, pms)
 
     # ---- K5 -------------------------------------------------------------
     k5 = ("group_norm_stats", "triton",
@@ -230,14 +222,12 @@ def kernel_phase(dev, results: list):
                                   1e-5, x.numel() // (shape[0] * c))
         err_a, rel_a = _rel(ka, ra)
         err_b, rel_b = _rel(kb, rb)
-
-        def plain_k5():
-            xf = x.float().reshape(shape[0], -1, 32, c // 32)
-            return xf.mean((1, 3)), xf.var((1, 3), unbiased=False)
-
-        ms = _time_ms(lambda: gn.partial_stats(x))
+        # K5 and its combine against the plain engine's two-pass (a, b)
+        ms = _time_ms(lambda: gn.group_norm_coeffs(x, scale, bias, 32, 1e-5))
+        pms = _time_ms(lambda: gn.group_norm_coeffs_plain(x, scale, bias, 32,
+                                                          1e-5))
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, _time_ms(plain_k5))
+               ms, pms)
 
     # ---- K3 -------------------------------------------------------------
     k3 = ("fused_matmul", "cuda", "img2img_turbo_tpu_torch/csrc/fused_matmul.cu",
@@ -266,19 +256,12 @@ def kernel_phase(dev, results: list):
         refs = fm.fused_ref(x, ws, bs, ln=lnp, residual=res, gate=gate)
         errs = [_rel(o, r) for o, r in zip(outs, refs)]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-
-        def plain_k3():
-            xh = x if lnp is None else F.layer_norm(
-                x, (C,), lnp[0].to(bf), lnp[1].to(bf), 1e-5)
-            ys = [xh @ w + b_.to(bf) for w, b_ in zip(ws, bs)]
-            if gate:
-                hv, hg = ys[0].chunk(2, dim=-1)
-                ys = [hv * F.gelu(hg)]
-            return [y if res is None else y + res for y in ys]
-
         ms = _time_ms(lambda: fm.fused(x, ws, bs, ln=lnp, residual=res,
                                        gate=gate))
-        record(*k3, case, err, rel, REL_TOL, ms, _time_ms(plain_k3))
+        ws_t = tuple(w.t().contiguous() for w in ws)  # nn.Linear's (Co, C)
+        pms = _time_ms(lambda: fm.fused_plain(x, ws_t, bs, ln=lnp,
+                                              residual=res, gate=gate))
+        record(*k3, case, err, rel, REL_TOL, ms, pms)
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
@@ -295,17 +278,9 @@ def kernel_phase(dev, results: list):
         o = attention.flash_attention_folded(q, k, v, H)
         orf = attention.mha_ref(q, k, v, H)
         err, rel = _rel(o, orf)
-
-        def plain_k2():
-            qh = q.reshape(B, Sq, H, hd).transpose(1, 2)
-            kh = k.reshape(B, Skv, H, hd).transpose(1, 2)
-            vh = v.reshape(B, Skv, H, hd).transpose(1, 2)
-            p = torch.softmax((qh @ kh.transpose(-1, -2)).float()
-                              / math.sqrt(hd), -1).to(bf)
-            return (p @ vh).transpose(1, 2).reshape(B, Sq, H * hd)
-
         ms = _time_ms(lambda: attention.flash_attention_folded(q, k, v, H))
-        record(*k2, case, err, rel, REL_TOL, ms, _time_ms(plain_k2))
+        pms = _time_ms(lambda: attention.mha_ref(q, k, v, H))
+        record(*k2, case, err, rel, REL_TOL, ms, pms)
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)
@@ -346,7 +321,7 @@ def _per_kernel(results, launches):
     for r in results:
         e = out.setdefault(r["name"], dict(
             name=r["name"], route=r["route"], source=r["source"],
-            replaces=r["replaces"], launches=launches.get(r["name"], 0),
+            replaces=r["replaces"], launches=launches[r["name"]],
             max_abs_err=0.0, ms=0.0, plain_ms=0.0, cases=[]))
         e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
         e["ms"] += r["ms"]
@@ -357,10 +332,6 @@ def _per_kernel(results, launches):
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels-only", action="store_true")
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         _fail("no CUDA device: this smoke runs only on a GPU")
@@ -381,11 +352,9 @@ def main():
     torch.cuda.synchronize()
 
     summary: dict = {}
-    if not args.kernels_only:
-        engine_phase(dev, summary)
-    print(json.dumps({"kernels": _per_kernel(results,
-                                             summary.get("launches", {})),
-                      "engine": summary.get("engine")}), flush=True)
+    engine_phase(dev, summary)
+    print(json.dumps({"kernels": _per_kernel(results, summary["launches"]),
+                      "engine": summary["engine"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -454,9 +423,12 @@ def engine_phase(dev, summary):
     plain = ServingEngine(params, cfgs, dtype=torch.bfloat16, device=dev,
                           use_kernels=False)
     n_params = sum(p.numel() for m in params.values() for p in m.parameters())
+    torch.cuda.synchronize()
+    weights_gib = torch.cuda.memory_allocated(dev) / 2 ** 30
     print(f"engine phase: SD-Turbo widths, {n_params / 1e6:.1f}M params "
           f"(random, seed 1234), bf16, set-up "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{time.perf_counter() - t0:.1f}s, weights and kernel layouts "
+          f"{weights_gib:.3f} GiB on the card", flush=True)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -532,7 +504,8 @@ def engine_phase(dev, summary):
           f"{errs840}", flush=True)
     if max(errs840.values()) > PATH_REL_L2_TOL:
         _fail(f"840x560 kernel path disagrees with the plain path: {errs840}")
-    summary["engine"] = {"p50_ms": p50, "rel_l2_512": errs,
+    summary["engine"] = {"p50_ms": p50, "weights_gib": weights_gib,
+                         "rel_l2_512": errs,
                          "rel_l2_840x560": errs840, "launches_512": counts,
                          "launches_840x560": counts840}
     summary["launches"] = counts

@@ -4,15 +4,18 @@ Counterpart of `img2img_turbo_tpu/models/layers.py`. Modules keep
 diffusers' parameter names (so `state_dict()` keys are diffusers' keys) and
 torch's weight layouts (conv OIHW, linear (out, in)); activations are NHWC.
 `prepare_kernels(model)` builds the kernel-ready layouts once, after the
-weights are loaded and cast: conv weights as HWIO (3, 3, C, Co), folded
-upsample weights, linear weights as (C, Co), fp32 biases and norm affines.
+weights are loaded and cast: packed conv weights (folded for the upsample
+convs), linear weights as (C, Co), fp32 biases and norm affines. HWIO conv
+weights are kept only on the CPU, where the wrappers compute their plain
+versions from them.
 
 Every entry point takes `kernels`: True routes through the kernel wrappers
 of `ops/` (which launch the CUDA/Triton kernels on a CUDA tensor and run
 their plain versions on a CPU tensor), with GroupNorm statistics chained
 from the producing kernel exactly as the JAX package chains them on TPU;
 False is the plain PyTorch composition, the counterpart of the JAX
-package's XLA path (two-pass GroupNorm, no stats chaining).
+package's XLA path (two-pass GroupNorm, no stats chaining), built from the
+`*_plain` functions of `ops/` that chip_smoke.py times against each kernel.
 """
 
 from __future__ import annotations
@@ -44,22 +47,24 @@ class Conv2d(nn.Conv2d):
 
     def prepare(self):
         w = self.weight.detach()
-        self.kw = w.permute(2, 3, 1, 0).contiguous()          # HWIO
-        if self.kernel_size == (1, 1):
-            self.kw = self.kw[0, 0].contiguous()              # (Csk, Co)
-        self.kwp = fused_conv.pack_weights(self.kw)           # kernel layout
+        kw = w.permute(2, 3, 1, 0)                            # HWIO
+        kw = (kw[0, 0] if self.kernel_size == (1, 1) else kw).contiguous()
+        self.kwp = self._pack(kw)                             # kernel layout
+        # the CUDA kernels read kwp alone; HWIO serves the CPU plain versions
+        self.kw = kw if w.device.type == "cpu" else None
         self.kb = (self.bias.detach().float() if self.bias is not None
                    else torch.zeros(w.shape[0], device=w.device))
+
+    def _pack(self, kw):
+        return fused_conv.pack_weights(kw)
 
 
 class Upsample2xConv(Conv2d):
     """The conv of a diffusers Upsample2D; its kernel layout is the folded
     4-phase weights of the upsample kernel (K4), packed."""
 
-    def prepare(self):
-        super().prepare()
-        self.kwp = fused_conv.pack_weights(
-            fused_conv.fold_upsample_weights(self.kw))
+    def _pack(self, kw):
+        return fused_conv.pack_weights(fused_conv.fold_upsample_weights(kw))
 
 
 class Linear(nn.Linear):
@@ -117,28 +122,22 @@ def _affine_shape(x):
     return (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
 
 
+def _apply_affine(x, a, b):
+    """x * a + b with the (B, C) fp32 folded GroupNorm affine cast to x's
+    dtype."""
+    shape = _affine_shape(x)
+    return x * a.reshape(shape).to(x.dtype) + b.reshape(shape).to(x.dtype)
+
+
 def _gn_xla(x, scale, bias, num_groups: int, eps: float):
     """Plain GroupNorm: two-pass fp32 statistics, folded affine applied in
     the activation dtype (the counterpart of `_gn_xla`, layers.py:186)."""
-    b, c = x.shape[0], x.shape[-1]
-    xf = x.reshape(b, -1, num_groups, c // num_groups).float()
-    mean = xf.mean(dim=(1, 3))
-    var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
-    inv = torch.rsqrt(var + eps)
-    scale_g = scale.float().reshape(num_groups, c // num_groups)
-    bias_g = bias.float().reshape(num_groups, c // num_groups)
-    a = inv[..., None] * scale_g[None]
-    bterm = bias_g[None] - mean[..., None] * a
-    shape = _affine_shape(x)
-    return x * a.reshape(shape).to(x.dtype) + bterm.reshape(shape).to(x.dtype)
+    return _apply_affine(x, *gn_ops.group_norm_coeffs_plain(
+        x, scale, bias, num_groups, eps))
 
 
 def layer_norm(ln: nn.LayerNorm, x, eps: float = 1e-5):
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
+    return fused_matmul.layer_norm(x, ln.weight, ln.bias, eps)
 
 
 def silu(x):
@@ -172,8 +171,7 @@ def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
     return out
 
 
-def upsample_nearest_2x(x):
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+upsample_nearest_2x = fused_conv.upsample_nearest_2x
 
 
 def upsample_nearest_to(x, size):
@@ -215,18 +213,25 @@ def group_norm(norm: nn.GroupNorm, x, num_groups: int, eps: float,
     from the producer's emitted partial sums (`x_stats`) or from K5."""
     if not kernels:
         return _gn_xla(x, norm.weight, norm.bias, num_groups, eps)
-    a, b = _gn_coeffs(norm, x, num_groups, eps, x_stats)
-    shape = _affine_shape(x)
-    return x * a.reshape(shape).to(x.dtype) + b.reshape(shape).to(x.dtype)
+    return _apply_affine(x, *_gn_coeffs(norm, x, num_groups, eps, x_stats))
 
 
 def _skip_weights(skip: Skip):
     """(skip_w, skip_w_packed) with gamma folded in (per call only when
     gamma != 1, which the edge_to_image path never takes)."""
+    conv = skip.conv
     if skip.gamma == 1.0:
-        return skip.conv.kw, skip.conv.kwp
-    w = (skip.conv.kw * skip.gamma).to(skip.conv.kw.dtype)
+        return conv.kw, conv.kwp
+    w = (conv.weight.detach()[:, :, 0, 0].t().float() * skip.gamma).to(
+        conv.weight.dtype)
     return w, fused_conv.pack_weights(w)
+
+
+def _plain_skip(skip: Optional[Skip]):
+    """(skip_x, skip_w, skip_bias) of the plain engine's 1x1 skip conv."""
+    if skip is None:
+        return None, None, None
+    return skip.x * skip.gamma, skip.conv.weight, skip.conv.bias
 
 
 def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
@@ -240,14 +245,11 @@ def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
     resnet passes conv2 + shortcut bias, summed once at load. Plain path:
     stats are None."""
     if not kernels:
-        h = _gn_xla(x, norm.weight, norm.bias, num_groups, eps)
-        y = conv2d(conv, silu(h))
-        if extra_bias is not None:
-            y = y + extra_bias[:, None, None, :].to(y.dtype)
-        if residual is not None:
-            y = y + residual
-        if skip is not None:
-            y = y + conv2d(skip.conv, skip.x * skip.gamma)
+        a, b = gn_ops.group_norm_coeffs_plain(x, norm.weight, norm.bias,
+                                              num_groups, eps)
+        y = fused_conv.gn_silu_conv3x3_plain(
+            x, conv.weight, conv.bias, a, b, extra_bias, residual,
+            *_plain_skip(skip))
         return (y, None) if emit_stats else y
     a, b = _gn_coeffs(norm, x, num_groups, eps, x_stats)
     skw, skwp = _skip_weights(skip) if skip is not None else (None, None)
@@ -264,7 +266,7 @@ def plain_conv3x3(conv: Conv2d, x, emit_stats: bool = False, *,
                   kernels: bool):
     """Stride-1 SAME conv3x3 with no norm prologue (conv_in)."""
     if not kernels:
-        y = conv2d(conv, x)
+        y = fused_conv.gn_silu_conv3x3_plain(x, conv.weight, conv.bias)
         return (y, None) if emit_stats else y
     y, stats = fused_conv.fused_gn_silu_conv3x3(
         x.contiguous(), conv.kw, conv.kb, emit_stats=emit_stats,
@@ -277,9 +279,8 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
     """conv3x3(nearest_upsample_2x(x)) [+ skip] (diffusers Upsample2D);
     K4 with kernels."""
     if not kernels:
-        y = conv2d(conv, upsample_nearest_2x(x))
-        if skip is not None:
-            y = y + conv2d(skip.conv, skip.x * skip.gamma)
+        y = fused_conv.upsample2x_conv3x3_plain(x, conv.weight, conv.bias,
+                                                *_plain_skip(skip))
         return (y, None) if emit_stats else y
     skw, skwp = _skip_weights(skip) if skip is not None else (None, None)
     y, stats = fused_conv.upsample2x_conv3x3(
@@ -295,14 +296,27 @@ def downsample2x_conv(conv: Conv2d, x, pad_lo: int):
     return conv2d(conv, x, stride=2, padding=((pad_lo, 1), (pad_lo, 1)))
 
 
+def fused_linears(lins, x, norm: Optional[LayerNorm] = None, *,
+                  kernels: bool, residual=None, gate: bool = False,
+                  eps: float = 1e-5):
+    """[LayerNorm(x) ->] 1-3 linears sharing it [-> GEGLU gate]
+    [+ residual], as a tuple of outputs: one K3 launch with kernels, else
+    the plain composition."""
+    if not kernels:
+        return fused_matmul.fused_plain(
+            x, tuple(m.weight for m in lins), tuple(m.bias for m in lins),
+            ln=None if norm is None else (norm.weight, norm.bias),
+            residual=residual, gate=gate, eps=eps)
+    return fused_matmul.fused(
+        x.contiguous(), tuple(m.kw for m in lins), tuple(m.kb for m in lins),
+        ln=None if norm is None else norm.kln,
+        residual=None if residual is None else residual.contiguous(),
+        gate=gate, eps=eps)
+
+
 def linear_fused(lin: Linear, x, residual=None, *, kernels: bool):
     """linear [+ residual]; K3 with kernels."""
-    if not kernels:
-        y = linear(lin, x)
-        return y if residual is None else y + residual
-    return fused_matmul.fused(
-        x.contiguous(), (lin.kw,), (lin.kb,),
-        residual=None if residual is None else residual.contiguous())[0]
+    return fused_linears((lin,), x, kernels=kernels, residual=residual)[0]
 
 
 def multihead_attention(q, k, v, num_heads: int, *, kernels: bool):
@@ -326,36 +340,20 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([Linear(query_dim, query_dim)])
 
 
-def attention(attn: Attention, x, context=None, *, num_heads: int):
-    """Plain multi-head attention with projections (B, S, D) layout."""
-    ctx = x if context is None else context
-    q, k, v = (linear(attn.to_q, x), linear(attn.to_k, ctx),
-               linear(attn.to_v, ctx))
-    o = attn_ops.mha_ref(q, k, v, num_heads)
-    return linear(attn.to_out[0], o)
-
-
 def attention_block(attn: Attention, norm: LayerNorm, x, context=None, *,
                     num_heads: int, kernels: bool, eps: float = 1e-5):
     """x + attention(LN(x)): with kernels, LN + q/k/v as one 3-output K3
     launch (self) or LN-q plus a 2-output kv launch on the context
     (cross), K2, and the out projection with the residual fused (K3)."""
-    if not kernels:
-        return x + attention(attn, layer_norm(norm, x, eps), context,
-                             num_heads=num_heads)
-    x = x.contiguous()
     if context is None:
-        q, k, v = fused_matmul.fused(
-            x, (attn.to_q.kw, attn.to_k.kw, attn.to_v.kw),
-            (attn.to_q.kb, attn.to_k.kb, attn.to_v.kb), ln=norm.kln, eps=eps)
+        q, k, v = fused_linears((attn.to_q, attn.to_k, attn.to_v), x, norm,
+                                kernels=kernels, eps=eps)
     else:
-        (q,) = fused_matmul.fused(x, (attn.to_q.kw,), (attn.to_q.kb,),
-                                  ln=norm.kln, eps=eps)
-        k, v = fused_matmul.fused(context.contiguous(),
-                                  (attn.to_k.kw, attn.to_v.kw),
-                                  (attn.to_k.kb, attn.to_v.kb))
-    o = attn_ops.flash_attention_folded(q, k, v, num_heads)
-    return linear_fused(attn.to_out[0], o, residual=x, kernels=True)
+        (q,) = fused_linears((attn.to_q,), x, norm, kernels=kernels, eps=eps)
+        k, v = fused_linears((attn.to_k, attn.to_v), context,
+                             kernels=kernels)
+    o = multihead_attention(q, k, v, num_heads, kernels=kernels)
+    return linear_fused(attn.to_out[0], o, residual=x, kernels=kernels)
 
 
 class GEGLU(nn.Module):
@@ -378,13 +376,9 @@ def geglu_ff_block(ff: FeedForward, norm: LayerNorm, x, *, kernels: bool,
     """x + geglu_ff(LN(x)); with kernels, LN + the packed GEGLU projection
     as one gated K3 launch, then the output projection + residual."""
     proj, out = ff.net[0].proj, ff.net[2]
-    if not kernels:
-        h, gate = linear(proj, layer_norm(norm, x, eps)).chunk(2, dim=-1)
-        return x + linear(out, h * gelu(gate))
-    x = x.contiguous()
-    (u,) = fused_matmul.fused(x, (proj.kw,), (proj.kb,), ln=norm.kln,
-                              gate=True, eps=eps)
-    return linear_fused(out, u, residual=x, kernels=True)
+    (u,) = fused_linears((proj,), x, norm, kernels=kernels, gate=True,
+                         eps=eps)
+    return linear_fused(out, u, residual=x, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,6 @@ import torch.nn as nn
 
 from img2img_turbo_tpu.configs import VAEConfig
 from img2img_turbo_tpu_torch.models import layers as L
-from img2img_turbo_tpu_torch.ops import fused_matmul
 
 
 class VAEAttention(nn.Module):
@@ -38,15 +37,8 @@ class VAEAttention(nn.Module):
         hidden = L.group_norm(self.group_norm, x, self.cfg.norm_num_groups,
                               self.cfg.norm_eps, x_stats, kernels=kernels)
         hidden = hidden.reshape(b, h * w, c)
-        if kernels:
-            q, k, v = fused_matmul.fused(
-                hidden.contiguous(),
-                (self.to_q.kw, self.to_k.kw, self.to_v.kw),
-                (self.to_q.kb, self.to_k.kb, self.to_v.kb))
-        else:
-            q, k, v = (L.linear(self.to_q, hidden),
-                       L.linear(self.to_k, hidden),
-                       L.linear(self.to_v, hidden))
+        q, k, v = L.fused_linears((self.to_q, self.to_k, self.to_v), hidden,
+                                  kernels=kernels)
         o = L.multihead_attention(q, k, v, 1, kernels=kernels)
         return L.linear_fused(self.to_out[0], o,
                               residual=x.reshape(b, h * w, c),

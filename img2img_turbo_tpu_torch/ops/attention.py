@@ -3,6 +3,9 @@
 Counterpart of `img2img_turbo_tpu/ops/attention.py:204
 flash_attention_folded` (Pallas body `_flash_heads_kernel :151`) and of
 `_mha_xla :479-487`. Inputs stay in the folded (B, S, H*hd) layout.
+`mha_ref` is both the kernel's plain version (its correctness yardstick,
+and what the wrapper computes on a CPU tensor) and what the plain engine
+(`use_kernels=False`) runs.
 
 On the card every attention of the main path goes through the kernel,
 whatever Sq (the TPU's `sq >= 256` dispatch gate was a tiling choice). The

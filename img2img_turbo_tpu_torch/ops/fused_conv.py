@@ -4,9 +4,13 @@ Counterparts of `img2img_turbo_tpu/ops/fused_conv.py:889
 fused_gn_silu_conv3x3` (K1) and `:1688 upsample2x_conv3x3` (K4). Both keep
 the JAX layouts: activations (B, H, W, C), conv weights HWIO (3, 3, C, Co).
 
-On a CPU tensor each wrapper computes its plain PyTorch version (fp32
-arithmetic, one rounding to the activation dtype, as the kernel does). On a
-CUDA tensor it launches the kernel or raises; it never falls back.
+Each kernel has two plain versions. `*_ref` is its exact counterpart (fp32
+arithmetic, one rounding to the activation dtype, as the kernel does): a
+wrapper computes it on a CPU tensor, and it is the yardstick of the
+kernel's correctness. `*_plain` is the composition the plain engine
+(`use_kernels=False`) runs, op by op in the activation dtype, and the
+yardstick of the kernel's speed. On a CUDA tensor a wrapper launches the
+kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -60,9 +64,19 @@ def pack_weights(w):
     return w.reshape(w.shape[0], c8, 8, cop).permute(0, 1, 3, 2).contiguous()
 
 
-def _conv_nhwc(x, w_hwio):
-    return F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
-                    padding=1).permute(0, 2, 3, 1)
+def upsample_nearest_2x(x):
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def _conv_nhwc(x, w_oihw, bias=None):
+    """NHWC SAME conv (3x3 or 1x1) with an OIHW weight, in x's dtype."""
+    pad = w_oihw.shape[-1] // 2
+    return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias,
+                    padding=pad).permute(0, 2, 3, 1)
+
+
+def _oihw(w_hwio):
+    return w_hwio.permute(3, 2, 0, 1)
 
 
 def output_stats(y):
@@ -81,7 +95,7 @@ def conv3x3_ref(x, w, bias, a=None, b=None, extra_bias=None, residual=None,
     if a is not None:
         h = F.silu(x.float() * a[:, None, None, :].float()
                    + b[:, None, None, :].float()).to(x.dtype)
-    y = _conv_nhwc(h.float(), w.float()) + bias.float()
+    y = _conv_nhwc(h.float(), _oihw(w.float())) + bias.float()
     if extra_bias is not None:
         y = y + extra_bias[:, None, None, :].float()
     if skip_x is not None:
@@ -96,12 +110,49 @@ def upsample2x_conv3x3_ref(x, w, bias, skip_x=None, skip_w=None,
                            emit_stats: bool = False):
     """Plain version of K4: conv2d(upsample_nearest_2x(x)) + bias [+ skip],
     in fp32 with one rounding."""
-    up = x.float().repeat_interleave(2, 1).repeat_interleave(2, 2)
-    y = _conv_nhwc(up, w.float()) + bias.float()
+    y = _conv_nhwc(upsample_nearest_2x(x.float()), _oihw(w.float())) \
+        + bias.float()
     if skip_x is not None:
         y = y + skip_x.float() @ skip_w.float()
     y = y.to(x.dtype)
     return y, (output_stats(y) if emit_stats else None)
+
+
+def gn_silu_conv3x3_plain(x, w, bias, a=None, b=None, extra_bias=None,
+                          residual=None, skip_x=None, skip_w=None,
+                          skip_bias=None):
+    """The plain engine's K1 (the counterpart of `_xla_fallback`,
+    fused_conv.py:275): each op in x.dtype as PyTorch rounds it: x*a + b
+    with (a, b) cast to x.dtype, SiLU, the conv with its bias, then
+    extra_bias, residual and the 1x1 skip conv added one by one. Weights as
+    nn.Conv2d holds them: w (Co, C, 3, 3), skip_w (Co, Csk, 1, 1)."""
+    dt = x.dtype
+    h = x
+    if a is not None:
+        h = F.silu(x * a[:, None, None, :].to(dt)
+                   + b[:, None, None, :].to(dt))
+    y = _conv_nhwc(h, w.to(dt), None if bias is None else bias.to(dt))
+    if extra_bias is not None:
+        y = y + extra_bias[:, None, None, :].to(dt)
+    if residual is not None:
+        y = y + residual
+    if skip_x is not None:
+        y = y + _conv_nhwc(skip_x, skip_w.to(dt),
+                           None if skip_bias is None else skip_bias.to(dt))
+    return y
+
+
+def upsample2x_conv3x3_plain(x, w, bias, skip_x=None, skip_w=None,
+                             skip_bias=None):
+    """The plain engine's K4: conv3x3(upsample_nearest_2x(x)) [+ the 1x1
+    skip conv], in x.dtype; weights as nn.Conv2d holds them."""
+    dt = x.dtype
+    y = _conv_nhwc(upsample_nearest_2x(x), w.to(dt),
+                   None if bias is None else bias.to(dt))
+    if skip_x is not None:
+        y = y + _conv_nhwc(skip_x, skip_w.to(dt),
+                           None if skip_bias is None else skip_bias.to(dt))
+    return y
 
 
 def _check(name, t, shape, dtype, device):
@@ -169,8 +220,9 @@ def fused_gn_silu_conv3x3(x, w, bias, a=None, b=None, extra_bias=None,
 
     x (B,H,W,C) bf16; w (3,3,C,Co) bf16; bias (Co,) fp32; a, b (B,C) fp32;
     extra_bias (B,Co) fp32; residual (B,H,W,Co) bf16; skip_x (B,H,W,Csk)
-    bf16; skip_w (Csk,Co) bf16. The CUDA path reads w and skip_w as
-    `pack_weights` lays them out (w_packed, skip_w_packed, built at load).
+    bf16; skip_w (Csk,Co) bf16. The CUDA path reads w and skip_w only as
+    `pack_weights` lays them out (w_packed, skip_w_packed, built at load),
+    so there w and skip_w may be None.
     Returns (y, stats): stats are the (B, n_tiles, 2, Co) fp32 partial sums
     of the stored y, or None."""
     if x.device.type == "cpu":
@@ -182,7 +234,7 @@ def fused_gn_silu_conv3x3(x, w, bias, a=None, b=None, extra_bias=None,
     if w_packed is None or (skip_x is not None and skip_w_packed is None):
         raise ValueError("fused_gn_silu_conv3x3: the CUDA path takes the "
                          "packed weights (pack_weights), built at load")
-    out = _launch(x, w_packed, w.shape[-1], bias, a, b, extra_bias,
+    out = _launch(x, w_packed, bias.shape[0], bias, a, b, extra_bias,
                   residual, skip_x, skip_w_packed, emit_stats, up=False)
     _build.launch_counts["fused_gn_silu_conv3x3"] += 1
     return out
@@ -196,7 +248,8 @@ def upsample2x_conv3x3(x, w, bias, skip_x=None, skip_w=None,
     x (B,H,W,C) bf16; w (3,3,C,Co); bias (Co,) fp32; skip_x (B,2H,2W,Csk)
     bf16; skip_w (Csk,Co) bf16. The CUDA path reads
     w_packed = pack_weights(fold_upsample_weights(w)) and
-    skip_w_packed = pack_weights(skip_w), built once at load."""
+    skip_w_packed = pack_weights(skip_w), built once at load (w and skip_w
+    may then be None)."""
     if x.device.type == "cpu":
         return upsample2x_conv3x3_ref(x, w, bias, skip_x, skip_w, emit_stats)
     if x.device.type != "cuda":
@@ -204,7 +257,7 @@ def upsample2x_conv3x3(x, w, bias, skip_x=None, skip_w=None,
     if w_packed is None or (skip_x is not None and skip_w_packed is None):
         raise ValueError("upsample2x_conv3x3: the CUDA path takes the packed "
                          "folded weights, built at load")
-    out = _launch(x, w_packed, w.shape[-1], bias, None, None, None, None,
+    out = _launch(x, w_packed, bias.shape[0], bias, None, None, None, None,
                   skip_x, skip_w_packed, emit_stats, up=True)
     _build.launch_counts["upsample2x_conv3x3"] += 1
     return out

@@ -12,8 +12,11 @@ body `_kernel :186`, plain reference `_ref :155-183`):
                                              (xn@wv+bv) * gelu_erf(xn@wg+bg)
 
 Weights are (C, Co) (the JAX layout, i.e. the transpose of nn.Linear's),
-built once at load. On a CPU tensor the wrapper computes the plain version;
-on a CUDA tensor it launches the kernel or raises.
+built once at load. `fused_ref` is the kernel's exact plain version: the
+wrapper computes it on a CPU tensor, and it decides the kernel's
+correctness. `fused_plain` is what the plain engine (`use_kernels=False`)
+runs, and the yardstick of the kernel's speed. On a CUDA tensor the wrapper
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,6 +39,16 @@ def _fn():
     return f
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm over the last dim: fp32 statistics and affine, rounded once
+    to x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + eps)
+    return (xn * scale.float() + bias.float()).to(x.dtype)
+
+
 def fused_ref(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
               eps: float = 1e-5):
     """Plain version (the counterpart of `_ref`): fp32 LayerNorm rounded to
@@ -45,14 +58,7 @@ def fused_ref(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
         co = ws[0].shape[1] // 2
         ws = (ws[0][:, :co], ws[0][:, co:])
         bs = (bs[0][:co], bs[0][co:])
-    if ln is not None:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
-        xn = (xf - mean) * torch.rsqrt(var + eps)
-        xh = (xn * ln[0].float() + ln[1].float()).to(x.dtype)
-    else:
-        xh = x
+    xh = x if ln is None else layer_norm(x, ln[0], ln[1], eps)
     ys = [xh.float() @ w.float() + b.float() for w, b in zip(ws, bs)]
     if gate:
         ys = [ys[0] * F.gelu(ys[1])]
@@ -63,6 +69,25 @@ def fused_ref(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
             y = y + residual
         outs.append(y)
     return tuple(outs)
+
+
+def fused_plain(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
+                eps: float = 1e-5):
+    """The plain engine's K3: LayerNorm as in `fused_ref`, then one
+    F.linear in x.dtype per weight, the exact-erf gate on the packed
+    output's halves, and the residual added last. Weights as nn.Linear holds
+    them: (Co, C) each, or one packed (2Co, C) in gate mode; a bias may be
+    None."""
+    dt = x.dtype
+    xh = x if ln is None else layer_norm(x, ln[0], ln[1], eps)
+    ys = [F.linear(xh, w.to(dt), None if b is None else b.to(dt))
+          for w, b in zip(ws, bs)]
+    if gate:
+        h, g = ys[0].chunk(2, dim=-1)
+        ys = [h * F.gelu(g)]
+    if residual is not None:
+        ys = [y + residual for y in ys]
+    return tuple(ys)
 
 
 def _check(name, t, shape, dtype, device):

@@ -10,7 +10,8 @@ those partials into the folded GroupNorm affine (a, b) with
 var = max(E[x^2] - mean^2, 0). Tiles cover `TILE_ROWS` rows each, so the
 VAE's 262,144 elements per channel at 512^2 are summed as 1,024 partials of
 256 and never as one long serial fp32 sum. Rows past S are masked, so any
-spatial size is exact.
+spatial size is exact. `group_norm_coeffs_plain` is the plain engine's
+two-pass version of the same coefficients.
 
 What bounds it on the H100: a pure streaming reduction (one read of x, no
 tensor-core work), so memory bandwidth; a Triton block reduction over
@@ -118,3 +119,16 @@ def group_norm_coeffs(x, scale, bias, num_groups: int, eps: float):
     count = x.numel() // (x.shape[0] * x.shape[-1])
     return combine_stats(partial_stats(x), scale, bias, num_groups, eps,
                          count)
+
+
+def group_norm_coeffs_plain(x, scale, bias, num_groups: int, eps: float):
+    """The plain engine's (a, b) (the counterpart of `_gn_xla`,
+    layers.py:186): two-pass fp32 statistics over each whole group."""
+    bsz, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(bsz, -1, num_groups, c // num_groups).float()
+    mean = xf.mean(dim=(1, 3))
+    var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+    a = torch.rsqrt(var + eps)[..., None] \
+        * scale.float().reshape(num_groups, -1)
+    bterm = bias.float().reshape(num_groups, -1) - mean[..., None] * a
+    return a.reshape(bsz, c), bterm.reshape(bsz, c)

@@ -26,6 +26,7 @@ from img2img_turbo_tpu.weights import torch_import as ti
 from img2img_turbo_tpu_torch.models import layers as TL
 from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
 from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
+from img2img_turbo_tpu_torch.ops import fused_conv as tfc
 from img2img_turbo_tpu_torch.weights import from_jax
 
 REL_L2 = 1e-4
@@ -152,6 +153,22 @@ class TestLayers:
         got = TL.conv2d(conv, torch.from_numpy(x), stride, padding)
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
+
+    def test_prepare_keeps_hwio_only_on_the_cpu(self):
+        """The CUDA kernels read the packed weights alone; the HWIO copy
+        serves only the plain versions the wrappers compute on the CPU."""
+        conv, up = TL.Conv2d(8, 16, 3), TL.Upsample2xConv(8, 8, 3)
+        skip = TL.Conv2d(8, 16, 1, bias=False)
+        for m in (conv, up, skip):
+            m.prepare()
+        assert conv.kw.shape == (3, 3, 8, 16) and skip.kw.shape == (8, 16)
+        assert conv.kwp.shape == (9, 1, 16, 8)
+        assert up.kwp.shape == (16, 1, 8, 8)      # folded 4-phase 2x2 taps
+        assert torch.equal(up.kwp, tfc.pack_weights(
+            tfc.fold_upsample_weights(up.kw)))
+        off_cpu = TL.Conv2d(8, 16, 3).to("meta")
+        off_cpu.prepare()
+        assert off_cpu.kw is None and off_cpu.kwp.shape == (9, 1, 16, 8)
 
     def test_group_norm_and_layer_norm(self):
         rng = np.random.RandomState(2)

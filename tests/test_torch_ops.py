@@ -391,6 +391,91 @@ class TestAttention:
 
 
 # ---------------------------------------------------------------------------
+# The plain engine's compositions (`*_plain`)
+# ---------------------------------------------------------------------------
+
+
+class TestPlainCompositions:
+    """What the plain engine runs op by op, and chip_smoke.py times against
+    each kernel, agrees with the kernel's exact plain version (`*_ref`) in
+    fp32. Weights go in as nn.Conv2d / nn.Linear hold them."""
+
+    @pytest.mark.parametrize("feat", ["plain", "norm", "all"])
+    def test_k1_plain_matches_ref(self, feat):
+        rng = np.random.RandomState(20 + ["plain", "norm", "all"].index(feat))
+        b, h, w, c, co, csk = 2, 6, 10, 16, 24, 8
+        t = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+            _rand(rng, *s, scale=scale))
+        x, wt, cb = t(b, h, w, c), t(3, 3, c, co, scale=0.1), t(co)
+        a = bb = eb = res = skx = skw = skb = None
+        if feat != "plain":
+            a, bb = map(torch.from_numpy, _gn_affine(x.numpy(), 8, rng))
+        if feat == "all":
+            eb, res = t(b, co), t(b, h, w, co)
+            skx, skw, skb = t(b, h, w, csk), t(csk, co, scale=0.1), t(co)
+        want, _ = tfc.conv3x3_ref(x, wt, cb if skb is None else cb + skb, a,
+                                  bb, eb, res, skx, skw)
+        got = tfc.gn_silu_conv3x3_plain(
+            x, wt.permute(3, 2, 0, 1), cb, a, bb, eb, res, skx,
+            None if skw is None else skw.t()[:, :, None, None], skb)
+        _close(got, want)
+
+    @pytest.mark.parametrize("skip", [False, True])
+    def test_k4_plain_matches_ref(self, skip):
+        rng = np.random.RandomState(30 + skip)
+        x = torch.from_numpy(_rand(rng, 1, 5, 3, 16))
+        wt = torch.from_numpy(_rand(rng, 3, 3, 16, 8, scale=0.1))
+        cb = torch.from_numpy(_rand(rng, 8))
+        skx = torch.from_numpy(_rand(rng, 1, 10, 6, 4)) if skip else None
+        skw = torch.from_numpy(_rand(rng, 4, 8)) if skip else None
+        want, _ = tfc.upsample2x_conv3x3_ref(x, wt, cb, skx, skw)
+        got = tfc.upsample2x_conv3x3_plain(
+            x, wt.permute(3, 2, 0, 1), cb, skx,
+            None if skw is None else skw.t()[:, :, None, None])
+        _close(got, want)
+
+    @pytest.mark.parametrize("shape,ng", [((2, 7, 9, 32), 4),
+                                          ((1, 48, 64), 32)])
+    def test_gn_coeffs_plain_matches_float64(self, shape, ng):
+        rng = np.random.RandomState(40)
+        x = _rand(rng, *shape, scale=3.0) + 1.0
+        c = shape[-1]
+        scale, bias = 1 + 0.2 * _rand(rng, c), 0.2 * _rand(rng, c)
+        xg = x.reshape(shape[0], -1, ng, c // ng).astype(np.float64)
+        mean, var = xg.mean((1, 3)), xg.var((1, 3))
+        wa = (1 / np.sqrt(var + 1e-6))[..., None] * scale.reshape(ng, -1)
+        wb = bias.reshape(ng, -1) - mean[..., None] * wa
+        ga, gb = tgn.group_norm_coeffs_plain(
+            torch.from_numpy(x), torch.from_numpy(scale),
+            torch.from_numpy(bias), ng, 1e-6)
+        _close(ga, wa.reshape(shape[0], c), GN_TOL)
+        _close(gb, wb.reshape(shape[0], c), GN_TOL)
+
+    @pytest.mark.parametrize("mode", ["plain", "ln_res", "qkv", "gate"])
+    def test_k3_plain_matches_ref(self, mode):
+        rng = np.random.RandomState(50 + ["plain", "ln_res", "qkv",
+                                          "gate"].index(mode))
+        m, c, co = 33, 64, 48
+        t = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+            _rand(rng, *s, scale=scale))
+        n_w = 3 if mode == "qkv" else 1
+        wc = 2 * co if mode == "gate" else co
+        x = t(1, m, c)
+        ws = tuple(t(c, wc, scale=0.1) for _ in range(n_w))
+        bs = tuple(t(wc, scale=0.1) for _ in range(n_w))
+        ln = ((1 + t(c, scale=0.1), t(c, scale=0.1))
+              if mode != "plain" else None)
+        res = t(1, m, co) if mode == "ln_res" else None
+        gate = mode == "gate"
+        want = tfm.fused_ref(x, ws, bs, ln=ln, residual=res, gate=gate)
+        got = tfm.fused_plain(x, tuple(w.t() for w in ws), bs, ln=ln,
+                              residual=res, gate=gate)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close(g, w)
+
+
+# ---------------------------------------------------------------------------
 # Wrapper rules and build
 # ---------------------------------------------------------------------------
 
