@@ -1,23 +1,35 @@
-"""Chip smoke for the PyTorch port: the edge_to_image serving path on one GPU.
+"""Chip smoke for the PyTorch port: the edge_to_image serving path and the
+paired (pix2pix-turbo) training step on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
 Phases, each fatal on failure:
 1. build every CUDA kernel of the package from `csrc/` (nvcc, sm_90a);
 2. kernel phase: each kernel wrapper against its plain PyTorch version on
-   the card, at the main path's shapes, in bf16, with stated tolerances.
+   the card, at the main paths' shapes, in bf16, with stated tolerances.
    Errors are taken against the exact plain version (`*_ref`, fp32 with one
-   rounding); times against the composition the plain engine runs
-   (`*_plain`, or `mha_ref` for attention);
+   rounding); times against the composition the plain path runs
+   (`*_plain`, `mha_ref`, or autograd through `mha_ref` for K7), beside
+   the least time the card could take (`bound_ms`, from the H100's
+   published peaks) and, where one PyTorch call computes the same function,
+   that call's time (`library_ms`, timed here, never called by the port);
 3. engine phase: `ServingEngine(mode="edge_to_image")` at the full
    SD-Turbo widths with seeded random weights, serving 512x512 b1 requests
    and one 840x560 request, checked for shape, range, determinism, launch
-   counts and agreement with the plain path on the same weights.
+   counts and agreement with the plain path on the same weights;
+4. train phase: the paired step at full width (SD-Turbo UNet and VAE with
+   LoRA, OpenCLIP-H text encoder, CLIP ViT-B/32, VGG16 LPIPS), 512x512 b1,
+   bf16 activations, fp32 master weights, UNet blocks recomputed; a
+   warm-up step and three timed steps with kernels and as many plain from
+   the same seeded state, checked
+   for finite losses, moved trainables and unmoved frozen weights, launch
+   counts, pass-1 gradient agreement between the paths and a bit-identical
+   repeated step.
 
 Prints the card's name and power limit, a JSON line with every kernel's
-error and time against its plain version, and as its last line
-{"ok": true, "device": {...}}. Exits non-zero, with no result line, when
-no CUDA device is present or any check fails.
+error and times, and as its last line {"ok": true, "device": {...}}. Exits
+non-zero, with no result line, when no CUDA device is present or any check
+fails.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 
 def _fail(msg: str):
@@ -64,8 +77,69 @@ def _time_ms(fn, iters: int = 10) -> float:
 # kernel phase
 # ---------------------------------------------------------------------------
 
+# Every attention shape of the paired step at 512x512: the UNet's self- and
+# cross-attention at each level (hd 64) and the VAE mid attention (hd 512).
+K7_CASES = [
+    ("unet self S=4096 H=5", 1, 4096, 4096, 5, 64),
+    ("unet cross S=4096 Skv=77 H=5", 1, 4096, 77, 5, 64),
+    ("unet self S=1024 H=10", 1, 1024, 1024, 10, 64),
+    ("unet cross S=1024 Skv=77 H=10", 1, 1024, 77, 10, 64),
+    ("unet self S=256 H=20", 1, 256, 256, 20, 64),
+    ("unet cross S=256 Skv=77 H=20", 1, 256, 77, 20, 64),
+    ("unet mid self S=64 H=20", 1, 64, 64, 20, 64),
+    ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64),
+    ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512)]
 REL_TOL = 1e-2      # kernel vs plain, bf16 output: max|err| / max|ref|
 STATS_TOL = 1e-3    # folded GN (a, b): emitted stats vs stats of the same y
+LSE_TOL = 1e-3      # K2's logsumexp (fp32) vs the fp32 plain version, abs
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# full 700 W): the least time for a call is the larger of its bytes (each
+# input read once, each output written once) over the memory rate and its
+# operations over the bf16 tensor-core rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by) of a call."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _sdpa(q, k, v, num_heads):
+    """F.scaled_dot_product_attention on the folded (B, S, H*hd) tensors'
+    head views: the library yardstick of K2 (and, differentiated, of K7).
+    Returns (the backend's name, a call that runs SDPA on it and returns
+    the (B, H, Sq, hd) output): flash, then memory-efficient, then cuDNN,
+    then math, the first that takes the shapes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def heads(t):
+        b, s, d = t.shape
+        return t.view(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(heads(q), heads(k),
+                                                      heads(v))
+        try:
+            with warnings.catch_warnings():  # the refusals of the others
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        return backend.name.lower(), call
+    _fail("no SDPA backend took the shapes")
 
 
 def _rel(a, b) -> tuple:
@@ -79,6 +153,8 @@ def _rel(a, b) -> tuple:
 
 def kernel_phase(dev, results: list):
     import torch
+    import torch.nn.functional as F
+    from img2img_turbo_tpu_torch.models import layers
     from img2img_turbo_tpu_torch.ops import (
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
@@ -95,17 +171,25 @@ def kernel_phase(dev, results: list):
         return w.permute(3, 2, 0, 1).contiguous()
 
     def record(name, route, source, replaces, case, err, rel, tol, ms,
-               plain_ms):
+               plain_ms, flops, nbytes, library_ms=None, library=None,
+               part=None):
         ok = rel <= tol
-        print(f"  {name:24s} {case:44s} max_abs={err:.3e} rel={rel:.3e} "
+        bound_ms, bound_by = _bound(flops, nbytes)
+        lib = ("" if library_ms is None
+               else f" {library}={library_ms:.4f}ms")
+        print(f"  {name:26s} {case:44s} max_abs={err:.3e} rel={rel:.3e} "
               f"tol={tol:.0e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+              f"bound={bound_ms:.4f}ms({bound_by}){lib} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         torch.cuda.synchronize()
         if not ok:
             _fail(f"{name} {case}: rel err {rel:.3e} > {tol:.0e}")
         results.append(dict(name=name, route=route, source=source,
                             replaces=replaces, case=case, max_abs_err=err,
-                            rel_err=rel, ms=ms, plain_ms=plain_ms))
+                            rel_err=rel, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms, library=library,
+                            part=part))
 
     # ---- K1 -------------------------------------------------------------
     k1 = ("fused_gn_silu_conv3x3", "cuda",
@@ -165,7 +249,47 @@ def kernel_phase(dev, results: list):
         skw_oihw = None if skw is None else oihw(skw)
         pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(
             x, w_oihw, bias, a, b, eb, res, skx, skw_oihw))
-        record(*k1, case, err, rel, REL_TOL, ms, pms)
+        flops = 2 * B * H * W * Co * (9 * C + csk)
+        nbytes = _nbytes(x, wp, bias, a, b, eb, res, skx, skwp, y, st)
+        lms = lib = None
+        if not norm and not has_eb and not has_res and not csk:
+            # prologue-free: one cuDNN convolution computes the same
+            xc, bb = x.permute(0, 3, 1, 2), bias.to(bf)
+            lms = _time_ms(lambda: F.conv2d(xc, w_oihw, bb, padding=1))
+            lib = "F.conv2d"
+        record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               lib)
+
+    # ---- K1 as K8's du: the input gradient of the train step's fused GN
+    # convs, prologue-free on the output gradient with flipped, io-swapped
+    # weights (layers.conv3x3_input_grad). The exact version is the fp32
+    # transposed conv of the unflipped weights, so a wrong flip or swap
+    # fails here; the plain time is the plain conv on the flipped weights.
+    for case, B, H, W, C, Co in [
+            # (case, B, H, W, C, Co) of the forward conv C -> Co
+            ("du vae 512^2 128->128", 1, 512, 512, 128, 128),
+            ("du vae dec conv_out 128->3", 1, 512, 512, 128, 3),
+            ("du vae 256^2 256->128", 1, 256, 256, 256, 128),
+            ("du vae enc conv_out 512->8", 1, 64, 64, 512, 8),
+            ("du unet 64^2 320->320", 1, 64, 64, 320, 320),
+            ("du unet conv_out 320->4", 1, 64, 64, 320, 4),
+            ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280)]:
+        gy = rn(B, H, W, Co)
+        w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
+        du = layers.conv3x3_input_grad(gy, w)
+        dur = F.conv_transpose2d(gy.float().permute(0, 3, 1, 2), w.float(),
+                                 padding=1).permute(0, 2, 3, 1)
+        err, rel = _rel(du, dur)
+        ms = _time_ms(lambda: layers.conv3x3_input_grad(gy, w))
+        w_t = w.flip(2, 3).transpose(0, 1).contiguous()   # (C, Co, 3, 3)
+        zero = torch.zeros(C, device=dev)
+        pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(gy, w_t, zero))
+        gyc, wbf = gy.permute(0, 3, 1, 2), w
+        lms = _time_ms(lambda: F.conv_transpose2d(gyc, wbf, padding=1))
+        flops = 2 * B * H * W * C * 9 * Co
+        nbytes = _nbytes(gy, fc.pack_weights(layers._hwio(w_t)), du)
+        record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               "F.conv_transpose2d", part="du")
 
     # ---- K4 -------------------------------------------------------------
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
@@ -203,7 +327,10 @@ def kernel_phase(dev, results: list):
         skw_oihw = None if skw is None else oihw(skw)
         pms = _time_ms(lambda: fc.upsample2x_conv3x3_plain(
             x, w_oihw, bias, skx, skw_oihw))
-        record(*k4, case, err, rel, REL_TOL, ms, pms)
+        # four phases of 2x2 taps on the low-resolution input
+        flops = 2 * B * 4 * H * W * Co * (4 * C + csk)
+        nbytes = _nbytes(x, wp, bias, skx, skwp, y, st)
+        record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes)
 
     # ---- K5 -------------------------------------------------------------
     k5 = ("group_norm_stats", "triton",
@@ -226,8 +353,12 @@ def kernel_phase(dev, results: list):
         ms = _time_ms(lambda: gn.group_norm_coeffs(x, scale, bias, 32, 1e-5))
         pms = _time_ms(lambda: gn.group_norm_coeffs_plain(x, scale, bias, 32,
                                                           1e-5))
+        # K5 reads x once and writes its partial sums; one op per element
+        # for the sum, two for the sum of squares
+        flops = 3 * x.numel()
+        nbytes = _nbytes(x, gn.partial_stats(x))
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, pms)
+               ms, pms, flops, nbytes)
 
     # ---- K3 -------------------------------------------------------------
     k3 = ("fused_matmul", "cuda", "img2img_turbo_tpu_torch/csrc/fused_matmul.cu",
@@ -241,7 +372,9 @@ def kernel_phase(dev, results: list):
              False),
             ("vae mid qkv 4096x512 x3", 4096, 512, 512, 3, False, False,
              False),
-            ("geglu ln 64x1280->5120", 64, 1280, 5120, 1, True, True, False)]:
+            ("geglu ln 64x1280->5120", 64, 1280, 5120, 1, True, True, False),
+            ("proj_in 4096x320->320", 4096, 320, 320, 1, False, False,
+             False)]:
         x = rn(1, M, C)
         wcols = 2 * Co if gate else Co
         ws = tuple(rn(C, wcols, scale=1 / math.sqrt(C)) for _ in range(n_w))
@@ -261,7 +394,17 @@ def kernel_phase(dev, results: list):
         ws_t = tuple(w.t().contiguous() for w in ws)  # nn.Linear's (Co, C)
         pms = _time_ms(lambda: fm.fused_plain(x, ws_t, bs, ln=lnp,
                                               residual=res, gate=gate))
-        record(*k3, case, err, rel, REL_TOL, ms, pms)
+        flops = 2 * M * C * wcols * n_w
+        nbytes = _nbytes(x, *ws, *bs, res, *outs) \
+            + (0 if lnp is None else _nbytes(*lnp))
+        lms = lib = None
+        if not ln and n_w == 1 and not gate and not has_res:
+            # LN-free, one output: one F.linear computes the same
+            bb = bs[0].to(bf)
+            lms = _time_ms(lambda: F.linear(x, ws_t[0], bb))
+            lib = "F.linear"
+        record(*k3, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               lib)
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
@@ -275,12 +418,56 @@ def kernel_phase(dev, results: list):
             ("vae mid hd=512 H=1 S=4096", 1, 4096, 4096, 1, 512),
             ("vae mid ragged hd=512 S=7350", 1, 7350, 7350, 1, 512)]:
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
-        o = attention.flash_attention_folded(q, k, v, H)
-        orf = attention.mha_ref(q, k, v, H)
+        o, lse = attention.flash_attention_folded(q, k, v, H,
+                                                  return_lse=True)
+        orf, lse_ref = attention.mha_ref(q, k, v, H, return_lse=True)
         err, rel = _rel(o, orf)
-        ms = _time_ms(lambda: attention.flash_attention_folded(q, k, v, H))
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            _fail(f"K2 {case}: lse max abs err {lse_err:.3e} > {LSE_TOL}")
+        ms = _time_ms(lambda: attention.flash_attention_folded(
+            q, k, v, H, return_lse=True))
         pms = _time_ms(lambda: attention.mha_ref(q, k, v, H))
-        record(*k2, case, err, rel, REL_TOL, ms, pms)
+        backend, sdpa = _sdpa(q, k, v, H)
+        lms = _time_ms(sdpa)
+        flops = 4 * B * Sq * Skv * H * hd
+        nbytes = _nbytes(q, k, v, o, lse)
+        print(f"  {'':26s} lse max_abs={lse_err:.3e} tol={LSE_TOL:.0e}",
+              flush=True)
+        record(*k2, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               f"sdpa[{backend}]")
+
+    # ---- K7 -------------------------------------------------------------
+    k7 = ("flash_attention_folded_bwd", "cuda",
+          "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
+          "img2img_turbo_tpu/ops/attention.py:390")
+    for case, B, Sq, Skv, H, hd in K7_CASES:
+        q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
+        do = rn(B, Sq, H * hd)
+        o, lse = attention.flash_attention_folded(q, k, v, H,
+                                                  return_lse=True)
+        grads = attention.flash_attention_folded_bwd(q, k, v, o, do, lse, H)
+        refs = attention.attention_bwd_ref(q, k, v, o, do, lse, H)
+        errs = [_rel(g_, r_) for g_, r_ in zip(grads, refs)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        ms = _time_ms(lambda: attention.flash_attention_folded_bwd(
+            q, k, v, o, do, lse, H))
+        # the plain path's backward: autograd through mha_ref
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention.mha_ref(qg, kg, vg, H)
+        pms = _time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        backend, sdpa = _sdpa(qg, kg, vg, H)
+        out_l = sdpa()
+        do_h = do.view(B, Sq, H, hd).transpose(1, 2)
+        lms = _time_ms(lambda: torch.autograd.grad(
+            out_l, (qg, kg, vg), do_h, retain_graph=True))
+        del out, out_l
+        # the least work: S, dP, dV, dQ and dK, five products
+        flops = 10 * B * Sq * Skv * H * hd
+        nbytes = _nbytes(q, k, v, o, do, lse, *grads)
+        record(*k7, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               f"sdpa[{backend}] backward")
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)
@@ -300,6 +487,9 @@ def kernel_phase(dev, results: list):
             rn(4, 12), (rn(12, 16),), (torch.zeros(16, device=dev),)),
         "K2 head dim 32": lambda: attention.flash_attention_folded(
             rn(1, 16, 64), rn(1, 16, 64), rn(1, 16, 64), 2),
+        "K7 lse not fp32": lambda: attention.flash_attention_folded_bwd(
+            *(rn(1, 16, 64) for _ in range(5)),
+            torch.zeros(1, 16, 1, device=dev, dtype=bf), 1),
         "K5 fp16 input": lambda: gn.partial_stats(x.half()),
     }
     for what, fn in refused.items():
@@ -313,22 +503,49 @@ def kernel_phase(dev, results: list):
     _build.reset_launch_counts()
 
 
-def _per_kernel(results, launches):
-    """One entry per kernel: launches in the main path's 512x512 request,
-    the worst error over its cases, and its time and the plain version's
-    summed over its main-path cases (listed under "cases")."""
-    out = {}
-    for r in results:
-        e = out.setdefault(r["name"], dict(
-            name=r["name"], route=r["route"], source=r["source"],
-            replaces=r["replaces"], launches=launches[r["name"]],
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, cases=[]))
-        e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
-        e["ms"] += r["ms"]
-        e["plain_ms"] += r["plain_ms"]
-        e["cases"].append({k: r[k] for k in ("case", "max_abs_err",
-                                             "rel_err", "ms", "plain_ms")})
-    return list(out.values())
+def _summed(rs):
+    """The worst error over cases `rs`, and their time, plain version's
+    time, bound and library call's time summed (`library_ms` sums only the
+    cases that have a library call, named in `library_cases`, and is null
+    when none has). bound_by names the bound of the cases that make up
+    most of the summed bound."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for r in rs:
+        by[r["bound_by"]] += r["bound_ms"]
+    lib = [r for r in rs if r["library_ms"] is not None]
+    return dict(
+        max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
+        bound_ms=sum(r["bound_ms"] for r in rs), bound_by=max(by, key=by.get),
+        library_ms=sum(r["library_ms"] for r in lib) if lib else None,
+        library_cases=[r["case"] for r in lib], n_cases=len(rs))
+
+
+def _per_kernel(results, launches_serve, launches_train):
+    """One entry per kernel. `launches` counts the kernel's launches on the
+    first path that runs it, named in `launches_path`: one 512x512 request
+    ("serve", as in the serving slice's line) or, for a kernel that serving
+    never launches, one train step ("train"); `launches_serve` and
+    `launches_train` give both for every kernel. The errors and times sum
+    the kernel's forward cases (each case is on its own line of the kernel
+    phase's output); a kernel that also runs in another role (K1 as K8's
+    du) has those cases summed under the role's key."""
+    out = []
+    names = list(dict.fromkeys(r["name"] for r in results))
+    for name in names:
+        rs = [r for r in results if r["name"] == name]
+        serve = launches_serve.get(name, 0)
+        e = dict(name=name, route=rs[0]["route"], source=rs[0]["source"],
+                 replaces=rs[0]["replaces"],
+                 launches=serve or launches_train.get(name, 0),
+                 launches_path="serve" if serve else "train",
+                 launches_serve=serve,
+                 launches_train=launches_train.get(name, 0),
+                 **_summed([r for r in rs if r["part"] is None]))
+        for part in dict.fromkeys(r["part"] for r in rs if r["part"]):
+            e[part] = _summed([r for r in rs if r["part"] == part])
+        out.append(e)
+    return out
 
 
 def main():
@@ -353,8 +570,13 @@ def main():
 
     summary: dict = {}
     engine_phase(dev, summary)
-    print(json.dumps({"kernels": _per_kernel(results, summary["launches"]),
-                      "engine": summary["engine"]}), flush=True)
+    train_phase(dev, summary)
+    print(_smi(), flush=True)  # again, beside the results
+    print(json.dumps({"kernels": _per_kernel(
+                          results, summary["launches"],
+                          summary["train_launches"]),
+                      "engine": summary["engine"],
+                      "train": summary["train"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -509,6 +731,207 @@ def engine_phase(dev, summary):
                          "rel_l2_840x560": errs840, "launches_512": counts,
                          "launches_840x560": counts840}
     summary["launches"] = counts
+
+
+
+# Kernel launches of one paired train step at the SD-Turbo topology, 512x512
+# b1. Each generator pass (1 and 2) runs the serving forward's launches
+# (K1 98, K2 34, K3 148, K4 6, K5 27), then its backward: the UNet's down,
+# mid and up blocks run again (recompute: K1 44 resnet convs, K2 32, K3
+# 144, K4 3 upsamples, K5 21), each fused GN conv's du is one K1 (95, all
+# K1 but the three prologue-free conv_ins) and each attention's backward
+# one K7 (34: 32 UNet + 2 VAE mid). Passes 3 and 4 (discriminator) and
+# the text encoder launch none.
+EXPECTED_TRAIN_LAUNCHES = {
+    "fused_gn_silu_conv3x3": 2 * (98 + 44 + 95),
+    "flash_attention_folded": 2 * (34 + 32),
+    "fused_matmul": 2 * (148 + 144),
+    "upsample2x_conv3x3": 2 * (6 + 3),
+    "group_norm_stats": 2 * (27 + 21),
+    "flash_attention_folded_bwd": 2 * 34}
+GRAD_REL_L2_TOL = 1e-1  # pass-1 gradients, kernel vs plain path, bf16
+TRAIN_STEPS = 3      # timed steps per path, after one warm-up step
+TRAIN_HW = 512
+
+
+def _snapshot(state):
+    import copy
+    return copy.deepcopy(state)
+
+
+def _state_tensors(state):
+    return {**{"gen." + k: v for k, v in state.gen.items()},
+            **{"disc." + k: v for k, v in state.disc.items()},
+            **{"sn." + k: v for k, v in state.disc_sn.items()}}
+
+
+def _fingerprint(module):
+    """An fp64 sum of every parameter, to show frozen weights unmoved."""
+    return sum(float(p.detach().double().sum()) for p in module.parameters())
+
+
+def train_phase(dev, summary):
+    import numpy as np
+    import torch
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.ops import canny as canny_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import losses, paired, runner
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True   # the repeated-step check
+    torch.backends.cudnn.benchmark = False
+    cfgs = GeneratorConfigs()
+    models, state0, meta = runner.build_paired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=4321, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4322)
+    steps = {k: paired.make_paired_train_step(
+        models, cfgs, losses.PairedLossConfig(), meta, kernels=k,
+        remat=True, dtype=torch.bfloat16) for k in (True, False)}
+    frozen = {n: getattr(models, n) for n in (
+        "unet", "vae", "text", "lpips", "disc_backbone", "clip")}
+    prints = {n: _fingerprint(m) for n, m in frozen.items()}
+    n_train = sum(v.numel() for v in state0.gen.values())
+    n_frozen = sum(p.numel() for m in frozen.values() for p in m.parameters())
+
+    h = w = TRAIN_HW
+    img = torch.as_tensor(synth_image(h, w, 3), device=dev)
+    batch = {
+        "conditioning_pixel_values": canny_mod.canny_3ch_unit(img, 100, 200),
+        "output_pixel_values": torch.as_tensor(
+            synth_image(h, w, 4), device=dev).float() / 127.5 - 1.0,
+        "input_ids": torch.randint(0, cfgs.text.vocab_size, (1, 77),
+                                   generator=g, device=dev)}
+
+    def noise(step_i):
+        gn_ = torch.Generator(device=dev).manual_seed(1000 + step_i)
+        return tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
+                     for _ in range(2))
+
+    torch.cuda.synchronize()
+    print(f"train phase: SD-Turbo UNet/VAE + LoRA, OpenCLIP-H text, CLIP "
+          f"ViT-B/32, VGG16 LPIPS; {n_train / 1e6:.2f}M trainable, "
+          f"{n_frozen / 1e6:.1f}M frozen (random, seed 4321); "
+          f"{TRAIN_HW}x{TRAIN_HW} b1, "
+          f"bf16 activations, fp32 masters, UNet remat; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    states = {k: _snapshot(state0) for k in (True, False)}
+    times = {True: [], False: []}
+    peaks = {True: 0, False: 0}
+    metrics = {True: [], False: []}
+    grads1 = {}
+    counts = None
+    for i in range(1 + TRAIN_STEPS):   # step 0: warm-up, launches, gradients
+        for k in (True, False):
+            if i == 0 and k:
+                start = _snapshot(states[k])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launch_counts()
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            m, gr = steps[k](states[k], batch, noise(i), keep_grads=i == 0)
+            e_ev.record()
+            e_ev.synchronize()
+            times[k].append(s_ev.elapsed_time(e_ev))
+            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated(dev))
+            m = {n: float(v) for n, v in m.items()}
+            metrics[k].append(m)
+            if not all(np.isfinite(v) for v in m.values()):
+                _fail(f"train step {i} ({'kernels' if k else 'plain'}): "
+                      f"non-finite loss {m}")
+            if not k and sum(_build.launch_counts.values()):
+                _fail("the plain train step launched a kernel")
+            if i == 0:
+                grads1[k] = gr
+                if k:
+                    counts = dict(_build.launch_counts)
+                    after_first = _snapshot(states[k])
+                    first_metrics = m
+    print(f"  launches in one train step: {counts}", flush=True)
+    if counts != EXPECTED_TRAIN_LAUNCHES:
+        _fail(f"train launch counts {counts} != {EXPECTED_TRAIN_LAUNCHES}")
+    for k in (True, False):
+        print(f"  {'kernels' if k else 'plain'}: " + "; ".join(
+            ", ".join(f"{n}={v:.4f}" for n, v in m.items())
+            for m in metrics[k]), flush=True)
+
+    # pass-1 gradients of the two paths from the same state
+    gk, gp = grads1[True], grads1[False]
+    num = sum(float((gk[n].float() - gp[n].float()).square().sum())
+              for n in gk)
+    den = sum(float(gp[n].float().square().sum()) for n in gp)
+    grad_rel = (num / max(den, 1e-30)) ** 0.5
+    per_group = {}
+    for part in ("unet_lora", "vae_lora", "unet", "vae"):
+        names = [n for n in gk if n.startswith(part + ":")]
+        nn_ = sum(float((gk[n].float() - gp[n].float()).square().sum())
+                  for n in names)
+        dd = sum(float(gp[n].float().square().sum()) for n in names)
+        per_group[part] = (nn_ / max(dd, 1e-30)) ** 0.5
+    print(f"  pass-1 gradients, kernel vs plain path: rel L2 {grad_rel:.3e} "
+          f"(tol {GRAD_REL_L2_TOL:.0e}, overall and for each part); by part "
+          f"{per_group}", flush=True)
+    if not grad_rel <= GRAD_REL_L2_TOL:
+        _fail(f"pass-1 gradients disagree: rel L2 {grad_rel:.3e}")
+    for part, rel in per_group.items():
+        if not rel <= GRAD_REL_L2_TOL:
+            _fail(f"pass-1 gradients of {part} disagree: rel L2 {rel:.3e}")
+
+    # trainables moved, frozen weights did not
+    for k in (True, False):
+        moved = [n for n, v in state0.gen.items()
+                 if not torch.equal(v, states[k].gen[n])]
+        if len(moved) != len(state0.gen):
+            _fail(f"trainables did not move: "
+                  f"{sorted(set(state0.gen) - set(moved))}")
+        if all(torch.equal(v, states[k].disc[n])
+               for n, v in state0.disc.items()):
+            _fail("the discriminator heads did not move")
+    for n, m in frozen.items():
+        if _fingerprint(m) != prints[n]:
+            _fail(f"frozen {n} weights moved")
+
+    # a step repeated from the same state is bit-identical
+    again = start
+    m2, _ = steps[True](again, batch, noise(0))
+    m2 = {n: float(v) for n, v in m2.items()}
+    a_t, b_t = _state_tensors(after_first), _state_tensors(again)
+    same = all(torch.equal(a_t[n], b_t[n]) for n in a_t) \
+        and m2 == first_metrics
+    print(f"  repeated step bit-identical: {same}", flush=True)
+    if not same:
+        _fail("a step repeated from the same state gave other results")
+
+    # the eval step on the trained generator
+    ev = paired.make_eval_step(models, cfgs, meta, kernels=True)
+    pred, val = ev(states[True].gen, batch, noise(9)[0])
+    val = {n: float(v) for n, v in val.items()}
+    if pred.shape != (1, h, w, 3) or not torch.isfinite(pred.float()).all() \
+            or not all(np.isfinite(v) for v in val.values()):
+        _fail(f"eval step: {tuple(pred.shape)} {val}")
+
+    p50 = {("kernels" if k else "plain"): sorted(v[1:])[TRAIN_STEPS // 2]
+           for k, v in times.items()}
+    peak = {("kernels" if k else "plain"): v / 2 ** 30
+            for k, v in peaks.items()}
+    print(f"  train step p50 {h}x{w} b1 ({TRAIN_STEPS} steps each after a "
+          f"warm-up step, CUDA events): kernels {p50['kernels']:.2f} ms, "
+          f"plain {p50['plain']:.2f} ms; peak memory kernels "
+          f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB; "
+          f"eval {val}", flush=True)
+    summary["train_launches"] = counts
+    summary["train"] = {
+        "step_ms": {("kernels" if k else "plain"): v
+                    for k, v in times.items()},
+        "p50_ms": p50, "peak_gib": peak, "grad_rel_l2": grad_rel,
+        "grad_rel_l2_by_part": per_group, "launches": counts,
+        "metrics": {("kernels" if k else "plain"): v
+                    for k, v in metrics.items()},
+        "eval": val}
 
 
 if __name__ == "__main__":

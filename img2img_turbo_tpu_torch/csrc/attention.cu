@@ -12,7 +12,9 @@
 // MMAs (wmma, fp32 accumulate), updates the softmax state in fp32, rescales
 // the fp32 output accumulator (kept in shared memory, because the wmma
 // register layout does not expose rows) and adds P V, with P rounded to
-// bf16 as the TPU kernel does.
+// bf16 as the TPU kernel does. On request it also writes each row's
+// logsumexp (m + log l, fp32, (B, Sq, H)), the residual the backward
+// kernel K7 (attention_bwd.cu) rebuilds P from (`return_lse`, :204-290).
 //
 // What bounds it on the H100: at hd=64 the UNet self-attention is compute
 // bound; the shared-memory accumulator round trip and the single-stage
@@ -52,8 +54,8 @@ struct Smem {
 template <int HD, int BQ, int BKV>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
-             int D, float scale) {
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Skv, int D, float scale) {
   using L = Smem<HD, BQ, BKV>;
   constexpr int TPR = NT / BQ;  // threads per softmax row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -179,18 +181,23 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[((size_t)b * Sq + q0 + r) * D + col0 + c] =
           __float2bfloat16(Os[r * L::OLD + c] / ls[r]);
   }
+  // per-row logsumexp of the scaled scores, (B, Sq, H) fp32, for K7
+  if (lse != nullptr)
+    for (int r = tid; r < BQ; r += NT)
+      if (q0 + r < Sq)
+        lse[((size_t)b * Sq + q0 + r) * gridDim.y + h] = ms[r] + logf(ls[r]);
 }
 
 template <int HD, int BQ, int BKV>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
-           int Skv, int H, cudaStream_t stream) {
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+           int B, int Sq, int Skv, int H, cudaStream_t stream) {
   using L = Smem<HD, BQ, BKV>;
   auto kern = flash_kernel<HD, BQ, BKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, L::bytes, stream>>>(q, k, v, o, Sq, Skv, H * HD,
+  kern<<<grid, NT, L::bytes, stream>>>(q, k, v, o, lse, Sq, Skv, H * HD,
                                        1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
@@ -199,17 +206,21 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
 
 extern "C" {
 
-// q: (B, Sq, H*hd), k/v: (B, Skv, H*hd), o: (B, Sq, H*hd), all bf16.
-// hd must be 64 or 512. Returns cudaGetLastError().
+// q: (B, Sq, H*hd), k/v: (B, Skv, H*hd), o: (B, Sq, H*hd), all bf16;
+// lse: (B, Sq, H) fp32 or null. hd must be 64 or 512. Returns
+// cudaGetLastError().
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Skv, int H, int hd, void* stream) {
+                         void* lse, int B, int Sq, int Skv, int H, int hd,
+                         void* stream) {
   auto* qq = static_cast<const bf16*>(q);
   auto* kk = static_cast<const bf16*>(k);
   auto* vv = static_cast<const bf16*>(v);
   auto* oo = static_cast<bf16*>(o);
+  auto* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64, 64, 64>(qq, kk, vv, oo, B, Sq, Skv, H, s);
-  if (hd == 512) return launch<512, 32, 32>(qq, kk, vv, oo, B, Sq, Skv, H, s);
+  if (hd == 64) return launch<64, 64, 64>(qq, kk, vv, oo, ll, B, Sq, Skv, H, s);
+  if (hd == 512)
+    return launch<512, 32, 32>(qq, kk, vv, oo, ll, B, Sq, Skv, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,118 @@
+"""LoRA on the port's modules (counterpart of `img2img_turbo_tpu/lora.py`).
+
+Adapters are plain dictionaries that keep the JAX package's layout, so the
+tests feed both packages the same numbers: {"rank", "alpha", "modules":
+{diffusers module name: {"a", "b"}}}, with a (kh, kw, in, r) for a conv or
+(in, r) for a linear, and b (r, out). Target matching is peft's: a module
+name equals a target or ends with "." + target (`matches_target`).
+
+`merge_lora` is differentiable: the delta alpha/r * A.B is formed in fp32
+and added to the fp32 base weight, and the sum is cast to the compute
+dtype (`lora.py:263-290`). `swap_params` puts such tensors in place of a
+module's parameters for the length of a `with` block, so that a forward,
+its backward and any activation checkpointing recompute inside the block
+all read the merged weights.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator, Sequence
+
+import torch
+import torch.nn as nn
+
+# reference target lists (pix2pix_turbo.py:137-152)
+PIX2PIX_UNET_TARGETS = (
+    "to_k", "to_q", "to_v", "to_out.0", "conv", "conv1", "conv2",
+    "conv_shortcut", "conv_out", "proj_in", "proj_out", "ff.net.2",
+    "ff.net.0.proj")
+PIX2PIX_VAE_TARGETS = (
+    "conv1", "conv2", "conv_in", "conv_shortcut", "conv", "conv_out",
+    "skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4",
+    "to_k", "to_q", "to_v", "to_out.0")
+
+
+def matches_target(name: str, targets: Sequence[str]) -> bool:
+    """peft semantics: the name equals a target or ends with '.<target>'."""
+    return any(name == t or name.endswith("." + t) for t in targets)
+
+
+def weight_modules(model: nn.Module) -> Dict[str, nn.Module]:
+    """{diffusers name: module} of every conv and linear of `model`."""
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, (nn.Conv2d, nn.Linear))}
+
+
+def targeted(model: nn.Module, targets: Sequence[str]) -> list:
+    """Sorted names of the modules LoRA adapts."""
+    return sorted(n for n in weight_modules(model)
+                  if matches_target(n, targets))
+
+
+def init_lora(model: nn.Module, rank: int, targets: Sequence[str],
+              generator: torch.Generator, alpha: float = 8.0) -> Dict:
+    """Gaussian A with std 1/rank, B = 0 (so the merge starts at the base
+    weights), in fp32 on the generator's device, for every targeted
+    module, drawn in sorted name order."""
+    dev = generator.device
+    modules = {}
+    mods = weight_modules(model)
+    for name in targeted(model, targets):
+        w = mods[name].weight
+        if w.ndim == 4:
+            cout, cin, kh, kw = w.shape
+            a_shape = (kh, kw, cin, rank)
+        else:
+            cout, cin = w.shape
+            a_shape = (cin, rank)
+        a = torch.randn(a_shape, generator=generator, device=dev) / rank
+        modules[name] = {"a": a, "b": torch.zeros(rank, cout, device=dev)}
+    return {"rank": rank, "alpha": float(alpha), "modules": modules}
+
+
+def lora_delta(a, b, weight_shape):
+    """Dense delta in the module's layout (OIHW for a conv, (out, in) for a
+    linear), fp32, without the alpha/rank scale."""
+    a, b = a.float(), b.float()
+    if len(weight_shape) == 4:
+        return torch.einsum("hwir,ro->oihw", a, b)
+    return (a @ b).t()
+
+
+def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
+               dtype=None) -> Dict[str, torch.Tensor]:
+    """{"<name>.weight": W + scale * alpha/rank * delta} for every adapted
+    module, from `base` ({"<name>.weight": fp32 weight}); the sum is cast
+    to `dtype` when given. Differentiable in the factors and in W."""
+    s = lora["alpha"] / lora["rank"]
+    out = {}
+    for name, entry in lora["modules"].items():
+        w = base[name + ".weight"]
+        merged = w + (scale * s * lora_delta(entry["a"], entry["b"],
+                                             w.shape)).to(w.dtype)
+        out[name + ".weight"] = merged if dtype is None else merged.to(dtype)
+    return out
+
+
+@contextlib.contextmanager
+def swap_params(model: nn.Module,
+                tensors: Dict[str, torch.Tensor]) -> Iterator[nn.Module]:
+    """Within the block, `model`'s parameters named in `tensors` are those
+    tensors (which may carry autograd history); the originals come back on
+    exit. Run the forward and the backward inside the block, so that
+    activation checkpointing recomputes with the same weights."""
+    mods = dict(model.named_modules())
+    saved = []
+    try:
+        for key, t in tensors.items():
+            mod_name, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+            mod = mods[mod_name]
+            if leaf not in mod._parameters:
+                raise KeyError(f"{key} is not a parameter of the model")
+            saved.append((mod, leaf, mod._parameters[leaf]))
+            mod._parameters[leaf] = t
+        yield model
+    finally:
+        for mod, leaf, p in reversed(saved):
+            mod._parameters[leaf] = p

@@ -16,6 +16,18 @@ from the producing kernel exactly as the JAX package chains them on TPU;
 False is the plain PyTorch composition, the counterpart of the JAX
 package's XLA path (two-pass GroupNorm, no stats chaining), built from the
 `*_plain` functions of `ops/` that chip_smoke.py times against each kernel.
+
+Training: a module that `prepare_kernels` never saw has no kernel layouts,
+and the kernel path then builds them from its live weights at every call,
+inside a `torch.autograd.Function` (the counterparts of the JAX package's
+custom VJPs): the trainer merges LoRA into new weight tensors at every
+pass and puts them in place of the parameters (`lora.swap_params`), so a
+layout taken once would train the wrong weights. The backward of the fused GN+SiLU+conv is `GnSiluConvFn`
+(K8: K1 on the output gradient for du, 9 shifted GEMMs for dw, fp32
+elementwise GN/SiLU); the other kernels' backward is autograd through
+their plain version, recomputed from the saved inputs (`KernelFn`), and
+attention's is K7 (`ops.attention.FlashAttention`). The plain path needs
+no Function: autograd runs through its PyTorch ops.
 """
 
 from __future__ import annotations
@@ -213,6 +225,9 @@ def group_norm(norm: nn.GroupNorm, x, num_groups: int, eps: float,
     from the producer's emitted partial sums (`x_stats`) or from K5."""
     if not kernels:
         return _gn_xla(x, norm.weight, norm.bias, num_groups, eps)
+    if not has_kernel_layouts(norm):
+        return KernelFn.apply(*_gn_fwd(num_groups, eps), 1, x, norm.weight,
+                              norm.bias, x_stats)[0]
     return _apply_affine(x, *_gn_coeffs(norm, x, num_groups, eps, x_stats))
 
 
@@ -234,6 +249,253 @@ def _plain_skip(skip: Optional[Skip]):
     return skip.x * skip.gamma, skip.conv.weight, skip.conv.bias
 
 
+# ---------------------------------------------------------------------------
+# Autograd Functions of the kernel path with live weights (training)
+# ---------------------------------------------------------------------------
+
+
+def has_kernel_layouts(module) -> bool:
+    """True once `prepare_kernels` built the module's kernel layouts."""
+    return any(hasattr(module, a) for a in ("kwp", "kaff", "kln")) \
+        or (isinstance(module, nn.Linear) and hasattr(module, "kw"))
+
+
+def _hwio(w):
+    """nn.Conv2d's (Co, C, kh, kw) -> (kh, kw, C, Co), contiguous."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def _packed(w_hwio, fold: bool = False):
+    """The kernels' weight layout, built from a live weight; only CUDA
+    tensors need it (the CPU plain versions read HWIO)."""
+    if w_hwio is None or w_hwio.device.type == "cpu":
+        return None
+    if fold:
+        w_hwio = fused_conv.fold_upsample_weights(w_hwio)
+    return fused_conv.pack_weights(w_hwio)
+
+
+def _bias_f32(b, co, like):
+    """A conv or linear bias as fp32 (zeros for a bias-free module)."""
+    return torch.zeros(co, device=like.device) if b is None else b.float()
+
+
+class KernelFn(torch.autograd.Function):
+    """Forward through a kernel entry, backward by autograd through its
+    plain version recomputed from the saved inputs (the counterpart of the
+    JAX package's `jax.vjp(xla_impl, *saved)` backward for K3, K4, the
+    prologue-free conv and GroupNorm). `fwd` and `plain` take the same
+    positional tensors (or None) and return tuples whose first `n_diff`
+    outputs are differentiable; the rest (emitted stats) are not."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, n_diff: int, *args):
+        ctx.plain, ctx.n_diff = plain, n_diff
+        ctx.save_for_backward(*args)
+        with torch.no_grad():
+            outs = tuple(fwd(*args))
+        if len(outs) > n_diff:
+            ctx.mark_non_differentiable(*outs[n_diff:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        args = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inp = [a.detach().requires_grad_(n) if a is not None else None
+                   for a, n in zip(args, needs)]
+            outs = ctx.plain(*inp)[:ctx.n_diff]
+        wrt = [a for a, n in zip(inp, needs) if n]
+        g = [torch.zeros_like(o) if go is None else go
+             for o, go in zip(outs, gouts)]
+        grads = iter(torch.autograd.grad(outs, wrt, g, allow_unused=True))
+        return (None, None, None) + tuple(next(grads) if n else None
+                                          for n in needs)
+
+
+def conv3x3_input_grad(gy, w):
+    """The input gradient of a 3x3 'same' conv with weights w (Co, C, 3, 3)
+    at output gradient gy (B, H, W, Co): the conv of gy with the spatially
+    flipped, io-swapped weights, i.e. one prologue-free K1 launch with a
+    zero bias on a CUDA tensor (its plain version on the CPU)."""
+    w_t = _hwio(w).flip(0, 1).transpose(2, 3).contiguous()  # (3,3,Co,C)
+    du, _ = fused_conv.fused_gn_silu_conv3x3(
+        gy, w_t, torch.zeros(w.shape[1], device=gy.device),
+        w_packed=_packed(w_t))
+    return du
+
+
+class GnSiluConvFn(torch.autograd.Function):
+    """K1 forward, K8 backward: the counterpart of `_make_fused_gsc`
+    (layers.py:294-455) with `pallas_bwd` (:351-433).
+
+    Inputs: x (B,H,W,C); GN scale, bias (C,); w (Co,C,3,3) in x.dtype; the
+    conv bias cb (Co,); optional extra_bias (B,Co), residual (B,H,W,Co),
+    skip_x (B,H,W,Csk) with skip_w (Csk,Co), and x_stats (partial sums of x
+    chained from its producer). The kernel layouts are packed here, from
+    the weights this call was given. Backward, with fp32 GN statistics
+    recomputed two-pass: du is K1 itself on the output gradient with the
+    spatially flipped, io-swapped weights and no prologue; dw is 9 shifted
+    GEMMs against the recomputed activation; GN and SiLU backward are fp32
+    elementwise. x_stats gets a zero cotangent (it is a function of x, and
+    dx is exact through the composition) and the emitted stats none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w, cb, eb, res, skip_x, skip_w, x_stats,
+                num_groups: int, eps: float, emit_stats: bool):
+        with torch.no_grad():
+            if x_stats is not None:
+                count = x.numel() // (x.shape[0] * x.shape[-1])
+                a, b = gn_ops.combine_stats(x_stats, scale, bias, num_groups,
+                                            eps, count)
+            else:
+                a, b = gn_ops.group_norm_coeffs(x.contiguous(), scale, bias,
+                                                num_groups, eps)
+            w_hwio = _hwio(w)
+            y, stats = fused_conv.fused_gn_silu_conv3x3(
+                x.contiguous(), w_hwio, cb.float(), a, b,
+                extra_bias=None if eb is None else eb.float(),
+                residual=None if res is None else res.contiguous(),
+                skip_x=None if skip_x is None else skip_x.contiguous(),
+                skip_w=skip_w, emit_stats=emit_stats,
+                w_packed=_packed(w_hwio), skip_w_packed=_packed(skip_w))
+        ctx.num_groups, ctx.eps = num_groups, eps
+        ctx.has = (eb is not None, res is not None, skip_x is not None)
+        ctx.save_for_backward(x, scale, bias, w, skip_x, skip_w)
+        if not emit_stats:
+            return y
+        ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        x, scale, bias, w, skip_x, skip_w = ctx.saved_tensors
+        has_eb, has_res, has_skip = ctx.has
+        g_n = ctx.num_groups
+        bsz, h, wd, c = x.shape
+        co = w.shape[0]
+        cg = c // g_n
+        f32 = torch.float32
+        gy = gy.contiguous()
+
+        # GN statistics, two-pass fp32 (as _gn_xla)
+        xf = x.to(f32).reshape(bsz, h * wd, g_n, cg)
+        mean = xf.mean(dim=(1, 3))
+        var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+        inv = torch.rsqrt(var + ctx.eps)                      # (B, G)
+        sg = scale.to(f32).reshape(g_n, cg)
+        bg = bias.to(f32).reshape(g_n, cg)
+        xhat = (xf - mean[:, None, :, None]) * inv[:, None, :, None]
+        z = xhat * sg + bg
+        sig = torch.sigmoid(z)
+        uprime = sig * (1.0 + z * (1.0 - sig))                # silu'
+
+        du = conv3x3_input_grad(gy, w)
+        dz = du.to(f32).reshape(bsz, h * wd, g_n, cg) * uprime
+
+        # GN backward
+        dxhat = dz * sg
+        m1 = dxhat.mean(dim=(1, 3))
+        m2 = (dxhat * xhat).mean(dim=(1, 3))
+        dx = inv[:, None, :, None] * (dxhat - m1[:, None, :, None]
+                                      - xhat * m2[:, None, :, None])
+        dx = dx.reshape(bsz, h, wd, c).to(x.dtype)
+        dscale = (dz * xhat).sum(dim=(0, 1)).reshape(c).to(scale.dtype)
+        dbias = dz.sum(dim=(0, 1)).reshape(c).to(bias.dtype)
+
+        # dw: 9 shifted GEMMs against the recomputed activation
+        u = (z * sig).to(gy.dtype).reshape(bsz, h, wd, c)
+        upad = F.pad(u, (0, 0, 1, 1, 1, 1))
+        gy2 = gy.reshape(-1, co)
+        taps = [upad[:, di:di + h, dj:dj + wd].reshape(-1, c).t() @ gy2
+                for di in range(3) for dj in range(3)]
+        dw = torch.stack(taps).reshape(3, 3, c, co).permute(3, 2, 0, 1)
+        dw = dw.to(w.dtype)
+        dcb = gy2.to(f32).sum(0)
+        deb = gy.to(f32).sum(dim=(1, 2)) if has_eb else None
+        dres = gy if has_res else None
+        dskx = dskw = None
+        if has_skip:
+            dskx = (gy2 @ skip_w.t().to(gy.dtype)).reshape(
+                skip_x.shape).to(skip_x.dtype)
+            dskw = (skip_x.reshape(-1, skip_x.shape[-1]).t() @ gy2).to(
+                skip_w.dtype)
+        return (dx, dscale, dbias, dw, dcb, deb, dres, dskx, dskw, None,
+                None, None, None)
+
+
+def _gn_fwd(num_groups, eps):
+    def fwd(x, scale, bias, x_stats):
+        if x_stats is not None:
+            count = x.numel() // (x.shape[0] * x.shape[-1])
+            a, b = gn_ops.combine_stats(x_stats, scale, bias, num_groups,
+                                        eps, count)
+        else:
+            a, b = gn_ops.group_norm_coeffs(x.contiguous(), scale, bias,
+                                            num_groups, eps)
+        return (_apply_affine(x, a, b),)
+
+    def plain(x, scale, bias, x_stats):
+        return (_gn_xla(x, scale, bias, num_groups, eps),)
+    return fwd, plain
+
+
+def _plainconv_fwd(emit_stats):
+    def fwd(x, w, cb):
+        w_hwio = _hwio(w)
+        y, stats = fused_conv.fused_gn_silu_conv3x3(
+            x.contiguous(), w_hwio, _bias_f32(cb, w.shape[0], x),
+            emit_stats=emit_stats, w_packed=_packed(w_hwio))
+        return (y, stats) if emit_stats else (y,)
+
+    def plain(x, w, cb):
+        return (fused_conv.gn_silu_conv3x3_plain(x, w, cb),)
+    return fwd, plain
+
+
+def _upconv_fwd(emit_stats):
+    def fwd(x, w, cb, skip_x, skip_w):
+        w_hwio = _hwio(w)
+        y, stats = fused_conv.upsample2x_conv3x3(
+            x.contiguous(), w_hwio, _bias_f32(cb, w.shape[0], x),
+            skip_x=None if skip_x is None else skip_x.contiguous(),
+            skip_w=skip_w, emit_stats=emit_stats,
+            w_packed=_packed(w_hwio, fold=True),
+            skip_w_packed=_packed(skip_w))
+        return (y, stats) if emit_stats else (y,)
+
+    def plain(x, w, cb, skip_x, skip_w):
+        skw = None if skip_w is None else skip_w.t()[:, :, None, None]
+        return (fused_conv.upsample2x_conv3x3_plain(x, w, cb, skip_x, skw),)
+    return fwd, plain
+
+
+def _linears_fwd(n_w: int, has_ln: bool, gate: bool, eps: float):
+    """fwd / plain over (x, residual, ln_scale, ln_bias, *ws, *bs) with
+    nn.Linear's (Co, C) weights and possibly-None biases."""
+    def split(args):
+        x, res, lns, lnb = args[:4]
+        ws, bs = args[4:4 + n_w], args[4 + n_w:]
+        ws_t = tuple(w.t() for w in ws)
+        bs = tuple(_bias_f32(b, w.shape[0], x) for b, w in zip(bs, ws))
+        return x, res, (lns, lnb) if has_ln else None, ws_t, bs
+
+    def fwd(*args):
+        x, res, ln, ws_t, bs = split(args)
+        return fused_matmul.fused(
+            x.contiguous(), tuple(w.contiguous() for w in ws_t), bs,
+            ln=None if ln is None else tuple(t.float() for t in ln),
+            residual=None if res is None else res.contiguous(), gate=gate,
+            eps=eps)
+
+    def plain(*args):
+        x, res, ln, ws_t, bs = split(args)
+        return fused_matmul.fused_ref(x, ws_t, bs, ln=ln, residual=res,
+                                      gate=gate, eps=eps)
+    return fwd, plain
+
+
 def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
                  eps: float, *, kernels: bool, extra_bias=None,
                  residual=None, x_stats=None, emit_stats: bool = False,
@@ -251,6 +513,18 @@ def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
             x, conv.weight, conv.bias, a, b, extra_bias, residual,
             *_plain_skip(skip))
         return (y, None) if emit_stats else y
+    if not has_kernel_layouts(conv):
+        cb = _bias_f32(conv.bias, conv.weight.shape[0], x)
+        skx = skw = None
+        if skip is not None:
+            skx = skip.x
+            skw = (skip.conv.weight[:, :, 0, 0].t() * skip.gamma).to(x.dtype)
+            if skip.conv.bias is not None:
+                cb = cb + skip.conv.bias.float()
+        return GnSiluConvFn.apply(
+            x, norm.weight, norm.bias, conv.weight.to(x.dtype), cb,
+            extra_bias, residual, skx, skw, x_stats, num_groups, eps,
+            emit_stats)
     a, b = _gn_coeffs(norm, x, num_groups, eps, x_stats)
     skw, skwp = _skip_weights(skip) if skip is not None else (None, None)
     y, stats = fused_conv.fused_gn_silu_conv3x3(
@@ -268,6 +542,10 @@ def plain_conv3x3(conv: Conv2d, x, emit_stats: bool = False, *,
     if not kernels:
         y = fused_conv.gn_silu_conv3x3_plain(x, conv.weight, conv.bias)
         return (y, None) if emit_stats else y
+    if not has_kernel_layouts(conv):
+        out = KernelFn.apply(*_plainconv_fwd(emit_stats), 1, x,
+                             conv.weight.to(x.dtype), conv.bias)
+        return out if emit_stats else out[0]
     y, stats = fused_conv.fused_gn_silu_conv3x3(
         x.contiguous(), conv.kw, conv.kb, emit_stats=emit_stats,
         w_packed=conv.kwp)
@@ -282,6 +560,14 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
         y = fused_conv.upsample2x_conv3x3_plain(x, conv.weight, conv.bias,
                                                 *_plain_skip(skip))
         return (y, None) if emit_stats else y
+    if not has_kernel_layouts(conv):
+        skx = skw = None
+        if skip is not None:
+            skx = skip.x
+            skw = (skip.conv.weight[:, :, 0, 0].t() * skip.gamma).to(x.dtype)
+        out = KernelFn.apply(*_upconv_fwd(emit_stats), 1, x,
+                             conv.weight.to(x.dtype), conv.bias, skx, skw)
+        return out if emit_stats else out[0]
     skw, skwp = _skip_weights(skip) if skip is not None else (None, None)
     y, stats = fused_conv.upsample2x_conv3x3(
         x.contiguous(), conv.kw, conv.kb,
@@ -307,6 +593,13 @@ def fused_linears(lins, x, norm: Optional[LayerNorm] = None, *,
             x, tuple(m.weight for m in lins), tuple(m.bias for m in lins),
             ln=None if norm is None else (norm.weight, norm.bias),
             residual=residual, gate=gate, eps=eps)
+    if not has_kernel_layouts(lins[0]):
+        return KernelFn.apply(
+            *_linears_fwd(len(lins), norm is not None, gate, eps),
+            1 if gate else len(lins), x, residual,
+            None if norm is None else norm.weight,
+            None if norm is None else norm.bias,
+            *(m.weight.to(x.dtype) for m in lins), *(m.bias for m in lins))
     return fused_matmul.fused(
         x.contiguous(), tuple(m.kw for m in lins), tuple(m.kb for m in lins),
         ln=None if norm is None else norm.kln,
@@ -322,6 +615,9 @@ def linear_fused(lin: Linear, x, residual=None, *, kernels: bool):
 def multihead_attention(q, k, v, num_heads: int, *, kernels: bool):
     if not kernels:
         return attn_ops.mha_ref(q, k, v, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return attn_ops.FlashAttention.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), num_heads)
     return attn_ops.flash_attention_folded(
         q.contiguous(), k.contiguous(), v.contiguous(), num_heads)
 

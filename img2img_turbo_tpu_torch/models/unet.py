@@ -9,10 +9,13 @@ does for any concat it does not split.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from img2img_turbo_tpu.configs import UNetConfig
+from img2img_turbo_tpu_torch.configs import UNetConfig
 from img2img_turbo_tpu_torch.models import layers as L
 
 
@@ -123,9 +126,13 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = L.GroupNorm(g, chans[0], eps)
         self.conv_out = L.Conv2d(chans[0], cfg.out_channels, 3)
 
-    def forward(self, x, timesteps, context, *, kernels: bool):
+    def forward(self, x, timesteps, context, *, kernels: bool,
+                remat: bool = False):
         """x: (B, H, W, 4) latents; timesteps: (B,) int; context:
-        (B, 77, cross_dim). Returns eps (B, H, W, 4)."""
+        (B, 77, cross_dim). Returns eps (B, H, W, 4). remat: recompute each
+        down, mid and up block in the backward (torch.utils.checkpoint,
+        non-reentrant), as the JAX package's `remat=True` does for
+        training; a recompute launches the block's kernels again."""
         cfg = self.cfg
         temb = L.timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -133,11 +140,10 @@ class UNet2DConditionModel(nn.Module):
         temb = L.linear(te.linear_2,
                         L.silu(L.linear(te.linear_1, temb.to(x.dtype))))
 
-        sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels)
-        res_stack = [sample]
-        for block in self.down_blocks:
+        def run_down_block(block, sample, temb, context):
             attns = getattr(block, "attentions", None)
             stats = None
+            outs = []
             for j, res in enumerate(block.resnets):
                 # resnet conv2 -> transformer GN (or the next resnet's GN1
                 # in attention-free blocks); the chain breaks at the
@@ -148,22 +154,22 @@ class UNet2DConditionModel(nn.Module):
                     sample = attns[j](sample, context, kernels=kernels,
                                       x_stats=stats)
                     stats = None
-                res_stack.append(sample)
+                outs.append(sample)
             if hasattr(block, "downsamplers"):
                 sample = L.downsample2x_conv(block.downsamplers[0].conv,
                                              sample, pad_lo=1)
-                res_stack.append(sample)
+                outs.append(sample)
+            return sample, outs
 
-        mid = self.mid_block
-        sample, stats = mid.resnets[0](sample, temb, kernels=kernels,
-                                       emit_stats=True)
-        sample = mid.attentions[0](sample, context, kernels=kernels,
-                                   x_stats=stats)
-        sample = mid.resnets[1](sample, temb, kernels=kernels)
+        def run_mid(sample, temb, context):
+            mid = self.mid_block
+            sample, stats = mid.resnets[0](sample, temb, kernels=kernels,
+                                           emit_stats=True)
+            sample = mid.attentions[0](sample, context, kernels=kernels,
+                                       x_stats=stats)
+            return mid.resnets[1](sample, temb, kernels=kernels)
 
-        for block in self.up_blocks:
-            k = len(block.resnets)
-            res_samples, res_stack = res_stack[-k:], res_stack[:-k]
+        def run_up_block(block, sample, res_samples, temb, context, size):
             attns = getattr(block, "attentions", None)
             for j, res in enumerate(block.resnets):
                 cat = torch.cat([sample, res_samples[-(j + 1)]], dim=-1)
@@ -175,14 +181,34 @@ class UNet2DConditionModel(nn.Module):
             if hasattr(block, "upsamplers"):
                 conv = block.upsamplers[0].conv
                 h, w = sample.shape[1:3]
-                size = tuple(res_stack[-1].shape[1:3])
                 if size != (2 * h, 2 * w):
                     # odd skip sizes: torch-nearest upsample to the stored
                     # residual's size, then a plain conv (unet.py:350-355)
-                    sample = L.conv2d(conv,
-                                      L.upsample_nearest_to(sample, size))
+                    sample = L.conv2d(conv, L.upsample_nearest_to(sample, size))
                 else:
                     sample = L.upsample2x_conv(conv, sample, kernels=kernels)
+            return sample
+
+        if remat:
+            def ckpt(fn):
+                return functools.partial(checkpoint, fn, use_reentrant=False)
+            run_down_block, run_mid, run_up_block = (
+                ckpt(run_down_block), ckpt(run_mid), ckpt(run_up_block))
+
+        sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels)
+        res_stack = [sample]
+        for block in self.down_blocks:
+            sample, outs = run_down_block(block, sample, temb, context)
+            res_stack.extend(outs)
+
+        sample = run_mid(sample, temb, context)
+
+        for block in self.up_blocks:
+            k = len(block.resnets)
+            res_samples, res_stack = res_stack[-k:], res_stack[:-k]
+            size = tuple(res_stack[-1].shape[1:3]) if res_stack else None
+            sample = run_up_block(block, sample, res_samples, temb, context,
+                                  size)
 
         return L.gn_silu_conv(self.conv_norm_out, self.conv_out, sample,
                               cfg.norm_num_groups, cfg.norm_eps,

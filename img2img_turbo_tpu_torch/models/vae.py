@@ -16,7 +16,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 
-from img2img_turbo_tpu.configs import VAEConfig
+from img2img_turbo_tpu_torch.configs import VAEConfig
 from img2img_turbo_tpu_torch.models import layers as L
 
 

@@ -1,15 +1,21 @@
-"""Attention: kernel K2 (CUDA, `csrc/attention.cu`) and its plain version.
+"""Attention: kernels K2 and K7 (CUDA, `csrc/attention.cu`,
+`csrc/attention_bwd.cu`), their plain versions, and the autograd Function
+that pairs them.
 
-Counterpart of `img2img_turbo_tpu/ops/attention.py:204
-flash_attention_folded` (Pallas body `_flash_heads_kernel :151`) and of
-`_mha_xla :479-487`. Inputs stay in the folded (B, S, H*hd) layout.
-`mha_ref` is both the kernel's plain version (its correctness yardstick,
-and what the wrapper computes on a CPU tensor) and what the plain engine
-(`use_kernels=False`) runs.
+Counterparts of `img2img_turbo_tpu/ops/attention.py:204
+flash_attention_folded` (K2, Pallas body `_flash_heads_kernel :151`, with
+its `return_lse` output), `:390 flash_attention_folded_bwd` (K7), and of
+`_mha_xla :479-487` and the custom VJP `_mha_flash :490-509`. Inputs stay
+in the folded (B, S, H*hd) layout.
 
-On the card every attention of the main path goes through the kernel,
+`mha_ref` is both K2's plain version (its correctness yardstick, and what
+the wrapper computes on a CPU tensor) and what the plain engine
+(`use_kernels=False`) runs; `attention_bwd_ref` is K7's: P recomputed from
+lse, fp32 throughout, one rounding.
+
+On the card every attention of the main path goes through the kernels,
 whatever Sq (the TPU's `sq >= 256` dispatch gate was a tiling choice). The
-kernel takes hd = 64 (UNet) and hd = 512 (the one-head VAE mid attention);
+kernels take hd = 64 (UNet) and hd = 512 (the one-head VAE mid attention);
 other head sizes raise.
 """
 
@@ -29,55 +35,159 @@ def _fn():
     lib = _build.load("attention")
     f = lib.flash_attention_bf16
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
 
 
-def mha_ref(q, k, v, num_heads: int):
+def _bwd_fn():
+    lib = _build.load("attention_bwd")
+    f = lib.flash_attention_bwd_bf16
+    if f.argtypes is None:
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def _heads(t, num_heads):
+    """(B, S, H*hd) -> (B, H, S, hd) fp32."""
+    b, s, d = t.shape
+    return t.float().reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _fold(t, dtype):
+    """(B, H, S, hd) -> (B, S, H*hd) in dtype."""
+    b, h, s, hd = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * hd).to(dtype)
+
+
+def mha_ref(q, k, v, num_heads: int, return_lse: bool = False):
     """Plain version (the counterpart of `_mha_xla`): fp32 scores and
-    softmax, probabilities cast to v.dtype, fp32 accumulation."""
-    b, sq, d = q.shape
-    skv = k.shape[1]
-    hd = d // num_heads
-    qh = q.reshape(b, sq, num_heads, hd).transpose(1, 2)
-    kh = k.reshape(b, skv, num_heads, hd).transpose(1, 2)
-    vh = v.reshape(b, skv, num_heads, hd).transpose(1, 2)
-    s = (qh.float() @ kh.float().transpose(-1, -2)) / math.sqrt(hd)
+    softmax, probabilities cast to v.dtype, fp32 accumulation. With
+    return_lse also the (B, Sq, H) fp32 logsumexp of the scaled scores."""
+    hd = q.shape[-1] // num_heads
+    s = (_heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2)) \
+        / math.sqrt(hd)
     p = torch.softmax(s, dim=-1)
-    o = (p.to(v.dtype).float() @ vh.float()).to(q.dtype)
-    return o.transpose(1, 2).reshape(b, sq, d)
+    o = _fold(p.to(v.dtype).float() @ _heads(v, num_heads), q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_folded(q, k, v, num_heads: int):
-    """K2. q: (B, Sq, D), k/v: (B, Skv, D), D = num_heads * hd; returns
-    (B, Sq, D). CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return mha_ref(q, k, v, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_folded: unsupported device "
-                         f"{q.device}")
+def attention_bwd_ref(q, k, v, o, do, lse, num_heads: int):
+    """K7's plain version: P = exp(S*scale - lse) recomputed from the saved
+    logsumexp, dV = P^T dO, dS = P * (dO V^T - delta) with
+    delta = rowsum(dO * O), dQ = dS K * scale, dK = dS^T Q * scale; fp32
+    throughout, each result rounded once to its input's dtype."""
+    hd = q.shape[-1] // num_heads
+    scale = 1.0 / math.sqrt(hd)
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
+    oh, doh = _heads(o, num_heads), _heads(do, num_heads)
+    p = torch.exp(qh @ kh.transpose(-1, -2) * scale
+                  - lse.float().transpose(1, 2)[..., None])
+    dv = p.transpose(-1, -2) @ doh
+    delta = (doh * oh).sum(-1, keepdim=True)
+    ds = p * (doh @ vh.transpose(-1, -2) - delta)
+    dq = ds @ kh * scale
+    dk = ds.transpose(-1, -2) @ qh * scale
+    return _fold(dq, q.dtype), _fold(dk, k.dtype), _fold(dv, v.dtype)
+
+
+def _check(name, t, shape, device):
+    if t.device != device or t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                         f"bfloat16 on {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous, 16-byte aligned")
+
+
+def _check_qkv(what, q, k, v, num_heads):
     b, sq, d = q.shape
     skv = k.shape[1]
     if d % num_heads or d // num_heads not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_folded: head dim "
-                         f"{d}/{num_heads} not in {HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim {d}/{num_heads} not in "
+                         f"{HEAD_DIMS}")
     if skv < 1 or sq < 1:
-        raise ValueError("flash_attention_folded: empty sequence")
+        raise ValueError(f"{what}: empty sequence")
     for name, t, shape in (("q", q, (b, sq, d)), ("k", k, (b, skv, d)),
                            ("v", v, (b, skv, d))):
-        if t.device != q.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"bfloat16 on {q.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be contiguous, 16-byte aligned")
+        _check(name, t, shape, q.device)
+    return b, sq, skv, d
+
+
+def flash_attention_folded(q, k, v, num_heads: int, return_lse: bool = False):
+    """K2. q: (B, Sq, D), k/v: (B, Skv, D), D = num_heads * hd; returns
+    (B, Sq, D), and with return_lse also the (B, Sq, H) fp32 logsumexp.
+    CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, num_heads, return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_folded: unsupported device "
+                         f"{q.device}")
+    b, sq, skv, d = _check_qkv("flash_attention_folded", q, k, v, num_heads)
     o = torch.empty_like(q)
+    lse = (torch.empty((b, sq, num_heads), device=q.device,
+                       dtype=torch.float32) if return_lse else None)
     err = _fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-                b, sq, skv, num_heads, d // num_heads, _build.stream())
+                _build.ptr(lse), b, sq, skv, num_heads, d // num_heads,
+                _build.stream())
     _build.check(err, "flash_attention_bf16")
     _build.launch_counts["flash_attention_folded"] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_folded_bwd(q, k, v, o, do, lse, num_heads: int):
+    """K7: (dq, dk, dv) of flash_attention_folded from the forward's output
+    o and logsumexp lse (B, Sq, H) fp32, and the output cotangent do. One
+    call launches its two kernels (dq, then dk/dv). CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, lse, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_folded_bwd: unsupported device "
+                         f"{q.device}")
+    b, sq, skv, d = _check_qkv("flash_attention_folded_bwd", q, k, v,
+                               num_heads)
+    _check("o", o, q.shape, q.device)
+    _check("do", do, q.shape, q.device)
+    if lse.device != q.device or lse.dtype != torch.float32 \
+            or tuple(lse.shape) != (b, sq, num_heads) \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse: {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}, expected contiguous float32 "
+                         f"{(b, sq, num_heads)} on {q.device}")
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _bwd_fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                    _build.ptr(o), _build.ptr(do), _build.ptr(lse),
+                    _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
+                    _build.ptr(dv), b, sq, skv, num_heads, d // num_heads,
+                    _build.stream())
+    _build.check(err, "flash_attention_bwd_bf16")
+    _build.launch_counts["flash_attention_folded_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 forward, K7 backward (the counterpart of `_mha_flash`'s custom
+    VJP): saves q, k, v, o and lse; the backward rebuilds P from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        o, lse = flash_attention_folded(q, k, v, num_heads, return_lse=True)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_folded_bwd(q, k, v, o, do.contiguous(),
+                                                lse, ctx.num_heads)
+        return dq, dk, dv, None

@@ -65,7 +65,11 @@ def pack_weights(w):
 
 
 def upsample_nearest_2x(x):
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    """Nearest 2x upsample of NHWC x, as a broadcast (its backward is a
+    plain sum, with no scatter: deterministic on the card)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
+        b, 2 * h, 2 * w, c)
 
 
 def _conv_nhwc(x, w_oihw, bias=None):

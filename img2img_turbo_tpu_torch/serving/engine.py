@@ -16,7 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from img2img_turbo_tpu_torch import scheduler
+from img2img_turbo_tpu_torch import resolve_device, scheduler
 from img2img_turbo_tpu_torch.models.layers import prepare_kernels
 from img2img_turbo_tpu_torch.ops import canny as canny_mod
 from img2img_turbo_tpu_torch.ops import image as image_mod
@@ -43,8 +43,10 @@ class ServingEngine:
     """One-step edge_to_image server on one device.
 
     params: {"unet": UNet2DConditionModel, "vae": AutoencoderKL} with the
-    LoRA-merged weights loaded. They are moved to `device`, cast to `dtype`
-    and given their kernel-ready layouts once, here."""
+    LoRA-merged weights loaded. They are moved to `device` (the CUDA card
+    unless the caller names another; without a card the caller must pass
+    device="cpu"), cast to `dtype` and given their kernel-ready layouts
+    once, here."""
 
     def __init__(self, params: Dict[str, torch.nn.Module],
                  cfgs: Optional[GeneratorConfigs] = None,
@@ -58,9 +60,7 @@ class ServingEngine:
         self.mode, self.dtype = mode, dtype
         self.canny_low, self.canny_high = canny_low, canny_high
         self.use_kernels = use_kernels
-        if device is None:
-            device = next(params["unet"].parameters()).device
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.unet = prepare_kernels(
             params["unet"].to(device=self.device, dtype=dtype).eval())
         self.vae = prepare_kernels(

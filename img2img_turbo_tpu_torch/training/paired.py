@@ -1,0 +1,274 @@
+"""Paired (pix2pix-turbo) training: the 4-pass adversarial step (counterpart
+of `img2img_turbo_tpu/training/paired.py`).
+
+One step is four optimize passes, each its own forward, gradient and
+AdamW update (reference train_pix2pix_turbo.py:168-225):
+  1. generator: L2*lambda_l2 + LPIPS*lambda_lpips (+ CLIP-sim*lambda_clipsim);
+  2. generator, a fresh forward with the updated weights: GAN-G*lambda_gan;
+  3. discriminator heads on the real images;
+  4. discriminator heads on pass 2's images, detached.
+The spectral-norm vectors advance after each discriminator forward of
+passes 2-4, as in the JAX step.
+
+Trainable (reference set_train, pix2pix_turbo.py:176-184): the UNet and VAE
+LoRA factors, the UNet conv_in and the VAE skip convs (four at SD-Turbo's
+four levels). They live in
+one flat dictionary of fp32 leaf tensors, `gen`, keyed "<part>:<name>":
+"unet_lora:<module>.a" / ".b", "vae_lora:<module>.a" / ".b",
+"unet:conv_in.weight", "vae:decoder.skip_conv_1.weight", ... Everything
+else is frozen in the modules (fp32). Each generator pass merges LoRA into
+new weight tensors (`build_gen_params`, cast to the compute dtype) and
+runs the forward and its backward inside `lora.swap_params`, so the
+kernels pack those live weights and the UNet's per-block recompute reads
+the same ones. The posterior noise of the two generator forwards is an
+input of the step: a recompute never redraws it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from img2img_turbo_tpu_torch import lora as lora_mod, scheduler
+from img2img_turbo_tpu_torch.models import discriminator as disc_mod
+from img2img_turbo_tpu_torch.models.layers import has_kernel_layouts
+from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
+                                                       generate_deterministic)
+from img2img_turbo_tpu_torch.training import losses as losses_mod
+from img2img_turbo_tpu_torch.training.optim import AdamW
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraMeta:
+    rank_unet: int = 8
+    alpha_unet: float = 8.0
+    rank_vae: int = 4
+    alpha_vae: float = 8.0
+
+
+@dataclasses.dataclass
+class PairedModels:
+    """The frozen modules of a paired run (fp32 parameters)."""
+    unet: torch.nn.Module
+    vae: torch.nn.Module
+    text: torch.nn.Module
+    lpips: torch.nn.Module
+    disc_backbone: torch.nn.Module
+    clip: torch.nn.Module
+
+
+@dataclasses.dataclass
+class PairedState:
+    gen: Dict[str, torch.Tensor]
+    disc: Dict[str, torch.Tensor]
+    disc_sn: Dict[str, torch.Tensor]
+    gen_opt: AdamW
+    disc_opt: AdamW
+    step: int = 0
+
+
+def split_trainable(unet, vae, unet_lora, vae_lora
+                    ) -> Tuple[Dict[str, torch.Tensor], LoraMeta]:
+    """-> (gen, meta): fresh fp32 leaf tensors for the trainables
+    (training/paired.py:43-66). The modules' own parameters are frozen."""
+    gen = {}
+    for part, lora in (("unet_lora", unet_lora), ("vae_lora", vae_lora)):
+        for name, entry in sorted(lora["modules"].items()):
+            for ab in ("a", "b"):
+                gen[f"{part}:{name}.{ab}"] = entry[ab]
+    gen["unet:conv_in.weight"] = unet.conv_in.weight
+    gen["unet:conv_in.bias"] = unet.conv_in.bias
+    for key, p in vae.named_parameters():
+        if key.startswith("decoder.skip_conv_"):
+            gen["vae:" + key] = p
+    gen = {k: v.detach().float().clone().requires_grad_(True)
+           for k, v in gen.items()}
+    for m in (unet, vae):
+        m.requires_grad_(False)
+    meta = LoraMeta(unet_lora["rank"], unet_lora["alpha"], vae_lora["rank"],
+                    vae_lora["alpha"])
+    return gen, meta
+
+
+def _lora_of(gen, part: str, rank: int, alpha: float) -> Dict:
+    modules: Dict = {}
+    for k, v in gen.items():
+        if k.startswith(part + ":"):
+            name, ab = k[len(part) + 1:].rsplit(".", 1)
+            modules.setdefault(name, {})[ab] = v
+    return {"rank": rank, "alpha": alpha, "modules": modules}
+
+
+def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None) -> Dict:
+    """{"unet": {param name: tensor}, "vae": {...}}: the trainables in
+    place of their base weights, then LoRA merged (training/paired.py:
+    69-79); merged weights are cast to `dtype` when given. Differentiable
+    in `gen`."""
+    out = {}
+    for model, module, rank, alpha in (
+            ("unet", unet, meta.rank_unet, meta.alpha_unet),
+            ("vae", vae, meta.rank_vae, meta.alpha_vae)):
+        over = {k.split(":", 1)[1]: v for k, v in gen.items()
+                if k.startswith(model + ":")}
+        base = {**dict(module.named_parameters()), **over}
+        merged = lora_mod.merge_lora(
+            base, _lora_of(gen, model + "_lora", rank, alpha), dtype=dtype)
+        out[model] = {**over, **merged}
+    return out
+
+
+def draw_noise(generator: torch.Generator, batch: int, height: int,
+               width: int, cfgs: GeneratorConfigs, dtype):
+    """Posterior noise (B, H/f, W/f, latent) for one generator forward,
+    f = 2^(VAE levels - 1)."""
+    f = 2 ** (cfgs.vae.num_levels - 1)
+    return torch.randn(batch, height // f, width // f,
+                       cfgs.vae.latent_channels, generator=generator,
+                       device=generator.device).to(dtype)
+
+
+def make_state(gen, disc, disc_sn, gen_schedule, disc_schedule,
+               **adam_kwargs) -> PairedState:
+    """The training state, with one AdamW (clip + decoupled decay, optax's
+    update) over the generator trainables and one over the heads."""
+    disc = {k: v.detach().float().clone().requires_grad_(True)
+            for k, v in disc.items()}
+    return PairedState(gen, disc, dict(disc_sn),
+                       AdamW(list(gen.values()), gen_schedule, **adam_kwargs),
+                       AdamW(list(disc.values()), disc_schedule,
+                             **adam_kwargs))
+
+
+def _apply(opt: AdamW, params: Dict, grads: Dict) -> None:
+    for k, p in params.items():
+        p.grad = grads[k]
+    opt.step()
+    for p in params.values():
+        p.grad = None
+
+
+def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
+                           loss_cfg: losses_mod.PairedLossConfig,
+                           meta: LoraMeta, *, kernels: bool = True,
+                           remat: bool = True, dtype=torch.bfloat16):
+    """Returns train_step(state, batch, noise, keep_grads=False) ->
+    (metrics, pass-1 gradients or None); it updates `state` in place.
+    batch: conditioning_pixel_values (B,H,W,3) [0,1], output_pixel_values
+    [-1,1], input_ids (B,77); noise: the posterior noise of passes 1 and 2
+    (`draw_noise`). kernels=False runs the plain PyTorch path on the same
+    weights."""
+    for m in (models.unet, models.vae):
+        if any(has_kernel_layouts(sub) for sub in m.modules()):
+            raise ValueError("train the modules unprepared: kernel layouts "
+                             "taken by prepare_kernels would be stale")
+    dev = next(models.unet.parameters()).device
+    alphas = scheduler.make_alphas_cumprod(device=dev)
+    smooth = loss_cfg.gan_loss_type.endswith("_s")
+
+    def gen_pass(gen, c_t, caption_enc, noise, loss_fn):
+        """loss_fn(pred) -> (loss, parts); returns (loss, parts, grads
+        over gen, pred detached)."""
+        params = build_gen_params(gen, models.unet, models.vae, meta, dtype)
+        with lora_mod.swap_params(models.unet, params["unet"]), \
+                lora_mod.swap_params(models.vae, params["vae"]):
+            pred = generate_deterministic(
+                models.unet, models.vae, cfgs, alphas, c_t, caption_enc,
+                kernels=kernels, noise=noise, remat=remat)
+            loss, parts = loss_fn(pred)
+            grads = torch.autograd.grad(loss, list(gen.values()))
+        return loss.detach(), parts, dict(zip(gen, grads)), pred.detach()
+
+    def train_step(state: PairedState, batch, noise, keep_grads=False):
+        c_t = batch["conditioning_pixel_values"].to(dtype)
+        x_tgt = batch["output_pixel_values"].to(dtype)
+        ids = batch["input_ids"]
+        with torch.no_grad():
+            caption_enc = models.text(ids).to(dtype)
+        metrics = {}
+
+        # ---- pass 1: reconstruction -----------------------------------
+        def recon(pred):
+            l2 = loss_cfg.lambda_l2 * losses_mod.l2_loss(pred, x_tgt)
+            lp = loss_cfg.lambda_lpips * losses_mod.lpips_loss(
+                models.lpips, pred, x_tgt)
+            parts = {"loss_l2": l2.detach(), "loss_lpips": lp.detach()}
+            total = l2 + lp
+            if loss_cfg.lambda_clipsim > 0:
+                cs = loss_cfg.lambda_clipsim * losses_mod.clipsim_loss(
+                    models.clip, pred, ids)
+                parts["loss_clipsim"] = cs.detach()
+                total = total + cs
+            return total, parts
+
+        _, parts, grads1, _ = gen_pass(state.gen, c_t, caption_enc,
+                                       noise[0], recon)
+        _apply(state.gen_opt, state.gen, grads1)
+        metrics.update(parts)
+
+        # ---- pass 2: generator GAN (fresh forward, updated gen) --------
+        sn = state.disc_sn
+
+        def gan_g(pred):
+            return loss_cfg.lambda_gan * losses_mod.gan_gen_loss(
+                models.disc_backbone, state.disc, sn, pred, smooth), {}
+
+        loss_g, _, grads, pred2 = gen_pass(state.gen, c_t, caption_enc,
+                                           noise[1], gan_g)
+        _apply(state.gen_opt, state.gen, grads)
+        metrics["loss_gan_g"] = loss_g
+        sn = disc_mod.sn_step(state.disc, sn)
+
+        # ---- pass 3: discriminator on the real images ------------------
+        heads = list(state.disc.values())
+        loss_dr = loss_cfg.lambda_gan * losses_mod.gan_disc_real_loss(
+            models.disc_backbone, state.disc, sn, x_tgt, smooth)
+        grads = dict(zip(state.disc, torch.autograd.grad(loss_dr, heads)))
+        sn = disc_mod.sn_step(state.disc, sn)   # the heads before the update
+        _apply(state.disc_opt, state.disc, grads)
+        metrics["loss_d_real"] = loss_dr.detach()
+
+        # ---- pass 4: discriminator on pass 2's images, detached --------
+        loss_df = loss_cfg.lambda_gan * losses_mod.gan_disc_fake_loss(
+            models.disc_backbone, state.disc, sn, pred2, smooth)
+        grads = dict(zip(state.disc, torch.autograd.grad(loss_df, heads)))
+        sn = disc_mod.sn_step(state.disc, sn)
+        _apply(state.disc_opt, state.disc, grads)
+        metrics["loss_d_fake"] = loss_df.detach()
+
+        state.disc_sn = sn
+        state.step += 1
+        return metrics, (grads1 if keep_grads else None)
+
+    return train_step
+
+
+def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
+                   meta: LoraMeta, *, kernels: bool = True,
+                   dtype=torch.bfloat16):
+    """Validation metrics L2, LPIPS and CLIP-sim of the current generator
+    (reference train_pix2pix_turbo.py:259-301). Returns
+    eval_step(gen, batch, noise) -> (pred, metrics)."""
+    dev = next(models.unet.parameters()).device
+    alphas = scheduler.make_alphas_cumprod(device=dev)
+
+    @torch.no_grad()
+    def eval_step(gen, batch, noise):
+        c_t = batch["conditioning_pixel_values"].to(dtype)
+        x_tgt = batch["output_pixel_values"].to(dtype)
+        ids = batch["input_ids"]
+        caption_enc = models.text(ids).to(dtype)
+        params = build_gen_params(gen, models.unet, models.vae, meta, dtype)
+        with lora_mod.swap_params(models.unet, params["unet"]), \
+                lora_mod.swap_params(models.vae, params["vae"]):
+            pred = generate_deterministic(models.unet, models.vae, cfgs,
+                                          alphas, c_t, caption_enc,
+                                          kernels=kernels, noise=noise)
+        return pred, {
+            "val_l2": losses_mod.l2_loss(pred, x_tgt),
+            "val_lpips": losses_mod.lpips_loss(models.lpips, pred, x_tgt),
+            "val_clipsim": 1.0 - losses_mod.clipsim_loss(models.clip, pred,
+                                                         ids)}
+
+    return eval_step

@@ -1,0 +1,91 @@
+"""Where the time of one paired train step goes, on the card.
+
+    python -m img2img_turbo_tpu_torch.training.profile_step
+
+Builds the full-width paired run of chip_smoke.py's train phase (seeded
+random weights, 512x512 b1, bf16 activations, UNet remat), runs one step of
+the kernel path and one of the plain path to warm up, then one step of each
+under torch.profiler, and prints for each: the step's wall time, the device
+time summed over its GPU kernels, the number of GPU kernels, and the GPU
+kernels that take the most device time, with their counts. Needs a CUDA
+card; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import collections
+import subprocess
+import time
+
+import torch
+
+
+SIZE = 512     # the train phase's image size
+TOP = 30       # GPU kernels listed per path
+
+
+def _profile_step(step, state, batch, noise):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, noise)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = collections.defaultdict(lambda: [0, 0.0])
+    for evt in prof.events():
+        # GPU kernels only: a record_function range (the optimizer's step)
+        # also shows on the device, spanning the kernels inside it
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, "is_user_annotation", False):
+            kernels[evt.name][0] += 1
+            kernels[evt.name][1] += evt.device_time_total / 1e3
+    device = sum(v[1] for v in kernels.values())
+    n = sum(v[0] for v in kernels.values())
+    print(f"  wall {wall:.2f} ms, device (sum of GPU kernels) {device:.2f} "
+          f"ms, {n} GPU kernels", flush=True)
+    for name, (cnt, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[
+            :TOP]:
+        print(f"    {ms:9.3f} ms {cnt:6d}x  {name[:110]}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this profile runs only on a GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import losses, paired, runner
+    _build.build()
+    dev = torch.device("cuda", 0)
+    cfgs = GeneratorConfigs()
+    models, state, meta = runner.build_paired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=4321, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4322)
+    s = SIZE
+    batch = {"conditioning_pixel_values": torch.rand(1, s, s, 3, generator=g,
+                                                     device=dev),
+             "output_pixel_values": torch.rand(1, s, s, 3, generator=g,
+                                               device=dev) * 2 - 1,
+             "input_ids": torch.randint(0, cfgs.text.vocab_size, (1, 77),
+                                        generator=g, device=dev)}
+    noise = tuple(paired.draw_noise(g, 1, s, s, cfgs, torch.bfloat16)
+                  for _ in range(2))
+    for kernels in (True, False):
+        step = paired.make_paired_train_step(
+            models, cfgs, losses.PairedLossConfig(), meta, kernels=kernels,
+            remat=True, dtype=torch.bfloat16)
+        step(state, batch, noise)  # warm-up
+        print(f"{'kernel' if kernels else 'plain'} path, one {s}x{s} b1 "
+              f"step:", flush=True)
+        _profile_step(step, state, batch, noise)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,12 @@ the JAX tree (leaves as numpy arrays) and give diffusers-named state dicts
 in torch layouts (conv HWIO -> OIHW, linear (in, out) -> (out, in)), which
 `load` feeds to `load_state_dict(strict=True)`. No JAX is imported.
 
+`clip_text_state_dict`, `clip_vision_state_dict`, `clip_state_dict`,
+`lpips_state_dict`, `disc_heads` and `gen_trainables` (the LoRA factors,
+the UNet conv_in and the skip convs) do the same for the trees of the
+paired training step, so that the tests feed both packages the same
+numbers.
+
 `random_params` draws a state dict with the JAX package's init scheme
 (`models/layers.py:37-68`, `models/vae.py:225-231`): U(+-1/sqrt(fan_in)) for
 every conv/linear weight and bias, GroupNorm/LayerNorm scale 1 and bias 0,
@@ -21,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from img2img_turbo_tpu.configs import UNetConfig, VAEConfig
+from img2img_turbo_tpu_torch.configs import UNetConfig, VAEConfig
 
 
 def _inv_lin(out, prefix, mod):
@@ -145,6 +151,117 @@ def vae_state_dict(params) -> Dict[str, np.ndarray]:
             _inv_conv(out, f"decoder.skip_conv_{i + 1}", conv)
     _inv_conv(out, "quant_conv", params["quant_conv"])
     _inv_conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def _inv_block(out, prefix, p):
+    """A pre-LN CLIP block (ln1, attn {q, k, v, out}, ln2, fc1, fc2) ->
+    transformers' CLIPEncoderLayer names."""
+    _inv_norm(out, prefix + ".layer_norm1", p["ln1"])
+    for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("out", "out_proj")):
+        _inv_lin(out, f"{prefix}.self_attn.{dst}", p["attn"][src])
+    _inv_norm(out, prefix + ".layer_norm2", p["ln2"])
+    _inv_lin(out, prefix + ".mlp.fc1", p["fc1"])
+    _inv_lin(out, prefix + ".mlp.fc2", p["fc2"])
+
+
+def clip_text_state_dict(params) -> Dict[str, np.ndarray]:
+    """models/clip_text.CLIPTextModel state dict from a JAX clip_text
+    tree."""
+    out = {"embeddings.token_embedding.weight":
+           np.asarray(params["token_embedding"]).copy(),
+           "embeddings.position_embedding.weight":
+           np.asarray(params["position_embedding"]).copy()}
+    for i, layer in enumerate(params["layers"]):
+        _inv_block(out, f"encoder.layers.{i}", {
+            "ln1": layer["ln1"], "ln2": layer["ln2"], "fc1": layer["fc1"],
+            "fc2": layer["fc2"],
+            "attn": {k: layer["attn"][k] for k in ("q", "k", "v", "out")}})
+    _inv_norm(out, "final_layer_norm", params["final_ln"])
+    return out
+
+
+def clip_vision_state_dict(params) -> Dict[str, np.ndarray]:
+    """models/clip_vit.CLIPVision state dict from a JAX vision tower."""
+    out: Dict[str, np.ndarray] = {}
+    vm = "vision_model."
+    _inv_conv(out, vm + "embeddings.patch_embedding", params["patch_embed"])
+    out[vm + "embeddings.class_embedding"] = np.asarray(
+        params["class_embed"]).copy()
+    out[vm + "embeddings.position_embedding.weight"] = np.asarray(
+        params["pos_embed"]).copy()
+    _inv_norm(out, vm + "pre_layrnorm", params["ln_pre"])
+    for i, blk in enumerate(params["blocks"]):
+        _inv_block(out, f"{vm}encoder.layers.{i}", blk)
+    _inv_norm(out, vm + "post_layernorm", params["ln_post"])
+    out["visual_projection.weight"] = np.ascontiguousarray(
+        np.asarray(params["proj"]).T)
+    return out
+
+
+def clip_state_dict(params) -> Dict[str, np.ndarray]:
+    """models/clip_vit.CLIPModel state dict from a JAX {"vision", "text",
+    "logit_scale"} tree."""
+    out = clip_vision_state_dict(params["vision"])
+    t = params["text"]
+    tm = "text_model."
+    out[tm + "embeddings.token_embedding.weight"] = np.asarray(
+        t["token_embedding"]).copy()
+    out[tm + "embeddings.position_embedding.weight"] = np.asarray(
+        t["pos_embed"]).copy()
+    for i, blk in enumerate(t["blocks"]):
+        _inv_block(out, f"{tm}encoder.layers.{i}", blk)
+    _inv_norm(out, tm + "final_layer_norm", t["ln_final"])
+    out["text_projection.weight"] = np.ascontiguousarray(
+        np.asarray(t["proj"]).T)
+    out["logit_scale"] = np.asarray(params["logit_scale"], np.float32)
+    return out
+
+
+def lpips_state_dict(params) -> Dict[str, np.ndarray]:
+    """models/vgg_lpips.VGGLPIPS state dict from a JAX {"vgg", "lins"}
+    tree."""
+    out: Dict[str, np.ndarray] = {}
+    for i, convs in enumerate(params["vgg"]["blocks"]):
+        for j, conv in enumerate(convs):
+            _inv_conv(out, f"blocks.{i}.{j}", conv)
+    for i, lin in enumerate(params["lins"]):
+        _inv_conv(out, f"lins.{i}", lin)
+    return out
+
+
+def disc_heads(heads, sn):
+    """(heads, sn) flat dictionaries of models/discriminator from the JAX
+    heads and spectral-norm trees."""
+    out: Dict[str, np.ndarray] = {}
+    flat_sn: Dict[str, np.ndarray] = {}
+    for i, (hp, up) in enumerate(zip(heads["spatial"], sn["spatial"])):
+        for k in ("conv1", "conv2"):
+            _inv_conv(out, f"spatial.{i}.{k}", hp[k])
+            flat_sn[f"spatial.{i}.{k}"] = np.asarray(up[k]).copy()
+    for k in ("lin1", "lin2"):
+        _inv_lin(out, f"final.{k}", heads["final"][k])
+        flat_sn[f"final.{k}"] = np.asarray(sn["final"][k]).copy()
+    return out, flat_sn
+
+
+def gen_trainables(gen) -> Dict[str, np.ndarray]:
+    """The JAX paired step's trainable tree ({"unet_lora", "vae_lora",
+    "conv_in", "skip_convs"}) -> the port's flat `gen` keys
+    (training/paired.py)."""
+    out: Dict[str, np.ndarray] = {}
+    for part in ("unet_lora", "vae_lora"):
+        for name, e in gen[part].items():
+            for ab in ("a", "b"):
+                out[f"{part}:{name}.{ab}"] = np.asarray(e[ab]).copy()
+    conv: Dict[str, np.ndarray] = {}
+    _inv_conv(conv, "conv_in", gen["conv_in"])
+    out.update({"unet:" + k: v for k, v in conv.items()})
+    for i, sk in enumerate(gen["skip_convs"]):
+        conv = {}
+        _inv_conv(conv, f"decoder.skip_conv_{i + 1}", sk)
+        out.update({"vae:" + k: v for k, v in conv.items()})
     return out
 
 

@@ -21,6 +21,7 @@ from img2img_turbo_tpu.models import unet as junet
 from img2img_turbo_tpu.models import vae as jvae
 from img2img_turbo_tpu.pipelines import pix2pix as jp2p
 from img2img_turbo_tpu.serving import engine as jengine
+from img2img_turbo_tpu_torch import configs as tconfigs
 from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
 from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
 from img2img_turbo_tpu_torch.ops import (attention, fused_conv, fused_matmul,
@@ -55,14 +56,15 @@ def setup():
     jcfgs = jp2p.GeneratorConfigs(configs.TINY_UNET, configs.TINY_VAE)
     jeng = jengine.ServingEngine({"unet": unet_p, "vae": vae_p}, jcfgs,
                                  dtype=jnp.float32, donate_input=False)
-    cfgs = GeneratorConfigs(configs.TINY_UNET, configs.TINY_VAE)
+    cfgs = GeneratorConfigs(tconfigs.TINY_UNET, tconfigs.TINY_VAE)
     params = {
         "unet": from_jax.load(UNet2DConditionModel(cfgs.unet),
                               from_jax.unet_state_dict(unet_p)),
         "vae": from_jax.load(AutoencoderKL(cfgs.vae),
                              from_jax.vae_state_dict(vae_p))}
     engines = {k: ServingEngine(params, cfgs, dtype=torch.float32,
-                                use_kernels=k) for k in (True, False)}
+                                device="cpu", use_kernels=k)
+               for k in (True, False)}
     caption = rng.randn(1, 77, 32).astype(np.float32)
     return jeng, engines, caption
 
@@ -161,7 +163,17 @@ def test_rejects_what_it_does_not_serve(setup):
         eng(np.zeros((1, 64, 64, 3), np.float32), cap)
     with pytest.raises(NotImplementedError):
         ServingEngine({"unet": eng.unet, "vae": eng.vae}, eng.cfgs,
-                      mode="sketch")
+                      mode="sketch", device="cpu")
+
+
+def test_engine_refuses_to_pick_the_cpu_by_itself(setup, monkeypatch):
+    """With no device given the engine runs on the card; with no card it
+    raises instead of serving on the CPU, whatever the parameters' device."""
+    _, engines, _ = setup
+    eng = engines[True]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
+        ServingEngine({"unet": eng.unet, "vae": eng.vae}, eng.cfgs)
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -23,6 +23,7 @@ from img2img_turbo_tpu.models import layers as JL
 from img2img_turbo_tpu.models import unet as junet
 from img2img_turbo_tpu.models import vae as jvae
 from img2img_turbo_tpu.weights import torch_import as ti
+from img2img_turbo_tpu_torch import configs as tconfigs
 from img2img_turbo_tpu_torch.models import layers as TL
 from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
 from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
@@ -31,6 +32,8 @@ from img2img_turbo_tpu_torch.weights import from_jax
 
 REL_L2 = 1e-4
 UCFG, VCFG = configs.TINY_UNET, configs.TINY_VAE
+# the port's own copies of the same presets, for the port's modules
+TUCFG, TVCFG = tconfigs.TINY_UNET, tconfigs.TINY_VAE
 
 
 def rel_l2(got, want):
@@ -58,9 +61,9 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def port(jax_params):
-    unet = from_jax.load(UNet2DConditionModel(UCFG),
+    unet = from_jax.load(UNet2DConditionModel(TUCFG),
                          from_jax.unet_state_dict(jax_params["unet"]))
-    vae = from_jax.load(AutoencoderKL(VCFG),
+    vae = from_jax.load(AutoencoderKL(TVCFG),
                         from_jax.vae_state_dict(jax_params["vae"]))
     TL.prepare_kernels(unet)
     TL.prepare_kernels(vae)
@@ -94,7 +97,7 @@ class TestFromJax:
         for k, v in sd.items():
             np.testing.assert_array_equal(msd[k].numpy(), v, err_msg=k)
 
-    @pytest.mark.parametrize("cfg", [UCFG, VCFG])
+    @pytest.mark.parametrize("cfg", [TUCFG, TVCFG])
     def test_random_params_follow_jax_init(self, cfg):
         g = torch.Generator().manual_seed(3)
         sd = from_jax.random_params(cfg, g)

@@ -523,11 +523,29 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k.startswith('jaxlib'))\n"
+        "k.startswith('jax.') or k.startswith('jaxlib') or "
+        "k == 'img2img_turbo_tpu' or k.startswith('img2img_turbo_tpu.'))\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    assert int(out.stdout.strip()) >= 25  # every module was imported
+
+
+@pytest.mark.parametrize("name", [
+    "SD_TURBO_UNET", "SD_TURBO_VAE", "SD_TURBO_TEXT", "TINY_UNET",
+    "TINY_VAE", "TINY_TEXT", "MICRO_UNET", "MICRO_VAE"])
+def test_port_configs_equal_jax_presets(name):
+    """The port's own copy of each preset equals the JAX package's, field by
+    field, derived properties included."""
+    import dataclasses
+    from img2img_turbo_tpu import configs as jcfg
+    from img2img_turbo_tpu_torch import configs as tcfg
+    want, got = getattr(jcfg, name), getattr(tcfg, name)
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("time_embed_dim", "num_levels", "skip_conv_channels"):
+        if hasattr(want, prop):
+            assert getattr(got, prop) == getattr(want, prop)
