@@ -1,5 +1,5 @@
-"""Chip smoke for the PyTorch port: the edge_to_image serving path and the
-paired (pix2pix-turbo) training step on one GPU.
+"""Chip smoke for the PyTorch port: the three serving modes, the paired
+(pix2pix-turbo) training step and the public attention op on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -13,11 +13,18 @@ Phases, each fatal on failure:
    the least time the card could take (`bound_ms`, from the H100's
    published peaks) and, where one PyTorch call computes the same function,
    that call's time (`library_ms`, timed here, never called by the port);
-3. engine phase: `ServingEngine(mode="edge_to_image")` at the full
+3. attention path: `ops.attention.default_attention` (K9) at the UNet's
+   (B, H, S, 64) shapes, its launches counted around those calls alone;
+4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
    SD-Turbo widths with seeded random weights, serving 512x512 b1 requests
    and one 840x560 request, checked for shape, range, determinism, launch
    counts and agreement with the plain path on the same weights;
-4. train phase: the paired step at full width (SD-Turbo UNet and VAE with
+5. modes phase: `ServingEngine(mode="image")` on a random CycleGAN-Turbo
+   model in both directions and `ServingEngine(mode="sketch")` on a random
+   factored pix2pix-turbo model at r = 0.4 and 1.0, 512x512 b1, each with
+   the engine phase's checks, and a2b != b2a, r = 0.4 != r = 1.0, r = 1.0
+   ignoring the noise map;
+6. train phase: the paired step at full width (SD-Turbo UNet and VAE with
    LoRA, OpenCLIP-H text encoder, CLIP ViT-B/32, VGG16 LPIPS), 512x512 b1,
    bf16 activations, fp32 master weights, UNet blocks recomputed; a
    warm-up step and three timed steps with kernels and as many plain from
@@ -89,6 +96,28 @@ K7_CASES = [
     ("unet mid self S=64 H=20", 1, 64, 64, 20, 64),
     ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64),
     ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512)]
+# Every stride-2 downsample at 512x512 (VAE pad_lo=0 with stats, UNet
+# pad_lo=1 without) and at 840x560, whose sizes are odd: (case, B, H, W,
+# C = Co, pad_lo, emits stats on its path)
+K6_CASES = [
+    ("vae 512^2x128 pad0", 1, 512, 512, 128, 0, True),
+    ("vae 256^2x256 pad0", 1, 256, 256, 256, 0, True),
+    ("vae 128^2x512 pad0", 1, 128, 128, 512, 0, True),
+    ("unet 64^2x320 pad1", 1, 64, 64, 320, 1, False),
+    ("unet 32^2x640 pad1", 1, 32, 32, 640, 1, False),
+    ("unet 16^2x1280 pad1", 1, 16, 16, 1280, 1, False),
+    ("vae 560x840x128 pad0", 1, 560, 840, 128, 0, True),
+    ("unet 70x105x320 pad1", 1, 70, 105, 320, 1, False),
+    ("unet 35x53x640 pad1", 1, 35, 53, 640, 1, False),
+    ("unet 18x27x1280 pad1", 1, 18, 27, 1280, 1, False)]
+# (B, H, S, 64) attention at the UNet's shapes, through default_attention:
+# (case, B, H, Sq, Skv)
+K9_CASES = [
+    ("self S=4096 H=5", 1, 5, 4096, 4096),
+    ("cross S=4096 Skv=77 H=5", 1, 5, 4096, 77),
+    ("ragged S=7350 H=5", 1, 5, 7350, 7350),
+    ("self S=1024 H=10", 1, 10, 1024, 1024),
+    ("ragged S=1089 H=2", 1, 2, 1089, 1089)]
 REL_TOL = 1e-2      # kernel vs plain, bf16 output: max|err| / max|ref|
 STATS_TOL = 1e-3    # folded GN (a, b): emitted stats vs stats of the same y
 LSE_TOL = 1e-3      # K2's logsumexp (fp32) vs the fp32 plain version, abs
@@ -112,9 +141,10 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _sdpa(q, k, v, num_heads):
+def _sdpa(q, k, v, num_heads=None):
     """F.scaled_dot_product_attention on the folded (B, S, H*hd) tensors'
-    head views: the library yardstick of K2 (and, differentiated, of K7).
+    head views (the library yardstick of K2 and, differentiated, of K7),
+    or with num_heads None on (B, H, S, d) tensors as they are (K9's).
     Returns (the backend's name, a call that runs SDPA on it and returns
     the (B, H, Sq, hd) output): flash, then memory-efficient, then cuDNN,
     then math, the first that takes the shapes."""
@@ -122,6 +152,8 @@ def _sdpa(q, k, v, num_heads):
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def heads(t):
+        if num_heads is None:
+            return t
         b, s, d = t.shape
         return t.view(b, s, num_heads, d // num_heads).transpose(1, 2)
 
@@ -332,6 +364,47 @@ def kernel_phase(dev, results: list):
         nbytes = _nbytes(x, wp, bias, skx, skwp, y, st)
         record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes)
 
+    # ---- K6 -------------------------------------------------------------
+    k6 = ("downsample2x_conv3x3", "cuda",
+          "img2img_turbo_tpu_torch/csrc/conv.cu",
+          "img2img_turbo_tpu/ops/fused_conv.py:1408")
+    for case, B, H, W, C, pad_lo, stats in K6_CASES:
+        x = rn(B, H, W, C)
+        w = rn(3, 3, C, C, scale=1 / math.sqrt(9 * C))
+        bias = rn(C, scale=0.1, dtype=torch.float32)
+        wp = fc.pack_weights(w)
+        y, st = fc.downsample2x_conv3x3(x, w, bias, pad_lo, emit_stats=True,
+                                        w_packed=wp)
+        y_ns, _ = fc.downsample2x_conv3x3(x, w, bias, pad_lo, w_packed=wp)
+        yr, _ = fc.downsample2x_conv3x3_ref(x, w, bias, pad_lo)
+        if y.shape != yr.shape or not torch.equal(y, y_ns):
+            _fail(f"K6 {case}: output {tuple(y.shape)} (ref "
+                  f"{tuple(yr.shape)}) or differs without stats")
+        err, rel = _rel(y, yr)
+        ho, wo = y.shape[1:3]
+        one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        ca = gn.combine_stats(st, one, zero, 32, 1e-6, ho * wo)
+        cr = gn.combine_stats(fc.output_stats(y), one, zero, 32, 1e-6,
+                              ho * wo)
+        serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
+        if serr > STATS_TOL:
+            _fail(f"K6 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
+        # timed as its path calls it: with stats in the VAE, without in
+        # the UNet
+        ms = _time_ms(lambda: fc.downsample2x_conv3x3(
+            x, w, bias, pad_lo, emit_stats=stats, w_packed=wp))
+        w_oihw = oihw(w)
+        pms = _time_ms(lambda: fc.downsample2x_conv3x3_plain(
+            x, w_oihw, bias, pad_lo, emit_stats=stats))
+        # the library: one cuDNN strided conv on the input padded beforehand
+        xpad = F.pad(x.permute(0, 3, 1, 2), (pad_lo, 1, pad_lo, 1))
+        bb = bias.to(bf)
+        lms = _time_ms(lambda: F.conv2d(xpad, w_oihw, bb, stride=2))
+        flops = 2 * B * ho * wo * C * 9 * C
+        nbytes = _nbytes(x, wp, bias, y, st if stats else None)
+        record(*k6, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
+               "F.conv2d(stride=2)")
+
     # ---- K5 -------------------------------------------------------------
     k5 = ("group_norm_stats", "triton",
           "img2img_turbo_tpu_torch/ops/groupnorm.py",
@@ -437,6 +510,23 @@ def kernel_phase(dev, results: list):
         record(*k2, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                f"sdpa[{backend}]")
 
+    # ---- K9 -------------------------------------------------------------
+    k9 = ("flash_attention", "cuda",
+          "img2img_turbo_tpu_torch/csrc/attention.cu",
+          "img2img_turbo_tpu/ops/attention.py:119")
+    for case, B, H, Sq, Skv in K9_CASES:
+        q, k, v = rn(B, H, Sq, 64), rn(B, H, Skv, 64), rn(B, H, Skv, 64)
+        o = attention.flash_attention(q, k, v)
+        err, rel = _rel(o, attention.flash_attention_ref(q, k, v))
+        ms = _time_ms(lambda: attention.flash_attention(q, k, v))
+        pms = _time_ms(lambda: attention.scaled_dot_product_attention(q, k,
+                                                                      v))
+        backend, sdpa = _sdpa(q, k, v)
+        lms = _time_ms(sdpa)
+        record(*k9, case, err, rel, REL_TOL, ms, pms,
+               4 * B * H * Sq * Skv * 64, _nbytes(q, k, v, o), lms,
+               f"sdpa[{backend}]")
+
     # ---- K7 -------------------------------------------------------------
     k7 = ("flash_attention_folded_bwd", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
@@ -491,6 +581,13 @@ def kernel_phase(dev, results: list):
             *(rn(1, 16, 64) for _ in range(5)),
             torch.zeros(1, 16, 1, device=dev, dtype=bf), 1),
         "K5 fp16 input": lambda: gn.partial_stats(x.half()),
+        "K6 C not a multiple of 8": lambda: fc.downsample2x_conv3x3(
+            rn(1, 8, 8, 12), rn(3, 3, 12, 16), torch.zeros(16, device=dev),
+            0, w_packed=fc.pack_weights(rn(3, 3, 12, 16))),
+        "K6 pad_lo 2": lambda: fc.downsample2x_conv3x3(
+            x, w, bias, 2, w_packed=wp),
+        "K9 head dim 32": lambda: attention.flash_attention(
+            rn(1, 2, 16, 32), rn(1, 2, 16, 32), rn(1, 2, 16, 32)),
     }
     for what, fn in refused.items():
         try:
@@ -521,26 +618,29 @@ def _summed(rs):
         library_cases=[r["case"] for r in lib], n_cases=len(rs))
 
 
-def _per_kernel(results, launches_serve, launches_train):
+def _per_kernel(results, paths):
     """One entry per kernel. `launches` counts the kernel's launches on the
-    first path that runs it, named in `launches_path`: one 512x512 request
-    ("serve", as in the serving slice's line) or, for a kernel that serving
-    never launches, one train step ("train"); `launches_serve` and
-    `launches_train` give both for every kernel. The errors and times sum
-    the kernel's forward cases (each case is on its own line of the kernel
-    phase's output); a kernel that also runs in another role (K1 as K8's
-    du) has those cases summed under the role's key."""
+    first path of `paths` ({path: launch counts of one run}, in order) that
+    runs it, named in `launches_path`: one 512x512 edge_to_image request
+    ("serve", as in the serving slice's line), one image or sketch request,
+    one train step ("train"), or the default_attention calls;
+    `launches_<path>` gives every path's count. A kernel that no path
+    launched fails the run. The errors and times sum the kernel's forward
+    cases (each case is on its own line of the kernel phase's output); a
+    kernel that also runs in another role (K1 as K8's du) has those cases
+    summed under the role's key."""
     out = []
     names = list(dict.fromkeys(r["name"] for r in results))
     for name in names:
         rs = [r for r in results if r["name"] == name]
-        serve = launches_serve.get(name, 0)
+        counts = {p: c.get(name, 0) for p, c in paths.items()}
+        first = next((p for p, n in counts.items() if n), None)
+        if first is None:
+            _fail(f"kernel {name} was launched on no path")
         e = dict(name=name, route=rs[0]["route"], source=rs[0]["source"],
-                 replaces=rs[0]["replaces"],
-                 launches=serve or launches_train.get(name, 0),
-                 launches_path="serve" if serve else "train",
-                 launches_serve=serve,
-                 launches_train=launches_train.get(name, 0),
+                 replaces=rs[0]["replaces"], launches=counts[first],
+                 launches_path=first,
+                 **{f"launches_{p}": n for p, n in counts.items()},
                  **_summed([r for r in rs if r["part"] is None]))
         for part in dict.fromkeys(r["part"] for r in rs if r["part"]):
             e[part] = _summed([r for r in rs if r["part"] == part])
@@ -568,14 +668,17 @@ def main():
     kernel_phase(dev, results)
     torch.cuda.synchronize()
 
-    summary: dict = {}
+    summary: dict = {"paths": {}}
+    attention_path(dev, summary)
     engine_phase(dev, summary)
+    modes_phase(dev, summary)
     train_phase(dev, summary)
+    paths = {p: summary["paths"][p] for p in (
+        "serve", "image", "sketch", "train", "default_attention")}
     print(_smi(), flush=True)  # again, beside the results
-    print(json.dumps({"kernels": _per_kernel(
-                          results, summary["launches"],
-                          summary["train_launches"]),
+    print(json.dumps({"kernels": _per_kernel(results, paths),
                       "engine": summary["engine"],
+                      "modes": summary["modes"],
                       "train": summary["train"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -590,14 +693,23 @@ def main():
 #   K2  2 per transformer x 16 + 1 per VAE mid attention x 2
 #   K3  9 per transformer x 16 + 2 per VAE mid attention x 2
 #   K4  3 VAE decoder upsamples + 3 UNet upsamples (latent sizes even)
-#   K5  GNs with no chained stats: VAE 3 after the strided downsamples +
-#       2 mid res2 GN1; UNet 7 down + 2 mid + 12 up-block concats + norm_out
+#   K5  GNs with no chained stats: VAE 2 mid res2 GN1; UNet 7 down + 2 mid
+#       + 12 up-block concats + norm_out (the VAE encoder's 3 GNs after its
+#       downsamples read K6's stats)
+#   K6  3 VAE encoder downsamples (with stats) + 3 UNet downsamples
 EXPECTED_LAUNCHES = {"fused_gn_silu_conv3x3": 98, "flash_attention_folded": 34,
                      "fused_matmul": 148, "upsample2x_conv3x3": 6,
-                     "group_norm_stats": 27}
+                     "group_norm_stats": 24, "downsample2x_conv3x3": 6}
 # At 840x560 the UNet's skip sizes are odd at every level, so its three
-# upsamples take upsample_nearest_to + a plain conv (unet.py:350-355).
+# upsamples take upsample_nearest_to + a plain conv (unet.py:350-355); its
+# six downsamples (560x840 -> 280x420 -> 140x210 -> 70x105 in the VAE,
+# 70x105 -> 35x53 -> 18x27 -> 9x14 in the UNet) all take K6.
 EXPECTED_LAUNCHES_840x560 = dict(EXPECTED_LAUNCHES, upsample2x_conv3x3=3)
+# An image request (CycleGAN-Turbo) runs the edge_to_image generator on
+# another input (canny launches no kernel of the package); a sketch request
+# adds the TwinConv's second conv_in (K1).
+EXPECTED_LAUNCHES_IMAGE = dict(EXPECTED_LAUNCHES)
+EXPECTED_LAUNCHES_SKETCH = dict(EXPECTED_LAUNCHES, fused_gn_silu_conv3x3=99)
 PATH_REL_L2_TOL = 5e-2  # kernel path vs plain path, bf16, same weights
 
 
@@ -730,24 +842,186 @@ def engine_phase(dev, summary):
                          "rel_l2_512": errs,
                          "rel_l2_840x560": errs840, "launches_512": counts,
                          "launches_840x560": counts840}
-    summary["launches"] = counts
+    summary["paths"]["serve"] = counts
+
+
+def attention_path(dev, summary):
+    """The one path that reaches K9: the package's public attention op
+    `ops.attention.default_attention` on (B, H, S, 64) tensors at the
+    UNet's shapes (K9_CASES), with the launch counters read around these
+    calls alone; each output is held against the plain version."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build, attention
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = [tuple(torch.randn(B, H, s, 64, generator=g, device=dev).to(
+        torch.bfloat16) for s in (Sq, Skv, Skv))
+        for _, B, H, Sq, Skv in K9_CASES]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs = [attention.default_attention(*qkv) for qkv in inputs]
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"default_attention path: launches {counts}", flush=True)
+    if counts != {"flash_attention": len(K9_CASES)}:
+        _fail(f"default_attention launches {counts}")
+    for (case, *_), qkv, o in zip(K9_CASES, inputs, outs):
+        _, rel = _rel(o, attention.flash_attention_ref(*qkv))
+        if not rel <= REL_TOL:
+            _fail(f"default_attention {case}: rel err {rel:.3e}")
+    summary["paths"]["default_attention"] = counts
+
+
+def _serve_checks(name, fast, plain, img, caption, expected, dev,
+                  **kw):
+    """The checks of one serving mode on a kernel-path engine `fast` and a
+    plain-path engine `plain` on the same weights: the launch table of one
+    request, shape and range, a bit-identical repeat, the p50 of 5 requests
+    of each path (CUDA events, in turns), and the kernel path against the
+    plain path on the same posterior noise (rel L2 of z, x0 and the image,
+    as for edge_to_image). `kw`
+    goes to every request (r and the noise map of a sketch request).
+    Returns (summary, kernel-path result of the compared request)."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    r = fast.run(img, caption, gen(1), **kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    if counts != expected:
+        _fail(f"{name}: launch counts {counts} != expected {expected}")
+    out = r["out"]
+    if out.shape != img.shape or out.dtype != torch.uint8 \
+            or not torch.isfinite(r["img"].float()).all() \
+            or out.float().std().item() == 0.0:
+        _fail(f"{name}: output {tuple(out.shape)} {out.dtype}, or non-finite "
+              f"or constant")
+    if not torch.equal(fast.run(img, caption, gen(1), **kw)["out"], out):
+        _fail(f"{name}: the same request gave another image")
+    times = {"kernels": [], "plain": []}
+    for i in range(5):
+        for path, eng in (("kernels", fast), ("plain", plain)):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            eng(img, caption, gen(100 + i), **kw)
+            e_ev.record()
+            e_ev.synchronize()
+            times[path].append(s_ev.elapsed_time(e_ev))
+    p50 = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    b, h, w, _ = img.shape
+    noise = torch.randn(b, h // 8, w // 8, 4, generator=gen(7), device=dev,
+                        dtype=torch.bfloat16)
+    rk = fast.run(img, caption, noise=noise, **kw)
+    rp = plain.run(img, caption, noise=noise, **kw)
+    rel = {k: _rel_l2(rk[k], rp[k]) for k in ("z", "x0", "img")}
+    print(f"  {name}: launches {counts}; p50 {h}x{w} b{b} (5 requests each, "
+          f"CUDA events) kernels {p50['kernels']:.2f} ms, plain "
+          f"{p50['plain']:.2f} ms; kernel vs plain rel L2 {rel} (tol "
+          f"{PATH_REL_L2_TOL:.0e})", flush=True)
+    if not max(rel.values()) <= PATH_REL_L2_TOL:
+        _fail(f"{name}: kernel path disagrees with the plain path: {rel}")
+    return {"p50_ms": p50, "launches": counts, "rel_l2": rel}, rk
+
+
+def modes_phase(dev, summary):
+    """The image (CycleGAN-Turbo) and sketch (stochastic pix2pix-turbo)
+    modes at SD-Turbo width on seeded random weights, 512x512 b1: a random
+    CycleGAN model (UNet with its three rank-128 adapters merged, vae_a2b
+    and vae_b2a with rank-4 adapters) served in both directions, and a
+    random factored pix2pix model with TwinConv served at r = 0.4 and 1.0
+    (LoRA merged per request). Each mode passes `_serve_checks`; besides,
+    a2b and b2a differ, two r differ, and r = 1.0 ignores the noise map."""
+    import torch
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    from img2img_turbo_tpu_torch.weights import from_jax
+
+    cfgs = GeneratorConfigs()
+    modes = {}
+    bf = torch.bfloat16
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(2345)
+    cyc = from_jax.random_cyclegan_model(cfgs, g)
+    caption = torch.randn(1, 77, cfgs.unet.cross_attention_dim, generator=g,
+                          device=dev)
+    engines = {(d, k): ServingEngine(
+        {"unet": cyc["unet"], "vae": cyc["vae_" + d]}, cfgs, mode="image",
+        dtype=bf, device=dev, use_kernels=k)
+        for d in ("a2b", "b2a") for k in (True, False)}
+    print(f"image mode: random CycleGAN-Turbo (seed 2345), set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    img = torch.as_tensor(synth_image(512, 512, 5), device=dev)
+    for eng in engines.values():
+        eng.warmup(1, 512, 512, caption)
+    outs = {}
+    for d in ("a2b", "b2a"):
+        modes[f"image_{d}"], outs[d] = _serve_checks(
+            f"image {d}", engines[d, True], engines[d, False], img, caption,
+            EXPECTED_LAUNCHES_IMAGE, dev)
+    if torch.equal(outs["a2b"]["out"], outs["b2a"]["out"]):
+        _fail("image mode: a2b and b2a gave the same image")
+    summary["paths"]["image"] = modes["image_a2b"]["launches"]
+    del engines, cyc
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(3456)
+    unet, vae, lora = from_jax.random_sketch_model(cfgs, g)
+    caption = torch.randn(1, 77, cfgs.unet.cross_attention_dim, generator=g,
+                          device=dev)
+    engines = {k: ServingEngine(cfgs=cfgs, mode="sketch", dtype=bf,
+                                device=dev, use_kernels=k,
+                                base={"unet": unet, "vae": vae}, lora=lora)
+               for k in (True, False)}
+    print(f"sketch mode: random factored pix2pix-turbo with TwinConv (seed "
+          f"3456), set-up {time.perf_counter() - t0:.1f}s", flush=True)
+    sketch = torch.as_tensor(synth_image(512, 512, 6), device=dev)
+    for eng in engines.values():
+        eng.warmup(1, 512, 512, caption)
+    maps = [torch.randn(1, 64, 64, 4, generator=torch.Generator(
+        device=dev).manual_seed(s), device=dev, dtype=bf) for s in (11, 12)]
+    outs = {}
+    for r in (0.4, 1.0):
+        modes[f"sketch_r{r}"], outs[r] = _serve_checks(
+            f"sketch r={r}", engines[True], engines[False], sketch, caption,
+            EXPECTED_LAUNCHES_SKETCH, dev, r=r, noise_map=maps[0])
+    if torch.equal(outs[0.4]["out"], outs[1.0]["out"]):
+        _fail("sketch mode: r = 0.4 and r = 1.0 gave the same image")
+    noise = torch.randn(1, 64, 64, 4, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev, dtype=bf)
+    other = engines[True].run(sketch, caption, noise=noise, r=1.0,
+                              noise_map=maps[1])
+    if not torch.equal(other["out"], outs[1.0]["out"]):
+        _fail("sketch mode: at r = 1.0 the noise map changed the image")
+    print("  a2b != b2a; r = 0.4 != r = 1.0; r = 1.0 ignores the noise map",
+          flush=True)
+    summary["paths"]["sketch"] = modes["sketch_r0.4"]["launches"]
+    summary["modes"] = modes
 
 
 
 # Kernel launches of one paired train step at the SD-Turbo topology, 512x512
 # b1. Each generator pass (1 and 2) runs the serving forward's launches
-# (K1 98, K2 34, K3 148, K4 6, K5 27), then its backward: the UNet's down,
-# mid and up blocks run again (recompute: K1 44 resnet convs, K2 32, K3
-# 144, K4 3 upsamples, K5 21), each fused GN conv's du is one K1 (95, all
-# K1 but the three prologue-free conv_ins) and each attention's backward
-# one K7 (34: 32 UNet + 2 VAE mid). Passes 3 and 4 (discriminator) and
-# the text encoder launch none.
+# (K1 98, K2 34, K3 148, K4 6, K5 24, K6 6), then its backward: the UNet's
+# down, mid and up blocks run again (recompute: K1 44 resnet convs, K2 32,
+# K3 144, K4 3 upsamples, K5 21, K6 3 downsamples), each fused GN conv's
+# du is one K1 (95, all K1 but the three prologue-free conv_ins) and each
+# attention's backward one K7 (34: 32 UNet + 2 VAE mid); K6's backward is
+# autograd through the plain strided conv. Passes 3 and 4 (discriminator)
+# and the text encoder launch none.
 EXPECTED_TRAIN_LAUNCHES = {
     "fused_gn_silu_conv3x3": 2 * (98 + 44 + 95),
     "flash_attention_folded": 2 * (34 + 32),
     "fused_matmul": 2 * (148 + 144),
     "upsample2x_conv3x3": 2 * (6 + 3),
-    "group_norm_stats": 2 * (27 + 21),
+    "group_norm_stats": 2 * (24 + 21),
+    "downsample2x_conv3x3": 2 * (6 + 3),
     "flash_attention_folded_bwd": 2 * 34}
 GRAD_REL_L2_TOL = 1e-1  # pass-1 gradients, kernel vs plain path, bf16
 TRAIN_STEPS = 3      # timed steps per path, after one warm-up step
@@ -923,7 +1197,7 @@ def train_phase(dev, summary):
           f"plain {p50['plain']:.2f} ms; peak memory kernels "
           f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB; "
           f"eval {val}", flush=True)
-    summary["train_launches"] = counts
+    summary["paths"]["train"] = counts
     summary["train"] = {
         "step_ms": {("kernels" if k else "plain"): v
                     for k, v in times.items()},

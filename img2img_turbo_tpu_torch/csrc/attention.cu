@@ -1,11 +1,16 @@
-// Flash attention on folded (B, S, H*hd) tensors: kernel K2 of the TPU
-// package, for Hopper (sm_90a).
+// Flash attention: kernels K2 and K9 of the TPU package, for Hopper
+// (sm_90a), one kernel on two layouts.
 //
 // Replaces img2img_turbo_tpu/ops/attention.py:204 flash_attention_folded
-// (body _flash_heads_kernel :151): non-causal multi-head attention with an
-// online softmax over KV blocks, fp32 running max / running sum /
-// accumulator, and masks for ragged Sq and Skv. Heads are read in place as
-// column ranges of the folded layout, so no head transpose touches memory.
+// (K2, body _flash_heads_kernel :151) on folded (B, S, H*hd) tensors, and
+// :85 flash_attention (K9, body _flash_kernel :49) on (B, H, S, d) tensors:
+// non-causal multi-head attention with an online softmax over KV blocks,
+// fp32 running max / running sum / accumulator, and masks for ragged Sq and
+// Skv. The kernel reads rows through (batch, head, row) strides, so the
+// folded layout's heads are column ranges read in place (no head transpose
+// touches memory) and the (B, H, S, d) layout is the same walk with other
+// strides. K9's TPU kernel keeps all of KV resident per (b, h), a VMEM
+// choice; here KV streams through shared memory in blocks as for K2.
 //
 // One block owns BQ query rows of one (batch, head). Per KV block it loads
 // K and V tiles into shared memory, computes S = Q K^T with bf16 tensor-core
@@ -51,11 +56,18 @@ struct Smem {
   static constexpr int bytes = al + align128(BQ * 4);
 };
 
+// Element strides of a (batch, head, row) walk; a row's HD values are
+// contiguous.
+struct Strides {
+  long long b, h, s;
+};
+
 template <int HD, int BQ, int BKV>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, int Sq, int Skv, int D, float scale) {
+             float* __restrict__ lse, int Sq, int Skv, Strides qs, Strides ks,
+             float scale) {
   using L = Smem<HD, BQ, BKV>;
   constexpr int TPR = NT / BQ;  // threads per softmax row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -71,14 +83,15 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t col0 = (size_t)h * HD;
+  const size_t qbase = (size_t)(b * qs.b + h * qs.h);   // q and o
+  const size_t kbase = (size_t)(b * ks.b + h * ks.h);   // k and v
 
   // Q tile; rows past Sq are zero and never stored.
   for (int c = tid; c < BQ * HD / 8; c += NT) {
     const int r = c / (HD / 8), cc = (c % (HD / 8)) * 8;
     Pack8 val = i2i::zero8();
     if (q0 + r < Sq)
-      val = *reinterpret_cast<const Pack8*>(q + ((size_t)b * Sq + q0 + r) * D + col0 + cc);
+      val = *reinterpret_cast<const Pack8*>(q + qbase + (size_t)(q0 + r) * qs.s + cc);
     *reinterpret_cast<Pack8*>(&Qs[r * L::QLD + cc]) = val;
   }
   for (int i = tid; i < BQ * L::OLD; i += NT) Os[i] = 0.f;
@@ -93,7 +106,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int r = c / (HD / 8), cc = (c % (HD / 8)) * 8;
       Pack8 kv = i2i::zero8(), vv = i2i::zero8();
       if (kv0 + r < Skv) {
-        const size_t off = ((size_t)b * Skv + kv0 + r) * D + col0 + cc;
+        const size_t off = kbase + (size_t)(kv0 + r) * ks.s + cc;
         kv = *reinterpret_cast<const Pack8*>(k + off);
         vv = *reinterpret_cast<const Pack8*>(v + off);
       }
@@ -178,7 +191,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, c = i % HD;
     if (q0 + r < Sq)
-      o[((size_t)b * Sq + q0 + r) * D + col0 + c] =
+      o[qbase + (size_t)(q0 + r) * qs.s + c] =
           __float2bfloat16(Os[r * L::OLD + c] / ls[r]);
   }
   // per-row logsumexp of the scaled scores, (B, Sq, H) fp32, for K7
@@ -190,14 +203,19 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD, int BQ, int BKV>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-           int B, int Sq, int Skv, int H, cudaStream_t stream) {
+           int B, int Sq, int Skv, int H, bool folded, cudaStream_t stream) {
   using L = Smem<HD, BQ, BKV>;
   auto kern = flash_kernel<HD, BQ, BKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return (int)err;
+  const long long D = (long long)H * HD;
+  // folded (B, S, H*hd): head h is columns [h*hd, (h+1)*hd) of each row;
+  // (B, H, S, d): head h is a contiguous (S, d) matrix
+  const Strides qs = folded ? Strides{Sq * D, HD, D} : Strides{Sq * D, (long long)Sq * HD, HD};
+  const Strides ks = folded ? Strides{Skv * D, HD, D} : Strides{Skv * D, (long long)Skv * HD, HD};
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, L::bytes, stream>>>(q, k, v, o, lse, Sq, Skv, H * HD,
+  kern<<<grid, NT, L::bytes, stream>>>(q, k, v, o, lse, Sq, Skv, qs, ks,
                                        1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
@@ -218,10 +236,19 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
   auto* oo = static_cast<bf16*>(o);
   auto* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64, 64, 64>(qq, kk, vv, oo, ll, B, Sq, Skv, H, s);
+  if (hd == 64) return launch<64, 64, 64>(qq, kk, vv, oo, ll, B, Sq, Skv, H, true, s);
   if (hd == 512)
-    return launch<512, 32, 32>(qq, kk, vv, oo, ll, B, Sq, Skv, H, s);
+    return launch<512, 32, 32>(qq, kk, vv, oo, ll, B, Sq, Skv, H, true, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K9. q, o: (B, H, Sq, 64), k/v: (B, H, Skv, 64), all bf16 and contiguous.
+// Returns cudaGetLastError().
+int flash_attention_bhsd_bf16(const void* q, const void* k, const void* v, void* o,
+                              int B, int H, int Sq, int Skv, void* stream) {
+  return launch<64, 64, 64>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr,
+                            B, Sq, Skv, H, false, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

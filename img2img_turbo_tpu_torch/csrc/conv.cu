@@ -1,4 +1,4 @@
-// The conv engine: kernels K1 and K4 of the TPU package, as one bf16
+// The conv engine: kernels K1, K4 and K6 of the TPU package, as one bf16
 // implicit-GEMM convolution for Hopper (sm_90a) over channels-last (NHWC)
 // memory, on the warpgroup tensor-core instruction (wgmma).
 //
@@ -8,7 +8,11 @@
 //           [+ residual], optional per-tile sum / sum^2 of the stored y;
 //   K4  img2img_turbo_tpu/ops/fused_conv.py:1688 upsample2x_conv3x3
 //       y = conv3x3(nearest_up2x(x)) + bias [+ skip_x@skip_w], as four phase
-//       2x2 convolutions on the low-resolution x with folded weights.
+//       2x2 convolutions on the low-resolution x with folded weights;
+//   K6  img2img_turbo_tpu/ops/fused_conv.py:1350 downsample2x_conv3x3
+//       y = stride-2 conv3x3 with (pad_lo, 1) padding on both axes + bias,
+//       optional per-tile stats of the stored y (the VAE encoder chains them
+//       into the next GroupNorm).
 //
 // A block (two warpgroups) owns a 16 x 8 tile of (low-resolution, for K4)
 // pixels and 128 output channels. For each 32-channel chunk it loads the
@@ -24,7 +28,17 @@
 // (taps, C/8, Co, 8), the K-major core-matrix layout of the B operand, and
 // stream through a 4-stage cp.async ring. The 1x1 skip (resnet shortcut or
 // VAE zero-conv) continues the same accumulation over a tile of skip_x. The
-// epilogue sums bias, the per-(batch, channel) extra bias and the residual
+// K6 (mode DOWN) has no prologue, so its halo goes straight from device
+// memory to shared memory with cp.async (zero-filled outside the image).
+// A 16 x 8 output tile reads a 33 x 17 input halo; the 8 outputs of one
+// core-matrix row read every other halo column, so each halo row is stored
+// as its 9 even columns followed by its 8 odd ones. Tap (di, dj) then reads
+// 8 consecutive entries (even from entry dj/2, odd from entry 9) of halo
+// row 2r + di: wgmma's rows stay 8 consecutive 16-byte entries, and the
+// stride between tile rows is two halo rows. The halo is reloaded once per
+// 32-channel chunk, after the chunk's 9 taps (no overlap with the taps yet).
+//
+// The epilogue sums bias, the per-(batch, channel) extra bias and the residual
 // in fp32 and rounds once; stats are per-block partial sums of the stored
 // (rounded) y, written as (B, n_tiles, 2, Co) without atomics, so every run
 // is bit-identical.
@@ -58,7 +72,19 @@ constexpr int STAGES = 4;               // weight-tile ring depth
 constexpr int B_STAGE = KCH * BN * 8;   // bf16 elements per weight tile
 constexpr int B_PER_T = KCH * BN / NT;
 constexpr int NUM_SMS = 132;
-constexpr int SMEM_BYTES = KCH * HALO_PIX * 16 + STAGES * B_STAGE * 2 + 8 * 2 * BN * 4;
+// modes of the engine
+constexpr int SAME = 0, UP2 = 1, DOWN = 2;
+// DOWN's halo: 2*TH+1 rows of 2*TW+1 columns, each row stored as its TW+1
+// even columns, then its TW odd ones
+constexpr int DHR = 2 * TH + 1;
+constexpr int DEVEN = TW + 1;
+constexpr int DROW = 2 * TW + 1;
+
+template <int MODE>
+struct Geo {
+  static constexpr int halo_pix = MODE == DOWN ? DHR * DROW : HALO_PIX;
+  static constexpr int smem = KCH * halo_pix * 16 + STAGES * B_STAGE * 2 + 8 * 2 * BN * 4;
+};
 
 struct ConvArgs {
   const bf16* x;      // (B, H, W, C); the low-resolution input for K4
@@ -77,6 +103,7 @@ struct ConvArgs {
   int B, H, W, C, Co, Csk, CoP;
   int tiles_w, tiles;  // pixel tiles per row of tiles / per image (phase)
   int vec_a;           // C and Csk are multiples of 8
+  int Hi, Wi, pad;     // DOWN: input size and top/left padding (H, W: output)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
@@ -121,12 +148,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t
 
 // Two blocks per SM: caps the kernel at 128 registers a thread (uncapped it
 // takes 135, and one block alone cannot hide its own barrier stalls).
-template <bool UP, bool NORM>
+template <int MODE, bool NORM>
 __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
+  constexpr bool UP = MODE == UP2;
   constexpr int T = UP ? 4 : 9;
+  constexpr int HP = Geo<MODE>::halo_pix;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);             // [KCH][HALO_PIX][8]
-  bf16* Bs = halo + KCH * HALO_PIX * 8;                   // STAGES x [KCH][BN][8]
+  bf16* halo = reinterpret_cast<bf16*>(smem);             // [KCH][HP][8]
+  bf16* Bs = halo + KCH * HP * 8;                         // STAGES x [KCH][BN][8]
   float* red = reinterpret_cast<float*>(Bs + STAGES * B_STAGE);  // [8][2][BN]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -157,7 +186,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
 #pragma unroll
     for (int t = 0; t < A_PER_T; ++t) {
       const int q = tid + t * NT;
-      const int pix = q >> 2, kc = q & 3;
+      const int pix = q / KCH, kc = q % KCH;
       const bf16* src = nullptr;
       int cx = 0;
       bool ok = false;
@@ -169,7 +198,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
           ok = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
           src = p.x + (((size_t)b * p.H + ih) * p.W + iw) * p.C;
           cx = p.C;
-          dst = kc * HALO_PIX + pix;
+          dst = kc * HP + pix;
         }
       } else if (pix < BM) {
         const int r = pix / TW, c = pix - r * TW;
@@ -178,7 +207,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
         const int ho = UP ? 2 * i + pa : i, wo = UP ? 2 * j + pb : j;
         src = p.skx + (((size_t)b * Ho + ho) * Wo + wo) * p.Csk;
         cx = p.Csk;
-        dst = kc * HALO_PIX + (r + 1) * HWD + c + 1;
+        dst = kc * HP + (r + 1) * HWD + c + 1;
       }
       const int c = c0 + kc * 8;
       rok[t] = ok;
@@ -212,6 +241,23 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
         }
       }
       *reinterpret_cast<Pack8*>(&halo[rdst[t] * 8]) = v;
+    }
+  };
+
+  // ---- DOWN's A operand: the chunk's 33 x 17 halo, by cp.async, zero
+  // outside the image (C is a multiple of 8, so a 16-byte word is either
+  // all channels or none)
+  auto load_halo_down = [&](int k) {
+    const int c0 = k * BK;
+    for (int q = tid; q < HP * KCH; q += NT) {
+      const int pix = q / KCH, kc = q % KCH;
+      const int hr = pix / DROW, e = pix - hr * DROW;
+      const int hc = e < DEVEN ? 2 * e : 2 * (e - DEVEN) + 1;
+      const int ih = 2 * i0 - p.pad + hr, iw = 2 * j0 - p.pad + hc;
+      const int c = c0 + kc * 8;
+      const bool ok = ih >= 0 && ih < p.Hi && iw >= 0 && iw < p.Wi && c < p.C;
+      const bf16* src = ok ? p.x + (((size_t)b * p.Hi + ih) * p.Wi + iw) * p.C + c : p.x;
+      cp_async16(&halo[(kc * HP + pix) * 8], src, ok);
     }
   };
 
@@ -250,8 +296,13 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     }
   };
 
-  fetch_a(kbeg);
-  store_a();
+  if constexpr (MODE == DOWN) {
+    load_halo_down(kbeg);
+    cp_async_commit();
+  } else {
+    fetch_a(kbeg);
+    store_a();
+  }
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < nsteps) {
@@ -275,7 +326,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     cp_async_commit();
     const int ntaps = k < KC ? T : 1;
     const bool more = k + 1 < kend;
-    if (tap == 0 && more) fetch_a(k + 1);
+    if (MODE != DOWN && tap == 0 && more) fetch_a(k + 1);
     int di = 1, dj = 1;  // the skip tile sits at the halo's centre
     if (k < KC) {
       if (UP) {
@@ -286,12 +337,22 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
         dj = tap % 3;
       }
     }
-    const bf16* a0 = halo + ((wg * 8 + di) * HWD + dj) * 8;
+    // first entry of the warpgroup's 8 tile rows for this tap, and the
+    // stride between tile rows
+    const bf16* a0;
+    unsigned a_sbo;
+    if constexpr (MODE == DOWN) {
+      a0 = halo + ((wg * 2 * 8 + di) * DROW + (dj == 1 ? DEVEN : dj >> 1)) * 8;
+      a_sbo = 2 * DROW * 16;
+    } else {
+      a0 = halo + ((wg * 8 + di) * HWD + dj) * 8;
+      a_sbo = HWD * 16;
+    }
     const bf16* b0 = Bs + (i % STAGES) * B_STAGE;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int ks = 0; ks < KCH / 2; ++ks) {
-      const uint64_t da = smem_desc(a0 + 2 * ks * HALO_PIX * 8, HALO_PIX * 16, HWD * 16);
+      const uint64_t da = smem_desc(a0 + 2 * ks * HP * 8, HP * 16, a_sbo);
       const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
       wgmma_m64n128k16(d, da, db);
     }
@@ -299,7 +360,13 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     if (tap == ntaps - 1 && more) {
       __syncthreads();  // every warp is done with this chunk's halo
-      store_a();        // the next chunk's; published at the next step
+      if constexpr (MODE == DOWN) {
+        load_halo_down(k + 1);  // published at the next step
+        cp_async_commit();
+        cp_async_wait_all();
+      } else {
+        store_a();  // the next chunk's; published at the next step
+      }
     }
   }
   cp_async_wait_all();
@@ -449,13 +516,15 @@ Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
   return pl;
 }
 
-template <bool UP, bool NORM>
+template <int MODE, bool NORM>
 int launch(const ConvArgs& a, cudaStream_t stream) {
+  constexpr bool UP = MODE == UP2;
+  constexpr int smem_bytes = Geo<MODE>::smem;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<UP, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      conv_kernel<MODE, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.tiles * (UP ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
-  conv_kernel<UP, NORM><<<grid, NT, SMEM_BYTES, stream>>>(a);
+  conv_kernel<MODE, NORM><<<grid, NT, smem_bytes, stream>>>(a);
   if (a.splits > 1) {
     dim3 eg(a.tiles * (UP ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
     split_epilogue<UP><<<eg, NT, 0, stream>>>(a);
@@ -513,9 +582,41 @@ int conv3x3_bf16(const void* x, const void* w, const void* bias, const void* ga,
   a.ws = static_cast<float*>(workspace);
   if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (up) return launch<true, false>(a, s);
-  if (ga) return launch<false, true>(a, s);
-  return launch<false, false>(a, s);
+  if (up) return launch<UP2, false>(a, s);
+  if (ga) return launch<SAME, true>(a, s);
+  return launch<SAME, false>(a, s);
+}
+
+// K6: y (B, Ho, Wo, Co) = stride-2 conv3x3 of x (B, H, W, C) with
+// (pad_lo, 1) padding on both axes, plus bias; Ho = (H + pad_lo - 2)/2 + 1,
+// likewise Wo. w is packed from (3,3,C,Co) as for K1; C must be a multiple
+// of 8 and H, W at least 2. stats (B, conv_stats_tiles(Ho, Wo, 0), 2, Co)
+// or null; workspace holds conv_workspace_bytes(B, Ho, Wo, C, Co, 0, 0)
+// bytes (null when that is 0). Returns the first CUDA error, else 0.
+int downsample3x3_bf16(const void* x, const void* w, const void* bias, void* y,
+                       void* stats, void* workspace, int B, int H, int W, int C,
+                       int Co, int pad_lo, void* stream) {
+  if (C % 8 || H < 2 || W < 2 || pad_lo < 0 || pad_lo > 1)
+    return (int)cudaErrorInvalidValue;
+  ConvArgs a = {};
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<bf16*>(y);
+  a.stats = static_cast<float*>(stats);
+  a.Hi = H; a.Wi = W; a.pad = pad_lo;
+  a.B = B; a.H = (H + pad_lo - 2) / 2 + 1; a.W = (W + pad_lo - 2) / 2 + 1;
+  a.C = C; a.Co = Co; a.Csk = 0;
+  a.CoP = (Co + 7) / 8 * 8;
+  a.tiles_w = (a.W + TW - 1) / TW;
+  a.tiles = ((a.H + TH - 1) / TH) * a.tiles_w;
+  a.vec_a = 1;
+  const Plan pl = plan(B, a.H, a.W, C, Co, 0, false);
+  a.splits = pl.splits;
+  a.chunks_per_split = pl.chunks_per_split;
+  a.ws = static_cast<float*>(workspace);
+  if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
+  return launch<DOWN, false>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

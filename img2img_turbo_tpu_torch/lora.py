@@ -31,6 +31,13 @@ PIX2PIX_VAE_TARGETS = (
     "conv1", "conv2", "conv_in", "conv_shortcut", "conv", "conv_out",
     "skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4",
     "to_k", "to_q", "to_v", "to_out.0")
+# CycleGAN-Turbo's (cyclegan_turbo.py:52, 99): the UNet grep, split by
+# module name into three adapters (pipelines/cyclegan.py)
+CYCLEGAN_UNET_GREP = (
+    "to_k", "to_q", "to_v", "to_out.0", "conv", "conv1", "conv2", "conv_in",
+    "conv_shortcut", "conv_out", "proj_out", "proj_in", "ff.net.2",
+    "ff.net.0.proj")
+CYCLEGAN_VAE_TARGETS = PIX2PIX_VAE_TARGETS
 
 
 def matches_target(name: str, targets: Sequence[str]) -> bool:
@@ -83,8 +90,11 @@ def lora_delta(a, b, weight_shape):
 def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
                dtype=None) -> Dict[str, torch.Tensor]:
     """{"<name>.weight": W + scale * alpha/rank * delta} for every adapted
-    module, from `base` ({"<name>.weight": fp32 weight}); the sum is cast
-    to `dtype` when given. Differentiable in the factors and in W."""
+    module, from `base` ({"<name>.weight": weight}): the scaled delta is
+    formed in fp32 and cast to W's dtype before the add, and the sum is
+    cast to `dtype` when given. `scale` may be a 0-d tensor (the sketch
+    path's runtime r: one merge serves every r, read on the device).
+    Differentiable in the factors and in W."""
     s = lora["alpha"] / lora["rank"]
     out = {}
     for name, entry in lora["modules"].items():
@@ -92,6 +102,17 @@ def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
         merged = w + (scale * s * lora_delta(entry["a"], entry["b"],
                                              w.shape)).to(w.dtype)
         out[name + ".weight"] = merged if dtype is None else merged.to(dtype)
+    return out
+
+
+def merge_multi(base: Dict[str, torch.Tensor], loras: Sequence[Dict],
+                scale=1.0) -> Dict[str, torch.Tensor]:
+    """Several adapters merged one after the other (CycleGAN's encoder /
+    decoder / others trio, lora.py:293): {"<name>.weight": merged} for
+    every module any of them adapts."""
+    out: Dict[str, torch.Tensor] = {}
+    for lora in loras:
+        out.update(merge_lora({**base, **out}, lora, scale))
     return out
 
 

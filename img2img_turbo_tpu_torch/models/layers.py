@@ -203,10 +203,11 @@ def upsample_nearest_to(x, size):
 
 class Skip(NamedTuple):
     """An epilogue 1x1 conv: y += conv1x1(x * gamma) (the resnet shortcut
-    or a VAE skip zero-conv)."""
+    or a VAE skip zero-conv). gamma is a float or a 0-d tensor (the sketch
+    path's runtime r)."""
     x: torch.Tensor
     conv: Conv2d
-    gamma: float = 1.0
+    gamma: object = 1.0
 
 
 def _gn_coeffs(norm: GroupNorm, x, num_groups, eps, x_stats):
@@ -232,14 +233,15 @@ def group_norm(norm: nn.GroupNorm, x, num_groups: int, eps: float,
 
 
 def _skip_weights(skip: Skip):
-    """(skip_w, skip_w_packed) with gamma folded in (per call only when
-    gamma != 1, which the edge_to_image path never takes)."""
+    """(skip_w, skip_w_packed) with gamma folded in: per call unless gamma
+    is the float 1.0 (a 0-d tensor gamma is folded without reading it back
+    to the host)."""
     conv = skip.conv
-    if skip.gamma == 1.0:
+    if not torch.is_tensor(skip.gamma) and skip.gamma == 1.0:
         return conv.kw, conv.kwp
     w = (conv.weight.detach()[:, :, 0, 0].t().float() * skip.gamma).to(
         conv.weight.dtype)
-    return w, fused_conv.pack_weights(w)
+    return w, _packed(w)
 
 
 def _plain_skip(skip: Optional[Skip]):
@@ -454,6 +456,19 @@ def _plainconv_fwd(emit_stats):
     return fwd, plain
 
 
+def _downconv_fwd(pad_lo, emit_stats):
+    def fwd(x, w, cb):
+        w_hwio = _hwio(w)
+        y, stats = fused_conv.downsample2x_conv3x3(
+            x.contiguous(), w_hwio, _bias_f32(cb, w.shape[0], x), pad_lo,
+            emit_stats=emit_stats, w_packed=_packed(w_hwio))
+        return (y, stats) if emit_stats else (y,)
+
+    def plain(x, w, cb):
+        return (fused_conv.downsample2x_conv3x3_plain(x, w, cb, pad_lo)[0],)
+    return fwd, plain
+
+
 def _upconv_fwd(emit_stats):
     def fwd(x, w, cb, skip_x, skip_w):
         w_hwio = _hwio(w)
@@ -576,10 +591,26 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
     return (y, stats) if emit_stats else y
 
 
-def downsample2x_conv(conv: Conv2d, x, pad_lo: int):
-    """Stride-2 conv3x3 with ((pad_lo, 1), (pad_lo, 1)) padding: a plain
-    strided conv on both paths, as the JAX default (FC_XLA_DOWN=1)."""
-    return conv2d(conv, x, stride=2, padding=((pad_lo, 1), (pad_lo, 1)))
+def downsample2x_conv(conv: Conv2d, x, pad_lo: int, emit_stats: bool = False,
+                      *, kernels: bool):
+    """Stride-2 conv3x3 with ((pad_lo, 1), (pad_lo, 1)) padding: pad_lo=0
+    in the VAE encoder, 1 in the UNet (layers.py:605-633). With kernels:
+    K6, whose emitted stats feed the next GroupNorm; a module with live
+    weights goes through `KernelFn` (K6 forward, autograd through the plain
+    strided conv backward, as `_make_fused_downconv`). Plain path: the
+    strided conv, stats None."""
+    if not kernels:
+        y, _ = fused_conv.downsample2x_conv3x3_plain(x, conv.weight,
+                                                     conv.bias, pad_lo)
+        return (y, None) if emit_stats else y
+    if not has_kernel_layouts(conv):
+        out = KernelFn.apply(*_downconv_fwd(pad_lo, emit_stats), 1, x,
+                             conv.weight.to(x.dtype), conv.bias)
+        return out if emit_stats else out[0]
+    y, stats = fused_conv.downsample2x_conv3x3(
+        x.contiguous(), conv.kw, conv.kb, pad_lo, emit_stats=emit_stats,
+        w_packed=conv.kwp)
+    return (y, stats) if emit_stats else y
 
 
 def fused_linears(lins, x, norm: Optional[LayerNorm] = None, *,

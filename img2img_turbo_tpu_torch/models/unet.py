@@ -1,5 +1,6 @@
 """UNet2DConditionModel (SD 2.x / SD-Turbo topology), NHWC (counterpart of
-`img2img_turbo_tpu/models/unet.py::unet_forward`, without TwinConv).
+`img2img_turbo_tpu/models/unet.py::unet_forward`), with the sketch path's
+TwinConv conv_in (`make_twin_conv_in`).
 
 Parameter names are diffusers'. Up-block concats are a plain `torch.cat`
 (the JAX `_concat_resnet` split only served TPU VMEM), so each up-block
@@ -9,6 +10,7 @@ does for any concat it does not split.
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
@@ -59,6 +61,26 @@ class Transformer2DModel(nn.Module):
                                 residual=x.reshape(b, h * w, c),
                                 kernels=kernels)
         return hidden.reshape(b, h, w, c)
+
+
+class TwinConv(nn.Module):
+    """The sketch path's conv_in (reference pix2pix_turbo.py TwinConv): a
+    frozen pretrained copy and a trained copy, blended by r in the forward
+    with the pretrained branch detached."""
+
+    def __init__(self, conv_in_pretrained: L.Conv2d, conv_in_curr: L.Conv2d):
+        super().__init__()
+        self.conv_in_pretrained = conv_in_pretrained
+        self.conv_in_curr = conv_in_curr
+
+
+def make_twin_conv_in(unet: "UNet2DConditionModel"):
+    """Replace `unet.conv_in` by a TwinConv of a copy of it (pretrained)
+    and itself (current), in place (unet.py:261-272); a UNet that already
+    has one is returned as it is."""
+    if not isinstance(unet.conv_in, TwinConv):
+        unet.conv_in = TwinConv(copy.deepcopy(unet.conv_in), unet.conv_in)
+    return unet
 
 
 class _MidBlock(nn.Module):
@@ -127,12 +149,15 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = L.Conv2d(chans[0], cfg.out_channels, 3)
 
     def forward(self, x, timesteps, context, *, kernels: bool,
-                remat: bool = False):
+                remat: bool = False, r=None):
         """x: (B, H, W, 4) latents; timesteps: (B,) int; context:
         (B, 77, cross_dim). Returns eps (B, H, W, 4). remat: recompute each
         down, mid and up block in the backward (torch.utils.checkpoint,
         non-reentrant), as the JAX package's `remat=True` does for
-        training; a recompute launches the block's kernels again."""
+        training; a recompute launches the block's kernels again. r: the
+        TwinConv blend factor (a float or 0-d tensor), required when
+        conv_in is a TwinConv and unused otherwise, as in the JAX
+        package."""
         cfg = self.cfg
         temb = L.timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -157,7 +182,8 @@ class UNet2DConditionModel(nn.Module):
                 outs.append(sample)
             if hasattr(block, "downsamplers"):
                 sample = L.downsample2x_conv(block.downsamplers[0].conv,
-                                             sample, pad_lo=1)
+                                             sample, pad_lo=1,
+                                             kernels=kernels)
                 outs.append(sample)
             return sample, outs
 
@@ -195,7 +221,17 @@ class UNet2DConditionModel(nn.Module):
             run_down_block, run_mid, run_up_block = (
                 ckpt(run_down_block), ckpt(run_mid), ckpt(run_up_block))
 
-        sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels)
+        if isinstance(self.conv_in, TwinConv):
+            if r is None:
+                raise ValueError("a TwinConv conv_in needs the blend factor r")
+            r = torch.as_tensor(r, dtype=x.dtype, device=x.device)
+            x1 = L.plain_conv3x3(self.conv_in.conv_in_pretrained, x,
+                                 kernels=kernels).detach()
+            x2 = L.plain_conv3x3(self.conv_in.conv_in_curr, x,
+                                 kernels=kernels)
+            sample = x1 * (1.0 - r) + x2 * r
+        else:
+            sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels)
         res_stack = [sample]
         for block in self.down_blocks:
             sample, outs = run_down_block(block, sample, temb, context)

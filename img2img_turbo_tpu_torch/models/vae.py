@@ -103,9 +103,10 @@ class Encoder(nn.Module):
                           emit_stats=emit)
                 sample, stats = out if emit else (out, None)
             if has_down:
-                sample = L.downsample2x_conv(block.downsamplers[0].conv,
-                                             sample, pad_lo=0)
-                stats = None
+                # K6 emits the stats of its output for the next GroupNorm
+                sample, stats = L.downsample2x_conv(
+                    block.downsamplers[0].conv, sample, pad_lo=0,
+                    emit_stats=True, kernels=kernels)
         sample, stats = self.mid_block(sample, kernels=kernels,
                                        x_stats=stats, emit_stats=True)
         sample = L.gn_silu_conv(self.conv_norm_out, self.conv_out, sample,
@@ -141,7 +142,9 @@ class Decoder(nn.Module):
                         L.Conv2d(ic, oc, 1, bias=False))
 
     def forward(self, z, skips: Optional[List[torch.Tensor]] = None,
-                gamma: float = 1.0, *, kernels: bool):
+                gamma=1.0, *, kernels: bool):
+        """gamma scales each skip before its zero-conv: a float, or a 0-d
+        tensor (the sketch path's runtime r)."""
         cfg = self.cfg
         rskips = skips[::-1] if skips is not None else None
 
@@ -201,7 +204,8 @@ class AutoencoderKL(nn.Module):
                                 device=mean.device, dtype=mean.dtype)
         return mean + std * noise.to(mean.dtype), skips
 
-    def decode(self, z, skips=None, gamma: float = 1.0, *, kernels: bool):
-        """Unscaled latents -> image in [-1, 1] range (unclamped)."""
+    def decode(self, z, skips=None, gamma=1.0, *, kernels: bool):
+        """Unscaled latents -> image in [-1, 1] range (unclamped). gamma:
+        the skip weight, a float or a 0-d tensor."""
         z = L.conv2d(self.post_quant_conv, z)
         return self.decoder(z, skips, gamma, kernels=kernels)

@@ -1,12 +1,16 @@
-"""Attention: kernels K2 and K7 (CUDA, `csrc/attention.cu`,
+"""Attention: kernels K2, K7 and K9 (CUDA, `csrc/attention.cu`,
 `csrc/attention_bwd.cu`), their plain versions, and the autograd Function
-that pairs them.
+that pairs K2 with K7.
 
 Counterparts of `img2img_turbo_tpu/ops/attention.py:204
 flash_attention_folded` (K2, Pallas body `_flash_heads_kernel :151`, with
 its `return_lse` output), `:390 flash_attention_folded_bwd` (K7), and of
-`_mha_xla :479-487` and the custom VJP `_mha_flash :490-509`. Inputs stay
-in the folded (B, S, H*hd) layout.
+`_mha_xla :479-487` and the custom VJP `_mha_flash :490-509`: their inputs
+stay in the folded (B, S, H*hd) layout. K9, `:85 flash_attention` on
+(B, H, S, d) tensors, is reached through the public `default_attention`
+(`:523-531`), with `scaled_dot_product_attention` (`:36`) as its plain
+version and `flash_attention_ref` (fp32 throughout, one rounding) as its
+exact reference; no model path calls it.
 
 `mha_ref` is both K2's plain version (its correctness yardstick, and what
 the wrapper computes on a CPU tensor) and what the plain engine
@@ -46,6 +50,16 @@ def _bwd_fn():
     f = lib.flash_attention_bwd_bf16
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def _bhsd_fn():
+    lib = _build.load("attention")
+    f = lib.flash_attention_bhsd_bf16
+    if f.argtypes is None:
+        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -191,3 +205,54 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_folded_bwd(q, k, v, o, do.contiguous(),
                                                 lse, ctx.num_heads)
         return dq, dk, dv, None
+
+
+def flash_attention_ref(q, k, v):
+    """K9's exact reference: q (B, H, Sq, d), k/v (B, H, Skv, d); scores,
+    softmax and the PV product in fp32, one rounding to q.dtype."""
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def scaled_dot_product_attention(q, k, v):
+    """K9's plain version (the counterpart of the XLA reference, :36):
+    q (B, H, Sq, d), k/v (B, H, Skv, d); fp32 scores and softmax,
+    probabilities cast to v.dtype, fp32 accumulation, one rounding."""
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    p = torch.softmax(s, dim=-1)
+    return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
+
+
+def flash_attention(q, k, v):
+    """K9: non-causal attention on (B, H, S, d) tensors, ragged Sq, any
+    Skv (masked). q (B, H, Sq, 64), k/v (B, H, Skv, 64), bf16; returns
+    (B, H, Sq, 64). CPU tensors take the plain version; a CUDA tensor with
+    another head dim raises."""
+    if q.device.type == "cpu":
+        return scaled_dot_product_attention(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d != 64:
+        raise ValueError(f"flash_attention: head dim {d}, the kernel takes "
+                         f"64")
+    if sq < 1 or skv < 1:
+        raise ValueError("flash_attention: empty sequence")
+    for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, skv, d)),
+                           ("v", v, (b, h, skv, d))):
+        _check(name, t, shape, q.device)
+    o = torch.empty_like(q)
+    err = _bhsd_fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                     _build.ptr(o), b, h, sq, skv, _build.stream())
+    _build.check(err, "flash_attention_bhsd_bf16")
+    _build.launch_counts["flash_attention"] += 1
+    return o
+
+
+def default_attention(q, k, v):
+    """The package's public attention op on (B, H, S, d) tensors (the
+    counterpart of :523-531): K9 on a CUDA tensor (head dim 64), the plain
+    version on a CPU tensor. The JAX package's Sq >= 256 gate chose its
+    TPU tiling; on the card every Sq takes the kernel."""
+    return flash_attention(q, k, v)

@@ -1,8 +1,9 @@
-"""Conv engine wrappers: kernels K1 and K4 (CUDA, `csrc/conv.cu`).
+"""Conv engine wrappers: kernels K1, K4 and K6 (CUDA, `csrc/conv.cu`).
 
 Counterparts of `img2img_turbo_tpu/ops/fused_conv.py:889
-fused_gn_silu_conv3x3` (K1) and `:1688 upsample2x_conv3x3` (K4). Both keep
-the JAX layouts: activations (B, H, W, C), conv weights HWIO (3, 3, C, Co).
+fused_gn_silu_conv3x3` (K1), `:1688 upsample2x_conv3x3` (K4) and `:1350
+downsample2x_conv3x3` (K6). All keep the JAX layouts: activations
+(B, H, W, C), conv weights HWIO (3, 3, C, Co).
 
 Each kernel has two plain versions. `*_ref` is its exact counterpart (fp32
 arithmetic, one rounding to the activation dtype, as the kernel does): a
@@ -33,6 +34,9 @@ def _lib():
         lib.conv_stats_tiles.restype = ctypes.c_int
         lib.conv_workspace_bytes.argtypes = [ctypes.c_int] * 7
         lib.conv_workspace_bytes.restype = ctypes.c_long
+        lib.downsample3x3_bf16.argtypes = [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.downsample3x3_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -119,6 +123,41 @@ def upsample2x_conv3x3_ref(x, w, bias, skip_x=None, skip_w=None,
     if skip_x is not None:
         y = y + skip_x.float() @ skip_w.float()
     y = y.to(x.dtype)
+    return y, (output_stats(y) if emit_stats else None)
+
+
+def downsample_size(n: int, pad_lo: int) -> int:
+    """Output size of the stride-2 conv3x3 with (pad_lo, 1) padding
+    (fused_conv.py:1362), odd n included."""
+    return (n + pad_lo - 2) // 2 + 1
+
+
+def _pad_down(x_nchw, pad_lo: int):
+    return F.pad(x_nchw, (pad_lo, 1, pad_lo, 1))
+
+
+def downsample2x_conv3x3_ref(x, w, bias, pad_lo: int,
+                             emit_stats: bool = False):
+    """Plain version of K6: the stride-2 conv3x3 of x on (pad_lo, 1)
+    padding, plus bias, in fp32 with one rounding; stats are one
+    (B, 1, 2, Co) tile of the stored y (the true output only)."""
+    y = F.conv2d(_pad_down(x.float().permute(0, 3, 1, 2), pad_lo),
+                 _oihw(w.float()), stride=2).permute(0, 2, 3, 1) \
+        + bias.float()
+    y = y.to(x.dtype)
+    return y, (output_stats(y) if emit_stats else None)
+
+
+def downsample2x_conv3x3_plain(x, w, bias, pad_lo: int,
+                               emit_stats: bool = False):
+    """The plain engine's K6 (the JAX strided XLA conv, layers.py:632):
+    F.conv2d(stride=2) on the explicit (pad_lo, 1) padding, in x.dtype,
+    with the weight as nn.Conv2d holds it (Co, C, 3, 3); stats by
+    `output_stats` when asked."""
+    dt = x.dtype
+    y = F.conv2d(_pad_down(x.permute(0, 3, 1, 2), pad_lo), w.to(dt),
+                 None if bias is None else bias.to(dt),
+                 stride=2).permute(0, 2, 3, 1)
     return y, (output_stats(y) if emit_stats else None)
 
 
@@ -265,3 +304,51 @@ def upsample2x_conv3x3(x, w, bias, skip_x=None, skip_w=None,
                   skip_x, skip_w_packed, emit_stats, up=True)
     _build.launch_counts["upsample2x_conv3x3"] += 1
     return out
+
+
+def downsample2x_conv3x3(x, w, bias, pad_lo: int, emit_stats: bool = False,
+                         w_packed=None):
+    """K6. y = stride-2 conv3x3 of x with ((pad_lo, 1), (pad_lo, 1))
+    padding, plus bias: pad_lo=0 is the VAE encoder's downsample, pad_lo=1
+    the UNet's. x (B,H,W,C) bf16 with C a multiple of 8 and H, W >= 2;
+    w (3,3,C,Co); bias (Co,) fp32. The CUDA path reads only w_packed =
+    pack_weights(w), built at load. Returns (y (B, Ho, Wo, Co), stats):
+    Ho = downsample_size(H, pad_lo), likewise Wo; stats are the
+    (B, n_tiles, 2, Co) fp32 partial sums of the stored y over the true
+    output, or None."""
+    if pad_lo not in (0, 1):
+        raise ValueError(f"downsample2x_conv3x3: pad_lo {pad_lo} not 0 or 1")
+    if x.device.type == "cpu":
+        return downsample2x_conv3x3_ref(x, w, bias, pad_lo, emit_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"downsample2x_conv3x3: unsupported device "
+                         f"{x.device}")
+    if w_packed is None:
+        raise ValueError("downsample2x_conv3x3: the CUDA path takes the "
+                         "packed weights (pack_weights), built at load")
+    bsz, h, wd, c = x.shape
+    if c % 8 or h < 2 or wd < 2:
+        raise ValueError(f"downsample2x_conv3x3: x {tuple(x.shape)} needs C "
+                         f"a multiple of 8 and H, W >= 2")
+    co = bias.shape[0]
+    dev, bf = x.device, torch.bfloat16
+    _check("x", x, x.shape, bf, dev)
+    _check("w_packed", w_packed, (9, c // 8, -(-co // 8) * 8, 8), bf, dev)
+    _check("bias", bias, (co,), torch.float32, dev)
+    lib = _lib()
+    ho, wo = downsample_size(h, pad_lo), downsample_size(wd, pad_lo)
+    y = torch.empty((bsz, ho, wo, co), device=dev, dtype=bf)
+    stats = None
+    if emit_stats:
+        stats = torch.empty((bsz, lib.conv_stats_tiles(ho, wo, 0), 2, co),
+                            device=dev, dtype=torch.float32)
+    ws_bytes = lib.conv_workspace_bytes(bsz, ho, wo, c, co, 0, 0)
+    ws = (torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
+          if ws_bytes else None)
+    err = lib.downsample3x3_bf16(
+        _build.ptr(x), _build.ptr(w_packed), _build.ptr(bias), _build.ptr(y),
+        _build.ptr(stats), _build.ptr(ws), bsz, h, wd, c, co, pad_lo,
+        _build.stream())
+    _build.check(err, "downsample3x3_bf16")
+    _build.launch_counts["downsample2x_conv3x3"] += 1
+    return y, stats

@@ -1,0 +1,162 @@
+"""CycleGAN-Turbo: one-step unpaired translation (counterpart of
+`img2img_turbo_tpu/pipelines/cyclegan.py:33-133, 207-222`).
+
+One UNet serves both directions (direction enters through the caption
+embedding and the VAE: `vae_a2b` or its copy `vae_b2a`). The three UNet LoRA
+adapters (encoder / decoder / others) partition the targeted modules by
+name, with alpha = rank; for serving they are merged into dense weights
+(`lora.merge_multi`). Loading the published checkpoints (`from_pretrained`)
+waits for the SD-Turbo weights and the pkl loaders (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional
+
+import torch
+
+from img2img_turbo_tpu_torch import lora as lora_mod
+from img2img_turbo_tpu_torch import resolve_device, scheduler
+from img2img_turbo_tpu_torch.models.layers import prepare_kernels
+from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
+                                                       generate_unclamped)
+
+# named pretrained checkpoints: fixed caption + direction
+# (reference cyclegan_turbo.py:126-149)
+NAMED_MODELS = {
+    "day_to_night": ("day2night.pkl", "driving in the night", "a2b"),
+    "night_to_day": ("night2day.pkl", "driving in the day", "b2a"),
+    "clear_to_rainy": ("clear2rainy.pkl", "driving in heavy rain", "a2b"),
+    "rainy_to_clear": ("rainy2clear.pkl", "driving in the day", "b2a"),
+}
+ADAPTERS = ("default_encoder", "default_decoder", "default_others")
+# the unpaired trainer's default ranks (JAX utils/config_args.py:123-124)
+LORA_RANK_UNET, LORA_RANK_VAE = 128, 4
+
+
+def cyclegan_unet_adapters(unet, rank: int,
+                           generator: torch.Generator) -> Dict[str, Dict]:
+    """The encoder / decoder / others adapter trio over the modules that
+    `lora.CYCLEGAN_UNET_GREP` matches, partitioned by name (reference
+    initialize_unet, cyclegan_turbo.py:48-72), alpha = rank, drawn in that
+    order from `generator`."""
+    parts = {a: [] for a in ADAPTERS}
+    for n in lora_mod.targeted(unet, lora_mod.CYCLEGAN_UNET_GREP):
+        if "down_blocks" in n or "conv_in" in n:
+            parts["default_encoder"].append(n)
+        elif "up_blocks" in n:
+            parts["default_decoder"].append(n)
+        else:
+            parts["default_others"].append(n)
+    return {a: lora_mod.init_lora(unet, rank, tuple(names), generator,
+                                  alpha=float(rank))
+            for a, names in parts.items()}
+
+
+def forward_with_params(params: Dict, cfgs: GeneratorConfigs, alphas_cumprod,
+                        x, caption_enc, direction: str, *, kernels: bool,
+                        noise=None,
+                        generator: Optional[torch.Generator] = None):
+    """One translation (cyclegan.py:68-83): params {"unet", "vae_a2b",
+    "vae_b2a"} modules; x (B, H, W, 3) in [-1, 1]; direction "a2b" routes
+    through vae_a2b, "b2a" through vae_b2a. Returns (B, H, W, 3) in
+    [-1, 1]."""
+    if direction not in ("a2b", "b2a"):
+        raise ValueError(f"direction {direction!r} is not 'a2b' or 'b2a'")
+    img = generate_unclamped(params["unet"], params["vae_" + direction], cfgs,
+                             alphas_cumprod, x, caption_enc, kernels=kernels,
+                             noise=noise, generator=generator)["img"]
+    return torch.clamp(img, -1.0, 1.0)
+
+
+def init_factored(cfgs: GeneratorConfigs, generator: torch.Generator):
+    """Training init (cyclegan.py:108-133): seeded random SD-Turbo modules
+    on generator.device, vae_b2a a copy of vae_a2b, the UNet adapter trio
+    at LORA_RANK_UNET and one LORA_RANK_VAE adapter per VAE. Returns (base
+    {"unet", "vae_a2b", "vae_b2a"}, loras {"unet": {adapter: lora},
+    "vae_a2b", "vae_b2a"})."""
+    from img2img_turbo_tpu_torch.weights import from_jax
+    unet = from_jax.random_model(cfgs.unet, generator)
+    vae = from_jax.random_model(cfgs.vae, generator)
+    base = {"unet": unet, "vae_a2b": vae, "vae_b2a": copy.deepcopy(vae)}
+    loras = {"unet": cyclegan_unet_adapters(unet, LORA_RANK_UNET, generator)}
+    for name in ("vae_a2b", "vae_b2a"):
+        loras[name] = lora_mod.init_lora(base[name], LORA_RANK_VAE,
+                                         lora_mod.CYCLEGAN_VAE_TARGETS,
+                                         generator)
+    return base, loras
+
+
+def merge(base: Dict, loras: Dict) -> Dict:
+    """`base`'s modules with their adapters merged in place (the UNet's
+    trio by `lora.merge_multi`, each VAE's by `lora.merge_lora`): the
+    dense {"unet", "vae_a2b", "vae_b2a"} that the pipeline serves."""
+    for name, module in base.items():
+        adapters = (list(loras["unet"].values()) if name == "unet"
+                    else [loras[name]])
+        with torch.no_grad():
+            module.load_state_dict(lora_mod.merge_multi(
+                dict(module.named_parameters()), adapters), strict=False)
+    return base
+
+
+class CycleGANTurbo:
+    """The serving pipeline on dense (merged) modules {"unet", "vae_a2b",
+    "vae_b2a"}, moved to `device` (the CUDA card unless the caller names
+    another), cast to `dtype` and given their kernel layouts once, here.
+    Prompts go in as embeddings (`caption_enc`): the port has no tokenizer
+    yet."""
+
+    def __init__(self, params: Optional[Dict] = None,
+                 cfgs: Optional[GeneratorConfigs] = None, caption_enc=None,
+                 direction: Optional[str] = None, dtype=torch.bfloat16,
+                 device=None, use_kernels: bool = True):
+        self.cfgs = cfgs or GeneratorConfigs()
+        self.caption_enc, self.direction = caption_enc, direction
+        self.dtype, self.use_kernels = dtype, use_kernels
+        self.device = resolve_device(device)
+        self.alphas_cumprod = scheduler.make_alphas_cumprod(device=self.device)
+        self.params = None
+        if params is not None:
+            self.params = {k: prepare_kernels(
+                m.to(device=self.device, dtype=dtype).eval())
+                for k, m in params.items()}
+
+    @classmethod
+    def from_random(cls, generator: torch.Generator,
+                    cfgs: Optional[GeneratorConfigs] = None
+                    ) -> "CycleGANTurbo":
+        """The pipeline on `init_factored`'s weights, merged (B = 0 at
+        init, so both directions start as the base model), on
+        generator.device."""
+        cfgs = cfgs or GeneratorConfigs()
+        return cls(merge(*init_factored(cfgs, generator)), cfgs,
+                   device=generator.device)
+
+    @torch.no_grad()
+    def __call__(self, x, direction: Optional[str] = None, caption_enc=None,
+                 noise=None, generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) in [-1, 1]. Returns the translated batch in
+        [-1, 1]. direction and caption_enc default to the pipeline's own
+        (cyclegan.py:207-222); the posterior noise is `noise`, or drawn
+        from `generator` (seed 0 when None)."""
+        if self.params is None:
+            raise ValueError("no merged weights: build the pipeline with "
+                             "params")
+        direction = direction or self.direction
+        caption_enc = self.caption_enc if caption_enc is None \
+            else caption_enc
+        if caption_enc is None:
+            raise ValueError("give caption_enc (the port has no tokenizer)")
+        x = x.to(device=self.device, dtype=self.dtype)
+        caption_enc = caption_enc.to(device=self.device, dtype=self.dtype)
+        if caption_enc.shape[0] != x.shape[0]:
+            caption_enc = caption_enc.expand(x.shape[0],
+                                             *caption_enc.shape[1:])
+        if noise is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return forward_with_params(
+            self.params, self.cfgs, self.alphas_cumprod, x,
+            caption_enc.contiguous(), direction, kernels=self.use_kernels,
+            noise=noise, generator=generator)

@@ -1,12 +1,22 @@
-"""Serving engine: the uint8-in / uint8-out edge_to_image path (counterpart
-of `img2img_turbo_tpu/serving/engine.py:26-38, 73-168`).
+"""Serving engine: the uint8-in / uint8-out paths (counterpart of
+`img2img_turbo_tpu/serving/engine.py`).
 
-uint8 RGB -> on-device canny -> VAE encode (posterior sample) -> UNet at
-t=999 on a cached prompt embedding -> closed-form x0 -> skip-fused VAE
-decode -> uint8, all on one device, with parameters and the prompt
-embedding in bf16. `use_kernels=False` runs the plain PyTorch path on the
-same weights (the reference the kernel path is checked against); there is
-no other way to reach it.
+Three modes, all on one device with parameters and the prompt embedding in
+the engine's dtype:
+- "edge_to_image": uint8 RGB -> on-device canny -> VAE encode (posterior
+  sample) -> UNet at t=999 -> closed-form x0 -> skip-fused VAE decode ->
+  uint8, on LoRA-merged weights (engine.py:26-38);
+- "image": the same generator on uint8 RGB mapped to [-1, 1] (the
+  CycleGAN-Turbo input, engine.py:41-52);
+- "sketch": the stochastic path (engine.py:55-70): the sketch thresholded
+  at < 0.5, LoRA merged per request at the runtime scale r, the TwinConv
+  blend, unet_in = z*r + noise*(1-r) and decoder gamma = r. Its modules
+  hold weights that change per request, so they run the live-weight path
+  (`lora.swap_params`, as the trainer does) and are never given kernel
+  layouts that would go stale.
+`use_kernels=False` runs the plain PyTorch path on the same weights (the
+reference the kernel path is checked against); there is no other way to
+reach it.
 """
 
 from __future__ import annotations
@@ -21,7 +31,10 @@ from img2img_turbo_tpu_torch.models.layers import prepare_kernels
 from img2img_turbo_tpu_torch.ops import canny as canny_mod
 from img2img_turbo_tpu_torch.ops import image as image_mod
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
-                                                       generate_unclamped)
+                                                       generate_unclamped,
+                                                       lora_merged_at)
+
+MODES = ("edge_to_image", "image", "sketch")
 
 
 def _serve_edge(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
@@ -39,41 +52,90 @@ def _serve_edge(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
     return res
 
 
+def _serve_image(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
+                 caption_enc, *, kernels: bool, noise=None,
+                 generator=None) -> Dict[str, torch.Tensor]:
+    """uint8 RGB -> [-1, 1] -> one-step generator -> uint8 RGB; returns
+    as `_serve_edge`."""
+    c_t = image_mod.uint8_to_signed(image_u8).to(caption_enc.dtype)
+    res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
+                             kernels=kernels, noise=noise,
+                             generator=generator)
+    res["out"] = image_mod.signed_to_uint8(res["img"])
+    return res
+
+
+def _serve_sketch(unet, vae, lora, cfgs: GeneratorConfigs, alphas, image_u8,
+                  caption_enc, r, noise_map, *, kernels: bool, noise=None,
+                  generator=None) -> Dict[str, torch.Tensor]:
+    """uint8 sketch -> threshold < 0.5 -> the stochastic generator with
+    LoRA merged at r -> uint8 (reference inference_paired.py:55-63 and
+    pix2pix_turbo.py:204-218); returns as `_serve_edge`."""
+    c_t = (image_mod.uint8_to_unit(image_u8) < 0.5).to(caption_enc.dtype)
+    with lora_merged_at(unet, vae, lora, r):
+        res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
+                                 kernels=kernels, noise=noise,
+                                 generator=generator, r=r,
+                                 noise_map=noise_map)
+    res["out"] = image_mod.signed_to_uint8(res["img"])
+    return res
+
+
 class ServingEngine:
-    """One-step edge_to_image server on one device.
+    """One-step translation server on one device.
 
-    params: {"unet": UNet2DConditionModel, "vae": AutoencoderKL} with the
-    LoRA-merged weights loaded. They are moved to `device` (the CUDA card
-    unless the caller names another; without a card the caller must pass
-    device="cpu"), cast to `dtype` and given their kernel-ready layouts
-    once, here."""
+    params ("edge_to_image", "image"): {"unet": UNet2DConditionModel,
+    "vae": AutoencoderKL} with the LoRA-merged weights loaded (for a
+    CycleGAN model, its UNet with the VAE of one direction). base and lora
+    ("sketch"): {"unet" (with a TwinConv conv_in), "vae"} holding the base
+    weights, and their factored adapters {"unet", "vae"}. Modules are moved
+    to `device` (the CUDA card unless the caller names another; without a
+    card the caller must pass device="cpu") and cast to `dtype` once, here;
+    the merged modes' modules also get their kernel layouts here."""
 
-    def __init__(self, params: Dict[str, torch.nn.Module],
+    def __init__(self, params: Optional[Dict[str, torch.nn.Module]] = None,
                  cfgs: Optional[GeneratorConfigs] = None,
                  mode: str = "edge_to_image", dtype=torch.bfloat16,
                  canny_low: float = 100.0, canny_high: float = 200.0,
-                 device=None, use_kernels: bool = True):
-        if mode != "edge_to_image":
-            raise NotImplementedError(
-                f"serving mode {mode!r} is not ported yet (edge_to_image is)")
+                 device=None, use_kernels: bool = True,
+                 base: Optional[Dict[str, torch.nn.Module]] = None,
+                 lora: Optional[Dict] = None):
+        if mode not in MODES:
+            raise ValueError(f"unknown serving mode {mode!r}")
+        if mode == "sketch" and (base is None or lora is None):
+            raise ValueError("sketch mode takes base and lora (factored, for "
+                             "the runtime r)")
+        if mode != "sketch" and params is None:
+            raise ValueError(f"{mode} mode takes params (merged weights)")
         self.cfgs = cfgs or GeneratorConfigs()
         self.mode, self.dtype = mode, dtype
         self.canny_low, self.canny_high = canny_low, canny_high
         self.use_kernels = use_kernels
         self.device = resolve_device(device)
-        self.unet = prepare_kernels(
-            params["unet"].to(device=self.device, dtype=dtype).eval())
-        self.vae = prepare_kernels(
-            params["vae"].to(device=self.device, dtype=dtype).eval())
+        if mode == "sketch":
+            self.unet, self.vae = (base[k].to(device=self.device,
+                                              dtype=dtype).eval()
+                                   for k in ("unet", "vae"))
+            self.lora = {k: dict(v, modules={
+                n: {f: t.to(device=self.device, dtype=dtype)
+                    for f, t in e.items()}
+                for n, e in v["modules"].items()}) for k, v in lora.items()}
+        else:
+            self.unet, self.vae = (prepare_kernels(
+                params[k].to(device=self.device, dtype=dtype).eval())
+                for k in ("unet", "vae"))
         self.alphas = scheduler.make_alphas_cumprod(device=self.device)
 
     @torch.no_grad()
-    def run(self, image_u8, caption_enc, generator=None,
-            noise=None) -> Dict[str, torch.Tensor]:
+    def run(self, image_u8, caption_enc, generator=None, noise=None,
+            r: float = 0.4, noise_map=None) -> Dict[str, torch.Tensor]:
         """image_u8: (B, H, W, 3) uint8 (numpy or tensor), H and W
         multiples of 8; caption_enc: (1 or B, 77, cross_dim). The posterior
         noise is `noise` when given, else drawn from `generator` (a
-        torch.Generator on the engine's device; seed 0 when None)."""
+        torch.Generator on the engine's device; seed 0 when None). Sketch
+        mode only: r (float or 0-d tensor) and the noise map
+        (B, H/8, W/8, 4), drawn from `generator` before the posterior noise
+        when not given."""
         if not isinstance(image_u8, torch.Tensor):
             image_u8 = torch.from_numpy(np.asarray(image_u8))
         image_u8 = image_u8.to(self.device)
@@ -84,20 +146,38 @@ class ServingEngine:
         b, h, w, _ = image_u8.shape
         if h % 8 or w % 8:
             raise ValueError(f"H and W must be multiples of 8, got {(h, w)}")
+        if noise_map is not None and self.mode != "sketch":
+            raise ValueError("noise_map applies only to sketch mode")
         caption_enc = caption_enc.to(device=self.device, dtype=self.dtype)
         if caption_enc.shape[0] != b:
             caption_enc = caption_enc.expand(b, *caption_enc.shape[1:])
         caption_enc = caption_enc.contiguous()
         if noise is None and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return _serve_edge(self.unet, self.vae, self.cfgs, self.alphas,
-                           image_u8, caption_enc, self.canny_low,
-                           self.canny_high, kernels=self.use_kernels,
-                           noise=noise, generator=generator)
+        common = dict(kernels=self.use_kernels, noise=noise,
+                      generator=generator)
+        if self.mode == "edge_to_image":
+            return _serve_edge(self.unet, self.vae, self.cfgs, self.alphas,
+                               image_u8, caption_enc, self.canny_low,
+                               self.canny_high, **common)
+        if self.mode == "image":
+            return _serve_image(self.unet, self.vae, self.cfgs, self.alphas,
+                                image_u8, caption_enc, **common)
+        f = 2 ** (self.cfgs.vae.num_levels - 1)
+        if noise_map is None:
+            noise_map = torch.randn(
+                b, h // f, w // f, self.cfgs.vae.latent_channels,
+                generator=generator, device=self.device, dtype=self.dtype)
+        r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
+        return _serve_sketch(self.unet, self.vae, self.lora, self.cfgs,
+                             self.alphas, image_u8, caption_enc, r,
+                             noise_map.to(device=self.device), **common)
 
-    def __call__(self, image_u8, caption_enc, generator=None, noise=None):
+    def __call__(self, image_u8, caption_enc, generator=None, noise=None,
+                 r: float = 0.4, noise_map=None):
         """Returns the uint8 (B, H, W, 3) output on the engine's device."""
-        return self.run(image_u8, caption_enc, generator, noise)["out"]
+        return self.run(image_u8, caption_enc, generator, noise, r,
+                        noise_map)["out"]
 
     def warmup(self, batch: int, height: int, width: int, caption_enc):
         dummy = torch.zeros((batch, height, width, 3), dtype=torch.uint8,
@@ -106,3 +186,36 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+
+# default shape buckets for arbitrary-size inputs (canvases of any size);
+# one program shape per bucket instead of one per size
+SIZE_BUCKETS = (256, 384, 512, 768, 1024)
+
+
+def bucket_size(n: int, buckets=SIZE_BUCKETS) -> int:
+    """The smallest bucket that holds n, else n rounded up to 256."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 255) // 256) * 256
+
+
+class BucketedEngine:
+    """Wraps a ServingEngine for arbitrary input sizes (engine.py:183-201):
+    pads the image to the nearest (H, W) bucket by repeating its edge, runs
+    the engine, crops the output back."""
+
+    def __init__(self, engine: ServingEngine):
+        self.engine = engine
+
+    def __call__(self, image_u8, caption_enc, generator=None):
+        arr = np.asarray(image_u8.cpu() if torch.is_tensor(image_u8)
+                         else image_u8)
+        b, h, w, c = arr.shape
+        bh, bw = bucket_size(h), bucket_size(w)
+        if (bh, bw) != (h, w):
+            arr = np.pad(arr, ((0, 0), (0, bh - h), (0, bw - w), (0, 0)),
+                         mode="edge")
+        out = self.engine(arr, caption_enc, generator)
+        return out[:, :h, :w]

@@ -12,11 +12,20 @@ the UNet conv_in and the skip convs) do the same for the trees of the
 paired training step, so that the tests feed both packages the same
 numbers.
 
+`unet_state_dict` also takes a UNet whose conv_in is a TwinConv pair
+(`{"pretrained", "current"}`, the sketch model), under the reference's
+names `conv_in.conv_in_pretrained` / `conv_in.conv_in_curr`
+(pipelines/pix2pix.py:205-216). `lora_tree` carries a factored adapter
+across (a pix2pix LoRA, one of the three CycleGAN UNet adapters, a CycleGAN
+VAE's); the adapters keep the JAX layout, so only the arrays change type.
+
 `random_params` draws a state dict with the JAX package's init scheme
 (`models/layers.py:37-68`, `models/vae.py:225-231`): U(+-1/sqrt(fan_in)) for
 every conv/linear weight and bias, GroupNorm/LayerNorm scale 1 and bias 0,
 the VAE skip zero-convs constant 1e-5. SD-Turbo's pretrained weights are not
-in the repository, so the chip smoke runs on these.
+in the repository, so the chip smoke runs on these: `random_model` for the
+edge_to_image model, `random_sketch_model` and `random_cyclegan_model` for
+the other two serving modes.
 """
 
 from __future__ import annotations
@@ -92,7 +101,12 @@ def _inv_transformer(out, prefix, p):
 def unet_state_dict(params) -> Dict[str, np.ndarray]:
     """diffusers UNet2DConditionModel state dict from a JAX UNet tree."""
     out: Dict[str, np.ndarray] = {}
-    _inv_conv(out, "conv_in", params["conv_in"])
+    conv_in = params["conv_in"]
+    if "pretrained" in conv_in:     # TwinConv (unet.py:261-272)
+        _inv_conv(out, "conv_in.conv_in_pretrained", conv_in["pretrained"])
+        _inv_conv(out, "conv_in.conv_in_curr", conv_in["current"])
+    else:
+        _inv_conv(out, "conv_in", conv_in)
     _inv_lin(out, "time_embedding.linear_1", params["time_mlp"]["lin1"])
     _inv_lin(out, "time_embedding.linear_2", params["time_mlp"]["lin2"])
     for i, block in enumerate(params["down"]):
@@ -265,6 +279,15 @@ def gen_trainables(gen) -> Dict[str, np.ndarray]:
     return out
 
 
+def lora_tree(lora) -> Dict:
+    """A JAX adapter ({"rank", "alpha", "modules": {name: {"a", "b"}}}) as
+    the port's (lora.py): the same layout, with torch tensors."""
+    return {"rank": int(lora["rank"]), "alpha": float(lora["alpha"]),
+            "modules": {n: {k: torch.as_tensor(np.asarray(e[k]))
+                            for k in ("a", "b")}
+                        for n, e in lora["modules"].items()}}
+
+
 def load(module: torch.nn.Module, state_dict) -> torch.nn.Module:
     """Strictly load a {name: numpy array or tensor} dict into `module`."""
     sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
@@ -316,3 +339,59 @@ def random_model(cfg, generator: torch.Generator) -> torch.nn.Module:
         model = _build(cfg)
     model = model.to_empty(device=generator.device)
     return load(model, random_params(cfg, generator))
+
+
+# the paired trainer's default ranks (JAX utils/config_args.py:80-81)
+PIX2PIX_RANK_UNET, PIX2PIX_RANK_VAE = 8, 4
+# std of the random B factors of the random adapters: B = 0 at init would
+# make the merge, and so r's effect through it, vanish
+B_STD = 0.01
+
+
+def _randomize_b(loras, generator: torch.Generator) -> None:
+    """Give every adapter's B factor N(0, B_STD^2) entries, in place."""
+    for lora in loras:
+        for e in lora["modules"].values():
+            e["b"] = torch.randn(e["b"].shape, generator=generator,
+                                 device=generator.device) * B_STD
+
+
+def random_sketch_model(cfgs, generator: torch.Generator):
+    """(unet, vae, lora) of a seeded random sketch model on
+    generator.device (pix2pix.py:126-149 with the TwinConv of
+    :201-217): random SD-Turbo-layout modules with the base weights, the
+    UNet's conv_in a TwinConv whose current branch is drawn anew (so that r
+    blends two different convs), and factored pix2pix LoRA {"unet", "vae"}
+    at the paired trainer's ranks with random B factors."""
+    from img2img_turbo_tpu_torch import lora as lora_mod
+    from img2img_turbo_tpu_torch.models.unet import make_twin_conv_in
+    unet = random_model(cfgs.unet, generator)
+    vae = random_model(cfgs.vae, generator)
+    lora = {"unet": lora_mod.init_lora(unet, PIX2PIX_RANK_UNET,
+                                       lora_mod.PIX2PIX_UNET_TARGETS,
+                                       generator),
+            "vae": lora_mod.init_lora(vae, PIX2PIX_RANK_VAE,
+                                      lora_mod.PIX2PIX_VAE_TARGETS,
+                                      generator)}
+    _randomize_b(lora.values(), generator)
+    make_twin_conv_in(unet)
+    curr = unet.conv_in.conv_in_curr
+    with torch.no_grad():
+        for p in (curr.weight, curr.bias):
+            bound = 1.0 / math.sqrt(math.prod(curr.weight.shape[1:]))
+            p.copy_((torch.rand(p.shape, generator=generator,
+                                device=generator.device) * 2 - 1) * bound)
+    return unet, vae, lora
+
+
+def random_cyclegan_model(cfgs, generator: torch.Generator
+                          ) -> Dict[str, torch.nn.Module]:
+    """{"unet", "vae_a2b", "vae_b2a"} of a seeded random CycleGAN model on
+    generator.device, dense: `cyclegan.init_factored`'s modules and
+    adapters, with random B factors, merged by `cyclegan.merge`, so the two
+    directions' VAEs differ."""
+    from img2img_turbo_tpu_torch.pipelines import cyclegan
+    base, loras = cyclegan.init_factored(cfgs, generator)
+    _randomize_b([*loras["unet"].values(), loras["vae_a2b"],
+                  loras["vae_b2a"]], generator)
+    return cyclegan.merge(base, loras)

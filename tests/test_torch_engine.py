@@ -139,6 +139,7 @@ def test_launch_table_matches_call_sites(setup, monkeypatch):
 
     spy(fused_conv, "fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3")
     spy(fused_conv, "upsample2x_conv3x3", "upsample2x_conv3x3")
+    spy(fused_conv, "downsample2x_conv3x3", "downsample2x_conv3x3")
     spy(fused_matmul, "fused", "fused_matmul")
     spy(attention, "flash_attention_folded", "flash_attention_folded")
     spy(groupnorm, "partial_stats", "group_norm_stats")
@@ -161,7 +162,7 @@ def test_rejects_what_it_does_not_serve(setup):
         eng(np.zeros((1, 60, 64, 3), np.uint8), cap)
     with pytest.raises(ValueError):
         eng(np.zeros((1, 64, 64, 3), np.float32), cap)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):     # sketch mode takes base and lora
         ServingEngine({"unet": eng.unet, "vae": eng.vae}, eng.cfgs,
                       mode="sketch", device="cpu")
 

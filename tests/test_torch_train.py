@@ -606,6 +606,7 @@ def test_train_launch_table_matches_call_sites(monkeypatch):
 
     spy(fused_conv, "fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3")
     spy(fused_conv, "upsample2x_conv3x3", "upsample2x_conv3x3")
+    spy(fused_conv, "downsample2x_conv3x3", "downsample2x_conv3x3")
     spy(fused_matmul, "fused", "fused_matmul")
     spy(tattn, "flash_attention_folded", "flash_attention_folded")
     spy(tattn, "flash_attention_folded_bwd", "flash_attention_folded_bwd")
