@@ -19,7 +19,14 @@ Phases, each fatal on failure:
    512x512 request and one train step (`per_request`, `per_step`). For K2
    and K9 each case also reports the kernel's device time alone (a CUDA
    graph of 20 calls), the host time of one call and, of that, the
-   library's set-up (shared-memory limit and tensor-map encodes);
+   library's set-up (shared-memory limit and tensor-map encodes). K3 runs
+   every launch shape of the paths (nn.Linear's (Co, C) weights), each
+   with its launch plan, its device time alone and the time of F.linear on
+   the same input and weights, and its times are weighted by the launches
+   its wrapper counted at each shape on every path (`per_request` at
+   512x512 and 840x560, image, sketch, `per_step`); K8's du (the conv
+   engine's du mode on the forward's packed weight) runs at the train
+   step's seven shapes, with its device time alone;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -193,7 +200,7 @@ def _attention_report(lib, B, Sq, Skv, H, hd, q, k, v, call) -> dict:
     library's set-up time within it (folded layout)."""
     import ctypes
     from img2img_turbo_tpu_torch.ops import _build
-    from img2img_turbo_tpu_torch.tools.time_attention import (
+    from img2img_turbo_tpu_torch.tools.time_kernels import (
         device_ms, host_us)
     plan = (ctypes.c_int * 5)()
     if lib.flash_attention_plan(B, H, Sq, hd, plan):
@@ -225,14 +232,16 @@ def _rel(a, b) -> tuple:
 
 
 def kernel_phase(dev, results: list):
+    import ctypes
+
     import torch
     import torch.nn.functional as F
     from img2img_turbo_tpu_torch.models import layers
     from img2img_turbo_tpu_torch.ops import (
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
-    from img2img_turbo_tpu_torch.tools.time_attention import (
-        one_call_ms as _time_ms)
+    from img2img_turbo_tpu_torch.tools.time_kernels import (
+        DU_CASES, K3_SHAPES, device_ms, k3_name, one_call_ms as _time_ms)
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -336,35 +345,33 @@ def kernel_phase(dev, results: list):
                lib)
 
     # ---- K1 as K8's du: the input gradient of the train step's fused GN
-    # convs, prologue-free on the output gradient with flipped, io-swapped
-    # weights (layers.conv3x3_input_grad). The exact version is the fp32
-    # transposed conv of the unflipped weights, so a wrong flip or swap
-    # fails here; the plain time is the plain conv on the flipped weights.
-    for case, B, H, W, C, Co in [
-            # (case, B, H, W, C, Co) of the forward conv C -> Co
-            ("du vae 512^2 128->128", 1, 512, 512, 128, 128),
-            ("du vae dec conv_out 128->3", 1, 512, 512, 128, 3),
-            ("du vae 256^2 256->128", 1, 256, 256, 256, 128),
-            ("du vae enc conv_out 512->8", 1, 64, 64, 512, 8),
-            ("du unet 64^2 320->320", 1, 64, 64, 320, 320),
-            ("du unet conv_out 320->4", 1, 64, 64, 320, 4),
-            ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280)]:
+    # convs, the conv engine's du mode reading the forward's packed weight
+    # as it is (fc.conv3x3_input_grad). The exact version is the fp32
+    # transposed conv of the nn.Conv2d weight, so a wrong tap order or
+    # channel swap fails here; the plain time is the plain path's transposed
+    # conv on the unpacked weight, the library's cuDNN's on the nn.Conv2d
+    # one; device time alone from a CUDA graph of 20 calls.
+    for case, B, H, W, C, Co in DU_CASES:
         gy = rn(B, H, W, Co)
         w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
-        du = layers.conv3x3_input_grad(gy, w)
+        wp = fc.pack_weights(layers._hwio(w))              # as the forward
+        du = fc.conv3x3_input_grad(gy, wp, C)
         dur = F.conv_transpose2d(gy.float().permute(0, 3, 1, 2), w.float(),
                                  padding=1).permute(0, 2, 3, 1)
         err, rel = _rel(du, dur)
-        ms = _time_ms(lambda: layers.conv3x3_input_grad(gy, w))
-        w_t = w.flip(2, 3).transpose(0, 1).contiguous()   # (C, Co, 3, 3)
-        zero = torch.zeros(C, device=dev)
-        pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(gy, w_t, zero))
-        gyc, wbf = gy.permute(0, 3, 1, 2), w
-        lms = _time_ms(lambda: F.conv_transpose2d(gyc, wbf, padding=1))
+        call = lambda: fc.conv3x3_input_grad(gy, wp, C)  # noqa: E731
+        ms, dev_ms = _time_ms(call), device_ms(call)
+        pms = _time_ms(lambda: fc.conv3x3_input_grad_plain(gy, wp, C))
+        gyc = gy.permute(0, 3, 1, 2)
+        lib_call = lambda: F.conv_transpose2d(gyc, w, padding=1)  # noqa: E731
+        lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         flops = 2 * B * H * W * C * 9 * Co
-        nbytes = _nbytes(gy, fc.pack_weights(layers._hwio(w_t)), du)
+        nbytes = _nbytes(gy, wp, du)
+        print(f"  {'':26s} {case}: device {dev_ms:.4f}ms, "
+              f"F.conv_transpose2d device {lib_dev:.4f}ms", flush=True)
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv_transpose2d", part="du")
+        results[-1].update(device_ms=dev_ms, library_device_ms=lib_dev)
 
     # ---- K4 -------------------------------------------------------------
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
@@ -476,25 +483,27 @@ def kernel_phase(dev, results: list):
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
                ms, pms, flops, nbytes)
 
-    # ---- K3 -------------------------------------------------------------
+    # ---- K3: every launch shape of the paths (tools/time_kernels.py's
+    # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
+    # an 840x560 request, which a train step shares), weights in nn.Linear's
+    # (Co, C) layout. Each case also times F.linear on the same input and
+    # weights (the product alone: no LN, the weights of a 2- or 3-output
+    # call concatenated, no residual), the library's share of the work;
+    # only an LN-free single plain output is one F.linear call exactly.
     k3 = ("fused_matmul", "cuda", "img2img_turbo_tpu_torch/csrc/fused_matmul.cu",
           "img2img_turbo_tpu/ops/fused_matmul.py:276")
-    for case, M, C, Co, n_w, ln, gate, has_res in [
-            ("geglu ln 4096x320->1280", 4096, 320, 1280, 1, True, True, False),
-            ("qkv ln 4096x320 x3", 4096, 320, 320, 3, True, False, False),
-            ("ff out+res 4096x1280->320", 4096, 1280, 320, 1, False, False,
-             True),
-            ("kv context 77x1024->640 x2", 77, 1024, 640, 2, False, False,
-             False),
-            ("vae mid qkv 4096x512 x3", 4096, 512, 512, 3, False, False,
-             False),
-            ("geglu ln 64x1280->5120", 64, 1280, 5120, 1, True, True, False),
-            ("proj_in 4096x320->320", 4096, 320, 320, 1, False, False,
-             False)]:
+    k3_lib = _build.load("fused_matmul")
+    k3_lib.fused_matmul_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    k3_lib.fused_matmul_plan.restype = ctypes.c_int
+    plan = (ctypes.c_int * 7)()
+    for shape in K3_SHAPES:
+        M, C, Co, n_w, ln, gate, has_res = shape
+        case = k3_name(shape)
         x = rn(1, M, C)
-        wcols = 2 * Co if gate else Co
-        ws = tuple(rn(C, wcols, scale=1 / math.sqrt(C)) for _ in range(n_w))
-        bs = tuple(rn(wcols, scale=0.1, dtype=torch.float32)
+        wrows = 2 * Co if gate else Co
+        ws = tuple(rn(wrows, C, scale=1 / math.sqrt(C)) for _ in range(n_w))
+        bs = tuple(rn(wrows, scale=0.1, dtype=torch.float32)
                    for _ in range(n_w))
         lnp = None
         if ln:
@@ -505,22 +514,30 @@ def kernel_phase(dev, results: list):
         refs = fm.fused_ref(x, ws, bs, ln=lnp, residual=res, gate=gate)
         errs = [_rel(o, r) for o, r in zip(outs, refs)]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-        ms = _time_ms(lambda: fm.fused(x, ws, bs, ln=lnp, residual=res,
-                                       gate=gate))
-        ws_t = tuple(w.t().contiguous() for w in ws)  # nn.Linear's (Co, C)
-        pms = _time_ms(lambda: fm.fused_plain(x, ws_t, bs, ln=lnp,
+        call = lambda: fm.fused(x, ws, bs, ln=lnp, residual=res,  # noqa: E731
+                                gate=gate)
+        ms, dev_ms = _time_ms(call), device_ms(call)
+        pms = _time_ms(lambda: fm.fused_plain(x, ws, bs, ln=lnp,
                                               residual=res, gate=gate))
-        flops = 2 * M * C * wcols * n_w
+        wcat = torch.cat(ws) if n_w > 1 else ws[0]
+        bcat = torch.cat(bs).to(bf)
+        linear = lambda: F.linear(x, wcat, bcat)  # noqa: E731
+        linear_ms, linear_dev = _time_ms(linear), device_ms(linear)
+        flops = 2 * M * C * wrows * n_w
         nbytes = _nbytes(x, *ws, *bs, res, *outs) \
             + (0 if lnp is None else _nbytes(*lnp))
-        lms = lib = None
-        if not ln and n_w == 1 and not gate and not has_res:
-            # LN-free, one output: one F.linear computes the same
-            bb = bs[0].to(bf)
-            lms = _time_ms(lambda: F.linear(x, ws_t[0], bb))
-            lib = "F.linear"
-        record(*k3, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               lib)
+        exact = not ln and n_w == 1 and not gate and not has_res
+        k3_lib.fused_matmul_plan(M, Co, n_w, int(ln), int(gate), plan)
+        grid = tuple(plan[:3])
+        print(f"  {'':26s} {case}: grid {grid} = {math.prod(grid)} blocks, "
+              f"{plan[3]}x{plan[4]} tiles, {plan[5]} a block"
+              f"{', resident LN panel' if plan[6] else ''}; device "
+              f"{dev_ms:.4f}ms, F.linear {linear_ms:.4f}ms (device "
+              f"{linear_dev:.4f}ms)", flush=True)
+        record(*k3, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
+               linear_ms if exact else None, "F.linear" if exact else None)
+        results[-1].update(shape=shape, device_ms=dev_ms, linear_ms=linear_ms,
+                           linear_device_ms=linear_dev)
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
@@ -624,7 +641,11 @@ def kernel_phase(dev, results: list):
         "K4 unfolded weights": lambda: fc.upsample2x_conv3x3(
             x, w, bias, w_packed=wp),
         "K3 C not a multiple of 8": lambda: fm.fused(
-            rn(4, 12), (rn(12, 16),), (torch.zeros(16, device=dev),)),
+            rn(4, 12), (rn(16, 12),), (torch.zeros(16, device=dev),)),
+        "K3 JAX-layout (C, Co) weight": lambda: fm.fused(
+            rn(4, 16), (rn(16, 8),), (torch.zeros(8, device=dev),)),
+        "K8 du on an unpacked weight": lambda: fc.conv3x3_input_grad(
+            rn(1, 8, 8, 64), rn(64, 64, 3, 3), 64),
         "K2 head dim 32": lambda: attention.flash_attention_folded(
             rn(1, 16, 64), rn(1, 16, 64), rn(1, 16, 64), 2),
         "K7 lse not fp32": lambda: attention.flash_attention_folded_bwd(
@@ -651,8 +672,9 @@ def kernel_phase(dev, results: list):
 
 
 def _summed(rs):
-    """The worst error over cases `rs`, and their time, plain version's
-    time, bound and library call's time summed (`library_ms` sums only the
+    """The worst error over cases `rs`, and their time, device time alone
+    (where every case has one), plain version's time, bound and library
+    call's time summed (`library_ms` sums only the
     cases that have a library call, named in `library_cases`, and is null
     when none has). bound_by names the bound of the cases that make up
     most of the summed bound."""
@@ -660,31 +682,37 @@ def _summed(rs):
     for r in rs:
         by[r["bound_by"]] += r["bound_ms"]
     lib = [r for r in rs if r["library_ms"] is not None]
+    dev = [r.get("device_ms") for r in rs]
     return dict(
         max_abs_err=max(r["max_abs_err"] for r in rs),
         ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
+        device_ms=None if None in dev else sum(dev),
         bound_ms=sum(r["bound_ms"] for r in rs), bound_by=max(by, key=by.get),
         library_ms=sum(r["library_ms"] for r in lib) if lib else None,
         library_cases=[r["case"] for r in lib], n_cases=len(rs))
 
 
-def _weighted(rs, shapes, launches, path):
-    """Times of K2's cases `rs` weighted by the launches the wrapper counted
-    at each shape on one run of a path (`shapes`, {(B, Sq, Skv, H, hd):
-    launches}): what the kernel, its device time alone, its plain version,
-    its bound and the library call cost on that path. Fails the run if a
-    shape of the path has no case or the shapes' launches do not add up to
-    the path's K2 count `launches`."""
+def _weighted(rs, shapes, launches, path,
+              keys=("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")):
+    """Times of a kernel's cases `rs` (K2's or K3's, each with its launch
+    `shape`) weighted by the launches the wrapper counted at each shape on
+    one run of a path (`shapes`, {shape: launches}): what the kernel, its
+    device time alone, its plain version, its bound and the library call
+    cost on that path (`keys`). Fails the run if a shape of the path has no
+    case or the shapes' launches do not add up to the path's count of the
+    kernel, `launches`."""
+    name = rs[0]["name"]
     by_shape = {r["shape"]: r for r in rs}
     missing = sorted(set(shapes) - set(by_shape))
     if missing:
-        _fail(f"K2 ran shapes {missing} on the {path} path with no case")
+        _fail(f"{name} ran shapes {missing} on the {path} path with no case")
     if sum(shapes.values()) != launches:
-        _fail(f"K2's launches by shape on the {path} path {shapes} do not "
-              f"add up to its count {launches}")
+        _fail(f"{name}'s launches by shape on the {path} path {shapes} do "
+              f"not add up to its count {launches}")
     out = {"launches": launches,
-           "by_shape": {"x".join(map(str, s)): n for s, n in shapes.items()}}
-    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
+           "by_shape": {"x".join(str(int(v) if isinstance(v, bool) else v)
+                                 for v in s): n for s, n in shapes.items()}}
+    for key in keys:
         vals = [n * by_shape[s][key] if by_shape[s][key] is not None
                 else None for s, n in shapes.items()]
         out[key] = None if None in vals else sum(vals)
@@ -741,7 +769,7 @@ def main():
     kernel_phase(dev, results)
     torch.cuda.synchronize()
 
-    summary: dict = {"paths": {}, "k2_shapes": {}}
+    summary: dict = {"paths": {}, "k2_shapes": {}, "k3_shapes": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
@@ -756,6 +784,24 @@ def main():
                             paths[path][k2["name"]], path)
     print(f"K2 per 512x512 request: {k2['per_request']}; per train step: "
           f"{k2['per_step']}", flush=True)
+    # K3 on every path, weighted by its launches there: the 512x512
+    # request, the 840x560 one, an image and a sketch request, a train step
+    k3 = next(e for e in kernels if e["name"] == "fused_matmul")
+    k3_cases = [r for r in results if r["name"] == k3["name"]]
+    k3_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "linear_ms",
+               "linear_device_ms")
+    for key, path in (("per_request", "serve"),
+                      ("per_request_840x560", "serve_840x560"),
+                      ("per_request_image", "image"),
+                      ("per_request_sketch", "sketch"),
+                      ("per_step", "train")):
+        launches = (summary["engine"]["launches_840x560"] if path ==
+                    "serve_840x560" else paths[path])[k3["name"]]
+        k3[key] = _weighted(k3_cases, summary["k3_shapes"][path], launches,
+                            path, k3_keys)
+        print(f"K3 {key}: " + ", ".join(
+            f"{n}={k3[key][n]:.4f}ms" for n in k3_keys)
+            + f" over {launches} launches", flush=True)
     print(_smi(), flush=True)  # again, beside the results
     print(json.dumps({"kernels": kernels,
                       "engine": summary["engine"],
@@ -820,12 +866,13 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-12)).item()
 
 
-def _k2_shapes() -> dict:
-    """K2's launches by shape (B, Sq, Skv, H, hd) since the counters were
-    last reset."""
+def _shapes(kernel: str) -> dict:
+    """A kernel's launches by shape (K2: (B, Sq, Skv, H, hd); K3: (M, C,
+    Co, outputs, LN, gate, residual)) since the counters were last
+    reset."""
     from img2img_turbo_tpu_torch.ops import _build
     return {shape: n for (name, shape), n in _build.launch_shapes.items()
-            if name == "flash_attention_folded"}
+            if name == kernel}
 
 
 def engine_phase(dev, summary):
@@ -866,7 +913,8 @@ def engine_phase(dev, summary):
     r = fast.run(img512, caption, gen(1))
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    summary["k2_shapes"]["serve"] = _k2_shapes()
+    summary["k2_shapes"]["serve"] = _shapes("flash_attention_folded")
+    summary["k3_shapes"]["serve"] = _shapes("fused_matmul")
     print(f"  launches in one 512x512 request: {counts}", flush=True)
     if counts != EXPECTED_LAUNCHES:
         _fail(f"launch counts {counts} != expected {EXPECTED_LAUNCHES}")
@@ -918,6 +966,7 @@ def engine_phase(dev, summary):
     rk = fast.run(img840, caption, gen(2))
     torch.cuda.synchronize()
     counts840 = dict(_build.launch_counts)
+    summary["k3_shapes"]["serve_840x560"] = _shapes("fused_matmul")
     check_out(rk, 560, 840, "840x560")
     if counts840 != EXPECTED_LAUNCHES_840x560:
         _fail(f"840x560 launch counts {counts840} != "
@@ -971,7 +1020,8 @@ def _serve_checks(name, fast, plain, img, caption, expected, dev,
     plain path on the same posterior noise (rel L2 of z, x0 and the image,
     as for edge_to_image). `kw`
     goes to every request (r and the noise map of a sketch request).
-    Returns (summary, kernel-path result of the compared request)."""
+    Returns (summary, kernel-path result of the compared request, K3's
+    launches by shape in the first request)."""
     import torch
     from img2img_turbo_tpu_torch.ops import _build
 
@@ -983,6 +1033,7 @@ def _serve_checks(name, fast, plain, img, caption, expected, dev,
     r = fast.run(img, caption, gen(1), **kw)
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
+    k3_shapes = _shapes("fused_matmul")
     if counts != expected:
         _fail(f"{name}: launch counts {counts} != expected {expected}")
     out = r["out"]
@@ -1016,7 +1067,7 @@ def _serve_checks(name, fast, plain, img, caption, expected, dev,
           f"{PATH_REL_L2_TOL:.0e})", flush=True)
     if not max(rel.values()) <= PATH_REL_L2_TOL:
         _fail(f"{name}: kernel path disagrees with the plain path: {rel}")
-    return {"p50_ms": p50, "launches": counts, "rel_l2": rel}, rk
+    return {"p50_ms": p50, "launches": counts, "rel_l2": rel}, rk, k3_shapes
 
 
 def modes_phase(dev, summary):
@@ -1052,9 +1103,10 @@ def modes_phase(dev, summary):
         eng.warmup(1, 512, 512, caption)
     outs = {}
     for d in ("a2b", "b2a"):
-        modes[f"image_{d}"], outs[d] = _serve_checks(
+        modes[f"image_{d}"], outs[d], shapes = _serve_checks(
             f"image {d}", engines[d, True], engines[d, False], img, caption,
             EXPECTED_LAUNCHES_IMAGE, dev)
+        summary["k3_shapes"].setdefault("image", shapes)
     if torch.equal(outs["a2b"]["out"], outs["b2a"]["out"]):
         _fail("image mode: a2b and b2a gave the same image")
     summary["paths"]["image"] = modes["image_a2b"]["launches"]
@@ -1078,9 +1130,10 @@ def modes_phase(dev, summary):
         device=dev).manual_seed(s), device=dev, dtype=bf) for s in (11, 12)]
     outs = {}
     for r in (0.4, 1.0):
-        modes[f"sketch_r{r}"], outs[r] = _serve_checks(
+        modes[f"sketch_r{r}"], outs[r], shapes = _serve_checks(
             f"sketch r={r}", engines[True], engines[False], sketch, caption,
             EXPECTED_LAUNCHES_SKETCH, dev, r=r, noise_map=maps[0])
+        summary["k3_shapes"].setdefault("sketch", shapes)
     if torch.equal(outs[0.4]["out"], outs[1.0]["out"]):
         _fail("sketch mode: r = 0.4 and r = 1.0 gave the same image")
     noise = torch.randn(1, 64, 64, 4, generator=torch.Generator(
@@ -1101,7 +1154,8 @@ def modes_phase(dev, summary):
 # (K1 98, K2 34, K3 148, K4 6, K5 24, K6 6), then its backward: the UNet's
 # down, mid and up blocks run again (recompute: K1 44 resnet convs, K2 32,
 # K3 144, K4 3 upsamples, K5 21, K6 3 downsamples), each fused GN conv's
-# du is one K1 (95, all K1 but the three prologue-free conv_ins) and each
+# du is one launch of the conv engine's du mode, counted as K1 (95, all K1
+# but the three prologue-free conv_ins) and each
 # attention's backward one K7 (34: 32 UNet + 2 VAE mid); K6's backward is
 # autograd through the plain strided conv. Passes 3 and 4 (discriminator)
 # and the text encoder launch none.
@@ -1213,7 +1267,9 @@ def train_phase(dev, summary):
                 grads1[k] = gr
                 if k:
                     counts = dict(_build.launch_counts)
-                    summary["k2_shapes"]["train"] = _k2_shapes()
+                    summary["k2_shapes"]["train"] = _shapes(
+                        "flash_attention_folded")
+                    summary["k3_shapes"]["train"] = _shapes("fused_matmul")
                     after_first = _snapshot(states[k])
                     first_metrics = m
     print(f"  launches in one train step: {counts}", flush=True)

@@ -12,7 +12,11 @@
 //   K6  img2img_turbo_tpu/ops/fused_conv.py:1350 downsample2x_conv3x3
 //       y = stride-2 conv3x3 with (pad_lo, 1) padding on both axes + bias,
 //       optional per-tile stats of the stored y (the VAE encoder chains them
-//       into the next GroupNorm).
+//       into the next GroupNorm);
+//   K8's du, the input gradient of K1's conv in the backward of
+//       img2img_turbo_tpu/models/layers.py:351 pallas_bwd (which runs K1 on
+//       gy with the spatially flipped, io-swapped weights): du = conv_T(gy, w),
+//       fp32 accumulation, one rounding; mode DGRAD below.
 //
 // A block (two warpgroups) owns a 16 x 8 tile of (low-resolution, for K4)
 // pixels and 128 output channels. For each 32-channel chunk it loads the
@@ -37,6 +41,12 @@
 // row 2r + di: wgmma's rows stay 8 consecutive 16-byte entries, and the
 // stride between tile rows is two halo rows. The halo is reloaded once per
 // 32-channel chunk, after the chunk's 9 taps (no overlap with the taps yet).
+// The du (mode DGRAD) is the SAME conv of gy with K = Co and N = C, and
+// reads the forward's packed weight as it is, with no flip or repack: tap
+// t takes the forward's tap 8 - t, and for the product K is Co and N is C,
+// so 8 consecutive co rows of one 8-channel group (16 bytes each along C)
+// are one MN-major core matrix. The weight tile lands in shared memory as
+// [C/8][32 co][8] and wgmma reads it with the B-transpose bit.
 //
 // The epilogue sums bias, the per-(batch, channel) extra bias and the residual
 // in fp32 and rounds once; stats are per-block partial sums of the stored
@@ -78,7 +88,7 @@ constexpr int B_STAGE = KCH * BN * 8;   // bf16 elements per weight tile
 constexpr int B_PER_T = KCH * BN / NT;
 constexpr int NUM_SMS = 132;
 // modes of the engine
-constexpr int SAME = 0, UP2 = 1, DOWN = 2;
+constexpr int SAME = 0, UP2 = 1, DOWN = 2, DGRAD = 3;
 // DOWN's halo: 2*TH+1 rows of 2*TW+1 columns, each row stored as its TW+1
 // even columns, then its TW odd ones
 constexpr int DHR = 2 * TH + 1;
@@ -93,8 +103,9 @@ struct Geo {
 
 struct ConvArgs {
   const bf16* x;      // (B, H, W, C); the low-resolution input for K4
-  const bf16* w;      // packed (taps, C/8, CoP, 8); K4: 16 = 4 phases x 4 taps
-  const float* bias;  // (Co)
+  const bf16* w;      // packed (taps, C/8, CoP, 8); K4: 16 = 4 phases x 4 taps;
+                      // DGRAD: the forward's (9, Co/8, CoP, 8), CoP rows of K
+  const float* bias;  // (Co) or null (zero)
   const float* ga;    // (B, C) folded GroupNorm scale, or null
   const float* gb;    // (B, C) folded GroupNorm shift
   const float* eb;    // (B, Co) or null
@@ -243,6 +254,27 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     }
   };
 
+  // ---- DGRAD's B operand: the forward's tap 8 - tap, K rows (gy channels)
+  // k*BK .. +31 of the block's 16 output-channel groups, as [16][BK][8]
+  auto load_b_dgrad = [&](int k, int tap, int stage) {
+    const int n8 = (p.Co + 7) / 8, g0 = n0 / 8, k0 = k * BK;
+    const bf16* wbase = p.w + (size_t)(8 - tap) * n8 * p.CoP * 8;
+#pragma unroll
+    for (int t = 0; t < B_PER_T; ++t) {
+      const int q = tid + t * NT;
+      const int kr = q % BK, g = q / BK;
+      const bool ok = g0 + g < n8 && k0 + kr < p.CoP;
+      const bf16* src = wbase + ((size_t)(g0 + g) * p.CoP + k0 + kr) * 8;
+      cp_async16(&Bs[stage * B_STAGE + (g * BK + kr) * 8], ok ? src : wbase, ok);
+    }
+  };
+  auto load_w = [&](int k, int tap, int stage) {
+    if constexpr (MODE == DGRAD)
+      load_b_dgrad(k, tap, stage);
+    else
+      load_b(k, tap, stage);
+  };
+
   float d[64];
 #pragma unroll
   for (int r = 0; r < 64; ++r) d[r] = 0.f;
@@ -273,7 +305,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     if (st < nsteps) {
       int k, tap;
       step_at(st, k, tap);
-      load_b(k, tap, st);
+      load_w(k, tap, st);
     }
     cp_async_commit();
   }
@@ -286,7 +318,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     if (i + STAGES - 1 < nsteps) {
       int k2, tap2;
       step_at(i + STAGES - 1, k2, tap2);
-      load_b(k2, tap2, (i + STAGES - 1) % STAGES);
+      load_w(k2, tap2, (i + STAGES - 1) % STAGES);
     }
     cp_async_commit();
     const int ntaps = k < KC ? T : 1;
@@ -318,8 +350,15 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
 #pragma unroll
     for (int ks = 0; ks < KCH / 2; ++ks) {
       const uint64_t da = smem_desc(a0 + 2 * ks * HP * 8, HP * 16, a_sbo);
-      const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
-      i2i::wgmma_m64n128k16_ss(d, da, db, 1);
+      if constexpr (MODE == DGRAD) {
+        // K step: 16 co rows (two core matrices 128 bytes apart); N: 8-channel
+        // groups BK rows apart
+        const uint64_t db = smem_desc(b0 + ks * 16 * 8, 128, BK * 16);
+        i2i::wgmma_m64n128k16_ss_tb(d, da, db);
+      } else {
+        const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
+        i2i::wgmma_m64n128k16_ss(d, da, db, 1);
+      }
     }
     i2i::wgmma_commit();
     i2i::wgmma_wait<0>();
@@ -360,7 +399,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
           p.ws[split_off + o] = acc;
           continue;
         }
-        float v = acc + p.bias[n];
+        float v = acc + (p.bias ? p.bias[n] : 0.f);
         if (p.eb) v += p.eb[(size_t)b * p.Co + n];
         if (p.res) v += __bfloat162float(p.res[o]);
         const bf16 yb = __float2bfloat16(v);
@@ -434,7 +473,7 @@ __global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
       const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
       float v = 0.f;
       for (int sp = 0; sp < p.splits; ++sp) v += p.ws[sp * split_stride + o];
-      v += p.bias[n];
+      if (p.bias) v += p.bias[n];
       if (p.eb) v += p.eb[(size_t)b * p.Co + n];
       if (p.res) v += __bfloat162float(p.res[o]);
       const bf16 yb = __float2bfloat16(v);
@@ -582,6 +621,31 @@ int downsample3x3_bf16(const void* x, const void* w, const void* bias, void* y,
   a.ws = static_cast<float*>(workspace);
   if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
   return launch<DOWN, false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// K8's du: du (B, H, W, C) = the input gradient of a 3x3 SAME conv of C -> Co
+// channels at output gradient gy (B, H, W, Co), with no prologue and no
+// bias, reading the forward's packed weight w (9, ceil(C/8), ceil(Co/8)*8,
+// 8) as it is. workspace holds conv_workspace_bytes(B, H, W, Co, C, 0, 0)
+// bytes (null when that is 0). Returns the first CUDA error, else 0.
+int conv3x3_dgrad_bf16(const void* gy, const void* w, void* du, void* workspace, int B, int H,
+                       int W, int C, int Co, void* stream) {
+  ConvArgs a = {};
+  a.x = static_cast<const bf16*>(gy);
+  a.w = static_cast<const bf16*>(w);
+  a.y = static_cast<bf16*>(du);
+  a.B = B; a.H = H; a.W = W;
+  a.C = Co; a.Co = C; a.Csk = 0;  // the product's K and N
+  a.CoP = (Co + 7) / 8 * 8;       // the packed weight's rows per channel group
+  a.tiles_w = (W + TW - 1) / TW;
+  a.tiles = ((H + TH - 1) / TH) * a.tiles_w;
+  a.vec_a = Co % 8 == 0;
+  const Plan pl = plan(B, H, W, Co, C, 0, false);
+  a.splits = pl.splits;
+  a.chunks_per_split = pl.chunks_per_split;
+  a.ws = static_cast<float*>(workspace);
+  if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
+  return launch<DGRAD, false>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -5,9 +5,9 @@ diffusers' parameter names (so `state_dict()` keys are diffusers' keys) and
 torch's weight layouts (conv OIHW, linear (out, in)); activations are NHWC.
 `prepare_kernels(model)` builds the kernel-ready layouts once, after the
 weights are loaded and cast: packed conv weights (folded for the upsample
-convs), linear weights as (C, Co), fp32 biases and norm affines. HWIO conv
-weights are kept only on the CPU, where the wrappers compute their plain
-versions from them.
+convs), fp32 biases and norm affines; linear weights stay nn.Linear's own
+(Co, C), which K3 reads as they are. HWIO conv weights are kept only on the
+CPU, where the wrappers compute their plain versions from them.
 
 Every entry point takes `kernels`: True routes through the kernel wrappers
 of `ops/` (which launch the CUDA/Triton kernels on a CUDA tensor and run
@@ -23,8 +23,9 @@ inside a `torch.autograd.Function` (the counterparts of the JAX package's
 custom VJPs): the trainer merges LoRA into new weight tensors at every
 pass and puts them in place of the parameters (`lora.swap_params`), so a
 layout taken once would train the wrong weights. The backward of the fused GN+SiLU+conv is `GnSiluConvFn`
-(K8: K1 on the output gradient for du, 9 shifted GEMMs for dw, fp32
-elementwise GN/SiLU); the other kernels' backward is autograd through
+(K8: the conv engine's du mode on the output gradient, reading the weight
+the forward packed; 9 shifted GEMMs for dw; fp32 elementwise GN/SiLU); the
+other kernels' backward is autograd through
 their plain version, recomputed from the saved inputs (`KernelFn`), and
 attention's is K7 (`ops.attention.FlashAttention`). The plain path needs
 no Function: autograd runs through its PyTorch ops.
@@ -80,9 +81,11 @@ class Upsample2xConv(Conv2d):
 
 
 class Linear(nn.Linear):
+    """nn.Linear whose `prepare()` builds K3's fp32 bias; K3 reads the
+    module's own (Co, C) weight as it is."""
+
     def prepare(self):
-        w = self.weight.detach()
-        self.kw = w.t().contiguous()                          # (C, Co)
+        w = self.weight
         self.kb = (self.bias.detach().float() if self.bias is not None
                    else torch.zeros(w.shape[0], device=w.device))
 
@@ -258,8 +261,7 @@ def _plain_skip(skip: Optional[Skip]):
 
 def has_kernel_layouts(module) -> bool:
     """True once `prepare_kernels` built the module's kernel layouts."""
-    return any(hasattr(module, a) for a in ("kwp", "kaff", "kln")) \
-        or (isinstance(module, nn.Linear) and hasattr(module, "kw"))
+    return any(hasattr(module, a) for a in ("kwp", "kaff", "kln", "kb"))
 
 
 def _hwio(w):
@@ -316,18 +318,6 @@ class KernelFn(torch.autograd.Function):
                                           for n in needs)
 
 
-def conv3x3_input_grad(gy, w):
-    """The input gradient of a 3x3 'same' conv with weights w (Co, C, 3, 3)
-    at output gradient gy (B, H, W, Co): the conv of gy with the spatially
-    flipped, io-swapped weights, i.e. one prologue-free K1 launch with a
-    zero bias on a CUDA tensor (its plain version on the CPU)."""
-    w_t = _hwio(w).flip(0, 1).transpose(2, 3).contiguous()  # (3,3,Co,C)
-    du, _ = fused_conv.fused_gn_silu_conv3x3(
-        gy, w_t, torch.zeros(w.shape[1], device=gy.device),
-        w_packed=_packed(w_t))
-    return du
-
-
 class GnSiluConvFn(torch.autograd.Function):
     """K1 forward, K8 backward: the counterpart of `_make_fused_gsc`
     (layers.py:294-455) with `pallas_bwd` (:351-433).
@@ -336,11 +326,12 @@ class GnSiluConvFn(torch.autograd.Function):
     conv bias cb (Co,); optional extra_bias (B,Co), residual (B,H,W,Co),
     skip_x (B,H,W,Csk) with skip_w (Csk,Co), and x_stats (partial sums of x
     chained from its producer). The kernel layouts are packed here, from
-    the weights this call was given. Backward, with fp32 GN statistics
-    recomputed two-pass: du is K1 itself on the output gradient with the
-    spatially flipped, io-swapped weights and no prologue; dw is 9 shifted
-    GEMMs against the recomputed activation; GN and SiLU backward are fp32
-    elementwise. x_stats gets a zero cotangent (it is a function of x, and
+    the weights this call was given, and the packed conv weight is what the
+    Function saves (not w). Backward, with fp32 GN statistics recomputed
+    two-pass: du is the conv engine's du mode on the output gradient,
+    reading that packed weight with its taps reversed and its channels
+    swapped; dw is 9 shifted GEMMs against the recomputed activation; GN
+    and SiLU backward are fp32 elementwise. x_stats gets a zero cotangent (it is a function of x, and
     dx is exact through the composition) and the emitted stats none."""
 
     @staticmethod
@@ -355,16 +346,18 @@ class GnSiluConvFn(torch.autograd.Function):
                 a, b = gn_ops.group_norm_coeffs(x.contiguous(), scale, bias,
                                                 num_groups, eps)
             w_hwio = _hwio(w)
+            w_packed = fused_conv.pack_weights(w_hwio)
             y, stats = fused_conv.fused_gn_silu_conv3x3(
                 x.contiguous(), w_hwio, cb.float(), a, b,
                 extra_bias=None if eb is None else eb.float(),
                 residual=None if res is None else res.contiguous(),
                 skip_x=None if skip_x is None else skip_x.contiguous(),
                 skip_w=skip_w, emit_stats=emit_stats,
-                w_packed=_packed(w_hwio), skip_w_packed=_packed(skip_w))
+                w_packed=w_packed, skip_w_packed=_packed(skip_w))
         ctx.num_groups, ctx.eps = num_groups, eps
         ctx.has = (eb is not None, res is not None, skip_x is not None)
-        ctx.save_for_backward(x, scale, bias, w, skip_x, skip_w)
+        ctx.co, ctx.w_dtype = w.shape[0], w.dtype
+        ctx.save_for_backward(x, scale, bias, w_packed, skip_x, skip_w)
         if not emit_stats:
             return y
         ctx.mark_non_differentiable(stats)
@@ -372,11 +365,11 @@ class GnSiluConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, *_):
-        x, scale, bias, w, skip_x, skip_w = ctx.saved_tensors
+        x, scale, bias, w_packed, skip_x, skip_w = ctx.saved_tensors
         has_eb, has_res, has_skip = ctx.has
         g_n = ctx.num_groups
         bsz, h, wd, c = x.shape
-        co = w.shape[0]
+        co = ctx.co
         cg = c // g_n
         f32 = torch.float32
         gy = gy.contiguous()
@@ -393,7 +386,7 @@ class GnSiluConvFn(torch.autograd.Function):
         sig = torch.sigmoid(z)
         uprime = sig * (1.0 + z * (1.0 - sig))                # silu'
 
-        du = conv3x3_input_grad(gy, w)
+        du = fused_conv.conv3x3_input_grad(gy, w_packed, c)
         dz = du.to(f32).reshape(bsz, h * wd, g_n, cg) * uprime
 
         # GN backward
@@ -413,7 +406,7 @@ class GnSiluConvFn(torch.autograd.Function):
         taps = [upad[:, di:di + h, dj:dj + wd].reshape(-1, c).t() @ gy2
                 for di in range(3) for dj in range(3)]
         dw = torch.stack(taps).reshape(3, 3, c, co).permute(3, 2, 0, 1)
-        dw = dw.to(w.dtype)
+        dw = dw.to(ctx.w_dtype)
         dcb = gy2.to(f32).sum(0)
         deb = gy.to(f32).sum(dim=(1, 2)) if has_eb else None
         dres = gy if has_res else None
@@ -488,25 +481,25 @@ def _upconv_fwd(emit_stats):
 
 def _linears_fwd(n_w: int, has_ln: bool, gate: bool, eps: float):
     """fwd / plain over (x, residual, ln_scale, ln_bias, *ws, *bs) with
-    nn.Linear's (Co, C) weights and possibly-None biases."""
+    nn.Linear's (Co, C) weights, which K3 reads as they are, and
+    possibly-None biases."""
     def split(args):
         x, res, lns, lnb = args[:4]
         ws, bs = args[4:4 + n_w], args[4 + n_w:]
-        ws_t = tuple(w.t() for w in ws)
         bs = tuple(_bias_f32(b, w.shape[0], x) for b, w in zip(bs, ws))
-        return x, res, (lns, lnb) if has_ln else None, ws_t, bs
+        return x, res, (lns, lnb) if has_ln else None, ws, bs
 
     def fwd(*args):
-        x, res, ln, ws_t, bs = split(args)
+        x, res, ln, ws, bs = split(args)
         return fused_matmul.fused(
-            x.contiguous(), tuple(w.contiguous() for w in ws_t), bs,
+            x.contiguous(), tuple(w.contiguous() for w in ws), bs,
             ln=None if ln is None else tuple(t.float() for t in ln),
             residual=None if res is None else res.contiguous(), gate=gate,
             eps=eps)
 
     def plain(*args):
-        x, res, ln, ws_t, bs = split(args)
-        return fused_matmul.fused_ref(x, ws_t, bs, ln=ln, residual=res,
+        x, res, ln, ws, bs = split(args)
+        return fused_matmul.fused_ref(x, ws, bs, ln=ln, residual=res,
                                       gate=gate, eps=eps)
     return fwd, plain
 
@@ -632,7 +625,8 @@ def fused_linears(lins, x, norm: Optional[LayerNorm] = None, *,
             None if norm is None else norm.bias,
             *(m.weight.to(x.dtype) for m in lins), *(m.bias for m in lins))
     return fused_matmul.fused(
-        x.contiguous(), tuple(m.kw for m in lins), tuple(m.kb for m in lins),
+        x.contiguous(), tuple(m.weight.detach() for m in lins),
+        tuple(m.kb for m in lins),
         ln=None if norm is None else norm.kln,
         residual=None if residual is None else residual.contiguous(),
         gate=gate, eps=eps)

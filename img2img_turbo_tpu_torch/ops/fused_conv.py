@@ -1,9 +1,13 @@
-"""Conv engine wrappers: kernels K1, K4 and K6 (CUDA, `csrc/conv.cu`).
+"""Conv engine wrappers: kernels K1, K4 and K6 (CUDA, `csrc/conv.cu`), and
+K8's du on the same engine.
 
 Counterparts of `img2img_turbo_tpu/ops/fused_conv.py:889
 fused_gn_silu_conv3x3` (K1), `:1688 upsample2x_conv3x3` (K4) and `:1350
-downsample2x_conv3x3` (K6). All keep the JAX layouts: activations
-(B, H, W, C), conv weights HWIO (3, 3, C, Co).
+downsample2x_conv3x3` (K6), and of the du of
+`img2img_turbo_tpu/models/layers.py:351 pallas_bwd` (K1 on the output
+gradient with the flipped, io-swapped weights), which here reads the
+forward's packed weight as it is (`conv3x3_input_grad`). All keep the JAX
+layouts: activations (B, H, W, C), conv weights HWIO (3, 3, C, Co).
 
 Each kernel has two plain versions. `*_ref` is its exact counterpart (fp32
 arithmetic, one rounding to the activation dtype, as the kernel does): a
@@ -37,6 +41,9 @@ def _lib():
         lib.downsample3x3_bf16.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.downsample3x3_bf16.restype = ctypes.c_int
+        lib.conv3x3_dgrad_bf16.argtypes = [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.conv3x3_dgrad_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -66,6 +73,13 @@ def pack_weights(w):
     c8, cop = -(-c // 8), -(-co // 8) * 8
     w = F.pad(w, (0, cop - co, 0, 8 * c8 - c))
     return w.reshape(w.shape[0], c8, 8, cop).permute(0, 1, 3, 2).contiguous()
+
+
+def unpack_weights(w_packed, c: int, co: int):
+    """`pack_weights`' inverse: (taps, ceil(C/8), ceil(Co/8)*8, 8) ->
+    (taps, C, Co), the padding dropped."""
+    taps, c8, cop, _ = w_packed.shape
+    return w_packed.permute(0, 1, 3, 2).reshape(taps, 8 * c8, cop)[:, :c, :co]
 
 
 def upsample_nearest_2x(x):
@@ -196,6 +210,32 @@ def upsample2x_conv3x3_plain(x, w, bias, skip_x=None, skip_w=None,
         y = y + _conv_nhwc(skip_x, skip_w.to(dt),
                            None if skip_bias is None else skip_bias.to(dt))
     return y
+
+
+def _dgrad_weight(w_packed, c: int, co: int):
+    """The forward conv weight of a packed (9, ceil(C/8), Cop, 8) buffer as
+    F.conv_transpose2d takes it: (Co, C, 3, 3)."""
+    return unpack_weights(w_packed, c, co).reshape(3, 3, c, co).permute(
+        3, 2, 0, 1)
+
+
+def conv3x3_input_grad_ref(gy, w_packed, c: int):
+    """Plain version of K8's du: the input gradient of a 3x3 SAME conv of
+    C -> Co channels at output gradient gy (B, H, W, Co), from the
+    forward's packed weight: unpacked, then the fp32 transposed conv, one
+    rounding to gy.dtype."""
+    w = _dgrad_weight(w_packed, c, gy.shape[-1]).float()
+    du = F.conv_transpose2d(gy.float().permute(0, 3, 1, 2), w, padding=1)
+    return du.permute(0, 2, 3, 1).to(gy.dtype)
+
+
+def conv3x3_input_grad_plain(gy, w_packed, c: int):
+    """The du as the plain path computes it (autograd's conv input
+    gradient, cuDNN's on the card): the transposed conv in gy.dtype on the
+    unpacked weight."""
+    w = _dgrad_weight(w_packed, c, gy.shape[-1]).to(gy.dtype)
+    du = F.conv_transpose2d(gy.permute(0, 3, 1, 2), w, padding=1)
+    return du.permute(0, 2, 3, 1)
 
 
 def _check(name, t, shape, dtype, device):
@@ -352,3 +392,37 @@ def downsample2x_conv3x3(x, w, bias, pad_lo: int, emit_stats: bool = False,
     _build.check(err, "downsample3x3_bf16")
     _build.launch_counts["downsample2x_conv3x3"] += 1
     return y, stats
+
+
+def conv3x3_input_grad(gy, w_packed, c: int):
+    """K8's du: the input gradient du (B, H, W, C) of a 3x3 SAME conv of
+    C -> Co channels at output gradient gy (B, H, W, Co) bf16, i.e. the
+    conv of gy with the spatially flipped, io-swapped weights and no bias.
+    w_packed is the forward's `pack_weights` buffer (9, ceil(C/8),
+    ceil(Co/8)*8, 8), which the kernel reads as it is (taps reversed, the
+    B operand MN-major): no flip, transpose or repack per call. A CPU
+    tensor takes `conv3x3_input_grad_ref`."""
+    bsz, h, wd, co = gy.shape
+    packed = (9, -(-c // 8), -(-co // 8) * 8, 8)
+    if tuple(w_packed.shape) != packed:
+        raise ValueError(f"conv3x3_input_grad: w_packed {tuple(w_packed.shape)}"
+                         f" is not the forward's packed {packed}")
+    if gy.device.type == "cpu":
+        return conv3x3_input_grad_ref(gy, w_packed, c)
+    if gy.device.type != "cuda":
+        raise ValueError(f"conv3x3_input_grad: unsupported device "
+                         f"{gy.device}")
+    dev, bf = gy.device, torch.bfloat16
+    _check("gy", gy, gy.shape, bf, dev)
+    _check("w_packed", w_packed, packed, bf, dev)
+    lib = _lib()
+    du = torch.empty((bsz, h, wd, c), device=dev, dtype=bf)
+    ws_bytes = lib.conv_workspace_bytes(bsz, h, wd, co, c, 0, 0)
+    ws = (torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
+          if ws_bytes else None)
+    err = lib.conv3x3_dgrad_bf16(
+        _build.ptr(gy), _build.ptr(w_packed), _build.ptr(du), _build.ptr(ws),
+        bsz, h, wd, c, co, _build.stream())
+    _build.check(err, "conv3x3_dgrad_bf16")
+    _build.launch_counts["fused_gn_silu_conv3x3"] += 1
+    return du

@@ -11,12 +11,16 @@ body `_kernel :186`, plain reference `_ref :155-183`):
 - fused(x, (w_packed,), (b_packed,), gate=True, ln=...)
                                              (xn@wv+bv) * gelu_erf(xn@wg+bg)
 
-Weights are (C, Co) (the JAX layout, i.e. the transpose of nn.Linear's),
-built once at load. `fused_ref` is the kernel's exact plain version: the
-wrapper computes it on a CPU tensor, and it decides the kernel's
+Weights are nn.Linear's (Co, C) (the transpose of the JAX layout), one
+packed (2Co, C) with the value rows first in gate mode: the kernel reads
+them as they are, so neither a loaded model nor a training step with live
+weights transposes them. `fused_ref` is the kernel's exact plain version:
+the wrapper computes it on a CPU tensor, and it decides the kernel's
 correctness. `fused_plain` is what the plain engine (`use_kernels=False`)
 runs, and the yardstick of the kernel's speed. On a CUDA tensor the wrapper
-launches the kernel or raises.
+launches the kernel or raises. The wrapper counts its launches, and its
+launches by (M, C, Co, outputs, LN, gate, residual) in
+`_build.launch_shapes`.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ def _fn():
     lib = _build.load("fused_matmul")
     f = lib.fused_matmul_bf16
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
+        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -53,13 +57,14 @@ def fused_ref(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
               eps: float = 1e-5):
     """Plain version (the counterpart of `_ref`): fp32 LayerNorm rounded to
     x.dtype, fp32 matmuls + bias, exact-erf gate, cast, then the residual
-    added in x.dtype."""
+    added in x.dtype. Weights (Co, C), or one packed (2Co, C) in gate
+    mode."""
     if gate:
-        co = ws[0].shape[1] // 2
-        ws = (ws[0][:, :co], ws[0][:, co:])
+        co = ws[0].shape[0] // 2
+        ws = (ws[0][:co], ws[0][co:])
         bs = (bs[0][:co], bs[0][co:])
     xh = x if ln is None else layer_norm(x, ln[0], ln[1], eps)
-    ys = [xh.float() @ w.float() + b.float() for w, b in zip(ws, bs)]
+    ys = [xh.float() @ w.float().t() + b.float() for w, b in zip(ws, bs)]
     if gate:
         ys = [ys[0] * F.gelu(ys[1])]
     outs = []
@@ -104,23 +109,28 @@ def _check(name, t, shape, dtype, device):
 def fused(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
           eps: float = 1e-5):
     """K3 on (..., C) inputs; returns a tuple of (..., Co) outputs (one per
-    weight, or one in gate mode). ws: (C, Co) bf16 each, or one packed
-    (C, 2Co) in gate mode; bs: fp32 (Co,) each (packed (2Co,) in gate
-    mode); ln: (scale, bias) fp32 over C; residual: (..., Co), one output
-    only."""
+    weight, or one in gate mode). ws: (Co, C) bf16 each, nn.Linear's
+    layout, or one packed (2Co, C) in gate mode, value rows first; bs: fp32
+    (Co,) each (packed (2Co,) in gate mode); ln: (scale, bias) fp32 over C;
+    residual: (..., Co), one output only."""
     if not 1 <= len(ws) <= 3 or len(ws) != len(bs):
         raise ValueError("fused: 1-3 weights with one bias each")
     if gate and len(ws) != 1:
-        raise ValueError("fused: gate mode takes one packed (C, 2Co) weight")
+        raise ValueError("fused: gate mode takes one packed (2Co, C) weight")
     if residual is not None and len(ws) != 1:
         raise ValueError("fused: a residual needs a single output")
+    c = x.shape[-1]
+    co = ws[0].shape[0] // (2 if gate else 1)
+    for i, w in enumerate(ws):
+        if tuple(w.shape) != (2 * co if gate else co, c):
+            raise ValueError(f"fused: w{i} {tuple(w.shape)} is not nn.Linear's "
+                             f"(Co, C) layout for C = {c}")
     if x.device.type == "cpu":
         return fused_ref(x, ws, bs, ln=ln, residual=residual, gate=gate,
                          eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused: unsupported device {x.device}")
-    lead, c = x.shape[:-1], x.shape[-1]
-    co = ws[0].shape[1] // (2 if gate else 1)
+    lead = x.shape[:-1]
     if c % 8 or co % 8:
         raise ValueError(f"fused: C={c} and Co={co} must be multiples of 8")
     m = x.numel() // c
@@ -128,7 +138,7 @@ def fused(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
     x2 = x.reshape(m, c)
     _check("x", x2, (m, c), bf, dev)
     for i, (w, b) in enumerate(zip(ws, bs)):
-        _check(f"w{i}", w, (c, 2 * co if gate else co), bf, dev)
+        _check(f"w{i}", w, (2 * co if gate else co, c), bf, dev)
         _check(f"b{i}", b, (2 * co if gate else co,), torch.float32, dev)
     if ln is not None:
         _check("ln_scale", ln[0], (c,), torch.float32, dev)
@@ -145,9 +155,10 @@ def fused(x, ws, bs, *, ln=None, residual=None, gate: bool = False,
     err = _fn()(_build.ptr(x2),
                 _build.ptr(None if ln is None else ln[0]),
                 _build.ptr(None if ln is None else ln[1]),
-                *wp, *bp, _build.ptr(res2), *yp, m, c, co,
-                ws[0].shape[1], n_out, int(gate), float(eps),
-                _build.stream())
+                *wp, *bp, _build.ptr(res2), *yp, m, c, co, n_out, int(gate),
+                float(eps), _build.stream())
     _build.check(err, "fused_matmul_bf16")
     _build.launch_counts["fused_matmul"] += 1
+    _build.launch_shapes["fused_matmul", (m, c, co, n_out, ln is not None,
+                                          gate, res2 is not None)] += 1
     return tuple(y.reshape(*lead, co) for y in ys)

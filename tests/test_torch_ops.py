@@ -296,6 +296,35 @@ class TestConvEngine:
         assert torch.equal(unpacked[:, :c, :co], flat)
         assert not unpacked[:, c:].any() and not unpacked[:, :, co:].any()
 
+    @pytest.mark.parametrize("c,co", [(16, 24), (3, 8), (12, 4)])
+    def test_input_grad_matches_jax_pallas_du(self, c, co):
+        """K8's du on the forward's packed buffer (the wrapper's CPU path,
+        `conv3x3_input_grad_ref`, and `conv3x3_input_grad_plain`) against the
+        du of JAX's pallas_bwd (layers.py:351-433: K1 in interpret mode on
+        gy with the flipped, io-swapped weights and a zero bias) and against
+        F.conv_transpose2d; C and Co of 3, 4 and 12 exercise the packed
+        buffer's zero padding."""
+        rng = np.random.RandomState(c * co + 1)
+        b, h, w = 2, 6, 5
+        gy = _rand(rng, b, h, w, co)
+        wt = _rand(rng, 3, 3, c, co, scale=0.1)              # HWIO
+        with pltpu.force_tpu_interpret_mode():
+            want, _ = jfc.fused_gn_silu_conv3x3(
+                jnp.asarray(gy), jnp.asarray(wt[::-1, ::-1].swapaxes(2, 3)),
+                jnp.zeros((c,), jnp.float32), interpret=True)
+        wp = tfc.pack_weights(torch.from_numpy(wt))
+        tgy = torch.from_numpy(gy)
+        got = tfc.conv3x3_input_grad(tgy, wp, c)
+        assert got.shape == (b, h, w, c)
+        _close(got, want)
+        _close(tfc.conv3x3_input_grad_plain(tgy, wp, c), want)
+        conv_t = torch.nn.functional.conv_transpose2d(
+            tgy.permute(0, 3, 1, 2), torch.from_numpy(wt).permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1)
+        _close(got, conv_t)
+        assert torch.equal(tfc.unpack_weights(wp, c, co),
+                           torch.from_numpy(wt).reshape(9, c, co))
+
     def test_folded_phases_reproduce_upsample_conv(self):
         """The 4-phase algebra the CUDA kernel runs, on the CPU: output
         (2i+a, 2j+b) = sum_{p,q} x[i+a+p-1, j+b+q-1] @ wf[a,b,p,q]."""
@@ -344,7 +373,9 @@ class TestFusedMatmul:
                          residual=None if res is None else jnp.asarray(res),
                          gate=gate, interpret=True)
         assert want is not None
-        got = tfm.fused(torch.from_numpy(x), tuple(map(torch.from_numpy, ws)),
+        # the port's weights are nn.Linear's (Co, C): the JAX ones transposed
+        got = tfm.fused(torch.from_numpy(x),
+                        tuple(torch.from_numpy(w.T.copy()) for w in ws),
                         tuple(map(torch.from_numpy, bs)),
                         ln=None if ln is None else tuple(
                             map(torch.from_numpy, ln)),
@@ -363,6 +394,18 @@ class TestFusedMatmul:
                       residual=torch.zeros(4, 8))
         with pytest.raises(ValueError):
             tfm.fused(x, (w, w), (torch.zeros(8),) * 2, gate=True)
+
+    def test_rejects_the_jax_layout(self):
+        """Weights are nn.Linear's (Co, C) on every device: a JAX-layout
+        (C, Co) weight raises rather than computing something else."""
+        x = torch.zeros(4, 16)
+        w = torch.zeros(8, 16)                       # (Co, C)
+        assert tfm.fused(x, (w,), (torch.zeros(8),))[0].shape == (4, 8)
+        with pytest.raises(ValueError):
+            tfm.fused(x, (w.t(),), (torch.zeros(8),))
+        with pytest.raises(ValueError):              # gate: (2Co, C)
+            tfm.fused(x, (torch.zeros(16, 16).t()[:, :8],),
+                      (torch.zeros(16),), gate=True)
 
 
 # ---------------------------------------------------------------------------
@@ -474,15 +517,14 @@ class TestPlainCompositions:
         n_w = 3 if mode == "qkv" else 1
         wc = 2 * co if mode == "gate" else co
         x = t(1, m, c)
-        ws = tuple(t(c, wc, scale=0.1) for _ in range(n_w))
+        ws = tuple(t(wc, c, scale=0.1) for _ in range(n_w))   # (Co, C)
         bs = tuple(t(wc, scale=0.1) for _ in range(n_w))
         ln = ((1 + t(c, scale=0.1), t(c, scale=0.1))
               if mode != "plain" else None)
         res = t(1, m, co) if mode == "ln_res" else None
         gate = mode == "gate"
         want = tfm.fused_ref(x, ws, bs, ln=ln, residual=res, gate=gate)
-        got = tfm.fused_plain(x, tuple(w.t() for w in ws), bs, ln=ln,
-                              residual=res, gate=gate)
+        got = tfm.fused_plain(x, ws, bs, ln=ln, residual=res, gate=gate)
         assert len(got) == len(want)
         for g, w in zip(got, want):
             _close(g, w)
@@ -513,6 +555,21 @@ class TestWrapperRules:
         with pytest.raises(ValueError):
             tfm.fused(x, (w[0, 0],), (b,))
 
+    def test_input_grad_rejects_an_unpacked_weight(self):
+        """K8's du takes only the forward's packed buffer: an nn.Conv2d
+        (Co, C, 3, 3) weight or a buffer packed for other channel counts
+        raises on every device."""
+        gy = torch.randn(1, 4, 4, 8)
+        w = torch.randn(8, 16, 3, 3)                         # (Co, C, 3, 3)
+        with pytest.raises(ValueError):
+            tfc.conv3x3_input_grad(gy, w, 16)
+        with pytest.raises(ValueError):
+            tfc.conv3x3_input_grad(gy, tfc.pack_weights(
+                w.permute(2, 3, 1, 0)), 8)
+        with pytest.raises(ValueError):
+            tfc.conv3x3_input_grad(gy.to("meta"), tfc.pack_weights(
+                w.permute(2, 3, 1, 0)).to("meta"), 16)
+
     def test_cpu_calls_are_not_launches(self):
         _build.reset_launch_counts()
         x = torch.randn(1, 4, 4, 8)
@@ -520,6 +577,9 @@ class TestWrapperRules:
         tgn.partial_stats(x)
         q = torch.randn(1, 8, 64).bfloat16()
         tattn.flash_attention_folded(q, q, q, 1)
+        tfm.fused(x, (torch.randn(16, 8),), (torch.zeros(16),))
+        tfc.conv3x3_input_grad(x, tfc.pack_weights(torch.randn(3, 3, 16, 8)),
+                               16)
         assert sum(_build.launch_counts.values()) == 0
         assert not _build.launch_shapes
 

@@ -28,6 +28,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from img2img_turbo_tpu import configs as jcfg
 from img2img_turbo_tpu.models import clip_text as jclip_text
@@ -215,11 +216,41 @@ def test_gn_silu_conv_function_matches_jax_grad(variant):
         _close(gt, wt)
 
 
+def test_gn_silu_conv_function_matches_jax_pallas_bwd(monkeypatch):
+    """GnSiluConvFn's gradients, whose du the conv engine's du mode takes
+    from the weight the forward packed, against JAX's own Pallas backward
+    of the layer (`_make_fused_gsc` with FC_BWD=pallas: pallas_bwd,
+    layers.py:351-433, its du K1 in interpret mode on gy with the flipped,
+    io-swapped weights)."""
+    rng = np.random.RandomState(7)
+    b, h, w, c, co, g = 1, 6, 5, 16, 8, 4
+    x = rng.randn(b, h, w, c).astype(np.float32) * 1.5 + 0.3
+    norm, gnp = _gn_module(c, g, rng)
+    cp = _conv_params(rng, c, co)
+    conv = _conv_module(cp)
+    ct = rng.randn(b, h, w, co).astype(np.float32)
+    f = JL._make_fused_gsc(g, 1e-5, False, False, False, False)
+    monkeypatch.setenv("FC_BWD", "pallas")
+    with JL.force_fused_scope(), pltpu.force_tpu_interpret_mode():
+        want = jax.grad(lambda *a: jnp.sum(f(*a) * ct),
+                        argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (
+                            x, gnp["scale"], gnp["bias"], cp["kernel"],
+                            cp["bias"])))
+    tx = _t(x, True)
+    y = TL.gn_silu_conv(norm, conv, tx, g, 1e-5, kernels=True)
+    got = _grads_port([tx, norm.weight, norm.bias, conv.weight, conv.bias],
+                      (y * _t(ct)).sum())
+    for gt, wt, perm in zip(got, want, (None, None, None, (3, 2, 0, 1),
+                                        None)):
+        wt = np.asarray(wt)
+        _close(gt, wt if perm is None else wt.transpose(perm))
+
+
 @pytest.mark.parametrize("c,co", [(8, 16), (16, 3), (3, 8)])
 def test_conv3x3_input_grad_matches_jax_vjp(c, co):
-    """K8's du (K1 on the output gradient with flipped, io-swapped weights)
-    against jax.vjp of a 3x3 'same' conv, at a few channel counts (C or Co
-    of 3, as the VAE's conv_in and conv_out have)."""
+    """K8's du (the conv engine's du mode, reading the forward's packed
+    weight) against jax.vjp of a 3x3 'same' conv, at a few channel counts
+    (C or Co of 3, as the VAE's conv_in and conv_out have)."""
     rng = np.random.RandomState(c * co)
     b, h, w = 2, 6, 5
     x = rng.randn(b, h, w, c).astype(np.float32)
@@ -229,8 +260,9 @@ def test_conv3x3_input_grad_matches_jax_vjp(c, co):
         {"kernel": jnp.asarray(cp["kernel"]), "bias": jnp.asarray(cp["bias"])},
         x_), jnp.asarray(x))
     want, = vjp(jnp.asarray(gy))
-    conv = _conv_module(cp)
-    _close(TL.conv3x3_input_grad(_t(gy), conv.weight.detach()), want)
+    # the du reads the weight as the forward packed it
+    w_packed = fused_conv.pack_weights(_t(cp["kernel"]))
+    _close(fused_conv.conv3x3_input_grad(_t(gy), w_packed, c), want)
 
 
 def test_plain_conv_upsample_and_gn_functions_match_jax_grad():
@@ -605,6 +637,8 @@ def test_train_launch_table_matches_call_sites(monkeypatch):
         monkeypatch.setattr(mod, fn, wrapped)
 
     spy(fused_conv, "fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3")
+    # K8's du is the conv engine's du mode, counted as K1
+    spy(fused_conv, "conv3x3_input_grad", "fused_gn_silu_conv3x3")
     spy(fused_conv, "upsample2x_conv3x3", "upsample2x_conv3x3")
     spy(fused_conv, "downsample2x_conv3x3", "downsample2x_conv3x3")
     spy(fused_matmul, "fused", "fused_matmul")
