@@ -24,9 +24,12 @@ Phases, each fatal on failure:
    with its launch plan, its device time alone and the time of F.linear on
    the same input and weights, and its times are weighted by the launches
    its wrapper counted at each shape on every path (`per_request` at
-   512x512 and 840x560, image, sketch, `per_step`); K8's du (the conv
-   engine's du mode on the forward's packed weight) runs at the train
-   step's seven shapes, with its device time alone;
+   512x512 and 840x560, image, sketch, `per_step`); K8's du (a kernel of
+   its own, on the forward's packed weight) runs at every shape of the
+   train step and a ragged one, and its times are weighted by the
+   launches its wrapper counted at each shape in one train step
+   (`per_step`). Every case of every kernel reports its device time alone
+   (a CUDA graph of 20 calls), and of its library call where it has one;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -81,39 +84,13 @@ def _smi() -> str:
 # kernel phase
 # ---------------------------------------------------------------------------
 
-# Every attention shape of the paired step at 512x512: the UNet's self- and
-# cross-attention at each level (hd 64) and the VAE mid attention (hd 512).
-K7_CASES = [
-    ("unet self S=4096 H=5", 1, 4096, 4096, 5, 64),
-    ("unet cross S=4096 Skv=77 H=5", 1, 4096, 77, 5, 64),
-    ("unet self S=1024 H=10", 1, 1024, 1024, 10, 64),
-    ("unet cross S=1024 Skv=77 H=10", 1, 1024, 77, 10, 64),
-    ("unet self S=256 H=20", 1, 256, 256, 20, 64),
-    ("unet cross S=256 Skv=77 H=20", 1, 256, 77, 20, 64),
-    ("unet mid self S=64 H=20", 1, 64, 64, 20, 64),
-    ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64),
-    ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512)]
-# K2's cases: every attention shape of the paths, the nine above, the
-# 840x560 request's ragged ones (Sq = Skv = 7350) and one batch-2 case
-# that crosses the batch stride.
-K2_CASES = K7_CASES + [
+# K2's cases beyond K7's (tools/time_kernels.py, every attention shape of
+# the paired step): the 840x560 request's ragged ones (Sq = Skv = 7350) and
+# one batch-2 case that crosses the batch stride.
+K2_EXTRA_CASES = [
     ("unet ragged self S=7350 H=5", 1, 7350, 7350, 5, 64),
     ("vae mid ragged hd=512 S=7350", 1, 7350, 7350, 1, 512),
     ("unet self S=1024 H=10 B=2", 2, 1024, 1024, 10, 64)]
-# Every stride-2 downsample at 512x512 (VAE pad_lo=0 with stats, UNet
-# pad_lo=1 without) and at 840x560, whose sizes are odd: (case, B, H, W,
-# C = Co, pad_lo, emits stats on its path)
-K6_CASES = [
-    ("vae 512^2x128 pad0", 1, 512, 512, 128, 0, True),
-    ("vae 256^2x256 pad0", 1, 256, 256, 256, 0, True),
-    ("vae 128^2x512 pad0", 1, 128, 128, 512, 0, True),
-    ("unet 64^2x320 pad1", 1, 64, 64, 320, 1, False),
-    ("unet 32^2x640 pad1", 1, 32, 32, 640, 1, False),
-    ("unet 16^2x1280 pad1", 1, 16, 16, 1280, 1, False),
-    ("vae 560x840x128 pad0", 1, 560, 840, 128, 0, True),
-    ("unet 70x105x320 pad1", 1, 70, 105, 320, 1, False),
-    ("unet 35x53x640 pad1", 1, 35, 53, 640, 1, False),
-    ("unet 18x27x1280 pad1", 1, 18, 27, 1280, 1, False)]
 # (B, H, S, 64) attention at the UNet's shapes, through default_attention:
 # (case, B, H, Sq, Skv)
 K9_CASES = [
@@ -241,7 +218,8 @@ def kernel_phase(dev, results: list):
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
     from img2img_turbo_tpu_torch.tools.time_kernels import (
-        DU_CASES, K3_SHAPES, device_ms, k3_name, one_call_ms as _time_ms)
+        DU_CASES, K1_CASES, K3_SHAPES, K4_CASES, K5_CASES, K6_CASES,
+        K7_CASES, device_ms, k3_name, one_call_ms as _time_ms)
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -256,7 +234,7 @@ def kernel_phase(dev, results: list):
 
     def record(name, route, source, replaces, case, err, rel, tol, ms,
                plain_ms, flops, nbytes, library_ms=None, library=None,
-               part=None):
+               part=None, device_ms=None, library_device_ms=None, **extra):
         ok = rel <= tol
         bound_ms, bound_by = _bound(flops, nbytes)
         lib = ("" if library_ms is None
@@ -271,32 +249,17 @@ def kernel_phase(dev, results: list):
         results.append(dict(name=name, route=route, source=source,
                             replaces=replaces, case=case, max_abs_err=err,
                             rel_err=rel, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms, library=library,
-                            part=part))
+                            device_ms=device_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms,
+                            library_device_ms=library_device_ms,
+                            library=library, part=part, **extra))
 
     # ---- K1 -------------------------------------------------------------
     k1 = ("fused_gn_silu_conv3x3", "cuda",
           "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1083")
 
-    k1_cases = [
-        # (case, B, H, W, C, Co, norm, eb, res, Csk)
-        ("vae 512^2x128 gn", 1, 512, 512, 128, 128, True, False, True, 0),
-        ("vae conv_in C=3", 1, 512, 512, 3, 128, False, False, False, 0),
-        ("vae enc conv_out Co=8", 1, 64, 64, 512, 8, True, False, False, 0),
-        ("vae dec conv_out Co=3", 1, 512, 512, 128, 3, True, False, False, 0),
-        ("vae 256^2 256->128 shortcut", 1, 256, 256, 256, 128, True, False,
-         False, 256),
-        ("unet conv_in C=4", 1, 64, 64, 4, 320, False, False, False, 0),
-        ("unet 64^2x320 gn+eb", 1, 64, 64, 320, 320, True, True, False, 0),
-        ("unet C=2560 eb+res+skip", 1, 8, 8, 2560, 1280, True, True, True,
-         640),
-        ("unet 105x70x640 ragged", 1, 105, 70, 640, 320, True, True, False,
-         960),
-        ("unet conv_out Co=4", 1, 64, 64, 320, 4, True, False, False, 0),
-    ]
-    for case, B, H, W, C, Co, norm, has_eb, has_res, csk in k1_cases:
+    for case, B, H, W, C, Co, norm, has_eb, has_res, csk in K1_CASES:
         x = rn(B, H, W, C)
         w = rn(3, 3, C, Co, scale=1 / math.sqrt(9 * C))
         bias = rn(Co, scale=0.1, dtype=torch.float32)
@@ -326,27 +289,32 @@ def kernel_phase(dev, results: list):
         serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
         if serr > STATS_TOL:
             _fail(f"K1 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
-        ms = _time_ms(lambda: fc.fused_gn_silu_conv3x3(
+        call = lambda: fc.fused_gn_silu_conv3x3(  # noqa: E731
             x, w, bias, a, b, eb, res, skx, skw, emit_stats=True,
-            w_packed=wp, skip_w_packed=skwp))
+            w_packed=wp, skip_w_packed=skwp)
+        ms, dev_ms = _time_ms(call), device_ms(call)
         w_oihw = oihw(w)
         skw_oihw = None if skw is None else oihw(skw)
         pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(
             x, w_oihw, bias, a, b, eb, res, skx, skw_oihw))
         flops = 2 * B * H * W * Co * (9 * C + csk)
         nbytes = _nbytes(x, wp, bias, a, b, eb, res, skx, skwp, y, st)
-        lms = lib = None
+        lms = lib = lib_dev = None
         if not norm and not has_eb and not has_res and not csk:
             # prologue-free: one cuDNN convolution computes the same
             xc, bb = x.permute(0, 3, 1, 2), bias.to(bf)
-            lms = _time_ms(lambda: F.conv2d(xc, w_oihw, bb, padding=1))
+            lib_call = lambda: F.conv2d(xc, w_oihw, bb,  # noqa: E731
+                                        padding=1)
+            lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
             lib = "F.conv2d"
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               lib)
+               lib, device_ms=dev_ms, library_device_ms=lib_dev)
 
-    # ---- K1 as K8's du: the input gradient of the train step's fused GN
-    # convs, the conv engine's du mode reading the forward's packed weight
-    # as it is (fc.conv3x3_input_grad). The exact version is the fp32
+    # ---- K8's du: the input gradient of the train step's fused GN convs
+    # at every shape the step runs (and a ragged one), the du kernel reading
+    # the forward's packed weight as it is (fc.conv3x3_input_grad),
+    # recorded under K1, the kernel the JAX package runs for it. The exact
+    # version is the fp32
     # transposed conv of the nn.Conv2d weight, so a wrong tap order or
     # channel swap fails here; the plain time is the plain path's transposed
     # conv on the unpacked weight, the library's cuDNN's on the nn.Conv2d
@@ -370,18 +338,13 @@ def kernel_phase(dev, results: list):
         print(f"  {'':26s} {case}: device {dev_ms:.4f}ms, "
               f"F.conv_transpose2d device {lib_dev:.4f}ms", flush=True)
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               "F.conv_transpose2d", part="du")
-        results[-1].update(device_ms=dev_ms, library_device_ms=lib_dev)
+               "F.conv_transpose2d", part="du", device_ms=dev_ms,
+               library_device_ms=lib_dev, shape=(B, H, W, C, Co))
 
     # ---- K4 -------------------------------------------------------------
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1758")
-    for case, B, H, W, C, Co, csk in [
-            ("vae 64->128 C=512 skip 256", 1, 64, 64, 512, 512, 256),
-            ("vae 128->256 C=512 skip 128", 1, 128, 128, 512, 512, 128),
-            ("vae 256->512 C=256 skip 128", 1, 256, 256, 256, 256, 128),
-            ("unet 8->16 C=1280", 1, 8, 8, 1280, 1280, 0),
-            ("unet 32->64 C=640", 1, 32, 32, 640, 640, 0)]:
+    for case, B, H, W, C, Co, csk in K4_CASES:
         x = rn(B, H, W, C)
         w = rn(3, 3, C, Co, scale=1 / math.sqrt(9 * C))
         wp = fc.pack_weights(fc.fold_upsample_weights(w))
@@ -402,9 +365,10 @@ def kernel_phase(dev, results: list):
         serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
         if serr > STATS_TOL:
             _fail(f"K4 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
-        ms = _time_ms(lambda: fc.upsample2x_conv3x3(
+        call = lambda: fc.upsample2x_conv3x3(  # noqa: E731
             x, w, bias, skx, skw, emit_stats=True, w_packed=wp,
-            skip_w_packed=skwp))
+            skip_w_packed=skwp)
+        ms, dev_ms = _time_ms(call), device_ms(call)
         w_oihw = oihw(w)
         skw_oihw = None if skw is None else oihw(skw)
         pms = _time_ms(lambda: fc.upsample2x_conv3x3_plain(
@@ -412,7 +376,8 @@ def kernel_phase(dev, results: list):
         # four phases of 2x2 taps on the low-resolution input
         flops = 2 * B * 4 * H * W * Co * (4 * C + csk)
         nbytes = _nbytes(x, wp, bias, skx, skwp, y, st)
-        record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes)
+        record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
+               device_ms=dev_ms)
 
     # ---- K6 -------------------------------------------------------------
     k6 = ("downsample2x_conv3x3", "cuda",
@@ -441,28 +406,28 @@ def kernel_phase(dev, results: list):
             _fail(f"K6 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
         # timed as its path calls it: with stats in the VAE, without in
         # the UNet
-        ms = _time_ms(lambda: fc.downsample2x_conv3x3(
-            x, w, bias, pad_lo, emit_stats=stats, w_packed=wp))
+        call = lambda: fc.downsample2x_conv3x3(  # noqa: E731
+            x, w, bias, pad_lo, emit_stats=stats, w_packed=wp)
+        ms, dev_ms = _time_ms(call), device_ms(call)
         w_oihw = oihw(w)
         pms = _time_ms(lambda: fc.downsample2x_conv3x3_plain(
             x, w_oihw, bias, pad_lo, emit_stats=stats))
         # the library: one cuDNN strided conv on the input padded beforehand
         xpad = F.pad(x.permute(0, 3, 1, 2), (pad_lo, 1, pad_lo, 1))
         bb = bias.to(bf)
-        lms = _time_ms(lambda: F.conv2d(xpad, w_oihw, bb, stride=2))
+        lib_call = lambda: F.conv2d(xpad, w_oihw, bb, stride=2)  # noqa: E731
+        lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         flops = 2 * B * ho * wo * C * 9 * C
         nbytes = _nbytes(x, wp, bias, y, st if stats else None)
         record(*k6, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               "F.conv2d(stride=2)")
+               "F.conv2d(stride=2)", device_ms=dev_ms,
+               library_device_ms=lib_dev)
 
     # ---- K5 -------------------------------------------------------------
     k5 = ("group_norm_stats", "triton",
           "img2img_turbo_tpu_torch/ops/groupnorm.py",
           "img2img_turbo_tpu/ops/groupnorm.py:81")
-    for case, shape in [("unet 64^2x320", (1, 64, 64, 320)),
-                        ("unet concat 8^2x2560", (1, 8, 8, 2560)),
-                        ("vae 256^2x256", (1, 256, 256, 256)),
-                        ("ragged 105x70x640", (1, 105, 70, 640))]:
+    for case, shape in K5_CASES:
         x = rn(*shape) * 2 + 0.5
         c = shape[-1]
         scale = 1 + 0.1 * rn(c, dtype=torch.float32)
@@ -473,7 +438,9 @@ def kernel_phase(dev, results: list):
         err_a, rel_a = _rel(ka, ra)
         err_b, rel_b = _rel(kb, rb)
         # K5 and its combine against the plain engine's two-pass (a, b)
-        ms = _time_ms(lambda: gn.group_norm_coeffs(x, scale, bias, 32, 1e-5))
+        call = lambda: gn.group_norm_coeffs(x, scale, bias, 32,  # noqa: E731
+                                            1e-5)
+        ms, dev_ms = _time_ms(call), device_ms(call)
         pms = _time_ms(lambda: gn.group_norm_coeffs_plain(x, scale, bias, 32,
                                                           1e-5))
         # K5 reads x once and writes its partial sums; one op per element
@@ -481,7 +448,7 @@ def kernel_phase(dev, results: list):
         flops = 3 * x.numel()
         nbytes = _nbytes(x, gn.partial_stats(x))
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, pms, flops, nbytes)
+               ms, pms, flops, nbytes, device_ms=dev_ms)
 
     # ---- K3: every launch shape of the paths (tools/time_kernels.py's
     # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
@@ -535,16 +502,17 @@ def kernel_phase(dev, results: list):
               f"{dev_ms:.4f}ms, F.linear {linear_ms:.4f}ms (device "
               f"{linear_dev:.4f}ms)", flush=True)
         record(*k3, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
-               linear_ms if exact else None, "F.linear" if exact else None)
-        results[-1].update(shape=shape, device_ms=dev_ms, linear_ms=linear_ms,
-                           linear_device_ms=linear_dev)
+               linear_ms if exact else None, "F.linear" if exact else None,
+               device_ms=dev_ms,
+               library_device_ms=linear_dev if exact else None, shape=shape,
+               linear_ms=linear_ms, linear_device_ms=linear_dev)
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention.cu",
           "img2img_turbo_tpu/ops/attention.py:261")
     lib = _attention_lib()
-    for case, B, Sq, Skv, H, hd in K2_CASES:
+    for case, B, Sq, Skv, H, hd in K7_CASES + K2_EXTRA_CASES:
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         print(f"  {'':26s} {case}:", flush=True)
         report = _attention_report(
@@ -562,14 +530,14 @@ def kernel_phase(dev, results: list):
             q, k, v, H, return_lse=True))
         pms = _time_ms(lambda: attention.mha_ref(q, k, v, H))
         backend, sdpa = _sdpa(q, k, v, H)
-        lms = _time_ms(sdpa)
+        lms, lib_dev = _time_ms(sdpa), device_ms(sdpa)
         flops = 4 * B * Sq * Skv * H * hd
         nbytes = _nbytes(q, k, v, o, lse)
         print(f"  {'':26s} lse max_abs={lse_err:.3e} tol={LSE_TOL:.0e}",
               flush=True)
         record(*k2, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               f"sdpa[{backend}]")
-        results[-1].update(report, shape=(B, Sq, Skv, H, hd))
+               f"sdpa[{backend}]", library_device_ms=lib_dev, **report,
+               shape=(B, Sq, Skv, H, hd))
 
     # ---- K9 -------------------------------------------------------------
     k9 = ("flash_attention", "cuda",
@@ -588,11 +556,10 @@ def kernel_phase(dev, results: list):
         pms = _time_ms(lambda: attention.scaled_dot_product_attention(q, k,
                                                                       v))
         backend, sdpa = _sdpa(q, k, v)
-        lms = _time_ms(sdpa)
+        lms, lib_dev = _time_ms(sdpa), device_ms(sdpa)
         record(*k9, case, err, rel, REL_TOL, ms, pms,
                4 * B * H * Sq * Skv * 64, _nbytes(q, k, v, o), lms,
-               f"sdpa[{backend}]")
-        results[-1].update(report)
+               f"sdpa[{backend}]", library_device_ms=lib_dev, **report)
 
     # ---- K7 -------------------------------------------------------------
     k7 = ("flash_attention_folded_bwd", "cuda",
@@ -607,8 +574,9 @@ def kernel_phase(dev, results: list):
         refs = attention.attention_bwd_ref(q, k, v, o, do, lse, H)
         errs = [_rel(g_, r_) for g_, r_ in zip(grads, refs)]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-        ms = _time_ms(lambda: attention.flash_attention_folded_bwd(
-            q, k, v, o, do, lse, H))
+        call = lambda: attention.flash_attention_folded_bwd(  # noqa: E731
+            q, k, v, o, do, lse, H)
+        ms, dev_ms = _time_ms(call), device_ms(call)
         # the plain path's backward: autograd through mha_ref
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out = attention.mha_ref(qg, kg, vg, H)
@@ -617,14 +585,16 @@ def kernel_phase(dev, results: list):
         backend, sdpa = _sdpa(qg, kg, vg, H)
         out_l = sdpa()
         do_h = do.view(B, Sq, H, hd).transpose(1, 2)
-        lms = _time_ms(lambda: torch.autograd.grad(
-            out_l, (qg, kg, vg), do_h, retain_graph=True))
+        lib_call = lambda: torch.autograd.grad(  # noqa: E731
+            out_l, (qg, kg, vg), do_h, retain_graph=True)
+        lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         del out, out_l
         # the least work: S, dP, dV, dQ and dK, five products
         flops = 10 * B * Sq * Skv * H * hd
         nbytes = _nbytes(q, k, v, o, do, lse, *grads)
         record(*k7, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               f"sdpa[{backend}] backward")
+               f"sdpa[{backend}] backward", device_ms=dev_ms,
+               library_device_ms=lib_dev)
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)
@@ -674,28 +644,31 @@ def kernel_phase(dev, results: list):
 def _summed(rs):
     """The worst error over cases `rs`, and their time, device time alone
     (where every case has one), plain version's time, bound and library
-    call's time summed (`library_ms` sums only the
-    cases that have a library call, named in `library_cases`, and is null
-    when none has). bound_by names the bound of the cases that make up
-    most of the summed bound."""
+    call's time and device time summed (`library_ms` and
+    `library_device_ms` sum only the cases that have a library call, named
+    in `library_cases`, and are null when none has). bound_by names the
+    bound of the cases that make up most of the summed bound."""
     by = {"bytes": 0.0, "operations": 0.0}
     for r in rs:
         by[r["bound_by"]] += r["bound_ms"]
     lib = [r for r in rs if r["library_ms"] is not None]
-    dev = [r.get("device_ms") for r in rs]
+    dev = [r["device_ms"] for r in rs]
+    lib_dev = [r["library_device_ms"] for r in lib]
     return dict(
         max_abs_err=max(r["max_abs_err"] for r in rs),
         ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
         device_ms=None if None in dev else sum(dev),
         bound_ms=sum(r["bound_ms"] for r in rs), bound_by=max(by, key=by.get),
         library_ms=sum(r["library_ms"] for r in lib) if lib else None,
+        library_device_ms=None if not lib or None in lib_dev
+        else sum(lib_dev),
         library_cases=[r["case"] for r in lib], n_cases=len(rs))
 
 
 def _weighted(rs, shapes, launches, path,
               keys=("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")):
-    """Times of a kernel's cases `rs` (K2's or K3's, each with its launch
-    `shape`) weighted by the launches the wrapper counted at each shape on
+    """Times of a kernel's cases `rs` (K2's, K3's or the du's, each with
+    its launch `shape`) weighted by the launches the wrapper counted at each shape on
     one run of a path (`shapes`, {shape: launches}): what the kernel, its
     device time alone, its plain version, its bound and the library call
     cost on that path (`keys`). Fails the run if a shape of the path has no
@@ -769,7 +742,8 @@ def main():
     kernel_phase(dev, results)
     torch.cuda.synchronize()
 
-    summary: dict = {"paths": {}, "k2_shapes": {}, "k3_shapes": {}}
+    summary: dict = {"paths": {}, "k2_shapes": {}, "k3_shapes": {},
+                     "du_shapes": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
@@ -802,6 +776,16 @@ def main():
         print(f"K3 {key}: " + ", ".join(
             f"{n}={k3[key][n]:.4f}ms" for n in k3_keys)
             + f" over {launches} launches", flush=True)
+    # K8's du in a train step, weighted by its launches there
+    k1 = next(e for e in kernels if e["name"] == "fused_gn_silu_conv3x3")
+    du_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+               "library_device_ms")
+    k1["du"]["per_step"] = _weighted(
+        [r for r in results if r["part"] == "du"],
+        summary["du_shapes"]["train"], TRAIN_DU_LAUNCHES, "train", du_keys)
+    print("du per_step: " + ", ".join(
+        f"{n}={k1['du']['per_step'][n]:.4f}ms" for n in du_keys)
+        + f" over {TRAIN_DU_LAUNCHES} launches", flush=True)
     print(_smi(), flush=True)  # again, beside the results
     print(json.dumps({"kernels": kernels,
                       "engine": summary["engine"],
@@ -868,8 +852,8 @@ def _rel_l2(a, b) -> float:
 
 def _shapes(kernel: str) -> dict:
     """A kernel's launches by shape (K2: (B, Sq, Skv, H, hd); K3: (M, C,
-    Co, outputs, LN, gate, residual)) since the counters were last
-    reset."""
+    Co, outputs, LN, gate, residual); the du: (B, H, W, C, Co)) since the
+    counters were last reset."""
     from img2img_turbo_tpu_torch.ops import _build
     return {shape: n for (name, shape), n in _build.launch_shapes.items()
             if name == kernel}
@@ -1154,13 +1138,15 @@ def modes_phase(dev, summary):
 # (K1 98, K2 34, K3 148, K4 6, K5 24, K6 6), then its backward: the UNet's
 # down, mid and up blocks run again (recompute: K1 44 resnet convs, K2 32,
 # K3 144, K4 3 upsamples, K5 21, K6 3 downsamples), each fused GN conv's
-# du is one launch of the conv engine's du mode, counted as K1 (95, all K1
-# but the three prologue-free conv_ins) and each
+# du is one launch of the du kernel, counted as K1 (95, all K1 but the
+# three prologue-free conv_ins; by shape in tools/time_kernels.py
+# DU_CASES) and each
 # attention's backward one K7 (34: 32 UNet + 2 VAE mid); K6's backward is
 # autograd through the plain strided conv. Passes 3 and 4 (discriminator)
 # and the text encoder launch none.
+TRAIN_DU_LAUNCHES = 2 * 95
 EXPECTED_TRAIN_LAUNCHES = {
-    "fused_gn_silu_conv3x3": 2 * (98 + 44 + 95),
+    "fused_gn_silu_conv3x3": 2 * (98 + 44) + TRAIN_DU_LAUNCHES,
     "flash_attention_folded": 2 * (34 + 32),
     "fused_matmul": 2 * (148 + 144),
     "upsample2x_conv3x3": 2 * (6 + 3),
@@ -1270,6 +1256,8 @@ def train_phase(dev, summary):
                     summary["k2_shapes"]["train"] = _shapes(
                         "flash_attention_folded")
                     summary["k3_shapes"]["train"] = _shapes("fused_matmul")
+                    summary["du_shapes"]["train"] = _shapes(
+                        "conv3x3_input_grad")
                     after_first = _snapshot(states[k])
                     first_metrics = m
     print(f"  launches in one train step: {counts}", flush=True)

@@ -16,7 +16,8 @@
 //   K8's du, the input gradient of K1's conv in the backward of
 //       img2img_turbo_tpu/models/layers.py:351 pallas_bwd (which runs K1 on
 //       gy with the spatially flipped, io-swapped weights): du = conv_T(gy, w),
-//       fp32 accumulation, one rounding; mode DGRAD below.
+//       fp32 accumulation, one rounding; dgrad_kernel below, a kernel of its
+//       own.
 //
 // A block (two warpgroups) owns a 16 x 8 tile of (low-resolution, for K4)
 // pixels and 128 output channels. For each 32-channel chunk it loads the
@@ -41,12 +42,6 @@
 // row 2r + di: wgmma's rows stay 8 consecutive 16-byte entries, and the
 // stride between tile rows is two halo rows. The halo is reloaded once per
 // 32-channel chunk, after the chunk's 9 taps (no overlap with the taps yet).
-// The du (mode DGRAD) is the SAME conv of gy with K = Co and N = C, and
-// reads the forward's packed weight as it is, with no flip or repack: tap
-// t takes the forward's tap 8 - t, and for the product K is Co and N is C,
-// so 8 consecutive co rows of one 8-channel group (16 bytes each along C)
-// are one MN-major core matrix. The weight tile lands in shared memory as
-// [C/8][32 co][8] and wgmma reads it with the B-transpose bit.
 //
 // The epilogue sums bias, the per-(batch, channel) extra bias and the residual
 // in fp32 and rounds once; stats are per-block partial sums of the stored
@@ -88,7 +83,7 @@ constexpr int B_STAGE = KCH * BN * 8;   // bf16 elements per weight tile
 constexpr int B_PER_T = KCH * BN / NT;
 constexpr int NUM_SMS = 132;
 // modes of the engine
-constexpr int SAME = 0, UP2 = 1, DOWN = 2, DGRAD = 3;
+constexpr int SAME = 0, UP2 = 1, DOWN = 2;
 // DOWN's halo: 2*TH+1 rows of 2*TW+1 columns, each row stored as its TW+1
 // even columns, then its TW odd ones
 constexpr int DHR = 2 * TH + 1;
@@ -104,7 +99,7 @@ struct Geo {
 struct ConvArgs {
   const bf16* x;      // (B, H, W, C); the low-resolution input for K4
   const bf16* w;      // packed (taps, C/8, CoP, 8); K4: 16 = 4 phases x 4 taps;
-                      // DGRAD: the forward's (9, Co/8, CoP, 8), CoP rows of K
+                      // the du: the forward's (9, Co/8, CoP, 8), CoP rows of K
   const float* bias;  // (Co) or null (zero)
   const float* ga;    // (B, C) folded GroupNorm scale, or null
   const float* gb;    // (B, C) folded GroupNorm shift
@@ -254,27 +249,6 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     }
   };
 
-  // ---- DGRAD's B operand: the forward's tap 8 - tap, K rows (gy channels)
-  // k*BK .. +31 of the block's 16 output-channel groups, as [16][BK][8]
-  auto load_b_dgrad = [&](int k, int tap, int stage) {
-    const int n8 = (p.Co + 7) / 8, g0 = n0 / 8, k0 = k * BK;
-    const bf16* wbase = p.w + (size_t)(8 - tap) * n8 * p.CoP * 8;
-#pragma unroll
-    for (int t = 0; t < B_PER_T; ++t) {
-      const int q = tid + t * NT;
-      const int kr = q % BK, g = q / BK;
-      const bool ok = g0 + g < n8 && k0 + kr < p.CoP;
-      const bf16* src = wbase + ((size_t)(g0 + g) * p.CoP + k0 + kr) * 8;
-      cp_async16(&Bs[stage * B_STAGE + (g * BK + kr) * 8], ok ? src : wbase, ok);
-    }
-  };
-  auto load_w = [&](int k, int tap, int stage) {
-    if constexpr (MODE == DGRAD)
-      load_b_dgrad(k, tap, stage);
-    else
-      load_b(k, tap, stage);
-  };
-
   float d[64];
 #pragma unroll
   for (int r = 0; r < 64; ++r) d[r] = 0.f;
@@ -305,7 +279,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     if (st < nsteps) {
       int k, tap;
       step_at(st, k, tap);
-      load_w(k, tap, st);
+      load_b(k, tap, st);
     }
     cp_async_commit();
   }
@@ -318,7 +292,7 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
     if (i + STAGES - 1 < nsteps) {
       int k2, tap2;
       step_at(i + STAGES - 1, k2, tap2);
-      load_w(k2, tap2, (i + STAGES - 1) % STAGES);
+      load_b(k2, tap2, (i + STAGES - 1) % STAGES);
     }
     cp_async_commit();
     const int ntaps = k < KC ? T : 1;
@@ -350,15 +324,8 @@ __global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
 #pragma unroll
     for (int ks = 0; ks < KCH / 2; ++ks) {
       const uint64_t da = smem_desc(a0 + 2 * ks * HP * 8, HP * 16, a_sbo);
-      if constexpr (MODE == DGRAD) {
-        // K step: 16 co rows (two core matrices 128 bytes apart); N: 8-channel
-        // groups BK rows apart
-        const uint64_t db = smem_desc(b0 + ks * 16 * 8, 128, BK * 16);
-        i2i::wgmma_m64n128k16_ss_tb(d, da, db);
-      } else {
-        const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
-        i2i::wgmma_m64n128k16_ss(d, da, db, 1);
-      }
+      const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
+      i2i::wgmma_m64n128k16_ss(d, da, db, 1);
     }
     i2i::wgmma_commit();
     i2i::wgmma_wait<0>();
@@ -499,16 +466,220 @@ __global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
   }
 }
 
+// ---- K8's du, a kernel of its own -----------------------------------------
+// du (B, H, W, C) = conv_T(gy (B, H, W, Co), w): the SAME conv of gy with
+// the flipped, io-swapped weight, as an implicit GEMM with M = the block's
+// 16 x 8 pixel tile, N = 128 of the C du channels and K = 9 taps x Co gy
+// channels, walked as (chunk of DBK channels, tap) steps. It reads the
+// forward's packed weight (9, ceil(C/8), CoP, 8) as it is: tap t takes the
+// forward's tap 8 - t, and for the product K is Co and N is C, so 8
+// consecutive co rows of one 8-channel group (16 bytes along C) are an
+// MN-major core matrix. A weight tile lands in shared memory as
+// [C/8][DBK co][8] and wgmma reads it with the B-transpose bit.
+//
+// What bounds it on the H100: the large cases are compute bound (Co >= 128:
+// hundreds of FLOPs per byte); the conv_outs' du (Co = 3, 4, 8) is bound by
+// its output's bytes. The design, against the conv engine's du mode it
+// replaces:
+// - gy has no prologue, so each chunk's 18 x 10-pixel halo goes from device
+//   memory to shared memory by cp.async, 16 bytes a copy, zero-filled outside
+//   the image and past Co. Halos are double-buffered: chunk k+1's is issued
+//   at chunk k's second tap (the first step at which every wgmma that read
+//   that buffer for chunk k-1 has retired) and waited for with the weight
+//   ring's own cp.async count, so the tensor cores never wait for a halo.
+//   Where Co is not a multiple of 8 (Co = 3, 4) gy's rows are not 16-byte
+//   aligned: those cases load the halo by element (VEC false) at the same
+//   point, and take one chunk only.
+// - A step is one (chunk, tap): DBK = 64 channels, four k16 wgmmas a
+//   warpgroup (one where Co <= 16, DBK = 16). One committed group stays in
+//   flight across the next step's barrier (wgmma_wait<1>): weight tiles are
+//   loaded DLEAD = 2 steps ahead into a 4-stage ring, so the stage being
+//   refilled was read two steps back, by a group that has retired. Each
+//   tile's first wgmma writes with scale_d = 0 (no zeroed accumulators) and
+//   reg_fence pins the accumulators across the group in flight, so ptxas
+//   does not serialise the wgmmas.
+// - The epilogue rounds the 128 x 128 fp32 tile to bf16 into shared memory
+//   (over the halos and ring, free once the last group retired), then writes
+//   each pixel's 256-byte channel row in 16-byte stores by 16 neighbouring
+//   threads. Split-K (grids under one wave) writes fp32 partial sums to the
+//   workspace instead, two channels a store, and split_epilogue adds them in
+//   a fixed order: no atomics, every run bit-identical.
+constexpr int DSTAGES = 4;  // weight ring depth
+constexpr int DLEAD = 2;    // steps a weight tile is loaded ahead
+constexpr int OUT_LD = BN + 8;  // bf16 per staged output row: 272 bytes, so a
+                                // warp's 4-byte stores of 8 rows hit 32 banks
+
+template <int DBK>
+struct DgradGeo {
+  static constexpr int KCH = DBK / 8;
+  // halo entries per 8-channel group: odd in 16-byte units, so the 8 groups
+  // of one pixel's 128 bytes land in distinct banks
+  static constexpr int HPS = HALO_PIX + 1;
+  static constexpr int HALO = KCH * HPS * 8;        // bf16 per halo buffer
+  static constexpr int STAGE = BN / 8 * DBK * 8;    // bf16 per weight stage
+  static constexpr int MAIN = (2 * HALO + DSTAGES * STAGE) * 2;
+  static constexpr int smem = MAIN > BM * OUT_LD * 2 ? MAIN : BM * OUT_LD * 2;
+};
+
+// The product's K is the du's Co (p.C) and N its C (p.Co), as split_epilogue
+// reads them; p.CoP is the packed weight's rows per channel group.
+template <int DBK, bool VEC>
+__global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
+  using G = DgradGeo<DBK>;
+  constexpr int KCH = G::KCH, HPS = G::HPS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // 2 x [KCH][HPS][8]
+  bf16* Bs = halo + 2 * G::HALO;               // DSTAGES x [BN/8][DBK][8]
+  bf16* out = reinterpret_cast<bf16*>(smem);   // epilogue: [BM][OUT_LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, wq = warp & 3;  // warpgroup: tile rows 8*wg .. +7
+  const int b = blockIdx.z % p.B, split = blockIdx.z / p.B;
+  const int i0 = (blockIdx.x / p.tiles_w) * TH, j0 = (blockIdx.x % p.tiles_w) * TW;
+  const int n0 = blockIdx.y * BN;
+  const int kbeg = split * p.chunks_per_split;
+  const int kend = min(kbeg + p.chunks_per_split, (p.C + DBK - 1) / DBK);
+  const int nsteps = (kend - kbeg) * 9;
+
+  // chunk k's halo into buffer buf: [kc][pixel][8], zero outside the image
+  // and past Co
+  auto load_halo = [&](int k, int buf) {
+    bf16* hb = halo + buf * G::HALO;
+    for (int q = tid; q < HALO_PIX * KCH; q += NT) {
+      const int pix = q / KCH, kc = q % KCH;
+      const int hr = pix / HWD, hc = pix - hr * HWD;
+      const int ih = i0 - 1 + hr, iw = j0 - 1 + hc, c = k * DBK + kc * 8;
+      const bool in = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
+      const bf16* src = p.x + (((size_t)b * p.H + ih) * p.W + iw) * p.C + c;
+      bf16* dst = hb + (kc * HPS + pix) * 8;
+      if constexpr (VEC) {
+        const bool ok = in && c < p.C;
+        cp_async16(dst, ok ? src : p.x, ok);
+      } else {
+        Pack8 v;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v.h[e] = in && c + e < p.C ? src[e] : __float2bfloat16(0.f);
+        *reinterpret_cast<Pack8*>(dst) = v;
+      }
+    }
+  };
+  // step i's weight tile: the forward's tap 8 - tap, K rows k*DBK .. +DBK-1
+  // of the block's 16 channel groups, as [16][DBK][8], into its ring stage
+  auto load_w = [&](int i) {
+    const int k = kbeg + i / 9, tap = i % 9;
+    const int n8 = (p.Co + 7) / 8, g0 = n0 / 8, k0 = k * DBK;
+    const bf16* wbase = p.w + (size_t)(8 - tap) * n8 * p.CoP * 8;
+    bf16* st = Bs + (i % DSTAGES) * G::STAGE;
+#pragma unroll
+    for (int t = 0; t < BN / 8 * DBK / NT; ++t) {
+      const int q = tid + t * NT;
+      const int g = q / DBK, kr = q % DBK;
+      const bool ok = g0 + g < n8 && k0 + kr < p.CoP;
+      cp_async16(st + q * 8, ok ? wbase + ((size_t)(g0 + g) * p.CoP + k0 + kr) * 8 : p.w, ok);
+    }
+  };
+
+  load_halo(kbeg, 0);
+#pragma unroll
+  for (int i = 0; i < DLEAD; ++i) {
+    if (i < nsteps) load_w(i);
+    cp_async_commit();  // group i: step i's tile (and chunk kbeg's halo)
+  }
+  float d[64];
+  for (int i = 0; i < nsteps; ++i) {
+    const int kk = i / 9, tap = i - 9 * kk;  // chunk kbeg + kk
+    // step i's tile (group i) and every halo before it have landed; step
+    // i-2's wgmmas have retired in every warpgroup after the barrier
+    cp_async_wait<DLEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (i + DLEAD < nsteps) load_w(i + DLEAD);
+    if (tap == 1 && kbeg + kk + 1 < kend) load_halo(kbeg + kk + 1, (kk + 1) & 1);
+    cp_async_commit();
+    const int di = tap / 3, dj = tap - 3 * di;
+    // the warpgroup's 8 tile rows for this tap: 8 core matrices one halo row
+    // apart; K steps of 16 co rows are two core matrices (128 bytes) apart,
+    // N's 8-channel groups DBK rows apart
+    const bf16* a0 = halo + (kk & 1) * G::HALO + ((wg * 8 + di) * HWD + dj) * 8;
+    const bf16* b0 = Bs + (i % DSTAGES) * G::STAGE;
+    i2i::reg_fence(d);
+    i2i::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DBK / 16; ++ks) {
+      const uint64_t da = smem_desc(a0 + 2 * ks * HPS * 8, HPS * 16, HWD * 16);
+      const uint64_t db = smem_desc(b0 + ks * 16 * 8, 128, DBK * 16);
+      i2i::wgmma_m64n128k16_ss_tb(d, da, db, i > 0 || ks > 0);
+    }
+    i2i::wgmma_commit();
+    i2i::wgmma_wait<1>();
+    i2i::reg_fence(d);
+  }
+  i2i::wgmma_wait<0>();
+  i2i::reg_fence(d);
+  cp_async_wait<0>();
+
+  // register 4j+2h+e of thread (warp wq of the warpgroup, lane l) holds tile
+  // pixel 64 wg + 16 wq + l/4 + 8h, channel n0 + 8j + 2(l%4) + e
+  if (p.splits > 1) {
+    float* ws = p.ws + (size_t)split * p.B * p.H * p.W * p.Co;
+    const bool pair = p.Co % 2 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 64 * wg + 16 * wq + (lane >> 2) + 8 * h;
+      const int pi = i0 + m / TW, pj = j0 + m % TW;
+      if (pi >= p.H || pj >= p.W) continue;
+      float* row = ws + (((size_t)b * p.H + pi) * p.W + pj) * p.Co;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane & 3);
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (pair && n + 1 < p.Co) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < p.Co) row[n] = v0;
+          if (n + 1 < p.Co) row[n + 1] = v1;
+        }
+      }
+    }
+    return;
+  }
+  __syncthreads();  // every warpgroup is done with the halos and the ring
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 64 * wg + 16 * wq + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + m * OUT_LD + 8 * j + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+  __syncthreads();
+  const bool vec_out = p.Co % 8 == 0;
+#pragma unroll
+  for (int t = 0; t < BM * BN / 8 / NT; ++t) {
+    const int q = tid + t * NT;
+    const int m = q / (BN / 8), cg = q % (BN / 8);
+    const int pi = i0 + m / TW, pj = j0 + m % TW, n = n0 + 8 * cg;
+    if (pi >= p.H || pj >= p.W || n >= p.Co) continue;
+    const Pack8 v = *reinterpret_cast<const Pack8*>(out + m * OUT_LD + 8 * cg);
+    bf16* dst = p.y + (((size_t)b * p.H + pi) * p.W + pj) * p.Co + n;
+    if (vec_out) {
+      *reinterpret_cast<Pack8*>(dst) = v;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.Co) dst[e] = v.h[e];
+    }
+  }
+}
+
 struct Plan {
   int splits, chunks_per_split;
 };
 
-// Below one wave of blocks, split the channel chunks so that about two
-// waves run, keeping at least 2 chunks per split.
-Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
-  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1) * B *
-                  ((Co + BN - 1) / BN);
-  const int nchunks = (C + BK - 1) / BK + (Csk + BK - 1) / BK;
+// Below one wave of `nb` blocks, split the `nchunks` channel chunks so that
+// about two waves run, keeping at least 2 chunks per split.
+Plan split_plan(long nb, int nchunks) {
   Plan pl;
   pl.splits = 1;
   if (nb < NUM_SMS) {
@@ -520,20 +691,48 @@ Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
   return pl;
 }
 
-template <int MODE, bool NORM>
-int launch(const ConvArgs& a, cudaStream_t stream) {
-  constexpr bool UP = MODE == UP2;
-  constexpr int smem_bytes = Geo<MODE>::smem;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<MODE, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
+  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1) * B *
+                  ((Co + BN - 1) / BN);
+  return split_plan(nb, (C + BK - 1) / BK + (Csk + BK - 1) / BK);
+}
+
+// The du's channels a chunk: 16 (one k16 wgmma a tap) where Co <= 16.
+int dgrad_bk(int Co) { return Co <= 16 ? 16 : 64; }
+
+// The du's split over its Co chunks; its blocks cover C in BN-channel tiles.
+Plan dgrad_plan(int B, int H, int W, int C, int Co) {
+  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * B * ((C + BN - 1) / BN);
+  return split_plan(nb, (Co + dgrad_bk(Co) - 1) / dgrad_bk(Co));
+}
+
+// Launch `kernel` on a's grid (x: pixel tiles, times 4 phases for K4; y:
+// 128-channel tiles; z: batch x splits), then split_epilogue if a splits.
+int launch_kernel(void (*kernel)(ConvArgs), int smem_bytes, bool up, const ConvArgs& a,
+                  cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.tiles * (UP ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
-  conv_kernel<MODE, NORM><<<grid, NT, smem_bytes, stream>>>(a);
+  dim3 grid(a.tiles * (up ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
+  kernel<<<grid, NT, smem_bytes, stream>>>(a);
   if (a.splits > 1) {
-    dim3 eg(a.tiles * (UP ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
-    split_epilogue<UP><<<eg, NT, 0, stream>>>(a);
+    dim3 eg(a.tiles * (up ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
+    if (up)
+      split_epilogue<true><<<eg, NT, 0, stream>>>(a);
+    else
+      split_epilogue<false><<<eg, NT, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+template <int MODE, bool NORM>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  return launch_kernel(conv_kernel<MODE, NORM>, Geo<MODE>::smem, MODE == UP2, a, stream);
+}
+
+template <int DBK, bool VEC>
+int launch_dgrad(const ConvArgs& a, cudaStream_t stream) {
+  return launch_kernel(dgrad_kernel<DBK, VEC>, DgradGeo<DBK>::smem, false, a, stream);
 }
 
 }  // namespace
@@ -552,6 +751,14 @@ long conv_workspace_bytes(int B, int H, int W, int C, int Co, int Csk, int up) {
   const Plan pl = plan(B, H, W, C, Co, Csk, up);
   if (pl.splits == 1) return 0;
   return (long)pl.splits * B * (up ? 4 : 1) * H * W * Co * 4;
+}
+
+// Bytes of fp32 split-K workspace conv3x3_dgrad_bf16 needs for a du of C
+// channels from Co (0 when the call does not split).
+long conv_dgrad_workspace_bytes(int B, int H, int W, int C, int Co) {
+  const Plan pl = dgrad_plan(B, H, W, C, Co);
+  if (pl.splits == 1) return 0;
+  return (long)pl.splits * B * H * W * C * 4;
 }
 
 // up = 0: K1, w packed from (3,3,C,Co); up = 1: K4, w packed from the folded
@@ -626,7 +833,7 @@ int downsample3x3_bf16(const void* x, const void* w, const void* bias, void* y,
 // K8's du: du (B, H, W, C) = the input gradient of a 3x3 SAME conv of C -> Co
 // channels at output gradient gy (B, H, W, Co), with no prologue and no
 // bias, reading the forward's packed weight w (9, ceil(C/8), ceil(Co/8)*8,
-// 8) as it is. workspace holds conv_workspace_bytes(B, H, W, Co, C, 0, 0)
+// 8) as it is. workspace holds conv_dgrad_workspace_bytes(B, H, W, C, Co)
 // bytes (null when that is 0). Returns the first CUDA error, else 0.
 int conv3x3_dgrad_bf16(const void* gy, const void* w, void* du, void* workspace, int B, int H,
                        int W, int C, int Co, void* stream) {
@@ -635,17 +842,20 @@ int conv3x3_dgrad_bf16(const void* gy, const void* w, void* du, void* workspace,
   a.w = static_cast<const bf16*>(w);
   a.y = static_cast<bf16*>(du);
   a.B = B; a.H = H; a.W = W;
-  a.C = Co; a.Co = C; a.Csk = 0;  // the product's K and N
-  a.CoP = (Co + 7) / 8 * 8;       // the packed weight's rows per channel group
+  a.C = Co; a.Co = C;         // the product's K and N
+  a.CoP = (Co + 7) / 8 * 8;   // the packed weight's rows per channel group
   a.tiles_w = (W + TW - 1) / TW;
   a.tiles = ((H + TH - 1) / TH) * a.tiles_w;
-  a.vec_a = Co % 8 == 0;
-  const Plan pl = plan(B, H, W, Co, C, 0, false);
+  const Plan pl = dgrad_plan(B, H, W, C, Co);
   a.splits = pl.splits;
   a.chunks_per_split = pl.chunks_per_split;
   a.ws = static_cast<float*>(workspace);
   if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
-  return launch<DGRAD, false>(a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = Co % 8 == 0;
+  if (dgrad_bk(Co) == 16)
+    return vec ? launch_dgrad<16, true>(a, s) : launch_dgrad<16, false>(a, s);
+  return vec ? launch_dgrad<64, true>(a, s) : launch_dgrad<64, false>(a, s);
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@ inside a `torch.autograd.Function` (the counterparts of the JAX package's
 custom VJPs): the trainer merges LoRA into new weight tensors at every
 pass and puts them in place of the parameters (`lora.swap_params`), so a
 layout taken once would train the wrong weights. The backward of the fused GN+SiLU+conv is `GnSiluConvFn`
-(K8: the conv engine's du mode on the output gradient, reading the weight
+(K8: the du kernel on the output gradient, reading the weight
 the forward packed; 9 shifted GEMMs for dw; fp32 elementwise GN/SiLU); the
 other kernels' backward is autograd through
 their plain version, recomputed from the saved inputs (`KernelFn`), and
@@ -328,7 +328,7 @@ class GnSiluConvFn(torch.autograd.Function):
     chained from its producer). The kernel layouts are packed here, from
     the weights this call was given, and the packed conv weight is what the
     Function saves (not w). Backward, with fp32 GN statistics recomputed
-    two-pass: du is the conv engine's du mode on the output gradient,
+    two-pass: du is the du kernel (K8's) on the output gradient,
     reading that packed weight with its taps reversed and its channels
     swapped; dw is 9 shifted GEMMs against the recomputed activation; GN
     and SiLU backward are fp32 elementwise. x_stats gets a zero cotangent (it is a function of x, and

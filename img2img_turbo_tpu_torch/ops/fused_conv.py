@@ -1,5 +1,5 @@
 """Conv engine wrappers: kernels K1, K4 and K6 (CUDA, `csrc/conv.cu`), and
-K8's du on the same engine.
+K8's du, a kernel of its own in the same library.
 
 Counterparts of `img2img_turbo_tpu/ops/fused_conv.py:889
 fused_gn_silu_conv3x3` (K1), `:1688 upsample2x_conv3x3` (K4) and `:1350
@@ -44,6 +44,8 @@ def _lib():
         lib.conv3x3_dgrad_bf16.argtypes = [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.conv3x3_dgrad_bf16.restype = ctypes.c_int
+        lib.conv_dgrad_workspace_bytes.argtypes = [ctypes.c_int] * 5
+        lib.conv_dgrad_workspace_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -417,7 +419,7 @@ def conv3x3_input_grad(gy, w_packed, c: int):
     _check("w_packed", w_packed, packed, bf, dev)
     lib = _lib()
     du = torch.empty((bsz, h, wd, c), device=dev, dtype=bf)
-    ws_bytes = lib.conv_workspace_bytes(bsz, h, wd, co, c, 0, 0)
+    ws_bytes = lib.conv_dgrad_workspace_bytes(bsz, h, wd, c, co)
     ws = (torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
           if ws_bytes else None)
     err = lib.conv3x3_dgrad_bf16(
@@ -425,4 +427,5 @@ def conv3x3_input_grad(gy, w_packed, c: int):
         bsz, h, wd, c, co, _build.stream())
     _build.check(err, "conv3x3_dgrad_bf16")
     _build.launch_counts["fused_gn_silu_conv3x3"] += 1
+    _build.launch_shapes["conv3x3_input_grad", (bsz, h, wd, c, co)] += 1
     return du

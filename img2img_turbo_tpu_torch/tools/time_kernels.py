@@ -1,13 +1,17 @@
 """Time kernels of the checkout in the current directory on one CUDA card,
 so that two versions of them can be compared in one machine session:
 
-    cd <checkout> && python3 <path>/img2img_turbo_tpu_torch/tools/time_kernels.py [--only K3,du]
+    cd <checkout> && python3 <path>/img2img_turbo_tpu_torch/tools/time_kernels.py [--only du]
 
 The package is imported from the current directory, not from beside this
 file: run it from the root of a checkout of another commit to time that
 commit's kernels (in ABBA order for a comparison: parent, change, change,
-parent). The kernels and their cases:
+parent). The kernels and their cases, which chip_smoke.py takes from here:
 
+- K1 (`fused_gn_silu_conv3x3`, with stats), K4 (`upsample2x_conv3x3`,
+  with stats), K5 (`group_norm_coeffs`: the stats kernel and its
+  combine), K6 (`downsample2x_conv3x3`, with stats where its path takes
+  them) and K7 (`flash_attention_folded_bwd`) at their `*_CASES`;
 - K2 (`flash_attention_folded`, with lse) and K9 (`flash_attention`) at
   chip_smoke.py's attention shapes;
 - K3 (`fused_matmul.fused`) at the transformer and VAE mid-attention shapes
@@ -16,7 +20,8 @@ parent). The kernels and their cases:
   first tells them apart; the values do not matter for a timing);
 - du (K8's input gradient, `fused_conv.conv3x3_input_grad` on the
   forward's packed weight, or `layers.conv3x3_input_grad` on the nn.Conv2d
-  weight in a checkout from before it) at the train step's shapes.
+  weight in a checkout from before it) at every shape of the train step
+  (`DU_CASES`).
 
 Each case is timed three ways on seeded bf16 inputs:
 
@@ -24,7 +29,8 @@ Each case is timed three ways on seeded bf16 inputs:
   (host time included, as chip_smoke.py times a kernel);
 - `device_ms`: 20 calls captured in one CUDA graph and replayed between two
   events, per call, the median of 5 replays (no host work between the
-  launches; null if the capture fails);
+  launches; where the capture fails, the kernels' device time under
+  torch.profiler);
 - `host_us`: the host time of one call, the mean of 50 calls issued back to
   back.
 
@@ -95,8 +101,11 @@ K3_SHAPES = sorted(set(
     + K3_KV_SHAPES + k3_vae_shapes(4096) + k3_vae_shapes(7350)),
     key=lambda s: (-s[0], s))
 
-# K8's du at the train step's shapes: (case, B, H, W, C, Co) of the forward
-# conv C -> Co
+# K8's du: every shape of the 512x512 paired train step (each fused GN
+# conv's backward, of the forward conv C -> Co; 95 launches a generator
+# pass, 2 passes a step), one 256^2 256->128 case kept from earlier
+# comparisons, and a ragged one (the 840x560 request's latent):
+# (case, B, H, W, C, Co)
 DU_CASES = [
     ("du vae 512^2 128->128", 1, 512, 512, 128, 128),
     ("du vae dec conv_out 128->3", 1, 512, 512, 128, 3),
@@ -104,7 +113,82 @@ DU_CASES = [
     ("du vae enc conv_out 512->8", 1, 64, 64, 512, 8),
     ("du unet 64^2 320->320", 1, 64, 64, 320, 320),
     ("du unet conv_out 320->4", 1, 64, 64, 320, 4),
-    ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280)]
+    ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280),
+    ("du vae 512^2 256->128", 1, 512, 512, 256, 128),
+    ("du vae 256^2 128->256", 1, 256, 256, 128, 256),
+    ("du vae 256^2 256->256", 1, 256, 256, 256, 256),
+    ("du vae 256^2 512->256", 1, 256, 256, 512, 256),
+    ("du vae 128^2 256->512", 1, 128, 128, 256, 512),
+    ("du vae 128^2 512->512", 1, 128, 128, 512, 512),
+    ("du vae 64^2 512->512", 1, 64, 64, 512, 512),
+    ("du unet 64^2 960->320", 1, 64, 64, 960, 320),
+    ("du unet 64^2 640->320", 1, 64, 64, 640, 320),
+    ("du unet 32^2 320->640", 1, 32, 32, 320, 640),
+    ("du unet 32^2 640->640", 1, 32, 32, 640, 640),
+    ("du unet 32^2 1920->640", 1, 32, 32, 1920, 640),
+    ("du unet 32^2 1280->640", 1, 32, 32, 1280, 640),
+    ("du unet 32^2 960->640", 1, 32, 32, 960, 640),
+    ("du unet 16^2 640->1280", 1, 16, 16, 640, 1280),
+    ("du unet 16^2 1280->1280", 1, 16, 16, 1280, 1280),
+    ("du unet 16^2 2560->1280", 1, 16, 16, 2560, 1280),
+    ("du unet 16^2 1920->1280", 1, 16, 16, 1920, 1280),
+    ("du unet 8^2 1280->1280", 1, 8, 8, 1280, 1280),
+    ("du ragged 105x70 640->640", 1, 105, 70, 640, 640)]
+
+# K1: (case, B, H, W, C, Co, GN prologue, extra bias, residual, Csk)
+K1_CASES = [
+    ("vae 512^2x128 gn", 1, 512, 512, 128, 128, True, False, True, 0),
+    ("vae conv_in C=3", 1, 512, 512, 3, 128, False, False, False, 0),
+    ("vae enc conv_out Co=8", 1, 64, 64, 512, 8, True, False, False, 0),
+    ("vae dec conv_out Co=3", 1, 512, 512, 128, 3, True, False, False, 0),
+    ("vae 256^2 256->128 shortcut", 1, 256, 256, 256, 128, True, False,
+     False, 256),
+    ("unet conv_in C=4", 1, 64, 64, 4, 320, False, False, False, 0),
+    ("unet 64^2x320 gn+eb", 1, 64, 64, 320, 320, True, True, False, 0),
+    ("unet C=2560 eb+res+skip", 1, 8, 8, 2560, 1280, True, True, True, 640),
+    ("unet 105x70x640 ragged", 1, 105, 70, 640, 320, True, True, False,
+     960),
+    ("unet conv_out Co=4", 1, 64, 64, 320, 4, True, False, False, 0)]
+# K4: (case, B, H, W, C, Co, Csk) at the low-resolution input
+K4_CASES = [
+    ("vae 64->128 C=512 skip 256", 1, 64, 64, 512, 512, 256),
+    ("vae 128->256 C=512 skip 128", 1, 128, 128, 512, 512, 128),
+    ("vae 256->512 C=256 skip 128", 1, 256, 256, 256, 256, 128),
+    ("unet 8->16 C=1280", 1, 8, 8, 1280, 1280, 0),
+    ("unet 32->64 C=640", 1, 32, 32, 640, 640, 0)]
+# K5 with its combine: (case, x shape)
+K5_CASES = [
+    ("unet 64^2x320", (1, 64, 64, 320)),
+    ("unet concat 8^2x2560", (1, 8, 8, 2560)),
+    ("vae 256^2x256", (1, 256, 256, 256)),
+    ("ragged 105x70x640", (1, 105, 70, 640))]
+# Every stride-2 downsample at 512x512 (VAE pad_lo=0 with stats, UNet
+# pad_lo=1 without) and at 840x560, whose sizes are odd: (case, B, H, W,
+# C = Co, pad_lo, emits stats on its path)
+K6_CASES = [
+    ("vae 512^2x128 pad0", 1, 512, 512, 128, 0, True),
+    ("vae 256^2x256 pad0", 1, 256, 256, 256, 0, True),
+    ("vae 128^2x512 pad0", 1, 128, 128, 512, 0, True),
+    ("unet 64^2x320 pad1", 1, 64, 64, 320, 1, False),
+    ("unet 32^2x640 pad1", 1, 32, 32, 640, 1, False),
+    ("unet 16^2x1280 pad1", 1, 16, 16, 1280, 1, False),
+    ("vae 560x840x128 pad0", 1, 560, 840, 128, 0, True),
+    ("unet 70x105x320 pad1", 1, 70, 105, 320, 1, False),
+    ("unet 35x53x640 pad1", 1, 35, 53, 640, 1, False),
+    ("unet 18x27x1280 pad1", 1, 18, 27, 1280, 1, False)]
+# K7: every attention shape of the paired step at 512x512, the UNet's self-
+# and cross-attention at each level (hd 64) and the VAE mid attention (hd
+# 512): (case, B, Sq, Skv, H, hd)
+K7_CASES = [
+    ("unet self S=4096 H=5", 1, 4096, 4096, 5, 64),
+    ("unet cross S=4096 Skv=77 H=5", 1, 4096, 77, 5, 64),
+    ("unet self S=1024 H=10", 1, 1024, 1024, 10, 64),
+    ("unet cross S=1024 Skv=77 H=10", 1, 1024, 77, 10, 64),
+    ("unet self S=256 H=20", 1, 256, 256, 20, 64),
+    ("unet cross S=256 Skv=77 H=20", 1, 256, 77, 20, 64),
+    ("unet mid self S=64 H=20", 1, 64, 64, 20, 64),
+    ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64),
+    ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512)]
 
 
 def k3_name(shape) -> str:
@@ -139,7 +223,9 @@ def one_call_ms(fn, iters: int = 10) -> float:
 def device_ms(fn, calls: int = 20, replays: int = 5):
     """fn()'s device time alone: `calls` calls captured in one CUDA graph,
     replayed between two events, per call, the median of `replays`
-    replays. None, with the reason on stderr, if the capture fails."""
+    replays. Where the calls cannot be captured (autograd's backward), the
+    device time of the kernels they launch under torch.profiler
+    (`kernel_ms`), with the reason on stderr."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -150,8 +236,10 @@ def device_ms(fn, calls: int = 20, replays: int = 5):
             for _ in range(calls):
                 fn()
     except RuntimeError as err:
-        print(f"device time not measured: {err}", file=sys.stderr)
-        return None
+        print(f"no CUDA graph ({str(err).splitlines()[0]}): device time "
+              f"from torch.profiler", file=sys.stderr)
+        torch.cuda.synchronize()
+        return kernel_ms(fn, calls)
     g.replay()
     times = []
     for _ in range(replays):
@@ -163,6 +251,24 @@ def device_ms(fn, calls: int = 20, replays: int = 5):
         e.synchronize()
         times.append(s.elapsed_time(e) / calls)
     return _median(times)
+
+
+def kernel_ms(fn, calls: int = 20):
+    """The device time of the kernels `calls` calls of fn() launch, summed
+    under torch.profiler, per call (no gaps between kernels); None if the
+    profiler saw no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None
 
 
 def host_us(fn, iters: int = 50) -> float:
@@ -198,6 +304,68 @@ def _k3_call(fused_matmul, rn, shape):
                                       gate=gate)
 
 
+def _k1_call(rn, b, h, w, c, co, norm, has_eb, has_res, csk):
+    from img2img_turbo_tpu_torch.ops import fused_conv as fc
+    x = rn(b, h, w, c)
+    wt = rn(3, 3, c, co) / math.sqrt(9 * c)
+    bias = rn(co).float()
+    ga = gb = eb = res = skx = skw = None
+    if norm:
+        ga, gb = 1 + 0.1 * rn(b, c).float(), 0.1 * rn(b, c).float()
+    if has_eb:
+        eb = rn(b, co).float()
+    if has_res:
+        res = rn(b, h, w, co)
+    if csk:
+        skx, skw = rn(b, h, w, csk), rn(csk, co) / math.sqrt(csk)
+    wp = fc.pack_weights(wt)
+    skwp = None if skw is None else fc.pack_weights(skw)
+    return lambda: fc.fused_gn_silu_conv3x3(
+        x, wt, bias, ga, gb, eb, res, skx, skw, emit_stats=True,
+        w_packed=wp, skip_w_packed=skwp)
+
+
+def _k4_call(rn, b, h, w, c, co, csk):
+    from img2img_turbo_tpu_torch.ops import fused_conv as fc
+    x = rn(b, h, w, c)
+    wt = rn(3, 3, c, co) / math.sqrt(9 * c)
+    bias = rn(co).float()
+    skx = skw = skwp = None
+    if csk:
+        skx, skw = rn(b, 2 * h, 2 * w, csk), rn(csk, co) / math.sqrt(csk)
+        skwp = fc.pack_weights(skw)
+    wp = fc.pack_weights(fc.fold_upsample_weights(wt))
+    return lambda: fc.upsample2x_conv3x3(x, wt, bias, skx, skw,
+                                         emit_stats=True, w_packed=wp,
+                                         skip_w_packed=skwp)
+
+
+def _k5_call(rn, shape):
+    from img2img_turbo_tpu_torch.ops import groupnorm as gn
+    x = rn(*shape) * 2 + 0.5
+    scale, bias = 1 + 0.1 * rn(shape[-1]).float(), 0.1 * rn(shape[-1]).float()
+    return lambda: gn.group_norm_coeffs(x, scale, bias, 32, 1e-5)
+
+
+def _k6_call(rn, b, h, w, c, pad_lo, stats):
+    from img2img_turbo_tpu_torch.ops import fused_conv as fc
+    x = rn(b, h, w, c)
+    wt = rn(3, 3, c, c) / math.sqrt(9 * c)
+    bias = rn(c).float()
+    wp = fc.pack_weights(wt)
+    return lambda: fc.downsample2x_conv3x3(x, wt, bias, pad_lo,
+                                           emit_stats=stats, w_packed=wp)
+
+
+def _k7_call(rn, b, sq, skv, h, hd):
+    from img2img_turbo_tpu_torch.ops import attention
+    q, k, v = (rn(b, s, h * hd) for s in (sq, skv, skv))
+    do = rn(b, sq, h * hd)
+    o, lse = attention.flash_attention_folded(q, k, v, h, return_lse=True)
+    return lambda: attention.flash_attention_folded_bwd(q, k, v, o, do, lse,
+                                                        h)
+
+
 def _du_call(rn, b, h, w, c, co):
     """A call of this checkout's K8 du on seeded inputs."""
     from img2img_turbo_tpu_torch.models import layers
@@ -213,8 +381,9 @@ def _du_call(rn, b, h, w, c, co):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--only", default="K2,K9,K3,du",
-                   help="comma-separated kernels to time (K2, K9, K3, du)")
+    p.add_argument("--only", default="K1,K2,K3,K4,K5,K6,K7,K9,du",
+                   help="comma-separated kernels to time (K1, K2, K3, K4, "
+                   "K5, K6, K7, K9, du)")
     only = set(p.parse_args().only.split(","))
     sys.path.insert(0, os.getcwd())
     import torch
@@ -237,6 +406,13 @@ def main():
             "kernel": kernel, "case": case, "ms": one_call_ms(fn),
             "device_ms": device_ms(fn), "host_us": host_us(fn)}), flush=True)
 
+    cases = {"K1": (K1_CASES, _k1_call), "K4": (K4_CASES, _k4_call),
+             "K5": (K5_CASES, _k5_call), "K6": (K6_CASES, _k6_call),
+             "K7": (K7_CASES, _k7_call)}
+    for kernel, (table, make) in cases.items():
+        if kernel in only:
+            for case, *dims in table:
+                report(kernel, case, make(rn, *dims))
     for kernel, case, b, sq, skv, h, hd in ATTENTION_CASES:
         if kernel not in only:
             continue

@@ -40,6 +40,10 @@ from img2img_turbo_tpu_torch.training import optim as toptim
 from img2img_turbo_tpu_torch.training import runner as trunner
 from img2img_turbo_tpu_torch.weights import from_jax
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 TOL = 1e-4
 JCLIP, TCLIP = jclip_vit.TINY_CLIP_VIT, tclip_vit.TINY_CLIP_VIT
 

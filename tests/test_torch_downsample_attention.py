@@ -33,6 +33,10 @@ from img2img_turbo_tpu_torch.ops import _build
 from img2img_turbo_tpu_torch.ops import attention as tattn
 from img2img_turbo_tpu_torch.ops import fused_conv as tfc
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 TOL = 1e-4
 INTERPRET_TOL = 2e-3
 STATS_TOL = 1e-3

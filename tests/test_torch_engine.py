@@ -30,6 +30,10 @@ from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
 from img2img_turbo_tpu_torch.serving.engine import ServingEngine
 from img2img_turbo_tpu_torch.weights import from_jax
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_LEVELS, MAX_FRACTION = 1, 1e-3
 

@@ -30,6 +30,10 @@ from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
 from img2img_turbo_tpu_torch.ops import fused_conv as tfc
 from img2img_turbo_tpu_torch.weights import from_jax
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 REL_L2 = 1e-4
 UCFG, VCFG = configs.TINY_UNET, configs.TINY_VAE
 # the port's own copies of the same presets, for the port's modules

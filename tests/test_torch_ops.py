@@ -38,6 +38,10 @@ from img2img_turbo_tpu_torch.ops import fused_matmul as tfm
 from img2img_turbo_tpu_torch.ops import groupnorm as tgn
 from img2img_turbo_tpu_torch.ops import image as timage
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4      # fp32 kernel outputs, abs and rel
 GN_TOL = 2e-5   # folded GroupNorm coefficients
@@ -296,16 +300,25 @@ class TestConvEngine:
         assert torch.equal(unpacked[:, :c, :co], flat)
         assert not unpacked[:, c:].any() and not unpacked[:, :, co:].any()
 
-    @pytest.mark.parametrize("c,co", [(16, 24), (3, 8), (12, 4)])
-    def test_input_grad_matches_jax_pallas_du(self, c, co):
+    @pytest.mark.parametrize("c,co,h,w", [
+        pytest.param(16, 24, 6, 5, id="16-24"),
+        pytest.param(3, 8, 6, 5, id="3-8"),
+        pytest.param(12, 4, 6, 5, id="12-4"),
+        pytest.param(8, 16, 19, 11, id="ragged-19x11"),
+        pytest.param(16, 72, 6, 5, id="co72"),
+        pytest.param(24, 3, 19, 11, id="co3-ragged")])
+    def test_input_grad_matches_jax_pallas_du(self, c, co, h, w):
         """K8's du on the forward's packed buffer (the wrapper's CPU path,
         `conv3x3_input_grad_ref`, and `conv3x3_input_grad_plain`) against the
         du of JAX's pallas_bwd (layers.py:351-433: K1 in interpret mode on
         gy with the flipped, io-swapped weights and a zero bias) and against
         F.conv_transpose2d; C and Co of 3, 4 and 12 exercise the packed
-        buffer's zero padding."""
+        buffer's zero padding, and the du kernel's edges are crossed by H, W
+        off its 16 x 8 pixel tile (19 x 11), a K (= Co) of 72 (past one
+        64-channel step, not a multiple of it) and Co = 3 (gy rows not
+        16-byte aligned)."""
         rng = np.random.RandomState(c * co + 1)
-        b, h, w = 2, 6, 5
+        b = 2
         gy = _rand(rng, b, h, w, co)
         wt = _rand(rng, 3, 3, c, co, scale=0.1)              # HWIO
         with pltpu.force_tpu_interpret_mode():

@@ -55,6 +55,10 @@ from img2img_turbo_tpu_torch.training import paired as tpaired
 from img2img_turbo_tpu_torch.training import runner as trunner
 from img2img_turbo_tpu_torch.weights import from_jax
 
+# The suite runs in several pytest-xdist workers at once on a few cores:
+# two intra-op threads a worker keep them from oversubscribing the box.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4          # fp32 gradients of one op, abs and rel
 MODEL_TOL = 2e-4    # relative L2 of whole-model fp32 gradients
