@@ -239,9 +239,12 @@ def kernel_phase(dev, results: list):
         bound_ms, bound_by = _bound(flops, nbytes)
         lib = ("" if library_ms is None
                else f" {library}={library_ms:.4f}ms")
+        devs = "".join(f" {k}={v:.4f}ms" for k, v in (
+            ("device", device_ms), ("library_device", library_device_ms))
+            if v is not None)
         print(f"  {name:26s} {case:44s} max_abs={err:.3e} rel={rel:.3e} "
               f"tol={tol:.0e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-              f"bound={bound_ms:.4f}ms({bound_by}){lib} "
+              f"bound={bound_ms:.4f}ms({bound_by}){lib}{devs} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         torch.cuda.synchronize()
         if not ok:
@@ -319,7 +322,12 @@ def kernel_phase(dev, results: list):
     # channel swap fails here; the plain time is the plain path's transposed
     # conv on the unpacked weight, the library's cuDNN's on the nn.Conv2d
     # one; device time alone from a CUDA graph of 20 calls.
+    conv_lib = fc._lib()
+    conv_lib.conv_dgrad_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    form = (ctypes.c_int * 5)()
     for case, B, H, W, C, Co in DU_CASES:
+        conv_lib.conv_dgrad_plan(B, H, W, C, Co, form)
         gy = rn(B, H, W, Co)
         w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
         wp = fc.pack_weights(layers._hwio(w))              # as the forward
@@ -335,8 +343,13 @@ def kernel_phase(dev, results: list):
         lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         flops = 2 * B * H * W * C * 9 * Co
         nbytes = _nbytes(gy, wp, du)
-        print(f"  {'':26s} {case}: device {dev_ms:.4f}ms, "
-              f"F.conv_transpose2d device {lib_dev:.4f}ms", flush=True)
+        blocks = (-(-H // (16 * form[1])) * -(-W // 8) * B * -(-C // 128)
+                  * form[3])
+        print(f"  {'':26s} {case}: {16 * form[1]}x8 pixel tiles, "
+              f"{form[0]} channels a step, {blocks} blocks ({form[2]} an SM), "
+              f"{form[3]} split(s) of {form[4]} chunks; device "
+              f"{dev_ms:.4f}ms, F.conv_transpose2d device {lib_dev:.4f}ms",
+              flush=True)
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv_transpose2d", part="du", device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, H, W, C, Co))

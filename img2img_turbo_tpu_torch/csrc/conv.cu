@@ -469,73 +469,92 @@ __global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
 // ---- K8's du, a kernel of its own -----------------------------------------
 // du (B, H, W, C) = conv_T(gy (B, H, W, Co), w): the SAME conv of gy with
 // the flipped, io-swapped weight, as an implicit GEMM with M = the block's
-// 16 x 8 pixel tile, N = 128 of the C du channels and K = 9 taps x Co gy
-// channels, walked as (chunk of DBK channels, tap) steps. It reads the
-// forward's packed weight (9, ceil(C/8), CoP, 8) as it is: tap t takes the
-// forward's tap 8 - t, and for the product K is Co and N is C, so 8
-// consecutive co rows of one 8-channel group (16 bytes along C) are an
-// MN-major core matrix. A weight tile lands in shared memory as
-// [C/8][DBK co][8] and wgmma reads it with the B-transpose bit.
+// pixel tile (16MT x 8: MT m64 tiles a warpgroup), N = 128 of the C du
+// channels and K = 9 taps x Co gy channels, walked as (chunk of DBK
+// channels, tap) steps. It reads the forward's packed weight (9, ceil(C/8),
+// CoP, 8) as it is: tap t takes the forward's tap 8 - t, and for the product
+// K is Co and N is C, so 8 consecutive co rows of one 8-channel group (16
+// bytes along C) are an MN-major core matrix. A weight tile lands in shared
+// memory as [C/8][DBK co][8] and wgmma reads it with the B-transpose bit.
 //
-// What bounds it on the H100: the large cases are compute bound (Co >= 128:
-// hundreds of FLOPs per byte); the conv_outs' du (Co = 3, 4, 8) is bound by
-// its output's bytes. The design, against the conv engine's du mode it
-// replaces:
-// - gy has no prologue, so each chunk's 18 x 10-pixel halo goes from device
-//   memory to shared memory by cp.async, 16 bytes a copy, zero-filled outside
-//   the image and past Co. Halos are double-buffered: chunk k+1's is issued
-//   at chunk k's second tap (the first step at which every wgmma that read
+// What bounds it on the H100: the VAE's and the UNet's 64^2 and 32^2 cases
+// are compute bound (hundreds of FLOPs per byte of HBM); the conv_outs' du
+// (Co = 3, 4, 8) is bound by its output's bytes, and the UNet's 8^2 and
+// 16^2 levels by their weights' (split over the chunks). The design:
+// - gy has no prologue, so each chunk's halo goes from device memory to
+//   shared memory by cp.async, 16 bytes a copy, zero-filled outside the
+//   image and past Co. Halos are double-buffered: chunk k+1's is issued at
+//   chunk k's second tap (the first step at which every wgmma that read
 //   that buffer for chunk k-1 has retired) and waited for with the weight
 //   ring's own cp.async count, so the tensor cores never wait for a halo.
 //   Where Co is not a multiple of 8 (Co = 3, 4) gy's rows are not 16-byte
 //   aligned: those cases load the halo by element (VEC false) at the same
 //   point, and take one chunk only.
-// - A step is one (chunk, tap): DBK = 64 channels, four k16 wgmmas a
-//   warpgroup (one where Co <= 16, DBK = 16). One committed group stays in
+// - A step is one (chunk, tap): DBK = 64 channels, four k16 wgmmas per m64
+//   tile (one where Co <= 16, DBK = 16). One committed group stays in
 //   flight across the next step's barrier (wgmma_wait<1>): weight tiles are
-//   loaded DLEAD = 2 steps ahead into a 4-stage ring, so the stage being
-//   refilled was read two steps back, by a group that has retired. Each
-//   tile's first wgmma writes with scale_d = 0 (no zeroed accumulators) and
-//   reg_fence pins the accumulators across the group in flight, so ptxas
-//   does not serialise the wgmmas.
-// - The epilogue rounds the 128 x 128 fp32 tile to bf16 into shared memory
-//   (over the halos and ring, free once the last group retired), then writes
-//   each pixel's 256-byte channel row in 16-byte stores by 16 neighbouring
+//   loaded LEAD steps ahead into a ring of LEAD + 2 stages, so the stage
+//   being refilled was read two steps back, by a group that has retired.
+//   Each tile's first wgmma writes with scale_d = 0 (no zeroed
+//   accumulators) and reg_fence pins the accumulators across the group in
+//   flight, so ptxas does not serialise the wgmmas.
+// - Where Co > 16 a block is one per SM and its ring as deep as shared
+//   memory allows (LEAD 8 with the 16 x 8 tile, 6 with the 32 x 8), which
+//   hides the weight stream's latency from L2 or HBM. The 32 x 8 tile (MT =
+//   2, 128 accumulators a thread) shares each weight tile between twice the
+//   pixels; the 16 x 8 one needs fewer splits and wastes fewer rows on
+//   small or ragged images. dgrad_form picks one per call from the rates
+//   measured for both. Co <= 16 keeps two blocks an SM (the output is what
+//   costs there).
+// - The epilogue rounds the fp32 tile to bf16 into shared memory (over the
+//   halos and ring, free once the last group retired), then writes each
+//   pixel's 256-byte channel row in 16-byte stores by 16 neighbouring
 //   threads. Split-K (grids under one wave) writes fp32 partial sums to the
-//   workspace instead, two channels a store, and split_epilogue adds them in
-//   a fixed order: no atomics, every run bit-identical.
-constexpr int DSTAGES = 4;  // weight ring depth
-constexpr int DLEAD = 2;    // steps a weight tile is loaded ahead
+//   workspace instead, two channels a store, and dgrad_reduce adds them in a
+//   fixed order, 8 channels a thread: no atomics, every run bit-identical.
 constexpr int OUT_LD = BN + 8;  // bf16 per staged output row: 272 bytes, so a
                                 // warp's 4-byte stores of 8 rows hit 32 banks
+constexpr int SMEM_SM = 232448;  // shared memory one block may take
 
-template <int DBK>
-struct DgradGeo {
+template <int MT, int NB, int DBK>
+struct Dgrad {
+  static constexpr int TH = 16 * MT;                   // tile rows
+  static constexpr int BLOCKS = NB;                    // blocks an SM
   static constexpr int KCH = DBK / 8;
+  static constexpr int HALO_PIX = (TH + 2) * HWD;
   // halo entries per 8-channel group: odd in 16-byte units, so the 8 groups
   // of one pixel's 128 bytes land in distinct banks
   static constexpr int HPS = HALO_PIX + 1;
-  static constexpr int HALO = KCH * HPS * 8;        // bf16 per halo buffer
-  static constexpr int STAGE = BN / 8 * DBK * 8;    // bf16 per weight stage
-  static constexpr int MAIN = (2 * HALO + DSTAGES * STAGE) * 2;
-  static constexpr int smem = MAIN > BM * OUT_LD * 2 ? MAIN : BM * OUT_LD * 2;
+  static constexpr int HALO = KCH * HPS * 8;           // bf16 per halo buffer
+  static constexpr int STAGE = BN / 8 * DBK * 8;       // bf16 per weight stage
+  static constexpr int FIT = (SMEM_SM / BLOCKS - 1024 - 4 * HALO) / (2 * STAGE);
+  static constexpr int STAGES = FIT < 10 ? FIT : 10;   // weight ring depth
+  // steps loaded ahead; at most 8, so that chunk k+1's halo, committed at
+  // chunk k's second step, is complete when chunk k+1's first step waits
+  // for its own weight tile
+  static constexpr int LEAD = STAGES - 2;
+  static_assert(LEAD >= 1 && LEAD <= 8, "weight ring depth");
+  static constexpr int MAIN = (2 * HALO + STAGES * STAGE) * 2;
+  static constexpr int OUT = BM * MT * OUT_LD * 2;     // staged output tile
+  static constexpr int SMEM = MAIN > OUT ? MAIN : OUT;
 };
 
-// The product's K is the du's Co (p.C) and N its C (p.Co), as split_epilogue
-// reads them; p.CoP is the packed weight's rows per channel group.
-template <int DBK, bool VEC>
-__global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
-  using G = DgradGeo<DBK>;
-  constexpr int KCH = G::KCH, HPS = G::HPS;
+// The product's K is the du's Co (p.C) and N its C (p.Co); p.CoP is the
+// packed weight's rows per channel group, p.tiles_w the pixel tiles per row
+// of tiles.
+template <int MT, int NB, int DBK, bool VEC>
+__global__ void __launch_bounds__(NT, NB) dgrad_kernel(ConvArgs p) {
+  using G = Dgrad<MT, NB, DBK>;
+  constexpr int KCH = G::KCH, HPS = G::HPS, STAGES = G::STAGES, LEAD = G::LEAD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* halo = reinterpret_cast<bf16*>(smem);  // 2 x [KCH][HPS][8]
-  bf16* Bs = halo + 2 * G::HALO;               // DSTAGES x [BN/8][DBK][8]
-  bf16* out = reinterpret_cast<bf16*>(smem);   // epilogue: [BM][OUT_LD]
+  bf16* Bs = halo + 2 * G::HALO;               // STAGES x [BN/8][DBK][8]
+  bf16* out = reinterpret_cast<bf16*>(smem);   // epilogue: [BM * MT][OUT_LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = tid >> 7, wq = warp & 3;  // warpgroup: tile rows 8*wg .. +7
+  const int wg = tid >> 7, wq = warp & 3;  // warpgroup: tile rows 8MT wg .. +8MT-1
   const int b = blockIdx.z % p.B, split = blockIdx.z / p.B;
-  const int i0 = (blockIdx.x / p.tiles_w) * TH, j0 = (blockIdx.x % p.tiles_w) * TW;
+  const int i0 = (blockIdx.x / p.tiles_w) * G::TH, j0 = (blockIdx.x % p.tiles_w) * TW;
   const int n0 = blockIdx.y * BN;
   const int kbeg = split * p.chunks_per_split;
   const int kend = min(kbeg + p.chunks_per_split, (p.C + DBK - 1) / DBK);
@@ -545,7 +564,7 @@ __global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
   // and past Co
   auto load_halo = [&](int k, int buf) {
     bf16* hb = halo + buf * G::HALO;
-    for (int q = tid; q < HALO_PIX * KCH; q += NT) {
+    for (int q = tid; q < G::HALO_PIX * KCH; q += NT) {
       const int pix = q / KCH, kc = q % KCH;
       const int hr = pix / HWD, hc = pix - hr * HWD;
       const int ih = i0 - 1 + hr, iw = j0 - 1 + hc, c = k * DBK + kc * 8;
@@ -570,7 +589,7 @@ __global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
     const int k = kbeg + i / 9, tap = i % 9;
     const int n8 = (p.Co + 7) / 8, g0 = n0 / 8, k0 = k * DBK;
     const bf16* wbase = p.w + (size_t)(8 - tap) * n8 * p.CoP * 8;
-    bf16* st = Bs + (i % DSTAGES) * G::STAGE;
+    bf16* st = Bs + (i % STAGES) * G::STAGE;
 #pragma unroll
     for (int t = 0; t < BN / 8 * DBK / NT; ++t) {
       const int q = tid + t * NT;
@@ -582,63 +601,74 @@ __global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
 
   load_halo(kbeg, 0);
 #pragma unroll
-  for (int i = 0; i < DLEAD; ++i) {
+  for (int i = 0; i < LEAD; ++i) {
     if (i < nsteps) load_w(i);
     cp_async_commit();  // group i: step i's tile (and chunk kbeg's halo)
   }
-  float d[64];
+  float d[MT][64];
   for (int i = 0; i < nsteps; ++i) {
     const int kk = i / 9, tap = i - 9 * kk;  // chunk kbeg + kk
     // step i's tile (group i) and every halo before it have landed; step
     // i-2's wgmmas have retired in every warpgroup after the barrier
-    cp_async_wait<DLEAD - 1>();
+    cp_async_wait<LEAD - 1>();
     fence_proxy_async();
     __syncthreads();
-    if (i + DLEAD < nsteps) load_w(i + DLEAD);
+    if (i + LEAD < nsteps) load_w(i + LEAD);
     if (tap == 1 && kbeg + kk + 1 < kend) load_halo(kbeg + kk + 1, (kk + 1) & 1);
     cp_async_commit();
     const int di = tap / 3, dj = tap - 3 * di;
-    // the warpgroup's 8 tile rows for this tap: 8 core matrices one halo row
+    // an m64 tile's 8 tile rows for this tap: 8 core matrices one halo row
     // apart; K steps of 16 co rows are two core matrices (128 bytes) apart,
     // N's 8-channel groups DBK rows apart
-    const bf16* a0 = halo + (kk & 1) * G::HALO + ((wg * 8 + di) * HWD + dj) * 8;
-    const bf16* b0 = Bs + (i % DSTAGES) * G::STAGE;
-    i2i::reg_fence(d);
+    const bf16* a0 = halo + (kk & 1) * G::HALO + ((wg * 8 * MT + di) * HWD + dj) * 8;
+    const bf16* b0 = Bs + (i % STAGES) * G::STAGE;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
     i2i::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < DBK / 16; ++ks) {
-      const uint64_t da = smem_desc(a0 + 2 * ks * HPS * 8, HPS * 16, HWD * 16);
       const uint64_t db = smem_desc(b0 + ks * 16 * 8, 128, DBK * 16);
-      i2i::wgmma_m64n128k16_ss_tb(d, da, db, i > 0 || ks > 0);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const uint64_t da =
+            smem_desc(a0 + (m * 8 * HWD + 2 * ks * HPS) * 8, HPS * 16, HWD * 16);
+        i2i::wgmma_m64n128k16_ss_tb(d[m], da, db, i > 0 || ks > 0);
+      }
     }
     i2i::wgmma_commit();
     i2i::wgmma_wait<1>();
-    i2i::reg_fence(d);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
   }
   i2i::wgmma_wait<0>();
-  i2i::reg_fence(d);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
   cp_async_wait<0>();
 
-  // register 4j+2h+e of thread (warp wq of the warpgroup, lane l) holds tile
-  // pixel 64 wg + 16 wq + l/4 + 8h, channel n0 + 8j + 2(l%4) + e
+  // register 4j+2h+e of d[m] in thread (warp wq of the warpgroup, lane l)
+  // holds tile pixel 64 (MT wg + m) + 16 wq + l/4 + 8h, channel
+  // n0 + 8j + 2(l%4) + e
   if (p.splits > 1) {
     float* ws = p.ws + (size_t)split * p.B * p.H * p.W * p.Co;
     const bool pair = p.Co % 2 == 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = 64 * wg + 16 * wq + (lane >> 2) + 8 * h;
-      const int pi = i0 + m / TW, pj = j0 + m % TW;
-      if (pi >= p.H || pj >= p.W) continue;
-      float* row = ws + (((size_t)b * p.H + pi) * p.W + pj) * p.Co;
+    for (int m = 0; m < MT; ++m) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int n = n0 + 8 * j + 2 * (lane & 3);
-        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
-        if (pair && n + 1 < p.Co) {
-          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
-        } else {
-          if (n < p.Co) row[n] = v0;
-          if (n + 1 < p.Co) row[n + 1] = v1;
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * (MT * wg + m) + 16 * wq + (lane >> 2) + 8 * h;
+        const int pi = i0 + r / TW, pj = j0 + r % TW;
+        if (pi >= p.H || pj >= p.W) continue;
+        float* row = ws + (((size_t)b * p.H + pi) * p.W + pj) * p.Co;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int n = n0 + 8 * j + 2 * (lane & 3);
+          const float v0 = d[m][4 * j + 2 * h], v1 = d[m][4 * j + 2 * h + 1];
+          if (pair && n + 1 < p.Co) {
+            *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+          } else {
+            if (n < p.Co) row[n] = v0;
+            if (n + 1 < p.Co) row[n + 1] = v1;
+          }
         }
       }
     }
@@ -646,22 +676,25 @@ __global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
   }
   __syncthreads();  // every warpgroup is done with the halos and the ring
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = 64 * wg + 16 * wq + (lane >> 2) + 8 * h;
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + m * OUT_LD + 8 * j + 2 * (lane & 3)) =
-          __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * (MT * wg + m) + 16 * wq + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + r * OUT_LD + 8 * j + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(d[m][4 * j + 2 * h], d[m][4 * j + 2 * h + 1]);
+    }
   }
   __syncthreads();
   const bool vec_out = p.Co % 8 == 0;
 #pragma unroll
-  for (int t = 0; t < BM * BN / 8 / NT; ++t) {
+  for (int t = 0; t < BM * MT * BN / 8 / NT; ++t) {
     const int q = tid + t * NT;
-    const int m = q / (BN / 8), cg = q % (BN / 8);
-    const int pi = i0 + m / TW, pj = j0 + m % TW, n = n0 + 8 * cg;
+    const int r = q / (BN / 8), cg = q % (BN / 8);
+    const int pi = i0 + r / TW, pj = j0 + r % TW, n = n0 + 8 * cg;
     if (pi >= p.H || pj >= p.W || n >= p.Co) continue;
-    const Pack8 v = *reinterpret_cast<const Pack8*>(out + m * OUT_LD + 8 * cg);
+    const Pack8 v = *reinterpret_cast<const Pack8*>(out + r * OUT_LD + 8 * cg);
     bf16* dst = p.y + (((size_t)b * p.H + pi) * p.W + pj) * p.Co + n;
     if (vec_out) {
       *reinterpret_cast<Pack8*>(dst) = v;
@@ -673,66 +706,140 @@ __global__ void __launch_bounds__(NT, 2) dgrad_kernel(ConvArgs p) {
   }
 }
 
+// The du's split-K second pass: each thread adds one pixel's 8 channels
+// over the splits in a fixed order (32-byte loads), rounds once and writes
+// them in one 16-byte store.
+__global__ void __launch_bounds__(NT) dgrad_reduce(ConvArgs p) {
+  const long n8 = (p.Co + 7) / 8;
+  const long q = (long)blockIdx.x * NT + threadIdx.x;
+  if (q >= (long)p.B * p.H * p.W * n8) return;
+  const long pix = q / n8;
+  const int c0 = (int)(q - pix * n8) * 8;
+  const size_t stride = (size_t)p.B * p.H * p.W * p.Co;
+  const float* src = p.ws + pix * p.Co + c0;
+  bf16* dst = p.y + pix * p.Co + c0;
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (p.Co % 8 == 0) {
+#pragma unroll 4
+    for (int sp = 0; sp < p.splits; ++sp) {
+      const float4 a = *reinterpret_cast<const float4*>(src + sp * stride);
+      const float4 c = *reinterpret_cast<const float4*>(src + sp * stride + 4);
+      v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
+      v[4] += c.x; v[5] += c.y; v[6] += c.z; v[7] += c.w;
+    }
+    Pack8 o;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o.h[e] = __float2bfloat16(v[e]);
+    *reinterpret_cast<Pack8*>(dst) = o;
+  } else {
+    for (int e = 0; e < 8 && c0 + e < p.Co; ++e) {
+      for (int sp = 0; sp < p.splits; ++sp) v[e] += src[sp * stride + e];
+      dst[e] = __float2bfloat16(v[e]);
+    }
+  }
+}
+
 struct Plan {
   int splits, chunks_per_split;
 };
 
-// Below one wave of `nb` blocks, split the `nchunks` channel chunks so that
-// about two waves run, keeping at least 2 chunks per split.
-Plan split_plan(long nb, int nchunks) {
+// Below one wave of `nb` blocks, split the `nchunks` channel chunks so
+// that about `target` blocks run, keeping at least 2 chunks per split and
+// at most `most` splits.
+Plan split_plan(long nb, int nchunks, long target, int most) {
   Plan pl;
   pl.splits = 1;
   if (nb < NUM_SMS) {
-    pl.splits = (int)((2 * NUM_SMS + nb - 1) / nb);
-    pl.splits = max(1, min(pl.splits, min(8, nchunks / 2)));
+    pl.splits = (int)((target + nb - 1) / nb);
+    pl.splits = max(1, min(pl.splits, min(most, nchunks / 2)));
   }
   pl.chunks_per_split = (nchunks + pl.splits - 1) / pl.splits;
   pl.splits = (nchunks + pl.chunks_per_split - 1) / pl.chunks_per_split;
   return pl;
 }
 
+// The engine's split: about two waves of blocks.
 Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
   const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1) * B *
                   ((Co + BN - 1) / BN);
-  return split_plan(nb, (C + BK - 1) / BK + (Csk + BK - 1) / BK);
+  return split_plan(nb, (C + BK - 1) / BK + (Csk + BK - 1) / BK, 2 * NUM_SMS, 8);
 }
 
-// The du's channels a chunk: 16 (one k16 wgmma a tap) where Co <= 16.
-int dgrad_bk(int Co) { return Co <= 16 ? 16 : 64; }
+// The du's form for a call: its channels a chunk (dbk), its m64 tiles a
+// warpgroup (mt: a 16mt x 8 pixel tile), its blocks an SM (nb) and its
+// split over the Co chunks (at most one wave of blocks, up to 16 splits,
+// where nb = 1).
+struct DgradForm {
+  int dbk, mt, nb;
+  Plan pl;
+};
 
-// The du's split over its Co chunks; its blocks cover C in BN-channel tiles.
-Plan dgrad_plan(int B, int H, int W, int C, int Co) {
-  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * B * ((C + BN - 1) / BN);
-  return split_plan(nb, (Co + dgrad_bk(Co) - 1) / dgrad_bk(Co));
+DgradForm dgrad_form_of(int B, int H, int W, int C, int Co, int dbk, int mt, int nb) {
+  const int th = 16 * mt;
+  const long blocks = (long)((H + th - 1) / th) * ((W + TW - 1) / TW) * B * ((C + BN - 1) / BN);
+  const int nchunks = (Co + dbk - 1) / dbk;
+  DgradForm f{dbk, mt, nb, {}};
+  f.pl = nb == 2 ? split_plan(blocks, nchunks, 2 * NUM_SMS, 8)
+                 : split_plan(blocks, nchunks, NUM_SMS - blocks + 1, 16);
+  return f;
 }
 
-// Launch `kernel` on a's grid (x: pixel tiles, times 4 phases for K4; y:
-// 128-channel tiles; z: batch x splits), then split_epilogue if a splits.
-int launch_kernel(void (*kernel)(ConvArgs), int smem_bytes, bool up, const ConvArgs& a,
-                  cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.tiles * (up ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
-  kernel<<<grid, NT, smem_bytes, stream>>>(a);
-  if (a.splits > 1) {
-    dim3 eg(a.tiles * (up ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
-    if (up)
-      split_epilogue<true><<<eg, NT, 0, stream>>>(a);
-    else
-      split_epilogue<false><<<eg, NT, 0, stream>>>(a);
+// Co <= 16: one k16 wgmma a tap, two blocks an SM (the output is what
+// costs). Otherwise the 16 x 8 or the 32 x 8 tile, one block an SM,
+// whichever this model of the measured rates (an H100 at ~600 TFLOP/s in
+// the main loop) puts first: a 16 x 8 step ~0.45 us, a 32 x 8 one 1.7 times
+// that (twice the products, the weight tile shared), rounds of 132 blocks;
+// a split adds ~2 us and its fp32 partial sums written and read at 3 TB/s.
+DgradForm dgrad_form(int B, int H, int W, int C, int Co) {
+  if (Co <= 16) return dgrad_form_of(B, H, W, C, Co, 16, 1, 2);
+  DgradForm best{};
+  double best_us = 0.0;
+  for (int mt = 1; mt <= 2; ++mt) {
+    const DgradForm f = dgrad_form_of(B, H, W, C, Co, 64, mt, 1);
+    const long blocks = (long)((H + 16 * mt - 1) / (16 * mt)) * ((W + TW - 1) / TW) * B *
+                        ((C + BN - 1) / BN) * f.pl.splits;
+    double us = (double)((blocks + NUM_SMS - 1) / NUM_SMS) * f.pl.chunks_per_split * 9 * 0.45 *
+                (mt == 2 ? 1.7 : 1.0);
+    if (f.pl.splits > 1) us += 2.0 + 2.0 * f.pl.splits * B * H * W * C * 4 / 3e6;
+    if (mt == 1 || us < best_us) {
+      best = f;
+      best_us = us;
+    }
   }
-  return (int)cudaGetLastError();
+  return best;
 }
 
 template <int MODE, bool NORM>
 int launch(const ConvArgs& a, cudaStream_t stream) {
-  return launch_kernel(conv_kernel<MODE, NORM>, Geo<MODE>::smem, MODE == UP2, a, stream);
+  constexpr bool UP = MODE == UP2;
+  constexpr int smem_bytes = Geo<MODE>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_kernel<MODE, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.tiles * (UP ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
+  conv_kernel<MODE, NORM><<<grid, NT, smem_bytes, stream>>>(a);
+  if (a.splits > 1) {
+    dim3 eg(a.tiles * (UP ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
+    split_epilogue<UP><<<eg, NT, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
-template <int DBK, bool VEC>
-int launch_dgrad(const ConvArgs& a, cudaStream_t stream) {
-  return launch_kernel(dgrad_kernel<DBK, VEC>, DgradGeo<DBK>::smem, false, a, stream);
+template <int MT, int NB, int DBK, bool VEC>
+int launch_dgrad(ConvArgs a, cudaStream_t stream) {
+  constexpr int smem_bytes = Dgrad<MT, NB, DBK>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      dgrad_kernel<MT, NB, DBK, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  a.tiles_w = (a.W + TW - 1) / TW;
+  a.tiles = ((a.H + 16 * MT - 1) / (16 * MT)) * a.tiles_w;
+  dim3 grid(a.tiles, (a.Co + BN - 1) / BN, a.B * a.splits);
+  dgrad_kernel<MT, NB, DBK, VEC><<<grid, NT, smem_bytes, stream>>>(a);
+  if (a.splits > 1) {
+    const long threads = (long)a.B * a.H * a.W * ((a.Co + 7) / 8);
+    dgrad_reduce<<<(unsigned)((threads + NT - 1) / NT), NT, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -756,9 +863,21 @@ long conv_workspace_bytes(int B, int H, int W, int C, int Co, int Csk, int up) {
 // Bytes of fp32 split-K workspace conv3x3_dgrad_bf16 needs for a du of C
 // channels from Co (0 when the call does not split).
 long conv_dgrad_workspace_bytes(int B, int H, int W, int C, int Co) {
-  const Plan pl = dgrad_plan(B, H, W, C, Co);
+  const Plan pl = dgrad_form(B, H, W, C, Co).pl;
   if (pl.splits == 1) return 0;
   return (long)pl.splits * B * H * W * C * 4;
+}
+
+// The du's launch form for a call, as conv3x3_dgrad_bf16 takes it: out[0]
+// channels a chunk, out[1] m64 tiles a warpgroup (a 16 out[1] x 8 pixel
+// tile), out[2] blocks an SM, out[3] splits, out[4] chunks a split.
+void conv_dgrad_plan(int B, int H, int W, int C, int Co, int* out) {
+  const DgradForm f = dgrad_form(B, H, W, C, Co);
+  out[0] = f.dbk;
+  out[1] = f.mt;
+  out[2] = f.nb;
+  out[3] = f.pl.splits;
+  out[4] = f.pl.chunks_per_split;
 }
 
 // up = 0: K1, w packed from (3,3,C,Co); up = 1: K4, w packed from the folded
@@ -844,18 +963,18 @@ int conv3x3_dgrad_bf16(const void* gy, const void* w, void* du, void* workspace,
   a.B = B; a.H = H; a.W = W;
   a.C = Co; a.Co = C;         // the product's K and N
   a.CoP = (Co + 7) / 8 * 8;   // the packed weight's rows per channel group
-  a.tiles_w = (W + TW - 1) / TW;
-  a.tiles = ((H + TH - 1) / TH) * a.tiles_w;
-  const Plan pl = dgrad_plan(B, H, W, C, Co);
-  a.splits = pl.splits;
-  a.chunks_per_split = pl.chunks_per_split;
+  const DgradForm f = dgrad_form(B, H, W, C, Co);
+  a.splits = f.pl.splits;
+  a.chunks_per_split = f.pl.chunks_per_split;
   a.ws = static_cast<float*>(workspace);
-  if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
+  if (a.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = Co % 8 == 0;
-  if (dgrad_bk(Co) == 16)
-    return vec ? launch_dgrad<16, true>(a, s) : launch_dgrad<16, false>(a, s);
-  return vec ? launch_dgrad<64, true>(a, s) : launch_dgrad<64, false>(a, s);
+  if (f.dbk == 16)
+    return vec ? launch_dgrad<1, 2, 16, true>(a, s) : launch_dgrad<1, 2, 16, false>(a, s);
+  if (f.mt == 2)
+    return vec ? launch_dgrad<2, 1, 64, true>(a, s) : launch_dgrad<2, 1, 64, false>(a, s);
+  return vec ? launch_dgrad<1, 1, 64, true>(a, s) : launch_dgrad<1, 1, 64, false>(a, s);
 }
 
 }  // extern "C"
