@@ -326,7 +326,7 @@ def kernel_phase(dev, results: list):
     conv_lib.conv_dgrad_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
     form = (ctypes.c_int * 5)()
-    for case, B, H, W, C, Co in DU_CASES:
+    for case, B, H, W, C, Co, _ in DU_CASES:
         conv_lib.conv_dgrad_plan(B, H, W, C, Co, form)
         gy = rn(B, H, W, Co)
         w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
@@ -789,13 +789,19 @@ def main():
         print(f"K3 {key}: " + ", ".join(
             f"{n}={k3[key][n]:.4f}ms" for n in k3_keys)
             + f" over {launches} launches", flush=True)
-    # K8's du in a train step, weighted by its launches there
+    # K8's du in a train step, weighted by its launches there (which must
+    # be DU_CASES' table, from which tools/time_kernels.py weights its own)
     k1 = next(e for e in kernels if e["name"] == "fused_gn_silu_conv3x3")
     du_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
+    du_shapes = summary["du_shapes"]["train"]
+    table = {tuple(c[1:6]): c[6] for c in DU_CASES if c[6]}
+    if du_shapes != table:
+        _fail(f"du launches by shape in a train step {du_shapes} differ from "
+              f"tools/time_kernels.py DU_CASES {table}")
     k1["du"]["per_step"] = _weighted(
-        [r for r in results if r["part"] == "du"],
-        summary["du_shapes"]["train"], TRAIN_DU_LAUNCHES, "train", du_keys)
+        [r for r in results if r["part"] == "du"], du_shapes,
+        TRAIN_DU_LAUNCHES, "train", du_keys)
     print("du per_step: " + ", ".join(
         f"{n}={k1['du']['per_step'][n]:.4f}ms" for n in du_keys)
         + f" over {TRAIN_DU_LAUNCHES} launches", flush=True)

@@ -487,9 +487,9 @@ __global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
 //   chunk k's second tap (the first step at which every wgmma that read
 //   that buffer for chunk k-1 has retired) and waited for with the weight
 //   ring's own cp.async count, so the tensor cores never wait for a halo.
-//   Where Co is not a multiple of 8 (Co = 3, 4) gy's rows are not 16-byte
-//   aligned: those cases load the halo by element (VEC false) at the same
-//   point, and take one chunk only.
+//   Where Co is not a multiple of 8 (the conv_outs' Co = 3, 4) gy's rows are
+//   not 16-byte aligned: those cases load the halo by element (VEC false)
+//   at the same point.
 // - A step is one (chunk, tap): DBK = 64 channels, four k16 wgmmas per m64
 //   tile (one where Co <= 16, DBK = 16). One committed group stays in
 //   flight across the next step's barrier (wgmma_wait<1>): weight tiles are
@@ -516,10 +516,10 @@ constexpr int OUT_LD = BN + 8;  // bf16 per staged output row: 272 bytes, so a
                                 // warp's 4-byte stores of 8 rows hit 32 banks
 constexpr int SMEM_SM = 232448;  // shared memory one block may take
 
-template <int MT, int NB, int DBK>
+template <int MT, int DBK>
 struct Dgrad {
   static constexpr int TH = 16 * MT;                   // tile rows
-  static constexpr int BLOCKS = NB;                    // blocks an SM
+  static constexpr int BLOCKS = DBK == 16 ? 2 : 1;     // blocks an SM
   static constexpr int KCH = DBK / 8;
   static constexpr int HALO_PIX = (TH + 2) * HWD;
   // halo entries per 8-channel group: odd in 16-byte units, so the 8 groups
@@ -542,9 +542,9 @@ struct Dgrad {
 // The product's K is the du's Co (p.C) and N its C (p.Co); p.CoP is the
 // packed weight's rows per channel group, p.tiles_w the pixel tiles per row
 // of tiles.
-template <int MT, int NB, int DBK, bool VEC>
-__global__ void __launch_bounds__(NT, NB) dgrad_kernel(ConvArgs p) {
-  using G = Dgrad<MT, NB, DBK>;
+template <int MT, int DBK, bool VEC>
+__global__ void __launch_bounds__(NT, Dgrad<MT, DBK>::BLOCKS) dgrad_kernel(ConvArgs p) {
+  using G = Dgrad<MT, DBK>;
   constexpr int KCH = G::KCH, HPS = G::HPS, STAGES = G::STAGES, LEAD = G::LEAD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* halo = reinterpret_cast<bf16*>(smem);  // 2 x [KCH][HPS][8]
@@ -766,40 +766,37 @@ Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
 }
 
 // The du's form for a call: its channels a chunk (dbk), its m64 tiles a
-// warpgroup (mt: a 16mt x 8 pixel tile), its blocks an SM (nb) and its
-// split over the Co chunks (at most one wave of blocks, up to 16 splits,
-// where nb = 1).
+// warpgroup (mt: a 16mt x 8 pixel tile), its blocks before any split, and
+// its split over the Co chunks (at most one wave of blocks, up to 16
+// splits).
 struct DgradForm {
-  int dbk, mt, nb;
+  int dbk, mt;
+  long blocks;
   Plan pl;
 };
 
-DgradForm dgrad_form_of(int B, int H, int W, int C, int Co, int dbk, int mt, int nb) {
+DgradForm dgrad_form_of(int B, int H, int W, int C, int Co, int dbk, int mt) {
   const int th = 16 * mt;
-  const long blocks = (long)((H + th - 1) / th) * ((W + TW - 1) / TW) * B * ((C + BN - 1) / BN);
-  const int nchunks = (Co + dbk - 1) / dbk;
-  DgradForm f{dbk, mt, nb, {}};
-  f.pl = nb == 2 ? split_plan(blocks, nchunks, 2 * NUM_SMS, 8)
-                 : split_plan(blocks, nchunks, NUM_SMS - blocks + 1, 16);
+  DgradForm f{dbk, mt, (long)((H + th - 1) / th) * ((W + TW - 1) / TW) * B * ((C + BN - 1) / BN),
+              {}};
+  f.pl = split_plan(f.blocks, (Co + dbk - 1) / dbk, NUM_SMS - f.blocks + 1, 16);
   return f;
 }
 
-// Co <= 16: one k16 wgmma a tap, two blocks an SM (the output is what
-// costs). Otherwise the 16 x 8 or the 32 x 8 tile, one block an SM,
-// whichever this model of the measured rates (an H100 at ~600 TFLOP/s in
-// the main loop) puts first: a 16 x 8 step ~0.45 us, a 32 x 8 one 1.7 times
-// that (twice the products, the weight tile shared), rounds of 132 blocks;
-// a split adds ~2 us and its fp32 partial sums written and read at 3 TB/s.
+// Co <= 16: one k16 wgmma a tap on the 16 x 8 tile (one chunk, no split).
+// Otherwise the 16 x 8 or the 32 x 8 tile, whichever this model of the
+// measured rates (an H100 at ~600 TFLOP/s in the main loop) puts first: a
+// 16 x 8 step ~0.45 us, a 32 x 8 one 1.7 times that (twice the products,
+// the weight tile shared), in rounds of 132 blocks; a split adds ~2 us and
+// its fp32 partial sums written and read at 3 TB/s.
 DgradForm dgrad_form(int B, int H, int W, int C, int Co) {
-  if (Co <= 16) return dgrad_form_of(B, H, W, C, Co, 16, 1, 2);
+  if (Co <= 16) return dgrad_form_of(B, H, W, C, Co, 16, 1);
   DgradForm best{};
   double best_us = 0.0;
   for (int mt = 1; mt <= 2; ++mt) {
-    const DgradForm f = dgrad_form_of(B, H, W, C, Co, 64, mt, 1);
-    const long blocks = (long)((H + 16 * mt - 1) / (16 * mt)) * ((W + TW - 1) / TW) * B *
-                        ((C + BN - 1) / BN) * f.pl.splits;
-    double us = (double)((blocks + NUM_SMS - 1) / NUM_SMS) * f.pl.chunks_per_split * 9 * 0.45 *
-                (mt == 2 ? 1.7 : 1.0);
+    const DgradForm f = dgrad_form_of(B, H, W, C, Co, 64, mt);
+    double us = (double)((f.blocks * f.pl.splits + NUM_SMS - 1) / NUM_SMS) *
+                f.pl.chunks_per_split * 9 * 0.45 * (mt == 2 ? 1.7 : 1.0);
     if (f.pl.splits > 1) us += 2.0 + 2.0 * f.pl.splits * B * H * W * C * 4 / 3e6;
     if (mt == 1 || us < best_us) {
       best = f;
@@ -825,16 +822,16 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int MT, int NB, int DBK, bool VEC>
+template <int MT, int DBK, bool VEC>
 int launch_dgrad(ConvArgs a, cudaStream_t stream) {
-  constexpr int smem_bytes = Dgrad<MT, NB, DBK>::SMEM;
+  constexpr int smem_bytes = Dgrad<MT, DBK>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      dgrad_kernel<MT, NB, DBK, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      dgrad_kernel<MT, DBK, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   a.tiles_w = (a.W + TW - 1) / TW;
   a.tiles = ((a.H + 16 * MT - 1) / (16 * MT)) * a.tiles_w;
   dim3 grid(a.tiles, (a.Co + BN - 1) / BN, a.B * a.splits);
-  dgrad_kernel<MT, NB, DBK, VEC><<<grid, NT, smem_bytes, stream>>>(a);
+  dgrad_kernel<MT, DBK, VEC><<<grid, NT, smem_bytes, stream>>>(a);
   if (a.splits > 1) {
     const long threads = (long)a.B * a.H * a.W * ((a.Co + 7) / 8);
     dgrad_reduce<<<(unsigned)((threads + NT - 1) / NT), NT, 0, stream>>>(a);
@@ -875,7 +872,7 @@ void conv_dgrad_plan(int B, int H, int W, int C, int Co, int* out) {
   const DgradForm f = dgrad_form(B, H, W, C, Co);
   out[0] = f.dbk;
   out[1] = f.mt;
-  out[2] = f.nb;
+  out[2] = f.dbk == 16 ? 2 : 1;
   out[3] = f.pl.splits;
   out[4] = f.pl.chunks_per_split;
 }
@@ -971,10 +968,10 @@ int conv3x3_dgrad_bf16(const void* gy, const void* w, void* du, void* workspace,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = Co % 8 == 0;
   if (f.dbk == 16)
-    return vec ? launch_dgrad<1, 2, 16, true>(a, s) : launch_dgrad<1, 2, 16, false>(a, s);
+    return vec ? launch_dgrad<1, 16, true>(a, s) : launch_dgrad<1, 16, false>(a, s);
   if (f.mt == 2)
-    return vec ? launch_dgrad<2, 1, 64, true>(a, s) : launch_dgrad<2, 1, 64, false>(a, s);
-  return vec ? launch_dgrad<1, 1, 64, true>(a, s) : launch_dgrad<1, 1, 64, false>(a, s);
+    return vec ? launch_dgrad<2, 64, true>(a, s) : launch_dgrad<2, 64, false>(a, s);
+  return vec ? launch_dgrad<1, 64, true>(a, s) : launch_dgrad<1, 64, false>(a, s);
 }
 
 }  // extern "C"

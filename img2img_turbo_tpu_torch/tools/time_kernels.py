@@ -21,7 +21,8 @@ parent). The kernels and their cases, which chip_smoke.py takes from here:
 - du (K8's input gradient, `fused_conv.conv3x3_input_grad` on the
   forward's packed weight, or `layers.conv3x3_input_grad` on the nn.Conv2d
   weight in a checkout from before it) at every shape of the train step
-  (`DU_CASES`).
+  (`DU_CASES`), then its time per train step (each case weighted by its
+  launches in one step).
 
 Each case is timed three ways on seeded bf16 inputs:
 
@@ -102,38 +103,39 @@ K3_SHAPES = sorted(set(
     key=lambda s: (-s[0], s))
 
 # K8's du: every shape of the 512x512 paired train step (each fused GN
-# conv's backward, of the forward conv C -> Co; 95 launches a generator
-# pass, 2 passes a step), one 256^2 256->128 case kept from earlier
-# comparisons, and a ragged one (the 840x560 request's latent):
-# (case, B, H, W, C, Co)
+# conv's backward, of the forward conv C -> Co), with its launches in one
+# step (95 a generator pass, 2 passes; chip_smoke.py fails if a step counts
+# others), one 256^2 256->128 case kept from earlier comparisons and a
+# ragged one (the 840x560 request's latent), which a step does not run:
+# (case, B, H, W, C, Co, launches per step)
 DU_CASES = [
-    ("du vae 512^2 128->128", 1, 512, 512, 128, 128),
-    ("du vae dec conv_out 128->3", 1, 512, 512, 128, 3),
-    ("du vae 256^2 256->128", 1, 256, 256, 256, 128),
-    ("du vae enc conv_out 512->8", 1, 64, 64, 512, 8),
-    ("du unet 64^2 320->320", 1, 64, 64, 320, 320),
-    ("du unet conv_out 320->4", 1, 64, 64, 320, 4),
-    ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280),
-    ("du vae 512^2 256->128", 1, 512, 512, 256, 128),
-    ("du vae 256^2 128->256", 1, 256, 256, 128, 256),
-    ("du vae 256^2 256->256", 1, 256, 256, 256, 256),
-    ("du vae 256^2 512->256", 1, 256, 256, 512, 256),
-    ("du vae 128^2 256->512", 1, 128, 128, 256, 512),
-    ("du vae 128^2 512->512", 1, 128, 128, 512, 512),
-    ("du vae 64^2 512->512", 1, 64, 64, 512, 512),
-    ("du unet 64^2 960->320", 1, 64, 64, 960, 320),
-    ("du unet 64^2 640->320", 1, 64, 64, 640, 320),
-    ("du unet 32^2 320->640", 1, 32, 32, 320, 640),
-    ("du unet 32^2 640->640", 1, 32, 32, 640, 640),
-    ("du unet 32^2 1920->640", 1, 32, 32, 1920, 640),
-    ("du unet 32^2 1280->640", 1, 32, 32, 1280, 640),
-    ("du unet 32^2 960->640", 1, 32, 32, 960, 640),
-    ("du unet 16^2 640->1280", 1, 16, 16, 640, 1280),
-    ("du unet 16^2 1280->1280", 1, 16, 16, 1280, 1280),
-    ("du unet 16^2 2560->1280", 1, 16, 16, 2560, 1280),
-    ("du unet 16^2 1920->1280", 1, 16, 16, 1920, 1280),
-    ("du unet 8^2 1280->1280", 1, 8, 8, 1280, 1280),
-    ("du ragged 105x70 640->640", 1, 105, 70, 640, 640)]
+    ("du vae 512^2 128->128", 1, 512, 512, 128, 128, 18),
+    ("du vae dec conv_out 128->3", 1, 512, 512, 128, 3, 2),
+    ("du vae 256^2 256->128", 1, 256, 256, 256, 128, 0),
+    ("du vae enc conv_out 512->8", 1, 64, 64, 512, 8, 2),
+    ("du unet 64^2 320->320", 1, 64, 64, 320, 320, 14),
+    ("du unet conv_out 320->4", 1, 64, 64, 320, 4, 2),
+    ("du unet 8^2 2560->1280 split-K", 1, 8, 8, 2560, 1280, 6),
+    ("du vae 512^2 256->128", 1, 512, 512, 256, 128, 2),
+    ("du vae 256^2 128->256", 1, 256, 256, 128, 256, 2),
+    ("du vae 256^2 256->256", 1, 256, 256, 256, 256, 16),
+    ("du vae 256^2 512->256", 1, 256, 256, 512, 256, 2),
+    ("du vae 128^2 256->512", 1, 128, 128, 256, 512, 2),
+    ("du vae 128^2 512->512", 1, 128, 128, 512, 512, 18),
+    ("du vae 64^2 512->512", 1, 64, 64, 512, 512, 36),
+    ("du unet 64^2 960->320", 1, 64, 64, 960, 320, 2),
+    ("du unet 64^2 640->320", 1, 64, 64, 640, 320, 4),
+    ("du unet 32^2 320->640", 1, 32, 32, 320, 640, 2),
+    ("du unet 32^2 640->640", 1, 32, 32, 640, 640, 12),
+    ("du unet 32^2 1920->640", 1, 32, 32, 1920, 640, 2),
+    ("du unet 32^2 1280->640", 1, 32, 32, 1280, 640, 2),
+    ("du unet 32^2 960->640", 1, 32, 32, 960, 640, 2),
+    ("du unet 16^2 640->1280", 1, 16, 16, 640, 1280, 2),
+    ("du unet 16^2 1280->1280", 1, 16, 16, 1280, 1280, 12),
+    ("du unet 16^2 2560->1280", 1, 16, 16, 2560, 1280, 4),
+    ("du unet 16^2 1920->1280", 1, 16, 16, 1920, 1280, 2),
+    ("du unet 8^2 1280->1280", 1, 8, 8, 1280, 1280, 22),
+    ("du ragged 105x70 640->640", 1, 105, 70, 640, 640, 0)]
 
 # K1: (case, B, H, W, C, Co, GN prologue, extra bias, residual, Csk)
 K1_CASES = [
@@ -366,7 +368,7 @@ def _k7_call(rn, b, sq, skv, h, hd):
                                                         h)
 
 
-def _du_call(rn, b, h, w, c, co):
+def _du_call(rn, b, h, w, c, co, _launches):
     """A call of this checkout's K8 du on seeded inputs."""
     from img2img_turbo_tpu_torch.models import layers
     from img2img_turbo_tpu_torch.ops import fused_conv
@@ -402,9 +404,10 @@ def main():
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
     def report(kernel, case, fn):
-        print(json.dumps({
-            "kernel": kernel, "case": case, "ms": one_call_ms(fn),
-            "device_ms": device_ms(fn), "host_us": host_us(fn)}), flush=True)
+        r = {"kernel": kernel, "case": case, "ms": one_call_ms(fn),
+             "device_ms": device_ms(fn), "host_us": host_us(fn)}
+        print(json.dumps(r), flush=True)
+        return r
 
     cases = {"K1": (K1_CASES, _k1_call), "K4": (K4_CASES, _k4_call),
              "K5": (K5_CASES, _k5_call), "K6": (K6_CASES, _k6_call),
@@ -427,8 +430,16 @@ def main():
         for shape in K3_SHAPES:
             report("K3", k3_name(shape), _k3_call(fused_matmul, rn, shape))
     if "du" in only:
+        step = {"ms": 0.0, "device_ms": 0.0}
         for case, *dims in DU_CASES:
-            report("du", case, _du_call(rn, *dims))
+            r = report("du", case, _du_call(rn, *dims))
+            for key in step:
+                step[key] = (None if step[key] is None or r[key] is None
+                             else step[key] + dims[-1] * r[key])
+        # the du's time in one train step, each case weighted by its launches
+        print(json.dumps({"kernel": "du", "case": "per train step",
+                          "launches": sum(c[-1] for c in DU_CASES), **step}),
+              flush=True)
 
 
 if __name__ == "__main__":
