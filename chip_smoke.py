@@ -791,6 +791,7 @@ def main():
             + f" over {launches} launches", flush=True)
     # K8's du in a train step, weighted by its launches there (which must
     # be DU_CASES' table, from which tools/time_kernels.py weights its own)
+    from img2img_turbo_tpu_torch.tools.time_kernels import DU_CASES
     k1 = next(e for e in kernels if e["name"] == "fused_gn_silu_conv3x3")
     du_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
