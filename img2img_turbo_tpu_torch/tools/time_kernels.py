@@ -105,8 +105,9 @@ K3_SHAPES = sorted(set(
 # K8's du: every shape of the 512x512 paired train step (each fused GN
 # conv's backward, of the forward conv C -> Co), with its launches in one
 # step (95 a generator pass, 2 passes; chip_smoke.py fails if a step counts
-# others), one 256^2 256->128 case kept from earlier comparisons and a
-# ragged one (the 840x560 request's latent), which a step does not run:
+# others), and three a step does not run: one 256^2 256->128 case kept
+# from earlier comparisons, a ragged one (the 840x560 request's latent) and
+# a long-K one (288 steps a block, so its rate is the main loop's alone):
 # (case, B, H, W, C, Co, launches per step)
 DU_CASES = [
     ("du vae 512^2 128->128", 1, 512, 512, 128, 128, 18),
@@ -135,7 +136,8 @@ DU_CASES = [
     ("du unet 16^2 2560->1280", 1, 16, 16, 2560, 1280, 4),
     ("du unet 16^2 1920->1280", 1, 16, 16, 1920, 1280, 2),
     ("du unet 8^2 1280->1280", 1, 8, 8, 1280, 1280, 22),
-    ("du ragged 105x70 640->640", 1, 105, 70, 640, 640, 0)]
+    ("du ragged 105x70 640->640", 1, 105, 70, 640, 640, 0),
+    ("du long-K 256x128 128->2048", 1, 256, 128, 128, 2048, 0)]
 
 # K1: (case, B, H, W, C, Co, GN prologue, extra bias, residual, Csk)
 K1_CASES = [
