@@ -26,7 +26,7 @@ Phases, each fatal on failure:
    its wrapper counted at each shape on every path (`per_request` at
    512x512 and 840x560, image, sketch, `per_step`); K8's du (a kernel of
    its own, on the forward's packed weight) runs at every shape of the
-   train step and a ragged one, and its times are weighted by the
+   train step and three more, and its times are weighted by the
    launches its wrapper counted at each shape in one train step
    (`per_step`). Every case of every kernel reports its device time alone
    (a CUDA graph of 20 calls), and of its library call where it has one;
@@ -314,18 +314,18 @@ def kernel_phase(dev, results: list):
                lib, device_ms=dev_ms, library_device_ms=lib_dev)
 
     # ---- K8's du: the input gradient of the train step's fused GN convs
-    # at every shape the step runs (and a ragged one), the du kernel reading
-    # the forward's packed weight as it is (fc.conv3x3_input_grad),
-    # recorded under K1, the kernel the JAX package runs for it. The exact
-    # version is the fp32
-    # transposed conv of the nn.Conv2d weight, so a wrong tap order or
-    # channel swap fails here; the plain time is the plain path's transposed
-    # conv on the unpacked weight, the library's cuDNN's on the nn.Conv2d
-    # one; device time alone from a CUDA graph of 20 calls.
+    # at every shape the step runs (and three it does not), the du kernel
+    # reading the forward's packed weight as it is
+    # (fc.conv3x3_input_grad), recorded under K1, the kernel the JAX
+    # package runs for it. The exact version is the fp32 transposed conv of
+    # the nn.Conv2d weight, so a wrong tap order or channel swap fails here;
+    # the plain time is the plain path's transposed conv on the unpacked
+    # weight, the library's cuDNN's on the nn.Conv2d one; device time alone
+    # from a CUDA graph of 20 calls.
     conv_lib = fc._lib()
     conv_lib.conv_dgrad_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
-    form = (ctypes.c_int * 5)()
+    form = (ctypes.c_int * 6)()
     for case, B, H, W, C, Co, _ in DU_CASES:
         conv_lib.conv_dgrad_plan(B, H, W, C, Co, form)
         gy = rn(B, H, W, Co)
@@ -343,10 +343,8 @@ def kernel_phase(dev, results: list):
         lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         flops = 2 * B * H * W * C * 9 * Co
         nbytes = _nbytes(gy, wp, du)
-        blocks = (-(-H // (16 * form[1])) * -(-W // 8) * B * -(-C // 128)
-                  * form[3])
         print(f"  {'':26s} {case}: {16 * form[1]}x8 pixel tiles, "
-              f"{form[0]} channels a step, {blocks} blocks ({form[2]} an SM), "
+              f"{form[0]} channels a step, {form[5]} blocks ({form[2]} an SM), "
               f"{form[3]} split(s) of {form[4]} chunks; device "
               f"{dev_ms:.4f}ms, F.conv_transpose2d device {lib_dev:.4f}ms",
               flush=True)

@@ -867,7 +867,8 @@ long conv_dgrad_workspace_bytes(int B, int H, int W, int C, int Co) {
 
 // The du's launch form for a call, as conv3x3_dgrad_bf16 takes it: out[0]
 // channels a chunk, out[1] m64 tiles a warpgroup (a 16 out[1] x 8 pixel
-// tile), out[2] blocks an SM, out[3] splits, out[4] chunks a split.
+// tile), out[2] blocks an SM, out[3] splits, out[4] chunks a split, out[5]
+// blocks launched.
 void conv_dgrad_plan(int B, int H, int W, int C, int Co, int* out) {
   const DgradForm f = dgrad_form(B, H, W, C, Co);
   out[0] = f.dbk;
@@ -875,6 +876,7 @@ void conv_dgrad_plan(int B, int H, int W, int C, int Co, int* out) {
   out[2] = f.dbk == 16 ? 2 : 1;
   out[3] = f.pl.splits;
   out[4] = f.pl.chunks_per_split;
+  out[5] = (int)(f.blocks * f.pl.splits);
 }
 
 // up = 0: K1, w packed from (3,3,C,Co); up = 1: K4, w packed from the folded

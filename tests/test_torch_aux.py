@@ -41,7 +41,7 @@ from img2img_turbo_tpu_torch.training import runner as trunner
 from img2img_turbo_tpu_torch.weights import from_jax
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
-# two intra-op threads a worker keep them from oversubscribing the box.
+# two intra-op threads a worker keep them from oversubscribing the cores.
 torch.set_num_threads(2)
 
 TOL = 1e-4

@@ -34,7 +34,7 @@ from img2img_turbo_tpu_torch.ops import attention as tattn
 from img2img_turbo_tpu_torch.ops import fused_conv as tfc
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
-# two intra-op threads a worker keep them from oversubscribing the box.
+# two intra-op threads a worker keep them from oversubscribing the cores.
 torch.set_num_threads(2)
 
 TOL = 1e-4

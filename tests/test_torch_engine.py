@@ -31,7 +31,7 @@ from img2img_turbo_tpu_torch.serving.engine import ServingEngine
 from img2img_turbo_tpu_torch.weights import from_jax
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
-# two intra-op threads a worker keep them from oversubscribing the box.
+# two intra-op threads a worker keep them from oversubscribing the cores.
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -39,7 +39,7 @@ from img2img_turbo_tpu_torch.ops import groupnorm as tgn
 from img2img_turbo_tpu_torch.ops import image as timage
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
-# two intra-op threads a worker keep them from oversubscribing the box.
+# two intra-op threads a worker keep them from oversubscribing the cores.
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
