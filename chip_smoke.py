@@ -28,8 +28,15 @@ Phases, each fatal on failure:
    its own, on the forward's packed weight) runs at every shape of the
    train step and three more, and its times are weighted by the
    launches its wrapper counted at each shape in one train step
-   (`per_step`). Every case of every kernel reports its device time alone
-   (a CUDA graph of 20 calls), and of its library call where it has one;
+   (`per_step`). K6 runs every downsample shape of the paths and one that
+   takes its last form, each with the form its library picks
+   (`downsample_plan`), a bit-identical repeat and its stats (split or
+   not); its times are weighted per 512x512 request and per train step, and
+   K7's, beside SDPA's backward, per train step at each head dim, by the
+   launches their wrappers counted by shape, which must match
+   tools/time_kernels.py's tables. Every case of every kernel reports its
+   device time alone (a CUDA graph of 20 calls), and of its library call
+   where it has one;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -63,7 +70,6 @@ import math
 import subprocess
 import sys
 import time
-import warnings
 
 
 def _fail(msg: str):
@@ -121,39 +127,6 @@ def _bound(flops: float, nbytes: float):
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def _sdpa(q, k, v, num_heads=None):
-    """F.scaled_dot_product_attention on the folded (B, S, H*hd) tensors'
-    head views (the library yardstick of K2 and, differentiated, of K7),
-    or with num_heads None on (B, H, S, d) tensors as they are (K9's).
-    Returns (the backend's name, a call that runs SDPA on it and returns
-    the (B, H, Sq, hd) output): flash, then memory-efficient, then cuDNN,
-    then math, the first that takes the shapes."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def heads(t):
-        if num_heads is None:
-            return t
-        b, s, d = t.shape
-        return t.view(b, s, num_heads, d // num_heads).transpose(1, 2)
-
-    for backend in (SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        def call(backend=backend):
-            with sdpa_kernel([backend]):
-                return F.scaled_dot_product_attention(heads(q), heads(k),
-                                                      heads(v))
-        try:
-            with warnings.catch_warnings():  # the refusals of the others
-                warnings.simplefilter("ignore")
-                call()
-        except RuntimeError:
-            continue
-        return backend.name.lower(), call
-    _fail("no SDPA backend took the shapes")
 
 
 def _attention_lib():
@@ -219,7 +192,8 @@ def kernel_phase(dev, results: list):
         groupnorm as gn)
     from img2img_turbo_tpu_torch.tools.time_kernels import (
         DU_CASES, K1_CASES, K3_SHAPES, K4_CASES, K5_CASES, K6_CASES,
-        K7_CASES, device_ms, k3_name, one_call_ms as _time_ms)
+        K6_PATH_CASES, K7_CASES, device_ms, k3_name, one_call_ms as _time_ms,
+        sdpa, sdpa_backward)
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -390,22 +364,36 @@ def kernel_phase(dev, results: list):
         record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
                device_ms=dev_ms)
 
-    # ---- K6 -------------------------------------------------------------
+    # ---- K6: every downsample shape of the paths, and one more at which
+    # the kernel takes the 32 x 8 tile with a split (summed apart, as
+    # "forms"); each case prints its form (down_form, through
+    # downsample_plan), and a repeated call must give the same y and stats
+    # bit for bit. The stats are checked on every case, split or not.
     k6 = ("downsample2x_conv3x3", "cuda",
           "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1408")
-    for case, B, H, W, C, pad_lo, stats in K6_CASES:
+    conv_lib.downsample_plan.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)]
+    k6_plan = (ctypes.c_int * 7)()
+    forms = set()
+    for idx, (case, B, H, W, C, pad_lo, stats, *_) in enumerate(K6_CASES):
+        conv_lib.downsample_plan(B, H, W, C, C, pad_lo, k6_plan)
+        forms.add((k6_plan[0], k6_plan[3] > 1))
         x = rn(B, H, W, C)
         w = rn(3, 3, C, C, scale=1 / math.sqrt(9 * C))
         bias = rn(C, scale=0.1, dtype=torch.float32)
         wp = fc.pack_weights(w)
         y, st = fc.downsample2x_conv3x3(x, w, bias, pad_lo, emit_stats=True,
                                         w_packed=wp)
+        y2, st2 = fc.downsample2x_conv3x3(x, w, bias, pad_lo,
+                                          emit_stats=True, w_packed=wp)
         y_ns, _ = fc.downsample2x_conv3x3(x, w, bias, pad_lo, w_packed=wp)
         yr, _ = fc.downsample2x_conv3x3_ref(x, w, bias, pad_lo)
         if y.shape != yr.shape or not torch.equal(y, y_ns):
             _fail(f"K6 {case}: output {tuple(y.shape)} (ref "
                   f"{tuple(yr.shape)}) or differs without stats")
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            _fail(f"K6 {case}: a repeated call gave another y or stats")
         err, rel = _rel(y, yr)
         ho, wo = y.shape[1:3]
         one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
@@ -430,9 +418,21 @@ def kernel_phase(dev, results: list):
         lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
         flops = 2 * B * ho * wo * C * 9 * C
         nbytes = _nbytes(x, wp, bias, y, st if stats else None)
+        print(f"  {'':26s} {case}: {k6_plan[0]}x8 pixel tiles, "
+              f"{k6_plan[1]} channels a chunk, {k6_plan[2]}-stage weight "
+              f"ring, {k6_plan[3]} split(s) of {k6_plan[4]} chunks, "
+              f"{k6_plan[5]} items on {k6_plan[6]} blocks; stats "
+              f"{st.shape[1]} tiles, repeat bit-identical; device "
+              f"{dev_ms:.4f}ms, F.conv2d(stride=2) device {lib_dev:.4f}ms",
+              flush=True)
         record(*k6, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv2d(stride=2)", device_ms=dev_ms,
-               library_device_ms=lib_dev)
+               library_device_ms=lib_dev, shape=(B, H, W, C, C, pad_lo),
+               part=None if idx < K6_PATH_CASES else "forms")
+    every = {(th, sp) for th in (32, 16, 8) for sp in (False, True)}
+    if forms != every:
+        _fail(f"K6 ran the forms {sorted(forms)} of {sorted(every)}: add a "
+              f"case to tools/time_kernels.py K6_CASES that takes the rest")
 
     # ---- K5 -------------------------------------------------------------
     k5 = ("group_norm_stats", "triton",
@@ -523,7 +523,7 @@ def kernel_phase(dev, results: list):
           "img2img_turbo_tpu_torch/csrc/attention.cu",
           "img2img_turbo_tpu/ops/attention.py:261")
     lib = _attention_lib()
-    for case, B, Sq, Skv, H, hd in K7_CASES + K2_EXTRA_CASES:
+    for case, B, Sq, Skv, H, hd in [c[:6] for c in K7_CASES] + K2_EXTRA_CASES:
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         print(f"  {'':26s} {case}:", flush=True)
         report = _attention_report(
@@ -540,8 +540,8 @@ def kernel_phase(dev, results: list):
         ms = _time_ms(lambda: attention.flash_attention_folded(
             q, k, v, H, return_lse=True))
         pms = _time_ms(lambda: attention.mha_ref(q, k, v, H))
-        backend, sdpa = _sdpa(q, k, v, H)
-        lms, lib_dev = _time_ms(sdpa), device_ms(sdpa)
+        backend, sdpa_call = sdpa(q, k, v, H)
+        lms, lib_dev = _time_ms(sdpa_call), device_ms(sdpa_call)
         flops = 4 * B * Sq * Skv * H * hd
         nbytes = _nbytes(q, k, v, o, lse)
         print(f"  {'':26s} lse max_abs={lse_err:.3e} tol={LSE_TOL:.0e}",
@@ -566,8 +566,8 @@ def kernel_phase(dev, results: list):
         ms = _time_ms(lambda: attention.flash_attention(q, k, v))
         pms = _time_ms(lambda: attention.scaled_dot_product_attention(q, k,
                                                                       v))
-        backend, sdpa = _sdpa(q, k, v)
-        lms, lib_dev = _time_ms(sdpa), device_ms(sdpa)
+        backend, sdpa_call = sdpa(q, k, v)
+        lms, lib_dev = _time_ms(sdpa_call), device_ms(sdpa_call)
         record(*k9, case, err, rel, REL_TOL, ms, pms,
                4 * B * H * Sq * Skv * 64, _nbytes(q, k, v, o), lms,
                f"sdpa[{backend}]", library_device_ms=lib_dev, **report)
@@ -576,7 +576,7 @@ def kernel_phase(dev, results: list):
     k7 = ("flash_attention_folded_bwd", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
           "img2img_turbo_tpu/ops/attention.py:390")
-    for case, B, Sq, Skv, H, hd in K7_CASES:
+    for case, B, Sq, Skv, H, hd, _ in K7_CASES:
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         do = rn(B, Sq, H * hd)
         o, lse = attention.flash_attention_folded(q, k, v, H,
@@ -593,19 +593,15 @@ def kernel_phase(dev, results: list):
         out = attention.mha_ref(qg, kg, vg, H)
         pms = _time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        backend, sdpa = _sdpa(qg, kg, vg, H)
-        out_l = sdpa()
-        do_h = do.view(B, Sq, H, hd).transpose(1, 2)
-        lib_call = lambda: torch.autograd.grad(  # noqa: E731
-            out_l, (qg, kg, vg), do_h, retain_graph=True)
+        backend, lib_call = sdpa_backward(q, k, v, do, H)
         lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
-        del out, out_l
+        del out, lib_call
         # the least work: S, dP, dV, dQ and dK, five products
         flops = 10 * B * Sq * Skv * H * hd
         nbytes = _nbytes(q, k, v, o, do, lse, *grads)
         record(*k7, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                f"sdpa[{backend}] backward", device_ms=dev_ms,
-               library_device_ms=lib_dev)
+               library_device_ms=lib_dev, shape=(B, Sq, Skv, H, hd))
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)
@@ -754,7 +750,7 @@ def main():
     torch.cuda.synchronize()
 
     summary: dict = {"paths": {}, "k2_shapes": {}, "k3_shapes": {},
-                     "du_shapes": {}}
+                     "k6_shapes": {}, "k7_shapes": {}, "du_shapes": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
@@ -804,6 +800,39 @@ def main():
     print("du per_step: " + ", ".join(
         f"{n}={k1['du']['per_step'][n]:.4f}ms" for n in du_keys)
         + f" over {TRAIN_DU_LAUNCHES} launches", flush=True)
+    # K6 per 512x512 request and per train step, and K7 per train step at
+    # each head dim, weighted by their launches there, which must be the
+    # tables of tools/time_kernels.py (K6_CASES, K7_CASES)
+    from img2img_turbo_tpu_torch.tools.time_kernels import K6_CASES, K7_CASES
+    k6 = next(e for e in kernels if e["name"] == "downsample2x_conv3x3")
+    k6_cases = [r for r in results if r["name"] == k6["name"]]
+    for key, path, col in (("per_request", "serve", 7),
+                           ("per_step", "train", 8)):
+        table = {(c[1], c[2], c[3], c[4], c[4], c[5]): c[col]
+                 for c in K6_CASES if c[col]}
+        if summary["k6_shapes"][path] != table:
+            _fail(f"K6 launches by shape on the {path} path "
+                  f"{summary['k6_shapes'][path]} differ from "
+                  f"tools/time_kernels.py K6_CASES {table}")
+        k6[key] = _weighted(k6_cases, table, paths[path][k6["name"]], path,
+                            du_keys)
+        print(f"K6 {key}: " + ", ".join(
+            f"{n}={k6[key][n]:.4f}ms" for n in du_keys)
+            + f" over {k6[key]['launches']} launches", flush=True)
+    k7 = next(e for e in kernels if e["name"] == "flash_attention_folded_bwd")
+    table = {tuple(c[1:6]): c[6] for c in K7_CASES}
+    if summary["k7_shapes"]["train"] != table:
+        _fail(f"K7 launches by shape in a train step "
+              f"{summary['k7_shapes']['train']} differ from "
+              f"tools/time_kernels.py K7_CASES {table}")
+    for hd in sorted({s_[4] for s_ in table}):
+        shapes = {s_: n for s_, n in table.items() if s_[4] == hd}
+        k7[f"per_step_hd{hd}"] = _weighted(
+            [r for r in results if r["name"] == k7["name"]], shapes,
+            sum(shapes.values()), "train", du_keys)
+        print(f"K7 per_step hd {hd}: " + ", ".join(
+            f"{n}={k7[f'per_step_hd{hd}'][n]:.4f}ms" for n in du_keys)
+            + f" over {sum(shapes.values())} launches", flush=True)
     print(_smi(), flush=True)  # again, beside the results
     print(json.dumps({"kernels": kernels,
                       "engine": summary["engine"],
@@ -869,9 +898,9 @@ def _rel_l2(a, b) -> float:
 
 
 def _shapes(kernel: str) -> dict:
-    """A kernel's launches by shape (K2: (B, Sq, Skv, H, hd); K3: (M, C,
-    Co, outputs, LN, gate, residual); the du: (B, H, W, C, Co)) since the
-    counters were last reset."""
+    """A kernel's launches by shape (K2 and K7: (B, Sq, Skv, H, hd); K3:
+    (M, C, Co, outputs, LN, gate, residual); K6: (B, H, W, C, Co, pad_lo);
+    the du: (B, H, W, C, Co)) since the counters were last reset."""
     from img2img_turbo_tpu_torch.ops import _build
     return {shape: n for (name, shape), n in _build.launch_shapes.items()
             if name == kernel}
@@ -917,6 +946,7 @@ def engine_phase(dev, summary):
     counts = dict(_build.launch_counts)
     summary["k2_shapes"]["serve"] = _shapes("flash_attention_folded")
     summary["k3_shapes"]["serve"] = _shapes("fused_matmul")
+    summary["k6_shapes"]["serve"] = _shapes("downsample2x_conv3x3")
     print(f"  launches in one 512x512 request: {counts}", flush=True)
     if counts != EXPECTED_LAUNCHES:
         _fail(f"launch counts {counts} != expected {EXPECTED_LAUNCHES}")
@@ -1276,6 +1306,10 @@ def train_phase(dev, summary):
                     summary["k3_shapes"]["train"] = _shapes("fused_matmul")
                     summary["du_shapes"]["train"] = _shapes(
                         "conv3x3_input_grad")
+                    summary["k6_shapes"]["train"] = _shapes(
+                        "downsample2x_conv3x3")
+                    summary["k7_shapes"]["train"] = _shapes(
+                        "flash_attention_folded_bwd")
                     after_first = _snapshot(states[k])
                     first_metrics = m
     print(f"  launches in one train step: {counts}", flush=True)

@@ -188,6 +188,8 @@ def flash_attention_folded_bwd(q, k, v, o, do, lse, num_heads: int):
                     _build.stream())
     _build.check(err, "flash_attention_bwd_bf16")
     _build.launch_counts["flash_attention_folded_bwd"] += 1
+    _build.launch_shapes["flash_attention_folded_bwd",
+                         (b, sq, skv, num_heads, d // num_heads)] += 1
     return dq, dk, dv
 
 

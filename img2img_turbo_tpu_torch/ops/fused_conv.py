@@ -1,5 +1,5 @@
-"""Conv engine wrappers: kernels K1, K4 and K6 (CUDA, `csrc/conv.cu`), and
-K8's du, a kernel of its own in the same library.
+"""Conv wrappers: kernels K1 and K4 (the conv engine of `csrc/conv.cu`), and
+K6 and K8's du, kernels of their own in the same library.
 
 Counterparts of `img2img_turbo_tpu/ops/fused_conv.py:889
 fused_gn_silu_conv3x3` (K1), `:1688 upsample2x_conv3x3` (K4) and `:1350
@@ -41,6 +41,10 @@ def _lib():
         lib.downsample3x3_bf16.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.downsample3x3_bf16.restype = ctypes.c_int
+        lib.downsample_stats_tiles.argtypes = [ctypes.c_int] * 6
+        lib.downsample_stats_tiles.restype = ctypes.c_int
+        lib.downsample_workspace_bytes.argtypes = [ctypes.c_int] * 6
+        lib.downsample_workspace_bytes.restype = ctypes.c_long
         lib.conv3x3_dgrad_bf16.argtypes = [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.conv3x3_dgrad_bf16.restype = ctypes.c_int
@@ -380,11 +384,13 @@ def downsample2x_conv3x3(x, w, bias, pad_lo: int, emit_stats: bool = False,
     lib = _lib()
     ho, wo = downsample_size(h, pad_lo), downsample_size(wd, pad_lo)
     y = torch.empty((bsz, ho, wo, co), device=dev, dtype=bf)
+    dims = (bsz, h, wd, c, co, pad_lo)
     stats = None
-    if emit_stats:
-        stats = torch.empty((bsz, lib.conv_stats_tiles(ho, wo, 0), 2, co),
+    if emit_stats:  # one partial sum per pixel tile of the call's form
+        stats = torch.empty((bsz, lib.downsample_stats_tiles(*dims), 2, co),
                             device=dev, dtype=torch.float32)
-    ws_bytes = lib.conv_workspace_bytes(bsz, ho, wo, c, co, 0, 0)
+    # split-K scratch for grids below one wave
+    ws_bytes = lib.downsample_workspace_bytes(*dims)
     ws = (torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
           if ws_bytes else None)
     err = lib.downsample3x3_bf16(
@@ -393,6 +399,7 @@ def downsample2x_conv3x3(x, w, bias, pad_lo: int, emit_stats: bool = False,
         _build.stream())
     _build.check(err, "downsample3x3_bf16")
     _build.launch_counts["downsample2x_conv3x3"] += 1
+    _build.launch_shapes["downsample2x_conv3x3", dims] += 1
     return y, stats
 
 

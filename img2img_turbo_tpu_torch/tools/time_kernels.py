@@ -11,7 +11,11 @@ parent). The kernels and their cases, which chip_smoke.py takes from here:
 - K1 (`fused_gn_silu_conv3x3`, with stats), K4 (`upsample2x_conv3x3`,
   with stats), K5 (`group_norm_coeffs`: the stats kernel and its
   combine), K6 (`downsample2x_conv3x3`, with stats where its path takes
-  them) and K7 (`flash_attention_folded_bwd`) at their `*_CASES`;
+  them) and K7 (`flash_attention_folded_bwd`) at their `*_CASES`; K6 then
+  reports its time per 512x512 request and per train step, and K7, beside
+  the backward of `F.scaled_dot_product_attention` on the same inputs, its
+  time per train step at each head dim (each case weighted by its launches
+  in `K6_CASES` and `K7_CASES`);
 - K2 (`flash_attention_folded`, with lse) and K9 (`flash_attention`) at
   chip_smoke.py's attention shapes;
 - K3 (`fused_matmul.fused`) at the transformer and VAE mid-attention shapes
@@ -167,32 +171,42 @@ K5_CASES = [
     ("vae 256^2x256", (1, 256, 256, 256)),
     ("ragged 105x70x640", (1, 105, 70, 640))]
 # Every stride-2 downsample at 512x512 (VAE pad_lo=0 with stats, UNet
-# pad_lo=1 without) and at 840x560, whose sizes are odd: (case, B, H, W,
-# C = Co, pad_lo, emits stats on its path)
+# pad_lo=1 without) and at 840x560, whose sizes are odd, with its launches
+# in one 512x512 request and one train step (each VAE shape once a pass,
+# each UNet shape twice: the forward and its recomputation; chip_smoke.py
+# fails if a path counts others), and one shape no path runs, at which the
+# kernel takes the 32 x 8 tile with a split (so that every form of it runs
+# on the card): (case, B, H, W, C = Co, pad_lo, emits stats on its path,
+# launches per request, per step)
 K6_CASES = [
-    ("vae 512^2x128 pad0", 1, 512, 512, 128, 0, True),
-    ("vae 256^2x256 pad0", 1, 256, 256, 256, 0, True),
-    ("vae 128^2x512 pad0", 1, 128, 128, 512, 0, True),
-    ("unet 64^2x320 pad1", 1, 64, 64, 320, 1, False),
-    ("unet 32^2x640 pad1", 1, 32, 32, 640, 1, False),
-    ("unet 16^2x1280 pad1", 1, 16, 16, 1280, 1, False),
-    ("vae 560x840x128 pad0", 1, 560, 840, 128, 0, True),
-    ("unet 70x105x320 pad1", 1, 70, 105, 320, 1, False),
-    ("unet 35x53x640 pad1", 1, 35, 53, 640, 1, False),
-    ("unet 18x27x1280 pad1", 1, 18, 27, 1280, 1, False)]
+    ("vae 512^2x128 pad0", 1, 512, 512, 128, 0, True, 1, 2),
+    ("vae 256^2x256 pad0", 1, 256, 256, 256, 0, True, 1, 2),
+    ("vae 128^2x512 pad0", 1, 128, 128, 512, 0, True, 1, 2),
+    ("unet 64^2x320 pad1", 1, 64, 64, 320, 1, False, 1, 4),
+    ("unet 32^2x640 pad1", 1, 32, 32, 640, 1, False, 1, 4),
+    ("unet 16^2x1280 pad1", 1, 16, 16, 1280, 1, False, 1, 4),
+    ("vae 560x840x128 pad0", 1, 560, 840, 128, 0, True, 0, 0),
+    ("unet 70x105x320 pad1", 1, 70, 105, 320, 1, False, 0, 0),
+    ("unet 35x53x640 pad1", 1, 35, 53, 640, 1, False, 0, 0),
+    ("unet 18x27x1280 pad1", 1, 18, 27, 1280, 1, False, 0, 0),
+    ("32x8 split 128x64x640 pad1", 1, 128, 64, 640, 1, False, 0, 0)]
+K6_PATH_CASES = 10  # the rows before are the paths' shapes
 # K7: every attention shape of the paired step at 512x512, the UNet's self-
 # and cross-attention at each level (hd 64) and the VAE mid attention (hd
-# 512): (case, B, Sq, Skv, H, hd)
+# 512), with its launches in one train step (the UNet's 5 transformers at
+# each of 64^2, 32^2 and 16^2 and its mid one, the VAE's encoder and decoder
+# mid attention, in both generator passes): (case, B, Sq, Skv, H, hd,
+# launches per step)
 K7_CASES = [
-    ("unet self S=4096 H=5", 1, 4096, 4096, 5, 64),
-    ("unet cross S=4096 Skv=77 H=5", 1, 4096, 77, 5, 64),
-    ("unet self S=1024 H=10", 1, 1024, 1024, 10, 64),
-    ("unet cross S=1024 Skv=77 H=10", 1, 1024, 77, 10, 64),
-    ("unet self S=256 H=20", 1, 256, 256, 20, 64),
-    ("unet cross S=256 Skv=77 H=20", 1, 256, 77, 20, 64),
-    ("unet mid self S=64 H=20", 1, 64, 64, 20, 64),
-    ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64),
-    ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512)]
+    ("unet self S=4096 H=5", 1, 4096, 4096, 5, 64, 10),
+    ("unet cross S=4096 Skv=77 H=5", 1, 4096, 77, 5, 64, 10),
+    ("unet self S=1024 H=10", 1, 1024, 1024, 10, 64, 10),
+    ("unet cross S=1024 Skv=77 H=10", 1, 1024, 77, 10, 64, 10),
+    ("unet self S=256 H=20", 1, 256, 256, 20, 64, 10),
+    ("unet cross S=256 Skv=77 H=20", 1, 256, 77, 20, 64, 10),
+    ("unet mid self S=64 H=20", 1, 64, 64, 20, 64, 2),
+    ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64, 2),
+    ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512, 4)]
 
 
 def k3_name(shape) -> str:
@@ -351,7 +365,7 @@ def _k5_call(rn, shape):
     return lambda: gn.group_norm_coeffs(x, scale, bias, 32, 1e-5)
 
 
-def _k6_call(rn, b, h, w, c, pad_lo, stats):
+def _k6_call(rn, b, h, w, c, pad_lo, stats, *_launches):
     from img2img_turbo_tpu_torch.ops import fused_conv as fc
     x = rn(b, h, w, c)
     wt = rn(3, 3, c, c) / math.sqrt(9 * c)
@@ -361,11 +375,66 @@ def _k6_call(rn, b, h, w, c, pad_lo, stats):
                                            emit_stats=stats, w_packed=wp)
 
 
-def _k7_call(rn, b, sq, skv, h, hd):
+def sdpa(q, k, v, num_heads=None):
+    """F.scaled_dot_product_attention on the folded (B, S, H*hd) tensors'
+    head views (the library yardstick of K2 and, differentiated, of K7),
+    or with num_heads None on (B, H, S, d) tensors as they are (K9's).
+    Returns (the backend's name, a call that runs SDPA on it and returns
+    the (B, H, Sq, hd) output): flash, then memory-efficient, then cuDNN,
+    then math, the first that takes the shapes."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def heads(t):
+        if num_heads is None:
+            return t
+        b, s, d = t.shape
+        return t.view(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(heads(q), heads(k),
+                                                      heads(v))
+        try:
+            with warnings.catch_warnings():  # the refusals of the others
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        return backend.name.lower(), call
+    raise RuntimeError("no SDPA backend took the shapes")
+
+
+def sdpa_backward(q, k, v, do, num_heads):
+    """The backward of `sdpa` on folded (B, S, H*hd) tensors with output
+    cotangent do: (the backend's name, a call of autograd's gradient of
+    q, k and v)."""
+    import torch
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    backend, call = sdpa(qg, kg, vg, num_heads)
+    out = call()
+    b, sq, d = do.shape
+    do_h = do.view(b, sq, num_heads, d // num_heads).transpose(1, 2)
+    return backend, lambda: torch.autograd.grad(out, (qg, kg, vg), do_h,
+                                                retain_graph=True)
+
+
+def _k7_inputs(rn, b, sq, skv, h, hd):
     from img2img_turbo_tpu_torch.ops import attention
     q, k, v = (rn(b, s, h * hd) for s in (sq, skv, skv))
     do = rn(b, sq, h * hd)
     o, lse = attention.flash_attention_folded(q, k, v, h, return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def _k7_call(rn, b, sq, skv, h, hd, *_launches):
+    from img2img_turbo_tpu_torch.ops import attention
+    q, k, v, o, do, lse = _k7_inputs(rn, b, sq, skv, h, hd)
     return lambda: attention.flash_attention_folded_bwd(q, k, v, o, do, lse,
                                                         h)
 
@@ -411,13 +480,46 @@ def main():
         print(json.dumps(r), flush=True)
         return r
 
+    def weighted(kernel, what, rows, launches):
+        """A kernel's times summed over its cases, each times its launches
+        on a path (None where a case has no time)."""
+        out = {"kernel": kernel, "case": what, "launches": sum(launches)}
+        for key in ("ms", "device_ms", "library_device_ms"):
+            if key in rows[0]:
+                vals = [r[key] for r in rows]
+                out[key] = (None if None in vals else
+                            sum(n * v for n, v in zip(launches, vals)))
+        print(json.dumps(out), flush=True)
+
     cases = {"K1": (K1_CASES, _k1_call), "K4": (K4_CASES, _k4_call),
              "K5": (K5_CASES, _k5_call), "K6": (K6_CASES, _k6_call),
              "K7": (K7_CASES, _k7_call)}
     for kernel, (table, make) in cases.items():
-        if kernel in only:
-            for case, *dims in table:
-                report(kernel, case, make(rn, *dims))
+        if kernel not in only:
+            continue
+        rows = [report(kernel, case, make(rn, *dims)) for case, *dims in table]
+        if kernel == "K6":
+            # per 512x512 request and per train step
+            for col, what in ((-2, "per 512x512 request"),
+                              (-1, "per train step")):
+                weighted("K6", what, rows, [c[col] for c in table])
+        if kernel == "K7":
+            # the library's backward on the same inputs, then both per
+            # train step at each head dim
+            for r, (case, *dims) in zip(rows, table):
+                backend, call = sdpa_backward(*_k7_inputs(rn, *dims[:5])[:3],
+                                              rn(dims[0], dims[1],
+                                                 dims[3] * dims[4]), dims[3])
+                r["library"] = f"sdpa[{backend}] backward"
+                r["library_device_ms"] = device_ms(call)
+                print(json.dumps({"kernel": "K7", "case": case,
+                                  "library": r["library"],
+                                  "library_device_ms":
+                                  r["library_device_ms"]}), flush=True)
+            for hd in sorted({c[5] for c in table}):
+                pick = [i for i, c in enumerate(table) if c[5] == hd]
+                weighted("K7", f"per train step, hd {hd}",
+                         [rows[i] for i in pick], [table[i][-1] for i in pick])
     for kernel, case, b, sq, skv, h, hd in ATTENTION_CASES:
         if kernel not in only:
             continue

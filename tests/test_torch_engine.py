@@ -158,6 +158,21 @@ def test_launch_table_matches_call_sites(setup, monkeypatch):
     assert not calls  # the plain path reaches no kernel wrapper
 
 
+def test_timing_tables_match_launch_tables():
+    """tools/time_kernels.py's launch columns, which chip_smoke.py holds
+    each path's launches by shape against, add up to chip_smoke.py's launch
+    tables: K6 per 512x512 request and per train step, K7 and the du per
+    train step."""
+    from img2img_turbo_tpu_torch.tools import time_kernels as tk
+    smoke = _chip_smoke()
+    k6, k7 = "downsample2x_conv3x3", "flash_attention_folded_bwd"
+    assert sum(c[7] for c in tk.K6_CASES) == smoke.EXPECTED_LAUNCHES[k6]
+    assert sum(c[8] for c in tk.K6_CASES) == smoke.EXPECTED_TRAIN_LAUNCHES[k6]
+    assert not any(c[7] or c[8] for c in tk.K6_CASES[tk.K6_PATH_CASES:])
+    assert sum(c[6] for c in tk.K7_CASES) == smoke.EXPECTED_TRAIN_LAUNCHES[k7]
+    assert sum(c[-1] for c in tk.DU_CASES) == smoke.TRAIN_DU_LAUNCHES
+
+
 def test_rejects_what_it_does_not_serve(setup):
     _, engines, caption = setup
     eng = engines[True]
