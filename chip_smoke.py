@@ -34,9 +34,13 @@ Phases, each fatal on failure:
    not); its times are weighted per 512x512 request and per train step, and
    K7's, beside SDPA's backward, per train step at each head dim, by the
    launches their wrappers counted by shape, which must match
-   tools/time_kernels.py's tables. Every case of every kernel reports its
-   device time alone (a CUDA graph of 20 calls), and of its library call
-   where it has one;
+   tools/time_kernels.py's tables. K7 runs every attention shape of the
+   train step and four hd-64 edge cases (batch 2, a ragged Sq = Skv =
+   4000, Sq = 1000 and Sq = 37 against Skv = 77), each with its launch
+   plan (`flash_attention_bwd_plan`) and, at hd 64, a bit-identical
+   repeat; the run fails unless both a split and an unsplit dk/dv walk
+   ran. Every case of every kernel reports its device time alone (a CUDA
+   graph of 20 calls), and of its library call where it has one;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -105,6 +109,12 @@ K9_CASES = [
     ("ragged S=7350 H=5", 1, 5, 7350, 7350),
     ("self S=1024 H=10", 1, 10, 1024, 1024),
     ("ragged S=1089 H=2", 1, 2, 1089, 1089)]
+# K7's hd-64 edge cases beyond K7_CASES: (case, B, Sq, Skv, H, hd)
+K7_EDGE_CASES = [
+    ("edge self S=1024 H=10 B=2", 2, 1024, 1024, 10, 64),
+    ("edge ragged self S=4000 H=5", 1, 4000, 4000, 5, 64),
+    ("edge split cross Sq=1000 Skv=77 H=10", 1, 1000, 77, 10, 64),
+    ("edge cross Sq=37 Skv=77 H=10", 1, 37, 77, 10, 64)]
 REL_TOL = 1e-2      # kernel vs plain, bf16 output: max|err| / max|ref|
 STATS_TOL = 1e-3    # folded GN (a, b): emitted stats vs stats of the same y
 LSE_TOL = 1e-3      # K2's logsumexp (fp32) vs the fp32 plain version, abs
@@ -573,15 +583,38 @@ def kernel_phase(dev, results: list):
                f"sdpa[{backend}]", library_device_ms=lib_dev, **report)
 
     # ---- K7 -------------------------------------------------------------
+    # every case with its launch plan (`flash_attention_bwd_plan`); the
+    # hd-64 ones also with a bit-identical repeat. The edge cases (part
+    # "edge", summed apart from the train step's shapes) cross the batch
+    # stride, a ragged Sq = Skv, and the split and unsplit dk/dv walk at
+    # Skv = 77.
     k7 = ("flash_attention_folded_bwd", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
           "img2img_turbo_tpu/ops/attention.py:390")
-    for case, B, Sq, Skv, H, hd, _ in K7_CASES:
+    k7_splits = set()
+    for case, B, Sq, Skv, H, hd, part in (
+            [(*c[:6], None) for c in K7_CASES]
+            + [(*c, "edge") for c in K7_EDGE_CASES]):
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         do = rn(B, Sq, H * hd)
         o, lse = attention.flash_attention_folded(q, k, v, H,
                                                   return_lse=True)
+        plan = attention.flash_attention_bwd_plan(B, H, Sq, Skv, hd)
+        print(f"  {'':26s} K7 {case}: dq grid {plan['dq_grid']} "
+              f"({plan['dq_rows']} Q rows, {plan['dq_kv_tile']}-row KV "
+              f"tiles, {plan['dq_stages']} stages); dk/dv grid "
+              f"{plan['dkv_grid']} ({plan['dkv_rows']} KV rows, "
+              f"{plan['dkv_q_tile']}-row Q tiles, {plan['dkv_stages']} "
+              f"stages), {plan['split']} split(s) of "
+              f"{plan['q_tiles_a_split']} Q tiles; {plan['kernels']} "
+              f"kernels a call", flush=True)
         grads = attention.flash_attention_folded_bwd(q, k, v, o, do, lse, H)
+        if hd == 64:
+            k7_splits.add(plan["split"] > 1)
+            again = attention.flash_attention_folded_bwd(q, k, v, o, do,
+                                                         lse, H)
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(grads, again)):
+                _fail(f"K7 {case}: a repeated call differs")
         refs = attention.attention_bwd_ref(q, k, v, o, do, lse, H)
         errs = [_rel(g_, r_) for g_, r_ in zip(grads, refs)]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -600,8 +633,12 @@ def kernel_phase(dev, results: list):
         flops = 10 * B * Sq * Skv * H * hd
         nbytes = _nbytes(q, k, v, o, do, lse, *grads)
         record(*k7, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               f"sdpa[{backend}] backward", device_ms=dev_ms,
-               library_device_ms=lib_dev, shape=(B, Sq, Skv, H, hd))
+               f"sdpa[{backend}] backward", part=part, device_ms=dev_ms,
+               library_device_ms=lib_dev, shape=(B, Sq, Skv, H, hd),
+               plan=plan)
+    if k7_splits != {False, True}:
+        _fail(f"K7's hd-64 cases did not run both a split and an unsplit "
+              f"dk/dv walk (split seen: {sorted(k7_splits)})")
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)

@@ -52,8 +52,6 @@
 // the long cases are compute-bound (hd = 64, S = 4096: ~22 GFLOP against
 // ~5 MB of traffic); the short ones (Skv = 77, S = 64) are launch-bound.
 
-#include <cuda.h>
-
 #include <chrono>
 
 #include "hopper.cuh"
@@ -282,45 +280,6 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime so that the
-// library needs no -lcuda.
-using EncodeFn = decltype(&cuTensorMapEncodeTiled);
-
-EncodeFn encode_fn() {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                       &res) != cudaSuccess)
-    return nullptr;
-#else
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
-      cudaSuccess)
-    return nullptr;
-#endif
-  return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeFn>(p) : nullptr;
-}
-
-// Returned for a tensor map cuTensorMapEncodeTiled refuses: this base plus
-// its CUresult.
-constexpr int TENSOR_MAP_ERROR = 10000;
-
-// A bf16 (planes, rows, cols) tensor as boxes of 64 columns x box_rows rows
-// of one plane, 128-byte swizzled, zero-filled outside.
-int encode(CUtensorMap* map, const void* base, int cols, int rows, int planes, int box_rows) {
-  static const EncodeFn fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
-}
-
 // What a call does on the host before it enqueues the kernel: the kernel's
 // shared-memory limit, set once per device and host thread (a driver call),
 // and the three tensor maps. folded (B, S, H*hd): head h is columns
@@ -339,9 +298,9 @@ int setup(const void* q, const void* k, const void* v, int B, int Sq, int Skv, i
   }
   if (err != cudaSuccess) return (int)err;
   const int cols = folded ? H * C::HD : C::HD, planes = folded ? B : B * H;
-  int e = encode(&maps[0], q, cols, Sq, planes, C::BQ);
-  if (!e) e = encode(&maps[1], k, cols, Skv, planes, C::BKV);
-  if (!e) e = encode(&maps[2], v, cols, Skv, planes, C::BKV);
+  int e = i2i::tensor_map_3d(&maps[0], q, cols, Sq, planes, C::BQ);
+  if (!e) e = i2i::tensor_map_3d(&maps[1], k, cols, Skv, planes, C::BKV);
+  if (!e) e = i2i::tensor_map_3d(&maps[2], v, cols, Skv, planes, C::BKV);
   return e;
 }
 

@@ -46,8 +46,6 @@
 // bound by streaming the weights, which the plan spreads over as many
 // blocks as it can without splitting K.
 
-#include <cuda.h>
-
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -389,33 +387,10 @@ mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime so that the
-// library needs no -lcuda.
-using EncodeFn = decltype(&cuTensorMapEncodeTiled);
-
-EncodeFn encode_fn() {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                       &res) != cudaSuccess)
-    return nullptr;
-#else
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
-      cudaSuccess)
-    return nullptr;
-#endif
-  return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeFn>(p) : nullptr;
-}
-
-// Returned for a tensor map cuTensorMapEncodeTiled refuses: this base plus
-// its CUresult.
-constexpr int TENSOR_MAP_ERROR = 10000;
-
 // A bf16 (rows, cols) matrix as boxes of 64 columns x box_rows rows,
 // 128-byte swizzled, zero-filled outside.
 int encode(CUtensorMap* map, const void* base, int cols, int rows, int box_rows) {
-  static const EncodeFn fn = encode_fn();
+  static const i2i::EncodeFn fn = i2i::tensor_map_encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
@@ -425,7 +400,7 @@ int encode(CUtensorMap* map, const void* base, int cols, int rows, int box_rows)
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+  return r == CUDA_SUCCESS ? 0 : i2i::TENSOR_MAP_ERROR + (int)r;
 }
 
 // The launch plan. Calls with a LayerNorm or a gate take the panel

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels of this
-// package: cp.async, mbarriers, TMA tensor loads and the warpgroup MMA
-// (wgmma) with its shared-memory descriptors.
+// package: cp.async, mbarriers, TMA tensor and bulk loads, the host-side
+// tensor-map encoder, and the warpgroup MMA (wgmma) with its shared-memory
+// descriptors.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -95,6 +98,60 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- TMA bulk copy: `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) of contiguous global memory into shared memory, completing on
+// `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- host: tensor maps for the TMA loads above. cuTensorMapEncodeTiled is
+// looked up through the runtime so that a library needs no -lcuda.
+using EncodeFn = decltype(&cuTensorMapEncodeTiled);
+
+inline EncodeFn tensor_map_encoder() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                       &res) != cudaSuccess)
+    return nullptr;
+#else
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
+      cudaSuccess)
+    return nullptr;
+#endif
+  return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeFn>(p) : nullptr;
+}
+
+// Returned for a tensor map cuTensorMapEncodeTiled refuses: this base plus
+// its CUresult.
+constexpr int TENSOR_MAP_ERROR = 10000;
+
+// A bf16 (planes, rows, cols) tensor as boxes of 64 columns x box_rows rows
+// of one plane, 128-byte swizzled, zero-filled outside. Returns 0,
+// cudaErrorNotSupported without an encoder, or TENSOR_MAP_ERROR + the
+// CUresult.
+inline int tensor_map_3d(CUtensorMap* map, const void* base, int cols, int rows, int planes,
+                         int box_rows) {
+  static const EncodeFn fn = tensor_map_encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
 // ---- wgmma shared-memory matrix descriptors: start address, the leading

@@ -21,7 +21,9 @@ On the card every attention of the main path goes through the kernels,
 whatever Sq (the TPU's `sq >= 256` dispatch gate was a tiling choice). The
 kernels take hd = 64 (UNet) and hd = 512 (the one-head VAE mid attention);
 other head sizes raise. The forward kernel's tiling is chosen in
-`csrc/attention.cu`, which reports it (`flash_attention_plan`).
+`csrc/attention.cu`, which reports it (`flash_attention_plan`); the
+backward's, with its split of the dk/dv walk and its scratch size, in
+`csrc/attention_bwd.cu` (`flash_attention_bwd_plan`).
 """
 
 from __future__ import annotations
@@ -46,14 +48,35 @@ def _fn():
     return f
 
 
-def _bwd_fn():
+def _bwd_lib():
     lib = _build.load("attention_bwd")
     f = lib.flash_attention_bwd_bf16
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-    return f
+        ws = lib.flash_attention_bwd_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        plan = lib.flash_attention_bwd_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd_plan(b: int, h: int, sq: int, skv: int,
+                             hd: int) -> dict:
+    """K7's launch plan for a call, as `csrc/attention_bwd.cu` chooses it:
+    each kernel's grid, tiles and ring stages, the splits of the dk/dv
+    kernel's Q walk, and the kernels a call launches (CUDA only: the plan
+    lives in the library)."""
+    p = (ctypes.c_int * 15)()
+    _build.check(_bwd_lib().flash_attention_bwd_plan(b, h, sq, skv, hd, p),
+                 "flash_attention_bwd_plan")
+    return dict(dq_grid=tuple(p[0:3]), dq_rows=p[3], dq_kv_tile=p[4],
+                dq_stages=p[5], dkv_grid=tuple(p[6:9]), dkv_rows=p[9],
+                dkv_q_tile=p[10], dkv_stages=p[11], split=p[12],
+                q_tiles_a_split=p[13], kernels=p[14])
 
 
 def _bhsd_fn():
@@ -162,8 +185,10 @@ def flash_attention_folded(q, k, v, num_heads: int, return_lse: bool = False):
 def flash_attention_folded_bwd(q, k, v, o, do, lse, num_heads: int):
     """K7: (dq, dk, dv) of flash_attention_folded from the forward's output
     o and logsumexp lse (B, Sq, H) fp32, and the output cotangent do. One
-    call launches its two kernels (dq, then dk/dv). CPU tensors take the
-    plain version."""
+    call launches its kernels (at hd 64: the delta/lse prologue, dq, dk/dv
+    and, for a split Q walk, the split reduction; at hd 512: dq, dk/dv)
+    into a scratch buffer the library sizes. CPU tensors take the plain
+    version."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, num_heads)
     if q.device.type != "cuda":
@@ -179,17 +204,20 @@ def flash_attention_folded_bwd(q, k, v, o, do, lse, num_heads: int):
         raise ValueError(f"lse: {lse.dtype} {tuple(lse.shape)} on "
                          f"{lse.device}, expected contiguous float32 "
                          f"{(b, sq, num_heads)} on {q.device}")
-    delta = torch.empty_like(lse)
+    lib = _bwd_lib()
+    hd = d // num_heads
+    ws = torch.empty(lib.flash_attention_bwd_workspace_bytes(
+        b, sq, skv, num_heads, hd), device=q.device, dtype=torch.uint8)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _bwd_fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(o), _build.ptr(do), _build.ptr(lse),
-                    _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
-                    _build.ptr(dv), b, sq, skv, num_heads, d // num_heads,
-                    _build.stream())
+    err = lib.flash_attention_bwd_bf16(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+        _build.ptr(do), _build.ptr(lse), _build.ptr(ws), _build.ptr(dq),
+        _build.ptr(dk), _build.ptr(dv), b, sq, skv, num_heads, hd,
+        _build.stream())
     _build.check(err, "flash_attention_bwd_bf16")
     _build.launch_counts["flash_attention_folded_bwd"] += 1
     _build.launch_shapes["flash_attention_folded_bwd",
-                         (b, sq, skv, num_heads, d // num_heads)] += 1
+                         (b, sq, skv, num_heads, hd)] += 1
     return dq, dk, dv
 
 

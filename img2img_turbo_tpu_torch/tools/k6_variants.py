@@ -5,8 +5,9 @@
 
 Each variant is the package copied under `img2img_turbo_tpu_torch/build/
 k6_variants/<name>/` (git-ignored) with `conv.cu` changed by text
-substitutions that must each apply once, built with nvcc on first use, and
-run at `tools/time_kernels.py`'s K6_CASES in a process of its own:
+substitutions that must each apply once, built with nvcc (all variants at
+once, `tools/variants.py`), and run at `tools/time_kernels.py`'s K6_CASES
+in a process of its own:
 
 - th32, th16, th8: the form's tile forced (the split still chosen per call);
   prints each case's device time alone (a CUDA graph of 20 calls);
@@ -23,16 +24,9 @@ Prints the card's name and power limit, then one JSON object per case.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
-import os
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-PKG = Path(__file__).resolve().parent.parent
 SRC = "csrc/conv.cu"
 
 FORM = "for (int th = 32; th >= 8; th /= 2) {"
@@ -97,18 +91,6 @@ def patched(text: str, subs) -> str:
     return head + tail
 
 
-def make(name: str) -> Path:
-    """The variant's checkout root: a copy of the package (less its builds)
-    with conv.cu patched."""
-    root = PKG / "build" / "k6_variants" / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / PKG.name,
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    conv = root / PKG.name / SRC
-    conv.write_text(patched(conv.read_text(), VARIANTS[name]))
-    return root
-
-
 def run_cases(name: str) -> None:
     """In a variant's checkout: time each K6 case, or probe it."""
     import ctypes
@@ -167,34 +149,9 @@ def run_cases(name: str) -> None:
 
 
 def main():
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--only", default=",".join(VARIANTS),
-                   help="comma-separated variants: " + ", ".join(VARIANTS))
-    p.add_argument("--run", help=argparse.SUPPRESS)  # inside a variant
-    args = p.parse_args()
-    if args.run:
-        sys.path.insert(0, os.getcwd())
-        run_cases(args.run)
-        return
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("k6_variants: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    names = args.only.split(",")
-    roots = {n: make(n) for n in names}
-    # build every variant's library at once (one nvcc each), then run them
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
-         "from img2img_turbo_tpu_torch.ops import _build; "
-         "_build.build(['conv'])"], cwd=root) for root in roots.values()]
-    if any(b.wait() for b in builds):
-        sys.exit("k6_variants: a variant did not build")
-    for name, root in roots.items():
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--run", name], cwd=root, check=True)
+    import variants  # beside this script, which is run as a file
+    variants.main(__doc__, __file__, SRC, ["conv"], VARIANTS, patched,
+                  run_cases)
 
 
 if __name__ == "__main__":

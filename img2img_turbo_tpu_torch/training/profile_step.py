@@ -6,8 +6,10 @@ Builds the full-width paired run of chip_smoke.py's train phase (seeded
 random weights, 512x512 b1, bf16 activations, UNet remat), runs one step of
 the kernel path and one of the plain path to warm up, then one step of each
 under torch.profiler, and prints for each: the step's wall time, the device
-time summed over its GPU kernels, the number of GPU kernels, and the GPU
-kernels that take the most device time, with their counts. Needs a CUDA
+time summed over its GPU kernels, the number of GPU kernels, the GPU
+kernels that take the most device time, with their counts, and the
+package's hand-written kernels by the TPU kernel each replaces (`KERNELS`:
+launches and device time a step; the rest is PyTorch's). Needs a CUDA
 card; prints the card's name and power limit first.
 """
 
@@ -22,6 +24,21 @@ import torch
 
 SIZE = 512     # the train phase's image size
 TOP = 30       # GPU kernels listed per path
+# The package's kernels by the TPU kernel each replaces, matched in order
+# on the GPU kernel's name: (label, substrings). K1 and K4 share
+# conv_kernel, told apart by its mode (0 same, 1 upsample); K7's hd-64
+# kernels live in namespace h64.
+KERNELS = (
+    ("K1 conv", ("conv_kernel<0", "split_epilogue<false")),
+    ("K4 upsample conv", ("conv_kernel<1", "split_epilogue<true")),
+    ("K8 du", ("dgrad_kernel", "dgrad_reduce")),
+    ("K6 downsample conv", ("down_kernel", "down_reduce")),
+    ("K3 fused matmul", ("mm_kernel",)),
+    ("K2 attention", ("flash_kernel",)),
+    ("K7 attention bwd hd 64", ("h64::",)),
+    ("K7 attention bwd hd 512", ("bwd_dq_kernel", "bwd_dkv_kernel")),
+    ("K5 group norm stats", ("partial_stats",)),
+)
 
 
 def _profile_step(step, state, batch, noise):
@@ -48,6 +65,17 @@ def _profile_step(step, state, batch, noise):
     for name, (cnt, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[
             :TOP]:
         print(f"    {ms:9.3f} ms {cnt:6d}x  {name[:110]}", flush=True)
+    by = {label: [0, 0.0] for label, _ in KERNELS}
+    by["PyTorch (everything else)"] = [0, 0.0]
+    for name, (cnt, ms) in kernels.items():
+        label = next((lb for lb, keys in KERNELS
+                      if any(k in name for k in keys)),
+                     "PyTorch (everything else)")
+        by[label][0] += cnt
+        by[label][1] += ms
+    print("  by kernel (GPU kernels launched, device ms):", flush=True)
+    for label, (cnt, ms) in by.items():
+        print(f"    {ms:9.3f} ms {cnt:6d}x  {label}", flush=True)
 
 
 def main():

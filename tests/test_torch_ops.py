@@ -590,6 +590,8 @@ class TestWrapperRules:
         tgn.partial_stats(x)
         q = torch.randn(1, 8, 64).bfloat16()
         tattn.flash_attention_folded(q, q, q, 1)
+        tattn.flash_attention_folded_bwd(q, q, q, q, q,
+                                         torch.zeros(1, 8, 1), 1)
         tfm.fused(x, (torch.randn(16, 8),), (torch.zeros(16),))
         tfc.conv3x3_input_grad(x, tfc.pack_weights(torch.randn(3, 3, 16, 8)),
                                16)

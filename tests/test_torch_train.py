@@ -90,7 +90,8 @@ def _rel_l2(got, want):
 @pytest.mark.parametrize("b,sq,skv,heads,hd", [
     (1, 37, 37, 2, 16),      # ragged Sq
     (2, 50, 77, 3, 8),       # Skv = 77 (cross-attention), several heads
-    (1, 64, 24, 1, 64)])
+    (1, 64, 24, 1, 64),
+    (1, 130, 77, 2, 64)])    # hd 64, ragged Sq, cross-attention Skv = 77
 def test_attention_backward_matches_jax_vjp(b, sq, skv, heads, hd):
     rng = np.random.RandomState(sq + skv)
     d = heads * hd
