@@ -13,6 +13,13 @@ Phases, each fatal on failure:
    the least time the card could take (`bound_ms`, from the H100's
    published peaks) and, where one PyTorch call computes the same function,
    that call's time (`library_ms`, timed here, never called by the port).
+   K1's forward and K4 run every shape of a 512x512 request, a train step
+   and an 840x560 request (tools/time_kernels.py K1_CASES, K4_CASES), each
+   with the form the engine picks (`conv_plan`), its stats and a
+   bit-identical repeat, K1 beside cuDNN's conv alone on the activated
+   input; the run fails unless every form ran, and their times are
+   weighted per 512x512 request and per train step by the launches their
+   wrappers counted by shape, which must match those tables.
    K2 runs every attention shape of the paths, each with its launch plan
    (grid and waves, as the library reports it), and its times are also
    weighted by the launches the wrapper counted at each shape in one
@@ -201,9 +208,9 @@ def kernel_phase(dev, results: list):
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
     from img2img_turbo_tpu_torch.tools.time_kernels import (
-        DU_CASES, K1_CASES, K3_SHAPES, K4_CASES, K5_CASES, K6_CASES,
-        K6_PATH_CASES, K7_CASES, device_ms, k3_name, one_call_ms as _time_ms,
-        sdpa, sdpa_backward)
+        DU_CASES, K1_CASES, K1_PATH_CASES, K3_SHAPES, K4_CASES, K5_CASES,
+        K6_CASES, K6_PATH_CASES, K7_CASES, conv_alone, device_ms, k3_name,
+        one_call_ms as _time_ms, sdpa, sdpa_backward)
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -241,12 +248,48 @@ def kernel_phase(dev, results: list):
                             library_device_ms=library_device_ms,
                             library=library, part=part, **extra))
 
-    # ---- K1 -------------------------------------------------------------
+    # ---- K1: every forward shape of the paths (tools/time_kernels.py
+    # K1_CASES: a 512x512 request, a train step and an 840x560 request),
+    # each with the form the engine picks (`conv_plan`), against the exact
+    # version with its stats, and a repeated call bit-identical; timed as
+    # its path calls it (stats or not) beside the plain path's composition
+    # and cuDNN's conv alone on the activated input (`conv_alone`, not K1's
+    # function: no library call computes K1's). The run fails unless every
+    # form ran: the 16 x 8 and 32 x 8 tiles, the small-N form (Co <= 32),
+    # the 16-channel form (C not a multiple of 8), split and unsplit.
     k1 = ("fused_gn_silu_conv3x3", "cuda",
           "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1083")
+    k1_forms = set()
 
-    for case, B, H, W, C, Co, norm, has_eb, has_res, csk in K1_CASES:
+    def form_str(f):
+        return (f"{f['tile_rows']}x8 tile, {f['channels_a_block']} channels a "
+                f"block, {f['channels_a_step']}-channel steps (skip "
+                f"{f['skip_channels_a_step']}), {f['blocks_an_sm']} block(s) "
+                f"an SM, {f['stages']}-stage ring, {f['splits']} split(s) of "
+                f"{f['units_a_split']} units, {f['blocks']} blocks")
+
+    def check_stats(name, case, y, st, count):
+        co = y.shape[-1]
+        one = torch.ones(co, device=dev)
+        zero = torch.zeros(co, device=dev)
+        ng = 32 if co % 32 == 0 else 1
+        ca = gn.combine_stats(st, one, zero, ng, 1e-6, count)
+        cr = gn.combine_stats(fc.output_stats(y), one, zero, ng, 1e-6, count)
+        serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
+        if not serr <= STATS_TOL:
+            _fail(f"{name} {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
+        return serr
+
+    for idx, (case, B, H, W, C, Co, norm, has_eb, has_res, csk, stats,
+              *_) in enumerate(K1_CASES):
+        form = fc.conv_plan(B, H, W, C, Co, csk)
+        k1_forms.add(f"{form['tile_rows']}x8")
+        k1_forms.add("split" if form["splits"] > 1 else "unsplit")
+        if form["channels_a_block"] < 128:
+            k1_forms.add("small-N")
+        if form["channels_a_step"] == 16:
+            k1_forms.add("16-channel")
         x = rn(B, H, W, C)
         w = rn(3, 3, C, Co, scale=1 / math.sqrt(9 * C))
         bias = rn(Co, scale=0.1, dtype=torch.float32)
@@ -263,39 +306,50 @@ def kernel_phase(dev, results: list):
             skw = rn(csk, Co, scale=1 / math.sqrt(csk))
         wp = fc.pack_weights(w)
         skwp = None if skw is None else fc.pack_weights(skw)
-        y, st = fc.fused_gn_silu_conv3x3(x, w, bias, a, b, eb, res, skx, skw,
-                                         emit_stats=True, w_packed=wp,
-                                         skip_w_packed=skwp)
+
+        def call(st=stats):
+            return fc.fused_gn_silu_conv3x3(
+                x, w, bias, a, b, eb, res, skx, skw, emit_stats=st,
+                w_packed=wp, skip_w_packed=skwp)
+        y, st = call(True)
+        y2, st2 = call(True)
+        if not (torch.equal(y, y2) and torch.equal(st, st2)) or \
+                not torch.equal(y, call(False)[0]):
+            _fail(f"K1 {case}: a repeated call, or one without stats, gave "
+                  f"another y or stats")
         yr, _ = fc.conv3x3_ref(x, w, bias, a, b, eb, res, skx, skw)
         err, rel = _rel(y, yr)
-        one = torch.ones(Co, device=dev)
-        zero = torch.zeros(Co, device=dev)
-        ng = 32 if Co % 32 == 0 else 1
-        ca = gn.combine_stats(st, one, zero, ng, 1e-6, H * W)
-        cr = gn.combine_stats(fc.output_stats(y), one, zero, ng, 1e-6, H * W)
-        serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
-        if serr > STATS_TOL:
-            _fail(f"K1 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
-        call = lambda: fc.fused_gn_silu_conv3x3(  # noqa: E731
-            x, w, bias, a, b, eb, res, skx, skw, emit_stats=True,
-            w_packed=wp, skip_w_packed=skwp)
+        serr = check_stats("K1", case, y, st, H * W)
         ms, dev_ms = _time_ms(call), device_ms(call)
         w_oihw = oihw(w)
         skw_oihw = None if skw is None else oihw(skw)
         pms = _time_ms(lambda: fc.gn_silu_conv3x3_plain(
             x, w_oihw, bias, a, b, eb, res, skx, skw_oihw))
+        alone = conv_alone(x, w, a, b)
+        alone_ms, alone_dev = _time_ms(alone), device_ms(alone)
         flops = 2 * B * H * W * Co * (9 * C + csk)
-        nbytes = _nbytes(x, wp, bias, a, b, eb, res, skx, skwp, y, st)
+        nbytes = _nbytes(x, wp, bias, a, b, eb, res, skx, skwp, y,
+                         st if stats else None)
         lms = lib = lib_dev = None
-        if not norm and not has_eb and not has_res and not csk:
-            # prologue-free: one cuDNN convolution computes the same
+        if not (norm or has_eb or has_res or csk or stats):
+            # one cuDNN convolution with its bias computes the same
             xc, bb = x.permute(0, 3, 1, 2), bias.to(bf)
             lib_call = lambda: F.conv2d(xc, w_oihw, bb,  # noqa: E731
                                         padding=1)
             lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
             lib = "F.conv2d"
+        print(f"  {'':26s} {case}: {form_str(form)}; stats rel "
+              f"{serr:.1e}, repeat bit-identical; device {dev_ms:.4f}ms, "
+              f"conv alone device {alone_dev:.4f}ms", flush=True)
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               lib, device_ms=dev_ms, library_device_ms=lib_dev)
+               lib, device_ms=dev_ms, library_device_ms=lib_dev,
+               conv_alone_ms=alone_ms, conv_alone_device_ms=alone_dev,
+               shape=(B, H, W, C, Co, norm, has_eb, has_res, csk, stats),
+               form=form, part=None if idx < K1_PATH_CASES else "forms")
+    every = {"16x8", "32x8", "small-N", "16-channel", "split", "unsplit"}
+    if k1_forms != every:
+        _fail(f"K1 ran the forms {sorted(k1_forms)} of {sorted(every)}: add "
+              f"a case to tools/time_kernels.py K1_CASES that takes the rest")
 
     # ---- K8's du: the input gradient of the train step's fused GN convs
     # at every shape the step runs (and three it does not), the du kernel
@@ -336,10 +390,15 @@ def kernel_phase(dev, results: list):
                "F.conv_transpose2d", part="du", device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, H, W, C, Co))
 
-    # ---- K4 -------------------------------------------------------------
+    # ---- K4: every upsample of the paths (K4_CASES), each with its form,
+    # against the exact version with its stats, a repeat bit-identical;
+    # the run fails unless both a split and an unsplit call ran
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1758")
-    for case, B, H, W, C, Co, csk in K4_CASES:
+    k4_splits = set()
+    for case, B, H, W, C, Co, csk, stats, *_ in K4_CASES:
+        form = fc.conv_plan(B, H, W, C, Co, csk, up=True)
+        k4_splits.add(form["splits"] > 1)
         x = rn(B, H, W, C)
         w = rn(3, 3, C, Co, scale=1 / math.sqrt(9 * C))
         wp = fc.pack_weights(fc.fold_upsample_weights(w))
@@ -349,20 +408,19 @@ def kernel_phase(dev, results: list):
             skx = rn(B, 2 * H, 2 * W, csk)
             skw = rn(csk, Co, scale=1 / math.sqrt(csk))
         skwp = None if skw is None else fc.pack_weights(skw)
-        y, st = fc.upsample2x_conv3x3(x, w, bias, skx, skw, emit_stats=True,
-                                      w_packed=wp, skip_w_packed=skwp)
+
+        def call(st=stats):
+            return fc.upsample2x_conv3x3(x, w, bias, skx, skw, emit_stats=st,
+                                         w_packed=wp, skip_w_packed=skwp)
+        y, st = call(True)
+        y2, st2 = call(True)
+        if not (torch.equal(y, y2) and torch.equal(st, st2)) or \
+                not torch.equal(y, call(False)[0]):
+            _fail(f"K4 {case}: a repeated call, or one without stats, gave "
+                  f"another y or stats")
         yr, _ = fc.upsample2x_conv3x3_ref(x, w, bias, skx, skw)
         err, rel = _rel(y, yr)
-        one, zero = torch.ones(Co, device=dev), torch.zeros(Co, device=dev)
-        ca = gn.combine_stats(st, one, zero, 32, 1e-6, 4 * H * W)
-        cr = gn.combine_stats(fc.output_stats(y), one, zero, 32, 1e-6,
-                              4 * H * W)
-        serr = max(_rel(ca[0], cr[0])[1], _rel(ca[1], cr[1])[1])
-        if serr > STATS_TOL:
-            _fail(f"K4 {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
-        call = lambda: fc.upsample2x_conv3x3(  # noqa: E731
-            x, w, bias, skx, skw, emit_stats=True, w_packed=wp,
-            skip_w_packed=skwp)
+        serr = check_stats("K4", case, y, st, 4 * H * W)
         ms, dev_ms = _time_ms(call), device_ms(call)
         w_oihw = oihw(w)
         skw_oihw = None if skw is None else oihw(skw)
@@ -370,9 +428,16 @@ def kernel_phase(dev, results: list):
             x, w_oihw, bias, skx, skw_oihw))
         # four phases of 2x2 taps on the low-resolution input
         flops = 2 * B * 4 * H * W * Co * (4 * C + csk)
-        nbytes = _nbytes(x, wp, bias, skx, skwp, y, st)
+        nbytes = _nbytes(x, wp, bias, skx, skwp, y, st if stats else None)
+        print(f"  {'':26s} {case}: {form_str(form)} (a tile of the "
+              f"low-resolution input, four phases); stats rel {serr:.1e}, "
+              f"repeat bit-identical; device {dev_ms:.4f}ms", flush=True)
         record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
-               device_ms=dev_ms)
+               device_ms=dev_ms, shape=(B, H, W, C, Co, csk, stats),
+               form=form)
+    if k4_splits != {False, True}:
+        _fail(f"K4 did not run both a split and an unsplit call (split seen: "
+              f"{sorted(k4_splits)})")
 
     # ---- K6: every downsample shape of the paths, and one more at which
     # the kernel takes the 32 x 8 tile with a split (summed apart, as
@@ -654,6 +719,10 @@ def kernel_phase(dev, results: list):
             x, w, bias),
         "K4 unfolded weights": lambda: fc.upsample2x_conv3x3(
             x, w, bias, w_packed=wp),
+        "K1 skip channels not a multiple of 8": lambda:
+            fc.fused_gn_silu_conv3x3(
+                x, w, bias, skip_x=rn(1, 8, 8, 12), skip_w=rn(12, 64),
+                w_packed=wp, skip_w_packed=fc.pack_weights(rn(12, 64))),
         "K3 C not a multiple of 8": lambda: fm.fused(
             rn(4, 12), (rn(16, 12),), (torch.zeros(16, device=dev),)),
         "K3 JAX-layout (C, Co) weight": lambda: fm.fused(
@@ -786,8 +855,9 @@ def main():
     kernel_phase(dev, results)
     torch.cuda.synchronize()
 
-    summary: dict = {"paths": {}, "k2_shapes": {}, "k3_shapes": {},
-                     "k6_shapes": {}, "k7_shapes": {}, "du_shapes": {}}
+    summary: dict = {"paths": {}, "k1_shapes": {}, "k2_shapes": {},
+                     "k3_shapes": {}, "k4_shapes": {}, "k6_shapes": {},
+                     "k7_shapes": {}, "du_shapes": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
@@ -837,10 +907,36 @@ def main():
     print("du per_step: " + ", ".join(
         f"{n}={k1['du']['per_step'][n]:.4f}ms" for n in du_keys)
         + f" over {TRAIN_DU_LAUNCHES} launches", flush=True)
+    # K1's forward and K4 per 512x512 request and per train step, weighted
+    # by their launches there, which must be the tables of
+    # tools/time_kernels.py (K1_CASES, K4_CASES; the du's launches, counted
+    # as K1's, are not in K1's table)
+    from img2img_turbo_tpu_torch.tools.time_kernels import (
+        K1_CASES, K4_CASES, K6_CASES, K7_CASES)
+    conv_keys = du_keys + ("conv_alone_ms", "conv_alone_device_ms")
+    for e, cases, width, keys in ((k1, K1_CASES, 10, conv_keys),
+                                  (next(e for e in kernels if e["name"] ==
+                                        "upsample2x_conv3x3"), K4_CASES, 7,
+                                   du_keys)):
+        rs = [r for r in results if r["name"] == e["name"] and not r["part"]]
+        for key, path, col in (("per_request", "serve", width + 1),
+                               ("per_step", "train", width + 2)):
+            table = {tuple(c[1:width + 1]): c[col] for c in cases if c[col]}
+            kname = "k1" if e is k1 else "k4"
+            if summary[f"{kname}_shapes"][path] != table:
+                _fail(f"{e['name']} launches by shape on the {path} path "
+                      f"{summary[f'{kname}_shapes'][path]} differ from "
+                      f"tools/time_kernels.py {kname.upper()}_CASES {table}")
+            launches = paths[path][e["name"]] - (
+                TRAIN_DU_LAUNCHES if e is k1 and path == "train" else 0)
+            e[key] = _weighted(rs, table, launches, path, keys)
+            print(f"{kname.upper()} {key}: " + ", ".join(
+                f"{n}={e[key][n]:.4f}ms" for n in keys
+                if e[key][n] is not None)
+                + f" over {launches} launches", flush=True)
     # K6 per 512x512 request and per train step, and K7 per train step at
     # each head dim, weighted by their launches there, which must be the
     # tables of tools/time_kernels.py (K6_CASES, K7_CASES)
-    from img2img_turbo_tpu_torch.tools.time_kernels import K6_CASES, K7_CASES
     k6 = next(e for e in kernels if e["name"] == "downsample2x_conv3x3")
     k6_cases = [r for r in results if r["name"] == k6["name"]]
     for key, path, col in (("per_request", "serve", 7),
@@ -935,9 +1031,11 @@ def _rel_l2(a, b) -> float:
 
 
 def _shapes(kernel: str) -> dict:
-    """A kernel's launches by shape (K2 and K7: (B, Sq, Skv, H, hd); K3:
-    (M, C, Co, outputs, LN, gate, residual); K6: (B, H, W, C, Co, pad_lo);
-    the du: (B, H, W, C, Co)) since the counters were last reset."""
+    """A kernel's launches by shape (K1: (B, H, W, C, Co, GN prologue,
+    extra bias, residual, Csk, stats); K4: (B, H, W, C, Co, Csk, stats); K2
+    and K7: (B, Sq, Skv, H, hd); K3: (M, C, Co, outputs, LN, gate,
+    residual); K6: (B, H, W, C, Co, pad_lo); the du: (B, H, W, C, Co)) since
+    the counters were last reset."""
     from img2img_turbo_tpu_torch.ops import _build
     return {shape: n for (name, shape), n in _build.launch_shapes.items()
             if name == kernel}
@@ -981,8 +1079,10 @@ def engine_phase(dev, summary):
     r = fast.run(img512, caption, gen(1))
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
+    summary["k1_shapes"]["serve"] = _shapes("fused_gn_silu_conv3x3")
     summary["k2_shapes"]["serve"] = _shapes("flash_attention_folded")
     summary["k3_shapes"]["serve"] = _shapes("fused_matmul")
+    summary["k4_shapes"]["serve"] = _shapes("upsample2x_conv3x3")
     summary["k6_shapes"]["serve"] = _shapes("downsample2x_conv3x3")
     print(f"  launches in one 512x512 request: {counts}", flush=True)
     if counts != EXPECTED_LAUNCHES:
@@ -1338,6 +1438,10 @@ def train_phase(dev, summary):
                 grads1[k] = gr
                 if k:
                     counts = dict(_build.launch_counts)
+                    summary["k1_shapes"]["train"] = _shapes(
+                        "fused_gn_silu_conv3x3")
+                    summary["k4_shapes"]["train"] = _shapes(
+                        "upsample2x_conv3x3")
                     summary["k2_shapes"]["train"] = _shapes(
                         "flash_attention_folded")
                     summary["k3_shapes"]["train"] = _shapes("fused_matmul")

@@ -20,33 +20,70 @@
 //       fp32 accumulation, one rounding; dgrad_kernel below, a kernel of its
 //       own.
 //
-// The engine (K1, K4): a block (two warpgroups) owns a 16 x 8 tile of
-// (low-resolution, for K4) pixels and 128 output channels. For each
-// 32-channel chunk it loads the tile's input with a one-pixel halo ONCE into
-// shared memory, applying the GroupNorm affine + SiLU prologue in fp32 on the
-// way and rounding once to bf16; outside the image the halo is zero AFTER
-// activation (SAME padding of the activated tensor). Every tap then reads
-// that halo in place: the 9 taps of K1, or for K4 phase (a, b) the 4 taps at
-// offsets (a+p, b+q) with the folded weights. The halo is stored as wgmma's
-// no-swizzle core matrices ([channel/8][pixel][8]): a tile row is 8 pixels,
-// so the 64 rows of one warpgroup's m64 operand are 8 core matrices at a
-// fixed stride (one halo row) for every tap. Weights are packed once at load
-// as (taps, C/8, Co, 8), the K-major core-matrix layout of the B operand, and
-// stream through a 4-stage cp.async ring. The 1x1 skip (resnet shortcut or
-// VAE zero-conv) continues the same accumulation over a tile of skip_x.
+// The engine (K1, K4), conv_kernel: an implicit GEMM with M = a block's
+// pixels, N = its output channels and K = taps x C, walked as (chunk, tap)
+// steps, then the 1x1 skip's (resnet shortcut or VAE zero-conv) steps over
+// a tile of skip_x that continue the same accumulation. conv_form picks a
+// form per call: a 16 x 8 tile over 128 output channels, two blocks an SM;
+// a small-N form for Co <= 32 (the conv_outs: 32 channels, m64n32, on a
+// 32 x 8 tile, two m64 tiles a warpgroup, or on the 16 x 8 one for small
+// grids); a 16-channel form for C not a multiple of 8 (the conv_ins); a
+// split over the chunks for grids under one wave; and for K4 a
+// 16 x 8 tile of the low-resolution input and 64 output channels, each
+// warpgroup taking 8 of its rows in all four phases of the 32 x 16 output
+// (four m64 tiles). The design:
+// - The chunk's halo (the tile and a one-pixel border) is loaded ONCE into
+//   shared memory with the GroupNorm affine + SiLU prologue applied in fp32
+//   and rounded once to bf16, zero outside the image AFTER activation (SAME
+//   padding of the activated tensor) and past C; every tap reads it in
+//   place (K4: phase (a, b) reads the offsets (a+p, b+q) of its folded 2x2
+//   taps, so one halo serves all four phases). It is stored as wgmma's
+//   no-swizzle core matrices ([channel/8][pixel][8]): a tile row is 8
+//   pixels, so an m64 operand is 8 core matrices one halo row apart for
+//   every tap. Halos are double-buffered: the next chunk's goes raw from
+//   device memory into the other buffer by cp.async at the current
+//   chunk's tap 1 (zero-filled outside the image and past C), is waited
+//   for LEAD steps later with the weight ring's own count, and is then
+//   activated in place in slices, each while a step's wgmma group runs,
+//   so the prologue's copies and arithmetic overlap the tensor cores with
+//   no barrier but the step's own. The conv_ins (C = 3, 4, rows not 16-byte
+//   aligned) load their halo by element instead.
+// - A step is one (chunk, tap): 64 channels, four k16 wgmmas per m64 tile
+//   (K4: four weight tiles, one per phase). One committed
+//   group stays in flight across the next step's barrier (wgmma_wait<1>):
+//   weight tiles are loaded LEAD steps ahead by cp.async into a ring of
+//   LEAD + 2 stages, so the stage being refilled was read two steps back,
+//   by a group that has retired. A skip step's skip_x tile and weights
+//   share a ring stage. Each tile's first wgmma writes with scale_d = 0 and
+//   reg_fence pins the accumulators across the group in flight. Weights are
+//   packed once at load as (taps, C/8, Co, 8), the K-major core-matrix
+//   layout of the B operand.
+// - The epilogue stages the fp32 tile in shared memory (over the halos and
+//   the ring); each thread then takes 8 channels of a pixel, adds bias, the
+//   per-(batch, channel) extra bias and the residual (a 16-byte read) in
+//   fp32, rounds once, writes y in one 16-byte store and sums the stats of
+//   the rounded values, added over the tile's row groups in a fixed order.
+//   Grids under one wave split the chunks (split-K): each split writes its
+//   fp32 partial sums to a workspace the wrapper allocates, and conv_reduce
+//   adds them in split order, 8 channels a thread, with the same epilogue.
+//   Stats are per-tile partial sums (B, tiles, 2, Co) in the form's tiles,
+//   without atomics: every run is bit-identical.
 //
-// The engine's epilogue sums bias, the per-(batch, channel) extra bias and
-// the residual in fp32 and rounds once; stats are per-block partial sums of
-// the stored (rounded) y, written as (B, n_tiles, 2, Co) without atomics, so
-// every run is bit-identical.
-//
-// What bounds the engine on the H100: the UNet/VAE convolutions are compute
-// bound (hundreds of FLOPs per byte). Each step waits for its wgmma group
-// before the next barrier, and loads share the compute warps (no TMA, no warp
-// specialisation yet). Grids under one wave of blocks (the UNet's 8x8 and
-// 16x16 levels) split the channel chunks over several blocks (split-K): each
-// writes fp32 partial sums to a workspace the wrapper allocates, and a second
-// kernel adds them in a fixed order and runs the epilogue.
+// What bounds the engine on the H100, as measured (tools/k1_variants.py; an
+// H100 80GB HBM3 at 700 W): the VAE's and UNet's convs are compute bound
+// (hundreds of FLOPs per byte), and the engine reaches 31-38% of the bf16
+// bound on the VAE's, 17-29% on the UNet's 64^2 and 32^2 levels, K4 28-34%
+// on the VAE's. A 16 x 8 block, two sharing an SM, takes ~2,070 cycles a
+// step whose wgmmas need ~490: a third of it issuing the step's cp.async
+// copies (4 a thread for a weight tile, 8 for K4's four), a fifth its
+// slice of the activation (two MUFU operations an element), most of the
+// rest issuing its wgmmas behind the other block's; each block's prologue
+// (the first halo from device memory, activated whole) and epilogue add a
+// third again. TMA bulk copies of the weight tiles, one thread or one
+// warp issuing them onto an mbarrier a stage, were slower, and so were the
+// 32 x 8 tile and the 16 x 8 one at one block an SM with a deeper ring. The
+// small-N conv_outs (Co = 3, 4, 8) are bound by their halos' copies and
+// SiLU over 128-512 input channels, at ~6x their byte bound.
 
 #include "hopper.cuh"
 
@@ -60,23 +97,15 @@ using i2i::smem_desc;
 
 namespace {
 
-constexpr int TH = 16, TW = 8;          // pixel tile: 16 rows x 8 columns
-constexpr int BM = TH * TW;             // GEMM rows per block (2 x m64)
+constexpr int TW = 8;                   // pixel tile columns: one core-matrix row
+constexpr int BM = 16 * TW;             // the du's GEMM rows per m64 pair (16 x 8 tile)
 constexpr int BN = 128;                 // output channels per block
-constexpr int BK = 32;                  // channels per chunk
-constexpr int KCH = BK / 8;             // 8-channel core-matrix columns
 constexpr int NT = 256;                 // threads: two warpgroups
 constexpr int HWD = TW + 2;             // halo width
-constexpr int HALO_PIX = (TH + 2) * HWD;
-constexpr int A_CHUNKS = HALO_PIX * KCH;
-constexpr int A_PER_T = (A_CHUNKS + NT - 1) / NT;
-constexpr int STAGES = 4;               // weight-tile ring depth
-constexpr int B_STAGE = KCH * BN * 8;   // bf16 elements per weight tile
-constexpr int B_PER_T = KCH * BN / NT;
 constexpr int NUM_SMS = 132;
+constexpr int SMEM_SM = 232448;         // shared memory one block may take
 // modes of the engine
 constexpr int SAME = 0, UP2 = 1;
-constexpr int CONV_SMEM = KCH * HALO_PIX * 16 + STAGES * B_STAGE * 2 + 8 * 2 * BN * 4;
 
 struct ConvArgs {
   const bf16* x;      // (B, H, W, C); the low-resolution input for K4
@@ -90,322 +119,533 @@ struct ConvArgs {
   const bf16* skx;    // (B, Ho, Wo, Csk) or null
   const bf16* skw;    // packed (1, Csk/8, CoP, 8)
   bf16* y;            // (B, Ho, Wo, Co)
-  float* stats;       // (B, n_tiles, 2, Co) or null
+  float* stats;       // (B, tiles, 2, Co) or null
   float* ws;          // split-K: (splits, B, Ho, Wo, Co) fp32 partial sums
-  int splits, chunks_per_split;
+  int splits, chunks_per_split;  // the engine: units (chunks) a split
   int B, H, W, C, Co, Csk, CoP;
-  int tiles_w, tiles;  // pixel tiles per row of tiles / per image (phase)
-  int vec_a;           // C and Csk are multiples of 8
+  int tiles_w, tiles;  // pixel tiles per row of tiles / per image
 };
 
-// Two blocks per SM: caps the kernel at 128 registers a thread (uncapped it
-// takes 135, and one block alone cannot hide its own barrier stalls).
-template <int MODE, bool NORM>
-__global__ void __launch_bounds__(NT, 2) conv_kernel(ConvArgs p) {
-  constexpr bool UP = MODE == UP2;
-  constexpr int T = UP ? 4 : 9;
-  constexpr int HP = HALO_PIX;
+// SiLU in fp32 with the fast exponential and division (two MUFU operations
+// an element); the prologue rounds its result once to bf16.
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.0f + __expf(-v));
+}
+
+// The engine's forms. A block owns a pixel tile and BNW output channels and
+// walks (chunk, tap) steps of DBK input channels, then the 1x1 skip's steps
+// of SKB channels:
+// - SAME (K1): a TH x 8 tile, TH = 16 MT; warpgroup wg takes tile rows
+//   8 MT wg .. 8 MT wg + 8 MT - 1, MT m64 tiles; 9 taps a chunk, every tile
+//   on the same weight tile;
+// - UP2 (K4): a 16 x 8 tile of the low-resolution input and all four
+//   phases of its 32 x 16 output; warpgroup wg takes tile rows 8 wg ..
+//   8 wg + 7 in each phase (MT = 4), 4 taps a chunk, each phase on its own
+//   weight tile (a stage holds the four).
+template <int MODE, int MT_, int BNW, int DBK_, int BPS>
+struct Eng {
+  static constexpr bool UP = MODE == UP2;
+  static constexpr int MT = MT_;                      // m64 tiles a warpgroup
+  static constexpr int TH = UP ? 16 : 16 * MT;        // tile rows
+  static constexpr int PIX = TH * TW;                 // tile pixels
+  static constexpr int ROWS = 128 * MT;               // GEMM rows a block
+  static constexpr int NPH = UP ? 4 : 1;              // weight tiles a stage
+  static constexpr int T = UP ? 4 : 9;                // taps a chunk
+  static constexpr int DBK = DBK_;
+  static constexpr int KCH = DBK / 8;
+  static constexpr int HALO_PIX = (TH + 2) * HWD;
+  // entries per 8-channel group: odd in 16-byte units, so the 8 groups of
+  // one pixel's 128 bytes land in distinct banks
+  static constexpr int HPS = HALO_PIX + 1;
+  static constexpr int HALO = KCH * HPS * 8;          // bf16 a halo buffer
+  static constexpr int STAGE = NPH * KCH * BNW * 8;   // bf16 a ring stage
+  // a skip step's A tile [SKB/8][ROWS][8] and B tile [SKB/8][BNW][8] share
+  // a stage
+  static constexpr int SKB = 64 * (ROWS + BNW) <= STAGE ? 64 : 32 * (ROWS + BNW) <= STAGE ? 32 : 16;
+  static constexpr bool SKIP_OK = SKB * (ROWS + BNW) <= STAGE;
+  static constexpr int FIT = (SMEM_SM / BPS - 1024 - 4 * HALO) / (2 * STAGE);
+  // the next chunk's halo, issued at a chunk's tap 1, is waited for LEAD
+  // steps later with the ring's own count: LEAD <= T - 2 where a pass then
+  // activates it (K1), T - 1 where none does (K4)
+  static constexpr int CAP = UP ? T + 1 : T;
+  static constexpr int STAGES = FIT < CAP ? FIT : CAP;  // weight ring depth
+  // steps loaded ahead: a stage is refilled two steps after it was read
+  static constexpr int LEAD = STAGES - 2;
+  static_assert(LEAD >= 1, "weight ring depth");
+  static constexpr int MAIN = (2 * HALO + STAGES * STAGE) * 2;
+  // the epilogue's fp32 tile [ROWS][OUT_LDF] (rows 8 banks apart, so a
+  // half-warp's float2 stores of 4 rows hit 32 banks) and its stats scratch
+  // [RG][2][BNW]: RG row groups of NT / RG threads, 8 channels each
+  static constexpr int OUT_LDF = BNW + 8;
+  static constexpr int RG = NT / (BNW / 8);
+  static constexpr int EPI = ROWS * OUT_LDF * 4 + RG * 2 * BNW * 4;
+  static constexpr int SMEM = MAIN > EPI ? MAIN : EPI;
+  static_assert(SMEM <= SMEM_SM / BPS - 1024, "shared memory");
+  // a thread's halo words: pixels tid / KCH + NT / KCH * t, channel group
+  // tid % KCH (fixed); the activation pass takes them in slices over the
+  // taps from 1 + LEAD on
+  static_assert(NT % KCH == 0, "a thread's channel group is fixed");
+  static constexpr int HWORDS = (HALO_PIX + NT / KCH - 1) / (NT / KCH);
+  static constexpr int SLICES = T - 1 - LEAD > 0 ? T - 1 - LEAD : 1;
+  static constexpr int PER_SLICE = (HWORDS + SLICES - 1) / SLICES;
+  static_assert(!UP || MT == 4, "K4: an m64 tile a phase");
+  // UP: the phase of warpgroup wg's m64 tile m, and its first tile row
+  static __device__ __forceinline__ int phase(int wg, int m) { return m; }
+  static __device__ __forceinline__ int prow(int wg) { return 8 * wg; }
+  // GEMM row of warpgroup wg's m64 tile m: SAME rows 64 (MT wg + m) ..;
+  // UP the rows of its phase's pixels from 8 prow
+  static __device__ __forceinline__ int row0(int wg, int m) {
+    return UP ? PIX * phase(wg, m) + 8 * prow(wg) : 64 * (MT * wg + m);
+  }
+};
+
+// y = conv3x3(silu(x*a + b)) (+ skip) + bias (+ extra bias) (+ residual)
+// (SAME), or the four phases of conv3x3(nearest_up2x(x)) (+ skip) + bias
+// (UP2), with per-tile stats of the stored y. grid (tiles, Co / BNW,
+// B x splits); a split takes units [split, split + 1) x chunks_per_split
+// of the conv chunks followed by the skip's units of up to T steps.
+template <int MODE, bool NORM, bool VEC, int MT_, int BNW, int DBK, int BPS>
+__global__ void __launch_bounds__(NT, BPS) conv_kernel(ConvArgs p) {
+  using G = Eng<MODE, MT_, BNW, DBK, BPS>;
+  constexpr bool UP = G::UP;
+  constexpr int MT = G::MT, T = G::T, KCH = G::KCH, HPS = G::HPS, ROWS = G::ROWS;
+  constexpr int STAGES = G::STAGES, LEAD = G::LEAD, SKB = G::SKB;
+  // the next chunk's halo (issued at tap 1) lands LEAD steps later, and is
+  // then activated in place before the chunk's first step
+  static_assert(!VEC || LEAD <= T - (NORM ? 2 : 1), "halo lead");
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);             // [KCH][HP][8]
-  bf16* Bs = halo + KCH * HP * 8;                         // STAGES x [KCH][BN][8]
-  float* red = reinterpret_cast<float*>(Bs + STAGES * B_STAGE);  // [8][2][BN]
+  bf16* halo = reinterpret_cast<bf16*>(smem);     // 2 x [KCH][HPS][8]
+  bf16* ring = halo + 2 * G::HALO;                // STAGES x stage
+  float* acc_s = reinterpret_cast<float*>(smem);  // epilogue: [ROWS][OUT_LDF]
+  float* red = acc_s + ROWS * G::OUT_LDF;         // [RG][2][BNW]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = tid >> 7;  // warpgroup: tile rows 8*wg .. 8*wg+7
+  const int wg = tid >> 7, wq = warp & 3;
   const int b = blockIdx.z % p.B, split = blockIdx.z / p.B;
-  const int ph = UP ? (int)blockIdx.x / p.tiles : 0;
-  const int tile = (int)blockIdx.x - ph * p.tiles;
-  const int i0 = (tile / p.tiles_w) * TH, j0 = (tile % p.tiles_w) * TW;
-  const int n0 = blockIdx.y * BN;
+  const int i0 = (blockIdx.x / p.tiles_w) * G::TH, j0 = (blockIdx.x % p.tiles_w) * TW;
+  const int n0 = blockIdx.y * BNW;
   const int Ho = UP ? 2 * p.H : p.H, Wo = UP ? 2 * p.W : p.W;
-  const int pa = ph >> 1, pb = ph & 1;
-  const int KC = (p.C + BK - 1) / BK;
-  const int KS = (p.Csk + BK - 1) / BK;
-  const int kbeg = split * p.chunks_per_split;
-  const int kend = min(kbeg + p.chunks_per_split, KC + KS);
+  const int KC = (p.C + DBK - 1) / DBK;      // conv chunks
+  const int KSS = (p.Csk + SKB - 1) / SKB;   // skip steps
+  const int ubeg = split * p.chunks_per_split, uend = ubeg + p.chunks_per_split;
+  const int kc0 = min(ubeg, KC), kc1 = min(uend, KC);
+  const int ss0 = min(max(ubeg - KC, 0) * T, KSS), ss1 = min(max(uend - KC, 0) * T, KSS);
+  const int nconv = (kc1 - kc0) * T;
+  const int nsteps = nconv + ss1 - ss0;
   const int C8 = (p.C + 7) / 8, Csk8 = (p.Csk + 7) / 8;
 
-  // ---- A operand: the chunk's halo tile (or the skip tile), via registers
-  Pack8 ra[A_PER_T];
-  bool rok[A_PER_T];
-  int rdst[A_PER_T], rc[A_PER_T];
-  bool rskip = false;
+  // GEMM row r of the tile -> its output pixel (ho, wo); false outside
+  auto row_pix = [&](int r, int& ho, int& wo) {
+    const int q = r % G::PIX, i = i0 + q / TW, j = j0 + q % TW;
+    ho = UP ? 2 * i + (r / G::PIX >> 1) : i;
+    wo = UP ? 2 * j + (r / G::PIX & 1) : j;
+    return i < p.H && j < p.W;
+  };
 
-  auto fetch_a = [&](int k) {
-    const bool skip = k >= KC;
-    const int c0 = (skip ? k - KC : k) * BK;
-    rskip = skip;
+  // ---- the halo of chunk k: [KCH][HPS][8]. A thread's words are pixels
+  // tid / KCH + NT / KCH * t of channel group skc. With C a multiple of 8
+  // they go from device memory to shared memory raw by cp.async,
+  // zero-filled outside the image and past C, and a later pass applies
+  // the GroupNorm affine + SiLU in place (zero outside the image after
+  // activation; past C a = b = 0 and x = 0, and silu(0) = 0). Otherwise
+  // (the conv_ins' C = 3, 4) by element through registers, activated on
+  // the way.
+  const int skc = tid % KCH;
+  float sa[8], sb[8];
+  auto load_ab = [&](int k) {
+    const int c = k * DBK + skc * 8;
 #pragma unroll
-    for (int t = 0; t < A_PER_T; ++t) {
-      const int q = tid + t * NT;
-      const int pix = q / KCH, kc = q % KCH;
-      const bf16* src = nullptr;
-      int cx = 0;
-      bool ok = false;
-      int dst = -1;
-      if (!skip) {
-        if (pix < HALO_PIX) {
-          const int hr = pix / HWD, hc = pix - hr * HWD;
-          const int ih = i0 - 1 + hr, iw = j0 - 1 + hc;
-          ok = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
-          src = p.x + (((size_t)b * p.H + ih) * p.W + iw) * p.C;
-          cx = p.C;
-          dst = kc * HP + pix;
+    for (int e = 0; e < 8; ++e) {
+      const bool ok = c + e < p.C;
+      sa[e] = ok ? p.ga[(size_t)b * p.C + c + e] : 0.f;
+      sb[e] = ok ? p.gb[(size_t)b * p.C + c + e] : 0.f;
+    }
+  };
+  auto in_image = [&](int pix) {
+    const int hr = pix / HWD, ih = i0 - 1 + hr, iw = j0 - 1 + pix - hr * HWD;
+    return ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
+  };
+  auto issue_halo = [&](int k, int buf) {
+    bf16* hb = halo + buf * G::HALO + skc * HPS * 8;
+    const int c = k * DBK + skc * 8;
+    if constexpr (NORM && !VEC) load_ab(k);
+#pragma unroll 2
+    for (int pix = tid / KCH; pix < G::HALO_PIX; pix += NT / KCH) {
+      const int hr = pix / HWD, ih = i0 - 1 + hr, iw = j0 - 1 + pix - hr * HWD;
+      const bool in = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
+      const bf16* src = p.x + (((size_t)b * p.H + ih) * p.W + iw) * p.C + c;
+      if constexpr (VEC) {
+        const bool ok = in && c < p.C;
+        cp_async16(hb + pix * 8, ok ? src : p.x, ok);
+      } else {
+        Pack8 v;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float f = in && c + e < p.C ? __bfloat162float(src[e]) : 0.f;
+          if constexpr (NORM) f = in ? silu_fast(f * sa[e] + sb[e]) : 0.f;
+          v.h[e] = __float2bfloat16(f);
         }
-      } else if (pix < BM) {
-        const int r = pix / TW, c = pix - r * TW;
-        const int i = i0 + r, j = j0 + c;
-        ok = i < p.H && j < p.W;
-        const int ho = UP ? 2 * i + pa : i, wo = UP ? 2 * j + pb : j;
-        src = p.skx + (((size_t)b * Ho + ho) * Wo + wo) * p.Csk;
-        cx = p.Csk;
-        dst = kc * HP + (r + 1) * HWD + c + 1;
+        *reinterpret_cast<Pack8*>(hb + pix * 8) = v;
       }
-      const int c = c0 + kc * 8;
-      rok[t] = ok;
-      rc[t] = c;
-      rdst[t] = dst;
-      if (ok && p.vec_a) {
-        ra[t] = c < cx ? *reinterpret_cast<const Pack8*>(src + c) : i2i::zero8();
+    }
+  };
+  // slice sl of the activation pass over a raw halo that has landed
+  auto activate = [&](int buf, int sl) {
+    bf16* hb = halo + buf * G::HALO + skc * HPS * 8;
+#pragma unroll
+    for (int t = sl * G::PER_SLICE; t < (sl + 1) * G::PER_SLICE && t < G::HWORDS; ++t) {
+      const int pix = tid / KCH + NT / KCH * t;
+      if (pix >= G::HALO_PIX) break;
+      Pack8 v = *reinterpret_cast<const Pack8*>(hb + pix * 8);
+      const bool in = in_image(pix);
+      __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(v.h);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(v2[e]);
+        v2[e] = in ? __floats2bfloat162_rn(silu_fast(f.x * sa[2 * e] + sb[2 * e]),
+                                           silu_fast(f.y * sa[2 * e + 1] + sb[2 * e + 1]))
+                   : __floats2bfloat162_rn(0.f, 0.f);
+      }
+      *reinterpret_cast<Pack8*>(hb + pix * 8) = v;
+    }
+  };
+  constexpr bool PASS = NORM && VEC;  // the activation pass runs
+
+  // ---- step i's ring stage: a conv step's weight tiles [NPH][KCH][BNW][8]
+  // (phase ph of K4 reads packed taps 4 ph .. 4 ph + 3), or a skip step's
+  // tile of skip_x [SKB/8][ROWS][8] and its weights [SKB/8][BNW][8], by
+  // cp.async in the step's group
+  auto load_stage = [&](int i) {
+    bf16* st = ring + (i % STAGES) * G::STAGE;
+    if (i < nconv) {
+      const int kk = i / T, tap = i - kk * T, c8 = (kc0 + kk) * KCH;
+#pragma unroll
+      for (int t = 0; t < G::STAGE / 8 / NT; ++t) {
+        const int q = tid + NT * t;
+        const int ph = q / (KCH * BNW), kc = q / BNW % KCH, n = q % BNW;
+        const bool ok = c8 + kc < C8 && n0 + n < p.CoP;
+        const bf16* src =
+            p.w + ((size_t)((UP ? 4 * ph + tap : tap) * C8 + c8 + kc) * p.CoP + n0 + n) * 8;
+        cp_async16(st + q * 8, ok ? src : p.w, ok);
+      }
+    } else {
+      const int c8 = (ss0 + i - nconv) * (SKB / 8);
+      for (int q = tid; q < SKB / 8 * ROWS; q += NT) {
+        const int kc = q / ROWS, r = q % ROWS;
+        int ho, wo;
+        const bool ok = row_pix(r, ho, wo) && c8 + kc < Csk8;
+        const bf16* src = p.skx + (((size_t)b * Ho + ho) * Wo + wo) * p.Csk + (c8 + kc) * 8;
+        cp_async16(st + q * 8, ok ? src : p.skx, ok);
+      }
+      bf16* sw = st + SKB / 8 * ROWS * 8;
+      for (int q = tid; q < SKB / 8 * BNW; q += NT) {
+        const int kc = q / BNW, n = q % BNW;
+        const bool ok = c8 + kc < Csk8 && n0 + n < p.CoP;
+        cp_async16(sw + q * 8, ok ? p.skw + ((size_t)(c8 + kc) * p.CoP + n0 + n) * 8 : p.skw, ok);
+      }
+    }
+  };
+
+  // the first chunk's halo (in group 0) and LEAD stages; a raw halo is
+  // activated once it has landed
+  if (nconv > 0) {
+    if constexpr (PASS) load_ab(kc0);
+    issue_halo(kc0, 0);
+  }
+#pragma unroll
+  for (int s = 0; s < LEAD; ++s) {
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();  // group s: step s's stage
+  }
+  if constexpr (PASS) {
+    if (nconv > 0) {
+      cp_async_wait<LEAD - 1>();
+      __syncthreads();
+#pragma unroll
+      for (int sl = 0; sl < G::SLICES; ++sl) activate(0, sl);
+    }
+  }
+
+  float d[MT][BNW / 2];
+  for (int i = 0; i < nsteps; ++i) {
+    const int kk = i / T, tap = i - kk * T;
+    // step i's stage (group i) and every halo issued LEAD steps back have
+    // landed, and every thread's activation stores are visible; step i-2's
+    // wgmmas have retired in every warpgroup
+    cp_async_wait<LEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (i + LEAD < nsteps) load_stage(i + LEAD);
+    // the next chunk's halo into the other buffer (free from tap 1: chunk
+    // kk-1's last step was i-2 there), in this step's group
+    const bool next = i < nconv && kc0 + kk + 1 < kc1;
+    if (next && tap == 1) {
+      if constexpr (PASS) load_ab(kc0 + kk + 1);
+      issue_halo(kc0 + kk + 1, (kk + 1) & 1);
+    }
+    cp_async_commit();
+    const bf16* st = ring + (i % STAGES) * G::STAGE;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
+    i2i::wgmma_fence();
+    if (i < nconv) {
+      // an m64 tile's 8 tile rows for this tap: 8 core matrices one halo
+      // row apart; K steps of 16 channels two channel groups apart
+      const bf16* hb = halo + (kk & 1) * G::HALO;
+#pragma unroll
+      for (int ks = 0; ks < DBK / 16; ++ks) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          int di, dj;
+          const bf16* bt = st + 2 * ks * BNW * 8;
+          if constexpr (UP) {  // phase (ph / 2, ph % 2), tap (tap / 2, tap % 2)
+            const int ph = G::phase(wg, m);
+            di = G::prow(wg) + (ph >> 1) + (tap >> 1);
+            dj = (ph & 1) + (tap & 1);
+            bt += ph * KCH * BNW * 8;
+          } else {
+            di = 8 * (MT * wg + m) + tap / 3;
+            dj = tap % 3;
+          }
+          const uint64_t da = smem_desc(hb + ((di * HWD + dj) + 2 * ks * HPS) * 8, HPS * 16, HWD * 16);
+          const uint64_t db = smem_desc(bt, BNW * 16, 128);
+          if constexpr (BNW == 128)
+            i2i::wgmma_m64n128k16_ss(d[m], da, db, i > 0 || ks > 0);
+          else if constexpr (BNW == 64)
+            i2i::wgmma_m64n64k16_ss(d[m], da, db, i > 0 || ks > 0);
+          else
+            i2i::wgmma_m64n32k16_ss(d[m], da, db, i > 0 || ks > 0);
+        }
+      }
+    } else {
+      const bf16* sw = st + SKB / 8 * ROWS * 8;
+#pragma unroll
+      for (int ks = 0; ks < SKB / 16; ++ks) {
+        const uint64_t db = smem_desc(sw + 2 * ks * BNW * 8, BNW * 16, 128);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const uint64_t da =
+              smem_desc(st + (G::row0(wg, m) + 2 * ks * ROWS) * 8, ROWS * 16, 128);
+          if constexpr (BNW == 128)
+            i2i::wgmma_m64n128k16_ss(d[m], da, db, i > 0 || ks > 0);
+          else if constexpr (BNW == 64)
+            i2i::wgmma_m64n64k16_ss(d[m], da, db, i > 0 || ks > 0);
+          else
+            i2i::wgmma_m64n32k16_ss(d[m], da, db, i > 0 || ks > 0);
+        }
+      }
+    }
+    i2i::wgmma_commit();
+    // a slice of the next chunk's activation while the group runs, once
+    // its raw halo has landed (taps 1 + LEAD .. T - 1)
+    if constexpr (PASS) {
+      if (next && tap > LEAD) activate((kk + 1) & 1, tap - 1 - LEAD);
+    }
+    i2i::wgmma_wait<1>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
+  }
+  i2i::wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) i2i::reg_fence(d[m]);
+  cp_async_wait<0>();
+
+  // ---- epilogue: the fp32 tile into shared memory (over the halos and the
+  // ring, free once every group retired). Register 4j+2h+e of d[m] in
+  // thread (warp wq of the warpgroup, lane l) holds GEMM row row0(wg, m) +
+  // 16 wq + l/4 + 8h, channel n0 + 8j + 2(l%4) + e.
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = G::row0(wg, m) + 16 * wq + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int j = 0; j < BNW / 8; ++j)
+        *reinterpret_cast<float2*>(acc_s + r * G::OUT_LDF + 8 * j + 2 * (lane & 3)) =
+            make_float2(d[m][4 * j + 2 * h], d[m][4 * j + 2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  // a thread takes 8 channels (group cg) of every RG-th row: bias, extra
+  // bias and residual added in fp32 (16-byte reads), one rounding, one
+  // 16-byte store of y, and the stats of the rounded values; a split writes
+  // its fp32 partial sums instead
+  const int cg = tid % (BNW / 8), rg = tid / (BNW / 8), n = n0 + 8 * cg;
+  const bool vec_out = p.Co % 8 == 0;
+  float bv[8], ev[8], s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool ok = n + e < p.Co;
+    bv[e] = ok && p.bias ? p.bias[n + e] : 0.f;
+    ev[e] = ok && p.eb ? p.eb[(size_t)b * p.Co + n + e] : 0.f;
+    s1[e] = s2[e] = 0.f;
+  }
+  // the thread's residual rows first, all in flight at once
+  constexpr int RPT = ROWS / G::RG;  // rows a thread
+  Pack8 rv[RPT];
+#pragma unroll
+  for (int t = 0; t < RPT; ++t) {
+    int ho, wo;
+    rv[t] = i2i::zero8();
+    if (!p.res || p.splits > 1 || !row_pix(rg + G::RG * t, ho, wo) || n >= p.Co) continue;
+    const bf16* src = p.res + (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
+    if (vec_out) {
+      rv[t] = *reinterpret_cast<const Pack8*>(src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.Co) rv[t].h[e] = src[e];
+    }
+  }
+#pragma unroll
+  for (int t_ = 0; t_ < RPT; ++t_) {
+    const int r = rg + G::RG * t_;
+    int ho, wo;
+    if (!row_pix(r, ho, wo) || n >= p.Co) continue;
+    const float4 a0 = *reinterpret_cast<const float4*>(acc_s + r * G::OUT_LDF + 8 * cg);
+    const float4 a1 = *reinterpret_cast<const float4*>(acc_s + r * G::OUT_LDF + 8 * cg + 4);
+    float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
+    if (p.splits > 1) {
+      float* dst = p.ws + (size_t)split * p.B * Ho * Wo * p.Co + o;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(dst) = a0;
+        *reinterpret_cast<float4*>(dst + 4) = a1;
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          ra[t].h[e] = (ok && c + e < cx) ? src[c + e] : __float2bfloat16(0.f);
+          if (n + e < p.Co) dst[e] = v[e];
       }
+      continue;
     }
-  };
-
-  auto store_a = [&]() {
+    Pack8 yv;
 #pragma unroll
-    for (int t = 0; t < A_PER_T; ++t) {
-      if (rdst[t] < 0) continue;
-      Pack8 v = ra[t];
-      if (NORM && !rskip) {
-        const float* ga = p.ga + (size_t)b * p.C;
-        const float* gb = p.gb + (size_t)b * p.C;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = rc[t] + e;
-          float f = 0.f;
-          if (rok[t] && c < p.C)
-            f = i2i::silu(__bfloat162float(v.h[e]) * ga[c] + gb[c]);
-          v.h[e] = __float2bfloat16(f);
-        }
-      }
-      *reinterpret_cast<Pack8*>(&halo[rdst[t] * 8]) = v;
+    for (int e = 0; e < 8; ++e) {
+      float t = v[e] + bv[e];
+      if (p.eb) t += ev[e];
+      if (p.res) t += __bfloat162float(rv[t_].h[e]);
+      yv.h[e] = __float2bfloat16(t);
+      const float f = n + e < p.Co ? __bfloat162float(yv.h[e]) : 0.f;
+      s1[e] += f;
+      s2[e] += f * f;
     }
-  };
-
-  // ---- B operand: one (chunk, tap) weight tile, [KCH][BN][8], into a stage
-  auto load_b = [&](int k, int tap, int stage) {
-    const bool skip = k >= KC;
-    const int c8 = (skip ? k - KC : k) * KCH;
-    const int kx8 = skip ? Csk8 : C8;
-    const bf16* wbase = skip ? p.skw
-                             : p.w + (size_t)(UP ? ph * 4 + tap : tap) * C8 * p.CoP * 8;
-#pragma unroll
-    for (int t = 0; t < B_PER_T; ++t) {
-      const int q = tid + t * NT;
-      const int kc = q / BN, n = q % BN;
-      const bool ok = c8 + kc < kx8 && n0 + n < p.CoP;
-      const bf16* src = wbase + ((size_t)(c8 + kc) * p.CoP + n0 + n) * 8;
-      cp_async16(&Bs[stage * B_STAGE + (kc * BN + n) * 8], ok ? src : wbase, ok);
-    }
-  };
-
-  float d[64];
-#pragma unroll
-  for (int r = 0; r < 64; ++r) d[r] = 0.f;
-
-  // Steps walk (chunk, tap) pairs of this block's chunk range; a skip
-  // chunk has one tap.
-  const int tap_steps = max(0, min(kend, KC) - kbeg) * T;
-  const int nsteps = tap_steps + max(0, kend - max(kbeg, KC));
-  auto step_at = [&](int i, int& k, int& tap) {
-    if (i < tap_steps) {
-      k = kbeg + i / T;
-      tap = i % T;
+    if (vec_out) {
+      *reinterpret_cast<Pack8*>(p.y + o) = yv;
     } else {
-      k = max(kbeg, KC) + (i - tap_steps);
-      tap = 0;
-    }
-  };
-
-  fetch_a(kbeg);
-  store_a();
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nsteps) {
-      int k, tap;
-      step_at(st, k, tap);
-      load_b(k, tap, st);
-    }
-    cp_async_commit();
-  }
-  for (int i = 0; i < nsteps; ++i) {
-    int k, tap;
-    step_at(i, k, tap);
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();  // B(i) and the halo are visible; step i-1 is done
-    if (i + STAGES - 1 < nsteps) {
-      int k2, tap2;
-      step_at(i + STAGES - 1, k2, tap2);
-      load_b(k2, tap2, (i + STAGES - 1) % STAGES);
-    }
-    cp_async_commit();
-    const int ntaps = k < KC ? T : 1;
-    const bool more = k + 1 < kend;
-    if (tap == 0 && more) fetch_a(k + 1);
-    int di = 1, dj = 1;  // the skip tile sits at the halo's centre
-    if (k < KC) {
-      if (UP) {
-        di = pa + (tap >> 1);
-        dj = pb + (tap & 1);
-      } else {
-        di = tap / 3;
-        dj = tap % 3;
-      }
-    }
-    // first entry of the warpgroup's 8 tile rows for this tap; tile rows
-    // are one halo row apart
-    const bf16* a0 = halo + ((wg * 8 + di) * HWD + dj) * 8;
-    const bf16* b0 = Bs + (i % STAGES) * B_STAGE;
-    i2i::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KCH / 2; ++ks) {
-      const uint64_t da = smem_desc(a0 + 2 * ks * HP * 8, HP * 16, HWD * 16);
-      const uint64_t db = smem_desc(b0 + 2 * ks * BN * 8, BN * 16, 128);
-      i2i::wgmma_m64n128k16_ss(d, da, db, 1);
-    }
-    i2i::wgmma_commit();
-    i2i::wgmma_wait<0>();
-    if (tap == ntaps - 1 && more) {
-      __syncthreads();  // every warp is done with this chunk's halo
-      store_a();        // the next chunk's; published at the next step
-    }
-  }
-  cp_async_wait<0>();
-
-  // ---- Epilogue, from the wgmma accumulator layout: register 4j+2h+e of
-  // thread (warp w of the warpgroup, lane l) holds row 16w + l/4 + 8h,
-  // column 8j + 2(l%4) + e of the warpgroup's 64 x 128 tile.
-  const int wq = warp & 3;
-  const size_t split_off = (size_t)split * p.B * Ho * Wo * p.Co;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * wq + (lane >> 2) + 8 * h;   // row in the m64 tile
-      const int pi = i0 + wg * 8 + (r >> 3), pj = j0 + (r & 7);
-      const bool in = pi < p.H && pj < p.W;
-      const int ho = UP ? 2 * pi + pa : pi, wo = UP ? 2 * pj + pb : pj;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * j + 2 * (lane & 3) + e;
-        if (!in || n >= p.Co) continue;
-        const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
-        const float acc = d[4 * j + 2 * h + e];
-        if (p.splits > 1) {
-          p.ws[split_off + o] = acc;
-          continue;
-        }
-        float v = acc + (p.bias ? p.bias[n] : 0.f);
-        if (p.eb) v += p.eb[(size_t)b * p.Co + n];
-        if (p.res) v += __bfloat162float(p.res[o]);
-        const bf16 yb = __float2bfloat16(v);
-        p.y[o] = yb;
-        const float f = __bfloat162float(yb);
-        s1[e] += f;
-        s2[e] += f * f;
-      }
-    }
-    if (p.stats && p.splits == 1) {
-      // sum the warp's 16 rows: lanes that share l%4 hold the same columns
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
-          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
-        }
-      }
-      if (lane < 4) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * lane + e;
-          red[(warp * 2 + 0) * BN + col] = s1[e];
-          red[(warp * 2 + 1) * BN + col] = s2[e];
-        }
-      }
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.Co) p.y[o + e] = yv.h[e];
     }
   }
   if (p.stats && p.splits == 1) {
+    // the row groups added in a fixed order: no atomics
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[(rg * 2 + 0) * BNW + 8 * cg + e] = s1[e];
+      red[(rg * 2 + 1) * BNW + 8 * cg + e] = s2[e];
+    }
     __syncthreads();
-    for (int nl = tid; nl < BN; nl += NT) {
-      const int n = n0 + nl;
-      if (n < p.Co) {
-        float t1 = 0.f, t2 = 0.f;
-        for (int w8 = 0; w8 < NT / 32; ++w8) {
-          t1 += red[(w8 * 2 + 0) * BN + nl];
-          t2 += red[(w8 * 2 + 1) * BN + nl];
-        }
-        float* st = p.stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * p.Co;
-        st[n] = t1;
-        st[p.Co + n] = t2;
+    if (tid < BNW && n0 + tid < p.Co) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int g = 0; g < G::RG; ++g) {
+        t1 += red[(g * 2 + 0) * BNW + tid];
+        t2 += red[(g * 2 + 1) * BNW + tid];
       }
+      float* st = p.stats + ((size_t)b * p.tiles + blockIdx.x) * 2 * p.Co;
+      st[n0 + tid] = t1;
+      st[p.Co + n0 + tid] = t2;
     }
   }
 }
 
-// Split-K second pass: add the splits' fp32 partial sums in a fixed order,
-// then the same epilogue (bias, extra bias, residual, one rounding, stats
-// of the stored y per pixel tile) as the single-pass kernel.
-constexpr int EBN = 64;  // channels per epilogue block
-
-template <bool UP>
-__global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
-  __shared__ float rs[2][NT];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int ph = UP ? (int)blockIdx.x / p.tiles : 0;
-  const int tile = (int)blockIdx.x - ph * p.tiles;
+// The engine's split-K second pass, one block per (pixel tile, 64 channels,
+// image): each thread adds one pixel's 8 channels over the splits in split
+// order (32-byte loads), adds bias, extra bias and residual, rounds once
+// and writes them in one 16-byte store, for every 32nd pixel of the tile;
+// the tile's stats of the rounded values are then summed over the 32 pixel
+// slots in a fixed order.
+template <int MODE, int TH>
+__global__ void __launch_bounds__(NT) conv_reduce(ConvArgs p) {
+  constexpr bool UP = MODE == UP2;
+  constexpr int ROWS = (UP ? 4 : 1) * TH * TW;  // K4: four phases of the tile
+  __shared__ float rs[2][NT][8];
+  const int tid = threadIdx.x, g = tid & 7, slot = tid >> 3;
+  const int b = blockIdx.z, tile = blockIdx.x;
   const int i0 = (tile / p.tiles_w) * TH, j0 = (tile % p.tiles_w) * TW;
   const int Ho = UP ? 2 * p.H : p.H, Wo = UP ? 2 * p.W : p.W;
-  const int pa = ph >> 1, pb = ph & 1;
-  const int nl = tid % EBN, n = blockIdx.y * EBN + nl;
-  const size_t split_stride = (size_t)p.B * Ho * Wo * p.Co;
-  float s1 = 0.f, s2 = 0.f;
-  if (n < p.Co) {
-    for (int r = tid / EBN; r < BM; r += NT / EBN) {
-      const int pi = i0 + r / TW, pj = j0 + r % TW;
-      if (pi >= p.H || pj >= p.W) continue;
-      const int ho = UP ? 2 * pi + pa : pi, wo = UP ? 2 * pj + pb : pj;
-      const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + n;
-      float v = 0.f;
-      for (int sp = 0; sp < p.splits; ++sp) v += p.ws[sp * split_stride + o];
-      if (p.bias) v += p.bias[n];
-      if (p.eb) v += p.eb[(size_t)b * p.Co + n];
-      if (p.res) v += __bfloat162float(p.res[o]);
-      const bf16 yb = __float2bfloat16(v);
-      p.y[o] = yb;
-      const float f = __bfloat162float(yb);
-      s1 += f;
-      s2 += f * f;
+  const int c0 = blockIdx.y * 64 + 8 * g;
+  const size_t stride = (size_t)p.B * Ho * Wo * p.Co;
+  const bool vec = p.Co % 8 == 0;
+  float s1[8], s2[8], bb[8], eb[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool ok = c0 + e < p.Co;
+    s1[e] = s2[e] = 0.f;
+    bb[e] = ok && p.bias ? p.bias[c0 + e] : 0.f;
+    eb[e] = ok && p.eb ? p.eb[(size_t)b * p.Co + c0 + e] : 0.f;
+  }
+  for (int r = slot; r < ROWS && c0 < p.Co; r += NT / 8) {
+    const int q = r % (TH * TW), ph = r / (TH * TW);
+    const int i = i0 + q / TW, j = j0 + q % TW;
+    const int ho = UP ? 2 * i + (ph >> 1) : i, wo = UP ? 2 * j + (ph & 1) : j;
+    if (i >= p.H || j >= p.W) continue;
+    const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * p.Co + c0;
+    const float* src = p.ws + o;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    Pack8 rv = i2i::zero8();
+    if (vec) {
+#pragma unroll 4
+      for (int sp = 0; sp < p.splits; ++sp) {
+        const float4 a = *reinterpret_cast<const float4*>(src + sp * stride);
+        const float4 c = *reinterpret_cast<const float4*>(src + sp * stride + 4);
+        v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
+        v[4] += c.x; v[5] += c.y; v[6] += c.z; v[7] += c.w;
+      }
+      if (p.res) rv = *reinterpret_cast<const Pack8*>(p.res + o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (c0 + e >= p.Co) continue;
+        for (int sp = 0; sp < p.splits; ++sp) v[e] += src[sp * stride + e];
+        if (p.res) rv.h[e] = p.res[o + e];
+      }
+    }
+    Pack8 yv;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float t = v[e] + bb[e];
+      if (p.eb) t += eb[e];
+      if (p.res) t += __bfloat162float(rv.h[e]);
+      yv.h[e] = __float2bfloat16(t);
+      const float f = c0 + e < p.Co ? __bfloat162float(yv.h[e]) : 0.f;
+      s1[e] += f;
+      s2[e] += f * f;
+    }
+    bf16* dst = p.y + o;
+    if (vec) {
+      *reinterpret_cast<Pack8*>(dst) = yv;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c0 + e < p.Co) dst[e] = yv.h[e];
     }
   }
   if (!p.stats) return;
-  rs[0][tid] = s1;
-  rs[1][tid] = s2;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    rs[0][tid][e] = s1[e];
+    rs[1][tid][e] = s2[e];
+  }
   __syncthreads();
-  if (tid < EBN && n < p.Co) {
+  const int n = blockIdx.y * 64 + tid;
+  if (tid < 64 && n < p.Co) {
     float t1 = 0.f, t2 = 0.f;
-    for (int g = 0; g < NT / EBN; ++g) {
-      t1 += rs[0][g * EBN + tid];
-      t2 += rs[1][g * EBN + tid];
+    for (int sl = 0; sl < NT / 8; ++sl) {
+      t1 += rs[0][sl * 8 + tid / 8][tid % 8];
+      t2 += rs[1][sl * 8 + tid / 8][tid % 8];
     }
-    float* st = p.stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * p.Co;
+    float* st = p.stats + ((size_t)b * p.tiles + tile) * 2 * p.Co;
     st[n] = t1;
     st[p.Co + n] = t2;
   }
@@ -459,7 +699,6 @@ __global__ void __launch_bounds__(NT) split_epilogue(ConvArgs p) {
 //   fixed order, 8 channels a thread: no atomics, every run bit-identical.
 constexpr int OUT_LD = BN + 8;  // bf16 per staged output row: 272 bytes, so a
                                 // warp's 4-byte stores of 8 rows hit 32 banks
-constexpr int SMEM_SM = 232448;  // shared memory one block may take
 
 template <int MT, int DBK>
 struct Dgrad {
@@ -1134,13 +1373,6 @@ Plan split_plan(long nb, int nchunks, long target, int most) {
   return pl;
 }
 
-// The engine's split: about two waves of blocks.
-Plan plan(int B, int H, int W, int C, int Co, int Csk, bool up) {
-  const long nb = (long)((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1) * B *
-                  ((Co + BN - 1) / BN);
-  return split_plan(nb, (C + BK - 1) / BK + (Csk + BK - 1) / BK, 2 * NUM_SMS, 8);
-}
-
 // The du's form for a call: its channels a chunk (dbk), its m64 tiles a
 // warpgroup (mt: a 16mt x 8 pixel tile), its blocks before any split, and
 // its split over the Co chunks (at most one wave of blocks, up to 16
@@ -1236,20 +1468,73 @@ DownForm down_form(int B, int H, int W, int C, int Co, int pad_lo) {
   return best;
 }
 
-template <int MODE, bool NORM>
-int launch(const ConvArgs& a, cudaStream_t stream) {
-  constexpr bool UP = MODE == UP2;
-  constexpr int smem_bytes = CONV_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<MODE, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.tiles * (UP ? 4 : 1), (a.Co + BN - 1) / BN, a.B * a.splits);
-  conv_kernel<MODE, NORM><<<grid, NT, smem_bytes, stream>>>(a);
-  if (a.splits > 1) {
-    dim3 eg(a.tiles * (UP ? 4 : 1), (a.Co + EBN - 1) / EBN, a.B);
-    split_epilogue<UP><<<eg, NT, 0, stream>>>(a);
+// The engine's form for a call (K1 and K4): its tile rows (th: a th x 8
+// pixel tile, of the low-resolution input for K4), output channels a block
+// (bn), channels a conv step (dbk), blocks an SM (bps), blocks before any
+// split, and its split over the units (conv chunks, then the skip's steps
+// in units of up to T).
+enum ConvKind { K_T16, K_SMALLN32, K_SMALLN16, K_ELEM, K_UP };
+
+struct ConvForm {
+  ConvKind kind;
+  int th, bn, dbk, bps, skb, stages;
+  long blocks;
+  Plan pl;
+};
+
+template <int MODE, int MT, int BNW, int DBK, int BPS>
+ConvForm conv_form_of(ConvKind kind, int B, int H, int W, int C, int Co, int Csk) {
+  using G = Eng<MODE, MT, BNW, DBK, BPS>;
+  ConvForm f{kind, G::TH, BNW, DBK, BPS, G::SKB, G::STAGES, 0, {}};
+  f.blocks = (long)((H + G::TH - 1) / G::TH) * ((W + TW - 1) / TW) * B * ((Co + BNW - 1) / BNW);
+  const int units = (C + DBK - 1) / DBK + ((Csk + G::SKB - 1) / G::SKB + G::T - 1) / G::T;
+  f.pl = split_plan(f.blocks, units, NUM_SMS * BPS, 16);
+  return f;
+}
+
+// K4: the 16 x 8 four-phase tile. C not a multiple of 8 (the conv_ins' C =
+// 3, 4): 16-channel steps. Co <= 32 with no skip (the conv_outs): the
+// small-N form, 32 channels a block, on the 32 x 8 tile where its grid
+// fills four rounds of blocks, else on the 16 x 8 one (twice the blocks).
+// Otherwise the 16 x 8 tile at two blocks an SM: a 32 x 8 tile at one an
+// SM, and the 16 x 8 at one an SM with a deeper ring or 128-channel steps,
+// measured slower at every path shape (tools/k1_variants.py). Each form
+// splits its chunks where its grid is under one wave (split_plan).
+ConvForm conv_form(int B, int H, int W, int C, int Co, int Csk, bool up) {
+  if (up) return conv_form_of<UP2, 4, 64, 64, 1>(K_UP, B, H, W, C, Co, Csk);
+  if (C % 8) return conv_form_of<SAME, 1, 128, 16, 2>(K_ELEM, B, H, W, C, Co, Csk);
+  if (Co <= 32 && Csk == 0) {
+    const ConvForm f = conv_form_of<SAME, 2, 32, 64, 2>(K_SMALLN32, B, H, W, C, Co, Csk);
+    return f.blocks >= 4 * NUM_SMS ? f
+                                   : conv_form_of<SAME, 1, 32, 64, 2>(K_SMALLN16, B, H, W, C, Co, Csk);
   }
+  return conv_form_of<SAME, 1, 128, 64, 2>(K_T16, B, H, W, C, Co, Csk);
+}
+
+template <int MODE, bool NORM, bool VEC, int MT, int BNW, int DBK, int BPS>
+int launch_conv(ConvArgs a, cudaStream_t stream) {
+  using G = Eng<MODE, MT, BNW, DBK, BPS>;
+  if (a.Csk > 0 && !G::SKIP_OK) return (int)cudaErrorInvalidValue;
+  auto kernel = conv_kernel<MODE, NORM, VEC, MT, BNW, DBK, BPS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.tiles, (a.Co + BNW - 1) / BNW, a.B * a.splits);
+  kernel<<<grid, NT, G::SMEM, stream>>>(a);
+  if (a.splits > 1)
+    conv_reduce<MODE, G::TH><<<dim3(a.tiles, (a.Co + 63) / 64, a.B), NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool NORM>
+int launch_same(const ConvForm& f, const ConvArgs& a, cudaStream_t s) {
+  switch (f.kind) {
+    case K_T16: return launch_conv<SAME, NORM, true, 1, 128, 64, 2>(a, s);
+    case K_SMALLN32: return launch_conv<SAME, NORM, true, 2, 32, 64, 2>(a, s);
+    case K_SMALLN16: return launch_conv<SAME, NORM, true, 1, 32, 64, 2>(a, s);
+    case K_ELEM: return launch_conv<SAME, NORM, false, 1, 128, 16, 2>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int MT, int DBK, bool VEC>
@@ -1286,18 +1571,39 @@ int launch_down(DownArgs a, long blocks, cudaStream_t stream) {
 
 extern "C" {
 
-// Number of stats tiles per image: (H/16 x W/8 pixel tiles, rounded up),
-// times 4 phases for the upsample.
-int conv_stats_tiles(int H, int W, int up) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (up ? 4 : 1);
+// The engine's pixel tiles per image for a call, the stats' second
+// dimension: the output in tiles of the call's form (for K4 a tile of the
+// low-resolution input, all four phases of its output).
+int conv_stats_tiles(int B, int H, int W, int C, int Co, int Csk, int up) {
+  const ConvForm f = conv_form(B, H, W, C, Co, Csk, up);
+  return ((H + f.th - 1) / f.th) * ((W + TW - 1) / TW);
 }
 
 // Bytes of fp32 split-K workspace conv3x3_bf16 needs for this call (0 when
 // the call does not split).
 long conv_workspace_bytes(int B, int H, int W, int C, int Co, int Csk, int up) {
-  const Plan pl = plan(B, H, W, C, Co, Csk, up);
+  const Plan pl = conv_form(B, H, W, C, Co, Csk, up).pl;
   if (pl.splits == 1) return 0;
   return (long)pl.splits * B * (up ? 4 : 1) * H * W * Co * 4;
+}
+
+// The engine's launch form for a call: out[0] tile rows (an out[0] x 8
+// tile, of the low-resolution input for K4), out[1] output channels a
+// block, out[2] channels a conv step, out[3] channels a skip step, out[4]
+// blocks an SM, out[5] weight ring stages, out[6] splits, out[7] units (a
+// chunk's taps, or up to as many skip steps) a split, out[8] blocks
+// launched.
+void conv_plan(int B, int H, int W, int C, int Co, int Csk, int up, int* out) {
+  const ConvForm f = conv_form(B, H, W, C, Co, Csk, up);
+  out[0] = f.th;
+  out[1] = f.bn;
+  out[2] = f.dbk;
+  out[3] = f.skb;
+  out[4] = f.bps;
+  out[5] = f.stages;
+  out[6] = f.pl.splits;
+  out[7] = f.pl.chunks_per_split;
+  out[8] = (int)(f.blocks * f.pl.splits);
 }
 
 // Bytes of fp32 split-K workspace conv3x3_dgrad_bf16 needs for a du of C
@@ -1323,15 +1629,18 @@ void conv_dgrad_plan(int B, int H, int W, int C, int Co, int* out) {
 }
 
 // up = 0: K1, w packed from (3,3,C,Co); up = 1: K4, w packed from the folded
-// (2,2,2,2,C,Co), and the GroupNorm prologue is not taken. Packed weights
-// are (taps, ceil(C/8), ceil(Co/8)*8, 8) bf16. Pointers that an option does
-// not use are null; workspace holds conv_workspace_bytes() bytes (null when
-// that is 0). Returns the first CUDA error of the launches, else 0.
+// (2,2,2,2,C,Co), and the GroupNorm prologue, extra bias and residual are
+// not taken. Packed weights are (taps, ceil(C/8), ceil(Co/8)*8, 8) bf16.
+// Pointers that an option does not use are null; Csk must be a multiple of
+// 8, and with C not a multiple of 8 there is no skip (K4: C a multiple of
+// 8); stats (B, conv_stats_tiles(...), 2, Co); workspace holds
+// conv_workspace_bytes() bytes (null when that is 0). Returns the first
+// CUDA error of the launches, else 0.
 int conv3x3_bf16(const void* x, const void* w, const void* bias, const void* ga,
                  const void* gb, const void* eb, const void* res, const void* skx,
                  const void* skw, void* y, void* stats, void* workspace, int B,
                  int H, int W, int C, int Co, int Csk, int up, void* stream) {
-  ConvArgs a;
+  ConvArgs a = {};
   a.x = static_cast<const bf16*>(x);
   a.w = static_cast<const bf16*>(w);
   a.bias = static_cast<const float*>(bias);
@@ -1345,18 +1654,18 @@ int conv3x3_bf16(const void* x, const void* w, const void* bias, const void* ga,
   a.stats = static_cast<float*>(stats);
   a.B = B; a.H = H; a.W = W; a.C = C; a.Co = Co; a.Csk = skx ? Csk : 0;
   a.CoP = (Co + 7) / 8 * 8;
+  if (a.Csk % 8 || (a.Csk && C % 8) || (up && (C % 8 || ga || eb || res)))
+    return (int)cudaErrorInvalidValue;
+  const ConvForm f = conv_form(B, H, W, C, Co, a.Csk, up);
   a.tiles_w = (W + TW - 1) / TW;
-  a.tiles = ((H + TH - 1) / TH) * a.tiles_w;
-  a.vec_a = (C % 8 == 0) && (a.Csk % 8 == 0);
-  const Plan pl = plan(B, H, W, C, Co, a.Csk, up);
-  a.splits = pl.splits;
-  a.chunks_per_split = pl.chunks_per_split;
+  a.tiles = ((H + f.th - 1) / f.th) * a.tiles_w;
+  a.splits = f.pl.splits;
+  a.chunks_per_split = f.pl.chunks_per_split;
   a.ws = static_cast<float*>(workspace);
-  if (pl.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
+  if (a.splits > 1 && !workspace) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (up) return launch<UP2, false>(a, s);
-  if (ga) return launch<SAME, true>(a, s);
-  return launch<SAME, false>(a, s);
+  if (up) return launch_conv<UP2, false, true, 4, 64, 64, 1>(a, s);
+  return ga ? launch_same<true>(f, a, s) : launch_same<false>(f, a, s);
 }
 
 // K6's pixel tiles per image for a call (x (B, H, W, C) -> Co channels),

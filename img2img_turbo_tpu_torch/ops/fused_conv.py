@@ -34,10 +34,13 @@ def _lib():
         lib.conv3x3_bf16.argtypes = [ctypes.c_void_p] * 12 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.conv3x3_bf16.restype = ctypes.c_int
-        lib.conv_stats_tiles.argtypes = [ctypes.c_int] * 3
+        lib.conv_stats_tiles.argtypes = [ctypes.c_int] * 7
         lib.conv_stats_tiles.restype = ctypes.c_int
         lib.conv_workspace_bytes.argtypes = [ctypes.c_int] * 7
         lib.conv_workspace_bytes.restype = ctypes.c_long
+        lib.conv_plan.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.conv_plan.restype = None
         lib.downsample3x3_bf16.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.downsample3x3_bf16.restype = ctypes.c_int
@@ -279,15 +282,19 @@ def _launch(x, w_packed, co, bias, a, b, extra_bias, residual, skip_x,
     if (a is None) != (b is None) or \
             (skip_x is None) != (skip_w_packed is None):
         raise ValueError("a/b and skip_x/skip_w_packed come in pairs")
+    if csk % 8 or (csk and c % 8) or (up and c % 8):
+        raise ValueError(f"x {tuple(x.shape)}, skip channels {csk}: the "
+                         f"skip needs Csk and C multiples of 8, K4 C a "
+                         f"multiple of 8")
     lib = _lib()
+    dims = (bsz, h, wd, c, co, csk, int(up))
     y = torch.empty((bsz, ho, wo, co), device=dev, dtype=bf)
     stats = None
-    if emit_stats:
-        n_tiles = lib.conv_stats_tiles(h, wd, int(up))
-        stats = torch.empty((bsz, n_tiles, 2, co), device=dev,
-                            dtype=torch.float32)
+    if emit_stats:  # one partial sum per pixel tile of the call's form
+        stats = torch.empty((bsz, lib.conv_stats_tiles(*dims), 2, co),
+                            device=dev, dtype=torch.float32)
     # split-K scratch for grids below one wave (none for most calls)
-    ws_bytes = lib.conv_workspace_bytes(bsz, h, wd, c, co, csk, int(up))
+    ws_bytes = lib.conv_workspace_bytes(*dims)
     ws = (torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
           if ws_bytes else None)
     err = lib.conv3x3_bf16(
@@ -298,6 +305,17 @@ def _launch(x, w_packed, co, bias, a, b, extra_bias, residual, skip_x,
         _build.stream())
     _build.check(err, "conv3x3_bf16")
     return y, stats
+
+
+def conv_plan(bsz, h, w, c, co, csk=0, up=False) -> dict:
+    """The engine's launch form for a K1 (up False) or K4 call, as
+    `conv3x3_bf16` takes it (`conv_form` in csrc/conv.cu)."""
+    out = (ctypes.c_int * 9)()
+    _lib().conv_plan(bsz, h, w, c, co, csk, int(up), out)
+    keys = ("tile_rows", "channels_a_block", "channels_a_step",
+            "skip_channels_a_step", "blocks_an_sm", "stages", "splits",
+            "units_a_split", "blocks")
+    return dict(zip(keys, out))
 
 
 def fused_gn_silu_conv3x3(x, w, bias, a=None, b=None, extra_bias=None,
@@ -326,6 +344,10 @@ def fused_gn_silu_conv3x3(x, w, bias, a=None, b=None, extra_bias=None,
     out = _launch(x, w_packed, bias.shape[0], bias, a, b, extra_bias,
                   residual, skip_x, skip_w_packed, emit_stats, up=False)
     _build.launch_counts["fused_gn_silu_conv3x3"] += 1
+    csk = 0 if skip_x is None else skip_x.shape[-1]
+    _build.launch_shapes["fused_gn_silu_conv3x3", (
+        *x.shape, bias.shape[0], a is not None, extra_bias is not None,
+        residual is not None, csk, bool(emit_stats))] += 1
     return out
 
 
@@ -349,6 +371,9 @@ def upsample2x_conv3x3(x, w, bias, skip_x=None, skip_w=None,
     out = _launch(x, w_packed, bias.shape[0], bias, None, None, None, None,
                   skip_x, skip_w_packed, emit_stats, up=True)
     _build.launch_counts["upsample2x_conv3x3"] += 1
+    csk = 0 if skip_x is None else skip_x.shape[-1]
+    _build.launch_shapes["upsample2x_conv3x3", (
+        *x.shape, bias.shape[0], csk, bool(emit_stats))] += 1
     return out
 
 

@@ -8,14 +8,16 @@ file: run it from the root of a checkout of another commit to time that
 commit's kernels (in ABBA order for a comparison: parent, change, change,
 parent). The kernels and their cases, which chip_smoke.py takes from here:
 
-- K1 (`fused_gn_silu_conv3x3`, with stats), K4 (`upsample2x_conv3x3`,
-  with stats), K5 (`group_norm_coeffs`: the stats kernel and its
-  combine), K6 (`downsample2x_conv3x3`, with stats where its path takes
-  them) and K7 (`flash_attention_folded_bwd`) at their `*_CASES`; K6 then
-  reports its time per 512x512 request and per train step, and K7, beside
-  the backward of `F.scaled_dot_product_attention` on the same inputs, its
-  time per train step at each head dim (each case weighted by its launches
-  in `K6_CASES` and `K7_CASES`);
+- K1 (`fused_gn_silu_conv3x3`), K4 (`upsample2x_conv3x3`), K5
+  (`group_norm_coeffs`: the stats kernel and its combine), K6
+  (`downsample2x_conv3x3`) and K7 (`flash_attention_folded_bwd`) at their
+  `*_CASES`, K1, K4 and K6 with stats where their path takes them; K1
+  beside cuDNN's conv alone (`conv_alone`: F.conv2d, channels_last, on the
+  input activated beforehand, which is not K1's function); K1, K4 and K6
+  then report their time per 512x512 request and per train step, and K7,
+  beside the backward of `F.scaled_dot_product_attention` on the same
+  inputs, its time per train step at each head dim (each case weighted by
+  its launches in `K1_CASES`, `K4_CASES`, `K6_CASES` and `K7_CASES`);
 - K2 (`flash_attention_folded`, with lse) and K9 (`flash_attention`) at
   chip_smoke.py's attention shapes;
 - K3 (`fused_matmul.fused`) at the transformer and VAE mid-attention shapes
@@ -143,27 +145,138 @@ DU_CASES = [
     ("du ragged 105x70 640->640", 1, 105, 70, 640, 640, 0),
     ("du long-K 256x128 128->2048", 1, 256, 128, 128, 2048, 0)]
 
-# K1: (case, B, H, W, C, Co, GN prologue, extra bias, residual, Csk)
+# K1: every forward shape of a 512x512 request and a paired train step
+# (the train step: each generator pass runs the request's launches and
+# again the UNet's 44 resnet convs, recomputed), and of an 840x560 request
+# (launches 0): (case, B, H, W, C, Co, GN prologue, extra bias, residual,
+# Csk, stats, launches per request, per step); chip_smoke.py fails if a
+# path counts others
 K1_CASES = [
-    ("vae 512^2x128 gn", 1, 512, 512, 128, 128, True, False, True, 0),
-    ("vae conv_in C=3", 1, 512, 512, 3, 128, False, False, False, 0),
-    ("vae enc conv_out Co=8", 1, 64, 64, 512, 8, True, False, False, 0),
-    ("vae dec conv_out Co=3", 1, 512, 512, 128, 3, True, False, False, 0),
-    ("vae 256^2 256->128 shortcut", 1, 256, 256, 256, 128, True, False,
-     False, 256),
-    ("unet conv_in C=4", 1, 64, 64, 4, 320, False, False, False, 0),
-    ("unet 64^2x320 gn+eb", 1, 64, 64, 320, 320, True, True, False, 0),
-    ("unet C=2560 eb+res+skip", 1, 8, 8, 2560, 1280, True, True, True, 640),
-    ("unet 105x70x640 ragged", 1, 105, 70, 640, 320, True, True, False,
-     960),
-    ("unet conv_out Co=4", 1, 64, 64, 320, 4, True, False, False, 0)]
-# K4: (case, B, H, W, C, Co, Csk) at the low-resolution input
+    ('vae 512x512 3->128 conv_in', 1, 512, 512, 3, 128, False, False, False, 0, True, 1, 2),
+    ('vae 512x512 128->3 conv_out no stats', 1, 512, 512, 128, 3, True, False, False, 0, False, 1, 2),
+    ('vae 512x512 128->128', 1, 512, 512, 128, 128, True, False, False, 0, True, 4, 8),
+    ('vae 512x512 128->128 skip 256', 1, 512, 512, 128, 128, True, False, False, 256, True, 1, 2),
+    ('vae 512x512 128->128 res no stats', 1, 512, 512, 128, 128, True, False, True, 0, False, 1, 2),
+    ('vae 512x512 128->128 res', 1, 512, 512, 128, 128, True, False, True, 0, True, 3, 6),
+    ('vae 512x512 256->128', 1, 512, 512, 256, 128, True, False, False, 0, True, 1, 2),
+    ('vae 256x256 128->256', 1, 256, 256, 128, 256, True, False, False, 0, True, 1, 2),
+    ('vae 256x256 256->256', 1, 256, 256, 256, 256, True, False, False, 0, True, 3, 6),
+    ('vae 256x256 256->256 skip 128', 1, 256, 256, 256, 256, True, False, False, 128, True, 1, 2),
+    ('vae 256x256 256->256 skip 512', 1, 256, 256, 256, 256, True, False, False, 512, True, 1, 2),
+    ('vae 256x256 256->256 res no stats', 1, 256, 256, 256, 256, True, False, True, 0, False, 2, 4),
+    ('vae 256x256 256->256 res', 1, 256, 256, 256, 256, True, False, True, 0, True, 1, 2),
+    ('vae 256x256 512->256', 1, 256, 256, 512, 256, True, False, False, 0, True, 1, 2),
+    ('vae 128x128 256->512', 1, 128, 128, 256, 512, True, False, False, 0, True, 1, 2),
+    ('vae 128x128 512->512', 1, 128, 128, 512, 512, True, False, False, 0, True, 4, 8),
+    ('vae 128x128 512->512 skip 256', 1, 128, 128, 512, 512, True, False, False, 256, True, 1, 2),
+    ('vae 128x128 512->512 res no stats', 1, 128, 128, 512, 512, True, False, True, 0, False, 2, 4),
+    ('vae 128x128 512->512 res', 1, 128, 128, 512, 512, True, False, True, 0, True, 2, 4),
+    ('vae 64x64 4->512 conv_in', 1, 64, 64, 4, 512, False, False, False, 0, True, 1, 2),
+    ('vae 64x64 512->8 conv_out no stats', 1, 64, 64, 512, 8, True, False, False, 0, False, 1, 2),
+    ('vae 64x64 512->512', 1, 64, 64, 512, 512, True, False, False, 0, True, 9, 18),
+    ('vae 64x64 512->512 res no stats', 1, 64, 64, 512, 512, True, False, True, 0, False, 1, 2),
+    ('vae 64x64 512->512 res', 1, 64, 64, 512, 512, True, False, True, 0, True, 7, 14),
+    ('vae 64x64 512->512 res skip 512', 1, 64, 64, 512, 512, True, False, True, 512, True, 1, 2),
+    ('unet 64x64 4->320 conv_in no stats', 1, 64, 64, 4, 320, False, False, False, 0, False, 1, 2),
+    ('unet 64x64 320->4 conv_out no stats', 1, 64, 64, 320, 4, True, False, False, 0, False, 1, 2),
+    ('unet 64x64 320->320 skip 640', 1, 64, 64, 320, 320, True, False, False, 640, True, 2, 8),
+    ('unet 64x64 320->320 skip 960', 1, 64, 64, 320, 320, True, False, False, 960, True, 1, 4),
+    ('unet 64x64 320->320 res', 1, 64, 64, 320, 320, True, False, True, 0, True, 2, 8),
+    ('unet 64x64 320->320 eb', 1, 64, 64, 320, 320, True, True, False, 0, True, 2, 8),
+    ('unet 64x64 640->320 eb', 1, 64, 64, 640, 320, True, True, False, 0, True, 2, 8),
+    ('unet 64x64 960->320 eb', 1, 64, 64, 960, 320, True, True, False, 0, True, 1, 4),
+    ('unet 32x32 320->640 eb', 1, 32, 32, 320, 640, True, True, False, 0, True, 1, 4),
+    ('unet 32x32 640->640 skip 320', 1, 32, 32, 640, 640, True, False, False, 320, True, 1, 4),
+    ('unet 32x32 640->640 skip 960', 1, 32, 32, 640, 640, True, False, False, 960, True, 1, 4),
+    ('unet 32x32 640->640 skip 1280', 1, 32, 32, 640, 640, True, False, False, 1280, True, 1, 4),
+    ('unet 32x32 640->640 skip 1920', 1, 32, 32, 640, 640, True, False, False, 1920, True, 1, 4),
+    ('unet 32x32 640->640 res', 1, 32, 32, 640, 640, True, False, True, 0, True, 1, 4),
+    ('unet 32x32 640->640 eb', 1, 32, 32, 640, 640, True, True, False, 0, True, 1, 4),
+    ('unet 32x32 960->640 eb', 1, 32, 32, 960, 640, True, True, False, 0, True, 1, 4),
+    ('unet 32x32 1280->640 eb', 1, 32, 32, 1280, 640, True, True, False, 0, True, 1, 4),
+    ('unet 32x32 1920->640 eb', 1, 32, 32, 1920, 640, True, True, False, 0, True, 1, 4),
+    ('unet 16x16 640->1280 eb', 1, 16, 16, 640, 1280, True, True, False, 0, True, 1, 4),
+    ('unet 16x16 1280->1280 skip 640', 1, 16, 16, 1280, 1280, True, False, False, 640, True, 1, 4),
+    ('unet 16x16 1280->1280 skip 1920', 1, 16, 16, 1280, 1280, True, False, False, 1920, True, 1, 4),
+    ('unet 16x16 1280->1280 skip 2560', 1, 16, 16, 1280, 1280, True, False, False, 2560, True, 2, 8),
+    ('unet 16x16 1280->1280 res', 1, 16, 16, 1280, 1280, True, False, True, 0, True, 1, 4),
+    ('unet 16x16 1280->1280 eb', 1, 16, 16, 1280, 1280, True, True, False, 0, True, 1, 4),
+    ('unet 16x16 1920->1280 eb', 1, 16, 16, 1920, 1280, True, True, False, 0, True, 1, 4),
+    ('unet 16x16 2560->1280 eb', 1, 16, 16, 2560, 1280, True, True, False, 0, True, 2, 8),
+    ('unet 8x8 1280->1280 skip 2560', 1, 8, 8, 1280, 1280, True, False, False, 2560, True, 3, 12),
+    ('unet 8x8 1280->1280 res no stats', 1, 8, 8, 1280, 1280, True, False, True, 0, False, 1, 4),
+    ('unet 8x8 1280->1280 res', 1, 8, 8, 1280, 1280, True, False, True, 0, True, 3, 12),
+    ('unet 8x8 1280->1280 eb', 1, 8, 8, 1280, 1280, True, True, False, 0, True, 4, 16),
+    ('unet 8x8 2560->1280 eb', 1, 8, 8, 2560, 1280, True, True, False, 0, True, 3, 12),
+    ('vae 560x840 3->128 conv_in', 1, 560, 840, 3, 128, False, False, False, 0, True, 0, 0),
+    ('vae 560x840 128->3 conv_out no stats', 1, 560, 840, 128, 3, True, False, False, 0, False, 0, 0),
+    ('vae 560x840 128->128', 1, 560, 840, 128, 128, True, False, False, 0, True, 0, 0),
+    ('vae 560x840 128->128 skip 256', 1, 560, 840, 128, 128, True, False, False, 256, True, 0, 0),
+    ('vae 560x840 128->128 res no stats', 1, 560, 840, 128, 128, True, False, True, 0, False, 0, 0),
+    ('vae 560x840 128->128 res', 1, 560, 840, 128, 128, True, False, True, 0, True, 0, 0),
+    ('vae 560x840 256->128', 1, 560, 840, 256, 128, True, False, False, 0, True, 0, 0),
+    ('vae 280x420 128->256', 1, 280, 420, 128, 256, True, False, False, 0, True, 0, 0),
+    ('vae 280x420 256->256', 1, 280, 420, 256, 256, True, False, False, 0, True, 0, 0),
+    ('vae 280x420 256->256 skip 128', 1, 280, 420, 256, 256, True, False, False, 128, True, 0, 0),
+    ('vae 280x420 256->256 skip 512', 1, 280, 420, 256, 256, True, False, False, 512, True, 0, 0),
+    ('vae 280x420 256->256 res no stats', 1, 280, 420, 256, 256, True, False, True, 0, False, 0, 0),
+    ('vae 280x420 256->256 res', 1, 280, 420, 256, 256, True, False, True, 0, True, 0, 0),
+    ('vae 280x420 512->256', 1, 280, 420, 512, 256, True, False, False, 0, True, 0, 0),
+    ('vae 140x210 256->512', 1, 140, 210, 256, 512, True, False, False, 0, True, 0, 0),
+    ('vae 140x210 512->512', 1, 140, 210, 512, 512, True, False, False, 0, True, 0, 0),
+    ('vae 140x210 512->512 skip 256', 1, 140, 210, 512, 512, True, False, False, 256, True, 0, 0),
+    ('vae 140x210 512->512 res no stats', 1, 140, 210, 512, 512, True, False, True, 0, False, 0, 0),
+    ('vae 140x210 512->512 res', 1, 140, 210, 512, 512, True, False, True, 0, True, 0, 0),
+    ('vae 70x105 4->512 conv_in', 1, 70, 105, 4, 512, False, False, False, 0, True, 0, 0),
+    ('vae 70x105 512->8 conv_out no stats', 1, 70, 105, 512, 8, True, False, False, 0, False, 0, 0),
+    ('vae 70x105 512->512', 1, 70, 105, 512, 512, True, False, False, 0, True, 0, 0),
+    ('vae 70x105 512->512 res no stats', 1, 70, 105, 512, 512, True, False, True, 0, False, 0, 0),
+    ('vae 70x105 512->512 res', 1, 70, 105, 512, 512, True, False, True, 0, True, 0, 0),
+    ('vae 70x105 512->512 res skip 512', 1, 70, 105, 512, 512, True, False, True, 512, True, 0, 0),
+    ('unet 70x105 4->320 conv_in no stats', 1, 70, 105, 4, 320, False, False, False, 0, False, 0, 0),
+    ('unet 70x105 320->4 conv_out no stats', 1, 70, 105, 320, 4, True, False, False, 0, False, 0, 0),
+    ('unet 70x105 320->320 skip 640', 1, 70, 105, 320, 320, True, False, False, 640, True, 0, 0),
+    ('unet 70x105 320->320 skip 960', 1, 70, 105, 320, 320, True, False, False, 960, True, 0, 0),
+    ('unet 70x105 320->320 res', 1, 70, 105, 320, 320, True, False, True, 0, True, 0, 0),
+    ('unet 70x105 320->320 eb', 1, 70, 105, 320, 320, True, True, False, 0, True, 0, 0),
+    ('unet 70x105 640->320 eb', 1, 70, 105, 640, 320, True, True, False, 0, True, 0, 0),
+    ('unet 70x105 960->320 eb', 1, 70, 105, 960, 320, True, True, False, 0, True, 0, 0),
+    ('unet 35x53 320->640 eb', 1, 35, 53, 320, 640, True, True, False, 0, True, 0, 0),
+    ('unet 35x53 640->640 skip 320', 1, 35, 53, 640, 640, True, False, False, 320, True, 0, 0),
+    ('unet 35x53 640->640 skip 960', 1, 35, 53, 640, 640, True, False, False, 960, True, 0, 0),
+    ('unet 35x53 640->640 skip 1280', 1, 35, 53, 640, 640, True, False, False, 1280, True, 0, 0),
+    ('unet 35x53 640->640 skip 1920', 1, 35, 53, 640, 640, True, False, False, 1920, True, 0, 0),
+    ('unet 35x53 640->640 res', 1, 35, 53, 640, 640, True, False, True, 0, True, 0, 0),
+    ('unet 35x53 640->640 eb', 1, 35, 53, 640, 640, True, True, False, 0, True, 0, 0),
+    ('unet 35x53 960->640 eb', 1, 35, 53, 960, 640, True, True, False, 0, True, 0, 0),
+    ('unet 35x53 1280->640 eb', 1, 35, 53, 1280, 640, True, True, False, 0, True, 0, 0),
+    ('unet 35x53 1920->640 eb', 1, 35, 53, 1920, 640, True, True, False, 0, True, 0, 0),
+    ('unet 18x27 640->1280 eb', 1, 18, 27, 640, 1280, True, True, False, 0, True, 0, 0),
+    ('unet 18x27 1280->1280 skip 640', 1, 18, 27, 1280, 1280, True, False, False, 640, True, 0, 0),
+    ('unet 18x27 1280->1280 skip 1920', 1, 18, 27, 1280, 1280, True, False, False, 1920, True, 0, 0),
+    ('unet 18x27 1280->1280 skip 2560', 1, 18, 27, 1280, 1280, True, False, False, 2560, True, 0, 0),
+    ('unet 18x27 1280->1280 res', 1, 18, 27, 1280, 1280, True, False, True, 0, True, 0, 0),
+    ('unet 18x27 1280->1280 eb', 1, 18, 27, 1280, 1280, True, True, False, 0, True, 0, 0),
+    ('unet 18x27 1920->1280 eb', 1, 18, 27, 1920, 1280, True, True, False, 0, True, 0, 0),
+    ('unet 18x27 2560->1280 eb', 1, 18, 27, 2560, 1280, True, True, False, 0, True, 0, 0),
+    ('unet 9x14 1280->1280 skip 2560', 1, 9, 14, 1280, 1280, True, False, False, 2560, True, 0, 0),
+    ('unet 9x14 1280->1280 res no stats', 1, 9, 14, 1280, 1280, True, False, True, 0, False, 0, 0),
+    ('unet 9x14 1280->1280 res', 1, 9, 14, 1280, 1280, True, False, True, 0, True, 0, 0),
+    ('unet 9x14 1280->1280 eb', 1, 9, 14, 1280, 1280, True, True, False, 0, True, 0, 0),
+    ('unet 9x14 2560->1280 eb', 1, 9, 14, 2560, 1280, True, True, False, 0, True, 0, 0)]
+K1_PATH_CASES = len(K1_CASES)  # the rows before are the paths' shapes
+# K4: every upsample of those paths, at its low-resolution input: (case, B,
+# H, W, C, Co, Csk, stats, launches per request, per step)
 K4_CASES = [
-    ("vae 64->128 C=512 skip 256", 1, 64, 64, 512, 512, 256),
-    ("vae 128->256 C=512 skip 128", 1, 128, 128, 512, 512, 128),
-    ("vae 256->512 C=256 skip 128", 1, 256, 256, 256, 256, 128),
-    ("unet 8->16 C=1280", 1, 8, 8, 1280, 1280, 0),
-    ("unet 32->64 C=640", 1, 32, 32, 640, 640, 0)]
+    ('vae 256x256 256->256 skip 128', 1, 256, 256, 256, 256, 128, True, 1, 2),
+    ('vae 128x128 512->512 skip 128', 1, 128, 128, 512, 512, 128, True, 1, 2),
+    ('vae 64x64 512->512 skip 256', 1, 64, 64, 512, 512, 256, True, 1, 2),
+    ('unet 32x32 640->640 no stats', 1, 32, 32, 640, 640, 0, False, 1, 4),
+    ('unet 16x16 1280->1280 no stats', 1, 16, 16, 1280, 1280, 0, False, 1, 4),
+    ('unet 8x8 1280->1280 no stats', 1, 8, 8, 1280, 1280, 0, False, 1, 4),
+    ('vae 280x420 256->256 skip 128', 1, 280, 420, 256, 256, 128, True, 0, 0),
+    ('vae 140x210 512->512 skip 128', 1, 140, 210, 512, 512, 128, True, 0, 0),
+    ('vae 70x105 512->512 skip 256', 1, 70, 105, 512, 512, 256, True, 0, 0)]
 # K5 with its combine: (case, x shape)
 K5_CASES = [
     ("unet 64^2x320", (1, 64, 64, 320)),
@@ -322,8 +435,10 @@ def _k3_call(fused_matmul, rn, shape):
                                       gate=gate)
 
 
-def _k1_call(rn, b, h, w, c, co, norm, has_eb, has_res, csk):
-    from img2img_turbo_tpu_torch.ops import fused_conv as fc
+def k1_inputs(rn, b, h, w, c, co, norm, has_eb, has_res, csk):
+    """Seeded inputs of a K1 case: x, the HWIO weight, bias, GN (a, b),
+    extra bias, residual, skip_x and skip_w (None where the case has
+    none)."""
     x = rn(b, h, w, c)
     wt = rn(3, 3, c, co) / math.sqrt(9 * c)
     bias = rn(co).float()
@@ -336,14 +451,38 @@ def _k1_call(rn, b, h, w, c, co, norm, has_eb, has_res, csk):
         res = rn(b, h, w, co)
     if csk:
         skx, skw = rn(b, h, w, csk), rn(csk, co) / math.sqrt(csk)
+    return x, wt, bias, ga, gb, eb, res, skx, skw
+
+
+def conv_alone(x, wt, ga=None, gb=None):
+    """The library's share of a K1 case: cuDNN's F.conv2d (channels_last,
+    no bias) on the input activated beforehand, which is not the function
+    K1 computes (no prologue, bias, skip, residual or stats). Returns a
+    call."""
+    import torch
+    import torch.nn.functional as F
+    h = x
+    if ga is not None:
+        h = F.silu(x.float() * ga[:, None, None, :] + gb[:, None, None, :]
+                   ).to(x.dtype)
+    hc = h.permute(0, 3, 1, 2)              # NCHW view of NHWC memory
+    wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(hc, wc, padding=1)
+
+
+def _k1_call(rn, b, h, w, c, co, norm, has_eb, has_res, csk, stats,
+             *_launches):
+    from img2img_turbo_tpu_torch.ops import fused_conv as fc
+    x, wt, bias, ga, gb, eb, res, skx, skw = k1_inputs(
+        rn, b, h, w, c, co, norm, has_eb, has_res, csk)
     wp = fc.pack_weights(wt)
     skwp = None if skw is None else fc.pack_weights(skw)
     return lambda: fc.fused_gn_silu_conv3x3(
-        x, wt, bias, ga, gb, eb, res, skx, skw, emit_stats=True,
+        x, wt, bias, ga, gb, eb, res, skx, skw, emit_stats=stats,
         w_packed=wp, skip_w_packed=skwp)
 
 
-def _k4_call(rn, b, h, w, c, co, csk):
+def _k4_call(rn, b, h, w, c, co, csk, stats, *_launches):
     from img2img_turbo_tpu_torch.ops import fused_conv as fc
     x = rn(b, h, w, c)
     wt = rn(3, 3, c, co) / math.sqrt(9 * c)
@@ -354,7 +493,7 @@ def _k4_call(rn, b, h, w, c, co, csk):
         skwp = fc.pack_weights(skw)
     wp = fc.pack_weights(fc.fold_upsample_weights(wt))
     return lambda: fc.upsample2x_conv3x3(x, wt, bias, skx, skw,
-                                         emit_stats=True, w_packed=wp,
+                                         emit_stats=stats, w_packed=wp,
                                          skip_w_packed=skwp)
 
 
@@ -484,7 +623,8 @@ def main():
         """A kernel's times summed over its cases, each times its launches
         on a path (None where a case has no time)."""
         out = {"kernel": kernel, "case": what, "launches": sum(launches)}
-        for key in ("ms", "device_ms", "library_device_ms"):
+        for key in ("ms", "device_ms", "library_device_ms",
+                    "conv_alone_device_ms"):
             if key in rows[0]:
                 vals = [r[key] for r in rows]
                 out[key] = (None if None in vals else
@@ -498,11 +638,20 @@ def main():
         if kernel not in only:
             continue
         rows = [report(kernel, case, make(rn, *dims)) for case, *dims in table]
-        if kernel == "K6":
+        if kernel == "K1":
+            # cuDNN's conv alone on the activated input (not K1's function)
+            for r, (case, *dims) in zip(rows, table):
+                x, wt, _, ga, gb, *_ = k1_inputs(rn, *dims[:9])
+                r["conv_alone_device_ms"] = device_ms(conv_alone(x, wt, ga,
+                                                                 gb))
+                print(json.dumps({"kernel": "K1", "case": case,
+                                  "conv_alone_device_ms":
+                                  r["conv_alone_device_ms"]}), flush=True)
+        if kernel in ("K1", "K4", "K6"):
             # per 512x512 request and per train step
             for col, what in ((-2, "per 512x512 request"),
                               (-1, "per train step")):
-                weighted("K6", what, rows, [c[col] for c in table])
+                weighted(kernel, what, rows, [c[col] for c in table])
         if kernel == "K7":
             # the library's backward on the same inputs, then both per
             # train step at each head dim

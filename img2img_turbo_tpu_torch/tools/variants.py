@@ -44,12 +44,17 @@ def main(doc: str, script: str, src: str, libs, variants: dict, patch,
          run_cases) -> None:
     """A variant tool's command line: `--only a,b,...` (names may repeat;
     they run in the order given) makes, builds and runs each variant, whose
-    source is patch(text, its substitutions); `--run name`, inside a
-    variant's copy, calls run_cases(name)."""
+    source is patch(text, its substitutions); the name `parent` runs
+    run_cases in the checkout given by `--parent` (another commit's root,
+    built there, unpatched); `--run name`, inside a variant's copy, calls
+    run_cases(name)."""
     tool = Path(script).stem
     p = argparse.ArgumentParser(description=doc.split("\n")[0])
     p.add_argument("--only", default=",".join(variants),
-                   help="comma-separated variants: " + ", ".join(variants))
+                   help="comma-separated variants: " + ", ".join(variants)
+                   + ", or parent")
+    p.add_argument("--parent", help="root of the checkout that `parent` "
+                   "names")
     p.add_argument("--run", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.run:
@@ -64,7 +69,10 @@ def main(doc: str, script: str, src: str, libs, variants: dict, patch,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     names = args.only.split(",")
-    roots = {n: make(tool, n, src, lambda t, n=n: patch(t, variants[n]))
+    if "parent" in names and not args.parent:
+        sys.exit(f"{tool}: `parent` needs --parent <checkout root>")
+    roots = {n: Path(args.parent).resolve() if n == "parent" else
+             make(tool, n, src, lambda t, n=n: patch(t, variants[n]))
              for n in names}
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "

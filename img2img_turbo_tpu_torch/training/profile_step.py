@@ -29,8 +29,8 @@ TOP = 30       # GPU kernels listed per path
 # conv_kernel, told apart by its mode (0 same, 1 upsample); K7's hd-64
 # kernels live in namespace h64.
 KERNELS = (
-    ("K1 conv", ("conv_kernel<0", "split_epilogue<false")),
-    ("K4 upsample conv", ("conv_kernel<1", "split_epilogue<true")),
+    ("K1 conv", ("conv_kernel<0", "conv_reduce<0")),
+    ("K4 upsample conv", ("conv_kernel<1", "conv_reduce<1")),
     ("K8 du", ("dgrad_kernel", "dgrad_reduce")),
     ("K6 downsample conv", ("down_kernel", "down_reduce")),
     ("K3 fused matmul", ("mm_kernel",)),

@@ -161,10 +161,19 @@ def test_launch_table_matches_call_sites(setup, monkeypatch):
 def test_timing_tables_match_launch_tables():
     """tools/time_kernels.py's launch columns, which chip_smoke.py holds
     each path's launches by shape against, add up to chip_smoke.py's launch
-    tables: K6 per 512x512 request and per train step, K7 and the du per
-    train step."""
+    tables: K1's forward, K4 and K6 per 512x512 request and per train step,
+    K7 and the du per train step."""
     from img2img_turbo_tpu_torch.tools import time_kernels as tk
     smoke = _chip_smoke()
+    k1, k4 = "fused_gn_silu_conv3x3", "upsample2x_conv3x3"
+    assert sum(c[11] for c in tk.K1_CASES) == smoke.EXPECTED_LAUNCHES[k1]
+    assert sum(c[12] for c in tk.K1_CASES) == \
+        smoke.EXPECTED_TRAIN_LAUNCHES[k1] - smoke.TRAIN_DU_LAUNCHES
+    assert not any(c[11] or c[12] for c in tk.K1_CASES[tk.K1_PATH_CASES:])
+    assert len({c[1:11] for c in tk.K1_CASES}) == len(tk.K1_CASES)
+    assert sum(c[8] for c in tk.K4_CASES) == smoke.EXPECTED_LAUNCHES[k4]
+    assert sum(c[9] for c in tk.K4_CASES) == smoke.EXPECTED_TRAIN_LAUNCHES[k4]
+    assert len({c[1:8] for c in tk.K4_CASES}) == len(tk.K4_CASES)
     k6, k7 = "downsample2x_conv3x3", "flash_attention_folded_bwd"
     assert sum(c[7] for c in tk.K6_CASES) == smoke.EXPECTED_LAUNCHES[k6]
     assert sum(c[8] for c in tk.K6_CASES) == smoke.EXPECTED_TRAIN_LAUNCHES[k6]
