@@ -42,12 +42,19 @@ Phases, each fatal on failure:
    K7's, beside SDPA's backward, per train step at each head dim, by the
    launches their wrappers counted by shape, which must match
    tools/time_kernels.py's tables. K7 runs every attention shape of the
-   train step and four hd-64 edge cases (batch 2, a ragged Sq = Skv =
-   4000, Sq = 1000 and Sq = 37 against Skv = 77), each with its launch
-   plan (`flash_attention_bwd_plan`) and, at hd 64, a bit-identical
-   repeat; the run fails unless both a split and an unsplit dk/dv walk
-   ran. Every case of every kernel reports its device time alone (a CUDA
-   graph of 20 calls), and of its library call where it has one;
+   train step, four hd-64 edge cases (batch 2, a ragged Sq = Skv = 4000,
+   Sq = 1000 and Sq = 37 against Skv = 77) and three hd-512 ones (the
+   ragged S = 7350, Sq = 300 against Skv = 333 at B = H = 2, and S =
+   16384, which walks bands of Q rows), each with its launch plan
+   (`flash_attention_bwd_plan`) and a bit-identical repeat; the run fails
+   unless both a split and an unsplit hd-64 dk/dv walk ran, and both a
+   one-band and a banded hd-512 call. K5 (`group_norm_coeffs`: the
+   partial-stats and combine kernels from one host call) runs its four
+   cases against the exact plain versions, its partials too, with a
+   bit-identical repeat; its combine alone runs on stats K1 emitted at
+   four path shapes. Every case of every kernel reports its device time
+   alone (a CUDA graph of 20 calls), and of its library call where it has
+   one;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -116,12 +123,18 @@ K9_CASES = [
     ("ragged S=7350 H=5", 1, 5, 7350, 7350),
     ("self S=1024 H=10", 1, 10, 1024, 1024),
     ("ragged S=1089 H=2", 1, 2, 1089, 1089)]
-# K7's hd-64 edge cases beyond K7_CASES: (case, B, Sq, Skv, H, hd)
+# K7's edge cases beyond K7_CASES: (case, B, Sq, Skv, H, hd). At hd 512:
+# the 840x560 request's ragged S = 7350, a small ragged case with two
+# batches and two heads that runs every mask of both kernels, and the VAE
+# mid attention of a 1024^2 image, S = 16384, whose P and dS take bands.
 K7_EDGE_CASES = [
     ("edge self S=1024 H=10 B=2", 2, 1024, 1024, 10, 64),
     ("edge ragged self S=4000 H=5", 1, 4000, 4000, 5, 64),
     ("edge split cross Sq=1000 Skv=77 H=10", 1, 1000, 77, 10, 64),
-    ("edge cross Sq=37 Skv=77 H=10", 1, 37, 77, 10, 64)]
+    ("edge cross Sq=37 Skv=77 H=10", 1, 37, 77, 10, 64),
+    ("edge hd=512 ragged S=7350", 1, 7350, 7350, 1, 512),
+    ("edge hd=512 Sq=300 Skv=333 H=2 B=2", 2, 300, 333, 2, 512),
+    ("edge hd=512 banded S=16384", 1, 16384, 16384, 1, 512)]
 REL_TOL = 1e-2      # kernel vs plain, bf16 output: max|err| / max|ref|
 STATS_TOL = 1e-3    # folded GN (a, b): emitted stats vs stats of the same y
 LSE_TOL = 1e-3      # K2's logsumexp (fp32) vs the fp32 plain version, abs
@@ -510,8 +523,11 @@ def kernel_phase(dev, results: list):
               f"case to tools/time_kernels.py K6_CASES that takes the rest")
 
     # ---- K5 -------------------------------------------------------------
-    k5 = ("group_norm_stats", "triton",
-          "img2img_turbo_tpu_torch/ops/groupnorm.py",
+    # group_norm_coeffs (the partial-stats and combine kernels from one host
+    # call) against the exact plain versions, its partials alone too; timed
+    # beside the plain engine's two-pass (a, b)
+    k5 = ("group_norm_stats", "cuda",
+          "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
           "img2img_turbo_tpu/ops/groupnorm.py:81")
     for case, shape in K5_CASES:
         x = rn(*shape) * 2 + 0.5
@@ -519,22 +535,63 @@ def kernel_phase(dev, results: list):
         scale = 1 + 0.1 * rn(c, dtype=torch.float32)
         bias = 0.1 * rn(c, dtype=torch.float32)
         ka, kb = gn.group_norm_coeffs(x, scale, bias, 32, 1e-5)
-        ra, rb = gn.combine_stats(gn.partial_stats_ref(x), scale, bias, 32,
-                                  1e-5, x.numel() // (shape[0] * c))
+        parts = gn.partial_stats(x)
+        parts_ref = gn.partial_stats_ref(x)
+        ra, rb = gn.combine_stats_ref(parts_ref, scale, bias, 32, 1e-5,
+                                      x.numel() // (shape[0] * c))
         err_a, rel_a = _rel(ka, ra)
         err_b, rel_b = _rel(kb, rb)
-        # K5 and its combine against the plain engine's two-pass (a, b)
+        rel_p = _rel(parts, parts_ref)[1]
+        if not rel_p <= STATS_TOL:
+            _fail(f"K5 {case}: partial sums rel err {rel_p:.3e} > "
+                  f"{STATS_TOL:.0e}")
+        again = gn.group_norm_coeffs(x, scale, bias, 32, 1e-5)
+        if not (torch.equal(ka, again[0]) and torch.equal(kb, again[1])):
+            _fail(f"K5 {case}: a repeated call differs")
         call = lambda: gn.group_norm_coeffs(x, scale, bias, 32,  # noqa: E731
                                             1e-5)
         ms, dev_ms = _time_ms(call), device_ms(call)
         pms = _time_ms(lambda: gn.group_norm_coeffs_plain(x, scale, bias, 32,
                                                           1e-5))
-        # K5 reads x once and writes its partial sums; one op per element
-        # for the sum, two for the sum of squares
+        # the function reads x, scale and bias once and writes (a, b) (the
+        # partials are its own scratch); one op per element for the sum,
+        # two for the sum of squares
         flops = 3 * x.numel()
-        nbytes = _nbytes(x, gn.partial_stats(x))
+        nbytes = _nbytes(x, scale, bias, ka, kb)
+        print(f"  {'':26s} K5 {case}: partials rel {rel_p:.1e}, repeat "
+              f"bit-identical", flush=True)
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
                ms, pms, flops, nbytes, device_ms=dev_ms)
+
+    # ---- K5's combine on the stats the conv kernels emit (K1 at four
+    # path shapes), against its plain version, beside it; one launch
+    kc = ("group_norm_combine", "cuda",
+          "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
+          "img2img_turbo_tpu/ops/fused_conv.py:1782 (XLA combine_stats)")
+    for case, B, H, W, C in (("vae 512^2x128", 1, 512, 512, 128),
+                             ("vae 128^2x512", 1, 128, 128, 512),
+                             ("unet 64^2x320", 1, 64, 64, 320),
+                             ("unet 8^2x1280", 1, 8, 8, 1280)):
+        w = rn(3, 3, C, C, scale=1 / math.sqrt(9 * C))
+        _, st = fc.fused_gn_silu_conv3x3(
+            rn(B, H, W, C), w, rn(C, dtype=torch.float32), emit_stats=True,
+            w_packed=fc.pack_weights(w))
+        scale = 1 + 0.1 * rn(C, dtype=torch.float32)
+        bias = 0.1 * rn(C, dtype=torch.float32)
+        ka, kb = gn.combine_stats(st, scale, bias, 32, 1e-6, H * W)
+        ra, rb = gn.combine_stats_ref(st, scale, bias, 32, 1e-6, H * W)
+        err_a, rel_a = _rel(ka, ra)
+        err_b, rel_b = _rel(kb, rb)
+        call = lambda: gn.combine_stats(st, scale, bias, 32,  # noqa: E731
+                                        1e-6, H * W)
+        ms, dev_ms = _time_ms(call), device_ms(call)
+        pms = _time_ms(lambda: gn.combine_stats_ref(st, scale, bias, 32,
+                                                    1e-6, H * W))
+        print(f"  {'':26s} combine {case}: {st.shape[1]} stats tiles",
+              flush=True)
+        record(*kc, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
+               ms, pms, 2 * st.numel(), _nbytes(st, scale, bias, ka, kb),
+               device_ms=dev_ms)
 
     # ---- K3: every launch shape of the paths (tools/time_kernels.py's
     # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
@@ -648,15 +705,15 @@ def kernel_phase(dev, results: list):
                f"sdpa[{backend}]", library_device_ms=lib_dev, **report)
 
     # ---- K7 -------------------------------------------------------------
-    # every case with its launch plan (`flash_attention_bwd_plan`); the
-    # hd-64 ones also with a bit-identical repeat. The edge cases (part
-    # "edge", summed apart from the train step's shapes) cross the batch
-    # stride, a ragged Sq = Skv, and the split and unsplit dk/dv walk at
-    # Skv = 77.
+    # every case with its launch plan (`flash_attention_bwd_plan`) and a
+    # bit-identical repeat. The edge cases (part "edge", summed apart from
+    # the train step's shapes) cross the batch stride, a ragged Sq = Skv,
+    # the split and unsplit dk/dv walk at Skv = 77 (hd 64), and ragged,
+    # batched and banded calls at hd 512.
     k7 = ("flash_attention_folded_bwd", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
           "img2img_turbo_tpu/ops/attention.py:390")
-    k7_splits = set()
+    k7_splits, k7_bands = set(), set()
     for case, B, Sq, Skv, H, hd, part in (
             [(*c[:6], None) for c in K7_CASES]
             + [(*c, "edge") for c in K7_EDGE_CASES]):
@@ -665,21 +722,31 @@ def kernel_phase(dev, results: list):
         o, lse = attention.flash_attention_folded(q, k, v, H,
                                                   return_lse=True)
         plan = attention.flash_attention_bwd_plan(B, H, Sq, Skv, hd)
-        print(f"  {'':26s} K7 {case}: dq grid {plan['dq_grid']} "
-              f"({plan['dq_rows']} Q rows, {plan['dq_kv_tile']}-row KV "
-              f"tiles, {plan['dq_stages']} stages); dk/dv grid "
-              f"{plan['dkv_grid']} ({plan['dkv_rows']} KV rows, "
-              f"{plan['dkv_q_tile']}-row Q tiles, {plan['dkv_stages']} "
-              f"stages), {plan['split']} split(s) of "
-              f"{plan['q_tiles_a_split']} Q tiles; {plan['kernels']} "
-              f"kernels a call", flush=True)
-        grads = attention.flash_attention_folded_bwd(q, k, v, o, do, lse, H)
         if hd == 64:
             k7_splits.add(plan["split"] > 1)
-            again = attention.flash_attention_folded_bwd(q, k, v, o, do,
-                                                         lse, H)
-            if not all(torch.equal(a_, b_) for a_, b_ in zip(grads, again)):
-                _fail(f"K7 {case}: a repeated call differs")
+            print(f"  {'':26s} K7 {case}: dq grid {plan['dq_grid']} "
+                  f"({plan['dq_rows']} Q rows, {plan['dq_kv_tile']}-row KV "
+                  f"tiles, {plan['dq_stages']} stages); dk/dv grid "
+                  f"{plan['dkv_grid']} ({plan['dkv_rows']} KV rows, "
+                  f"{plan['dkv_q_tile']}-row Q tiles, {plan['dkv_stages']} "
+                  f"stages), {plan['split']} split(s) of "
+                  f"{plan['q_tiles_a_split']} Q tiles; {plan['kernels']} "
+                  f"kernels a call", flush=True)
+        else:
+            k7_bands.add(plan["bands"] > 1)
+            print(f"  {'':26s} K7 {case}: scores grid {plan['scores_grid']}"
+                  f" ({plan['scores_tile']} tiles, {plan['scores_stages']} "
+                  f"stages); products grid {plan['products_grid']} "
+                  f"({plan['products_tile']} tiles, "
+                  f"{plan['products_k_step']}-row steps, "
+                  f"{plan['products_stages']} stages); {plan['bands']} "
+                  f"band(s) of {plan['band_rows']} Q rows; "
+                  f"{plan['kernels']} kernels a call", flush=True)
+        grads = attention.flash_attention_folded_bwd(q, k, v, o, do, lse, H)
+        again = attention.flash_attention_folded_bwd(q, k, v, o, do, lse, H)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(grads, again)):
+            _fail(f"K7 {case}: a repeated call differs")
+        del again
         refs = attention.attention_bwd_ref(q, k, v, o, do, lse, H)
         errs = [_rel(g_, r_) for g_, r_ in zip(grads, refs)]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -704,6 +771,9 @@ def kernel_phase(dev, results: list):
     if k7_splits != {False, True}:
         _fail(f"K7's hd-64 cases did not run both a split and an unsplit "
               f"dk/dv walk (split seen: {sorted(k7_splits)})")
+    if k7_bands != {False, True}:
+        _fail(f"K7's hd-512 cases did not run both a one-band and a banded "
+              f"call (banded seen: {sorted(k7_bands)})")
 
     # a CUDA tensor the kernel does not take raises; it never falls back
     x = rn(1, 8, 8, 64)
@@ -735,6 +805,9 @@ def kernel_phase(dev, results: list):
             *(rn(1, 16, 64) for _ in range(5)),
             torch.zeros(1, 16, 1, device=dev, dtype=bf), 1),
         "K5 fp16 input": lambda: gn.partial_stats(x.half()),
+        "K5 combine, 30 channels in 32 groups": lambda: gn.combine_stats(
+            torch.zeros(1, 1, 2, 30, device=dev), torch.ones(30, device=dev),
+            torch.zeros(30, device=dev), 32, 1e-6, 64),
         "K6 C not a multiple of 8": lambda: fc.downsample2x_conv3x3(
             rn(1, 8, 8, 12), rn(3, 3, 12, 16), torch.zeros(16, device=dev),
             0, w_packed=fc.pack_weights(rn(3, 3, 12, 16))),
@@ -987,10 +1060,15 @@ def main():
 #   K5  GNs with no chained stats: VAE 2 mid res2 GN1; UNet 7 down + 2 mid
 #       + 12 up-block concats + norm_out (the VAE encoder's 3 GNs after its
 #       downsamples read K6's stats)
+#   K5's combine: every GroupNorm of the path, 113: 95 K1 prologues (98
+#       less the three conv_ins), 16 transformer GNs, 2 VAE mid-attention
+#       GNs; each K5 launch above comes with its combine in the same host
+#       call, the rest combine the stats K1 and K6 emitted
 #   K6  3 VAE encoder downsamples (with stats) + 3 UNet downsamples
 EXPECTED_LAUNCHES = {"fused_gn_silu_conv3x3": 98, "flash_attention_folded": 34,
                      "fused_matmul": 148, "upsample2x_conv3x3": 6,
-                     "group_norm_stats": 24, "downsample2x_conv3x3": 6}
+                     "group_norm_stats": 24, "group_norm_combine": 113,
+                     "downsample2x_conv3x3": 6}
 # At 840x560 the UNet's skip sizes are odd at every level, so its three
 # upsamples take upsample_nearest_to + a plain conv (unet.py:350-355); its
 # six downsamples (560x840 -> 280x420 -> 140x210 -> 70x105 in the VAE,
@@ -1320,9 +1398,10 @@ def modes_phase(dev, summary):
 
 # Kernel launches of one paired train step at the SD-Turbo topology, 512x512
 # b1. Each generator pass (1 and 2) runs the serving forward's launches
-# (K1 98, K2 34, K3 148, K4 6, K5 24, K6 6), then its backward: the UNet's
-# down, mid and up blocks run again (recompute: K1 44 resnet convs, K2 32,
-# K3 144, K4 3 upsamples, K5 21, K6 3 downsamples), each fused GN conv's
+# (K1 98, K2 34, K3 148, K4 6, K5 24 and its combine 113, K6 6), then its
+# backward: the UNet's down, mid and up blocks run again (recompute: K1 44
+# resnet convs, K2 32, K3 144, K4 3 upsamples, K5 21, the combine 60: every
+# GroupNorm of the UNet but norm_out, K6 3 downsamples), each fused GN conv's
 # du is one launch of the du kernel, counted as K1 (95, all K1 but the
 # three prologue-free conv_ins; by shape in tools/time_kernels.py
 # DU_CASES) and each
@@ -1336,6 +1415,7 @@ EXPECTED_TRAIN_LAUNCHES = {
     "fused_matmul": 2 * (148 + 144),
     "upsample2x_conv3x3": 2 * (6 + 3),
     "group_norm_stats": 2 * (24 + 21),
+    "group_norm_combine": 2 * (113 + 60),
     "downsample2x_conv3x3": 2 * (6 + 3),
     "flash_attention_folded_bwd": 2 * 34}
 GRAD_REL_L2_TOL = 1e-1  # pass-1 gradients, kernel vs plain path, bf16

@@ -3,29 +3,24 @@
 //
 // Replaces img2img_turbo_tpu/ops/attention.py:390 flash_attention_folded_bwd
 // (bodies _flash_bwd_dq_kernel :302 and _flash_bwd_dkv_kernel :341, delta in
-// XLA at :398-400). The (Sq, Skv) probabilities never reach device memory:
-// each block rebuilds its tile of P = exp(S * scale - lse) from the
-// forward's saved logsumexp, and forms dP = dO V^T and dS = P * (dP - delta),
-// delta = rowsum(dO * O).
+// XLA at :398-400). P = exp(S * scale - lse) is rebuilt from the forward's
+// saved logsumexp, dP = dO V^T and dS = P * (dP - delta), delta =
+// rowsum(dO * O); dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO. P and
+// dS are rounded to bf16 before their products, as the TPU kernels round
+// them; all sums are fp32; each output is rounded once. Ragged Sq and Skv
+// are masked in the kernels (the TPU version pads). No atomics, so a
+// repeated step is bit-identical.
 //
-// Two kernels, as in the JAX design, and no atomics, so a repeated step is
-// bit-identical:
-//   dq:  a block per (Q tile, head, batch) walks every KV tile and
-//        accumulates dQ = dS K * scale;
-//   dkv: a block per (KV tile, head, batch) walks the Q tiles and
-//        accumulates dV = P^T dO and dK = dS^T Q * scale.
-// S and dP are computed in both: 7 products of Sq x Skv x hd per head
-// against the least 5. P and dS are rounded to bf16 before their products,
-// as the TPU kernels round them; all sums are fp32; each output is rounded
-// once. Ragged Sq and Skv are masked in the kernels (the TPU version pads).
+// Both head dims start with one prologue: delta = rowsum(dO * O) from
+// 16-byte loads, written with lse * log2(e) as (B, H, Sqp) fp32 scratch (Sqp
+// = Sq rounded up to the Q tile, zero past Sq), so that a Q tile's values of
+// one head are one contiguous row a TMA bulk copy reads (lse arrives as (B,
+// Sq, H), where they lie at stride H).
 //
-// hd = 64 (the UNet's self- and cross-attention), written for Hopper after
-// the forward kernel (attention.cu):
-//   prologue: delta = rowsum(dO * O) from 16-byte loads, written with
-//        lse * log2(e) as (B, H, Sqp) fp32 scratch (Sqp = Sq rounded up to
-//        64, zero past Sq), so that a Q tile's 64 values of one head are one
-//        256-byte row a TMA bulk copy reads (lse arrives as (B, Sq, H), where
-//        they lie at stride H);
+// hd = 64 (the UNet's self- and cross-attention): the (Sq, Skv)
+// probabilities never reach device memory. Two kernels, as in the JAX
+// design; S and dP are computed in both (7 products of Sq x Skv x hd per
+// head against the least 5):
 //   dq:  64 Q rows, one consumer warpgroup and one producer warp. Q, dO and
 //        the rows' lse and delta land once; K and V tiles stream through a
 //        ring of mbarrier-ordered stages by TMA (3-D tensor maps over
@@ -47,16 +42,37 @@
 //        block an SM and at least 4 Q tiles a split; each split writes fp32
 //        partial dK and dV and `dkv_reduce` adds them in split order,
 //        scales dK and rounds once.
-// Outputs are staged through shared memory and stored in 16-byte rows. A
-// call's launch plan (tiles, stages, split, grids) lives only here
-// (flash_attention_bwd_plan reports it), and so does its scratch size
-// (flash_attention_bwd_workspace_bytes).
 //
-// hd = 512 (the VAE mid attention, one head): wmma 16x16x16 kernels that
-// keep S, dP, P and dS in shared memory between phases; each warp keeps its
-// share of the dQ (or dK, dV) accumulator tiles in registers, split by
-// column chunks of 16 over the block's 8 warps. The dq kernel also writes
-// delta, (B, Sq, H) fp32, for the dk/dv kernel.
+// hd = 512 (the VAE mid attention, one head at S = 4096 in a train step):
+// a 64 x 512 fp32 accumulator is 256 registers a thread of a warpgroup, so
+// dK and dV cannot stay resident beside S and dP as at hd 64, and column
+// slices of the head would recompute S and dP once per slice (at least 15
+// products against 5). Instead P and dS go through device memory once, in
+// bf16, and the call runs the least 5 products in two kernels:
+//   scores:   a block per 128 x 128 tile of (Q rows, KV rows) of one (b, h),
+//        two consumer warpgroups (64 Q rows each) and a TMA producer warp
+//        streaming 64-column chunks of Q, dO, K and V through a 3-stage
+//        ring. wgmma accumulates S = Q K^T and dP = dO V^T over the head's 8
+//        chunks in registers; the epilogue forms P and dS (exp2f, the row's
+//        lse and delta, P = 0 past Skv and past Sq), rounds them to bf16
+//        and stores both tiles, staged in shared memory, to a workspace of
+//        (B*H, Sq', Skv') bf16 planes (the lengths rounded up to 128);
+//   products: one launch runs dQ = scale dS K (M = Sq, contraction Skv),
+//        dK = scale dS^T Q and dV = P^T dO (M = Skv, contraction Sq) as
+//        128 x 128 output tiles (hd in 4 column tiles), two consumer
+//        warpgroups and a producer warp with a 4-stage TMA ring of 64-row
+//        steps. dS^T and P^T are read as MN-major A operands straight from
+//        the workspace's tiles, Q, K and dO as MN-major B operands, so
+//        nothing is transposed in device memory. Each epilogue scales,
+//        rounds once and stores 16-byte rows staged in shared memory.
+//   bands: where P and dS would pass 256 MiB (S = 16384, the VAE mid
+//        attention of a 1024^2 image), the call walks bands of Q rows, a
+//        scores and a products launch each: dQ is complete per band, dK
+//        and dV are summed across bands in fp32 scratch, in band order,
+//        and rounded once after the last.
+// A call's launch plan (tiles, stages, split or bands, grids) lives only
+// here (flash_attention_bwd_plan reports it), and so does its scratch size
+// (flash_attention_bwd_workspace_bytes).
 //
 // What bounds it on the H100: the work is 5 products of Sq x Skv x hd per
 // head (2.5x the forward), so the long cases are compute-bound. The hd-64
@@ -69,7 +85,10 @@
 // dk/dv kernel's exponentials with its products, costs registers: ptxas
 // then serialises the wgmmas or a block an SM is lost, and each measured
 // slower (PERF.md, tools/k7_variants.py). The Skv = 77 cases are bound by
-// their launches (three or four kernels of a few microseconds).
+// their launches (three or four kernels of a few microseconds). At hd 512
+// the scores kernel reads each Q, dO, K and V chunk once per tile pair
+// (about 0.5 GiB from L2 at S = 4096) and writes 64 MiB of P and dS; the
+// products kernel reads them back 4 times (once per column tile).
 
 #include <algorithm>
 
@@ -80,312 +99,55 @@ using i2i::Pack8;
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// hd = 512: wmma kernels
-// ---------------------------------------------------------------------------
+constexpr float LOG2E = 1.4426950408889634f;
 
-using namespace nvcuda;
-
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
-
-__host__ __device__ constexpr int align128(int n) { return (n + 127) / 128 * 128; }
-
-template <int HD, int BQ, int BKV>
-struct Smem {
-  static constexpr int QLD = HD + 8, SLD = BKV + 4, PLD = BKV + 8;
-  static constexpr int q = 0;
-  static constexpr int dout = q + align128(BQ * QLD * 2);
-  static constexpr int k = dout + align128(BQ * QLD * 2);
-  static constexpr int v = k + align128(BKV * QLD * 2);
-  static constexpr int s = v + align128(BKV * QLD * 2);
-  static constexpr int dp = s + align128(BQ * SLD * 4);
-  static constexpr int p = dp + align128(BQ * SLD * 4);
-  static constexpr int ds = p + align128(BQ * PLD * 2);
-  static constexpr int lse = ds + align128(BQ * PLD * 2);
-  static constexpr int dlt = lse + align128(BQ * 4);
-  static constexpr int stage = dlt + align128(BQ * 4);  // 16x16 fp32 a warp
-  static constexpr int bytes = stage + NW * 256 * 4;
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows [0, R) of a (R, HD) tile of the folded tensor at row r0, head column
-// col0; rows at or past `limit` are zero.
-template <int HD, int R>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          size_t row_base, int r0, int limit,
-                                          int D, size_t col0, int tid) {
-  for (int c = tid; c < R * HD / 8; c += NT) {
-    const int r = c / (HD / 8), cc = (c % (HD / 8)) * 8;
-    Pack8 val = i2i::zero8();
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const Pack8*>(src + (row_base + r0 + r) * D + col0 + cc);
-    *reinterpret_cast<Pack8*>(&dst[r * ld + cc]) = val;
+// delta = rowsum(dO * O) over each head's HD columns, from 16-byte loads
+// (HD / 8 threads a row, at most a warp, each summing its chunks in order),
+// and lse * log2(e), both written as (B, H, Sqp), 0 past Sq.
+template <int HD>
+__global__ void __launch_bounds__(256)
+prologue_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ lse2,
+                float* __restrict__ delta, int B, int H, int Sq, int sqp) {
+  constexpr int TPR = HD / 8 < 32 ? HD / 8 : 32;  // threads a row
+  constexpr int CH = HD / (8 * TPR);              // 16-byte chunks a thread
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = gid / TPR, rows = (long long)B * sqp * H;
+  const int sub = (int)(gid % TPR);
+  const int h = (int)(row % H);
+  const int s = (int)((row / H) % sqp);
+  const int b = (int)(row / ((long long)H * sqp));
+  const bool in = row < rows && s < Sq;
+  float acc = 0.f;
+  if (in) {
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const size_t off = ((size_t)b * Sq + s) * H * HD + h * HD + (ch * TPR + sub) * 8;
+      Pack8 ov, dv;
+      ov.u = *reinterpret_cast<const uint4*>(o + off);
+      dv.u = *reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += __bfloat162float(ov.h[e]) * __bfloat162float(dv.h[e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && sub == 0) {
+    const size_t idx = ((size_t)b * H + h) * sqp + s;
+    delta[idx] = in ? acc : 0.f;
+    lse2[idx] = in ? lse[((size_t)b * Sq + s) * H + h] * LOG2E : 0.f;
   }
 }
 
-// S = Q K^T and dP = dO V^T, (BQ, BKV) fp32 each, one 16x16 tile per task.
-template <int HD, int BQ, int BKV>
-__device__ __forceinline__ void scores(const bf16* Qs, const bf16* dOs,
-                                       const bf16* Ks, const bf16* Vs,
-                                       float* Ss, float* dPs, int warp) {
-  using L = Smem<HD, BQ, BKV>;
-  constexpr int SF = (BQ / 16) * (BKV / 16);
-  for (int f = warp; f < 2 * SF; f += NW) {
-    const bool is_dp = f >= SF;
-    const int t = is_dp ? f - SF : f;
-    const int fr = t / (BKV / 16), fc = t % (BKV / 16);
-    const bf16* A = is_dp ? dOs : Qs;
-    const bf16* Bm = is_dp ? Vs : Ks;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < HD; kk += 16) {
-      FragA af;
-      FragBT bfr;
-      wmma::load_matrix_sync(af, &A[fr * 16 * L::QLD + kk], L::QLD);
-      wmma::load_matrix_sync(bfr, &Bm[fc * 16 * L::QLD + kk], L::QLD);
-      wmma::mma_sync(acc, af, bfr, acc);
-    }
-    wmma::store_matrix_sync(&(is_dp ? dPs : Ss)[fr * 16 * L::SLD + fc * 16],
-                            acc, L::SLD, wmma::mem_row_major);
-  }
+template <int HD>
+cudaError_t launch_prologue(const bf16* o, const bf16* dout, const float* lse, float* lse2,
+                            float* delta, int B, int H, int Sq, int sqp, cudaStream_t stream) {
+  constexpr int TPR = HD / 8 < 32 ? HD / 8 : 32;
+  const long long threads = (long long)B * sqp * H * TPR;
+  prologue_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      o, dout, lse, lse2, delta, B, H, Sq, sqp);
+  return cudaGetLastError();
 }
-
-// Round a warp's accumulator tile (times `mul`) to bf16 and store the rows
-// below `limit` of the (16, 16) tile at (row0, col) of the folded output.
-__device__ __forceinline__ void store_tile(Acc& acc, float mul, float* stage,
-                                           bf16* out, size_t row_base,
-                                           int row0, int limit, int D,
-                                           size_t col, int lane) {
-  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 256; i += 32) {
-    const int r = i / 16, c = i % 16;
-    if (row0 + r < limit)
-      out[(row_base + row0 + r) * D + col + c] = __float2bfloat16(stage[i] * mul);
-  }
-  __syncwarp();
-}
-
-template <int HD, int BQ, int BKV>
-__global__ void __launch_bounds__(NT)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ o,
-              const bf16* __restrict__ dout, const float* __restrict__ lse,
-              float* __restrict__ delta, bf16* __restrict__ dq, int Sq,
-              int Skv, int D, float scale) {
-  using L = Smem<HD, BQ, BKV>;
-  constexpr int TPR = NT / BQ;  // threads per row for delta
-  constexpr int NF = (BQ / 16) * (HD / 16) / NW;
-  static_assert((BQ / 16) * (HD / 16) % NW == 0, "dQ tiles per warp");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lses = reinterpret_cast<float*>(smem + L::lse);
-  float* dlts = reinterpret_cast<float*>(smem + L::dlt);
-  float* stage = reinterpret_cast<float*>(smem + L::stage);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const size_t col0 = (size_t)h * HD, qbase = (size_t)b * Sq,
-               kbase = (size_t)b * Skv;
-
-  load_tile<HD, BQ>(Qs, L::QLD, q, qbase, q0, Sq, D, col0, tid);
-  load_tile<HD, BQ>(dOs, L::QLD, dout, qbase, q0, Sq, D, col0, tid);
-  {
-    // delta = rowsum(dO * O) over this head's columns, fp32
-    const int r = tid / TPR, sub = tid % TPR;
-    float acc = 0.f;
-    if (q0 + r < Sq) {
-      const bf16* orow = o + (qbase + q0 + r) * D + col0;
-      const bf16* drow = dout + (qbase + q0 + r) * D + col0;
-      for (int c = sub; c < HD; c += TPR)
-        acc += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (sub == 0) {
-      const bool in = q0 + r < Sq;
-      dlts[r] = acc;
-      lses[r] = in ? lse[(qbase + q0 + r) * H + h] : 0.f;
-      if (in) delta[(qbase + q0 + r) * H + h] = acc;
-    }
-  }
-
-  Acc accs[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(accs[j], 0.f);
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    __syncthreads();  // previous block done with Ks/Vs/dSs
-    load_tile<HD, BKV>(Ks, L::QLD, k, kbase, kv0, Skv, D, col0, tid);
-    load_tile<HD, BKV>(Vs, L::QLD, v, kbase, kv0, Skv, D, col0, tid);
-    __syncthreads();
-    scores<HD, BQ, BKV>(Qs, dOs, Ks, Vs, Ss, dPs, warp);
-    __syncthreads();
-    for (int i = tid; i < BQ * BKV; i += NT) {
-      const int r = i / BKV, c = i % BKV;
-      float p = 0.f;
-      if (kv0 + c < Skv) p = expf(Ss[r * L::SLD + c] * scale - lses[r]);
-      dSs[r * L::PLD + c] = __float2bfloat16(p * (dPs[r * L::SLD + c] - dlts[r]));
-    }
-    __syncthreads();
-    // dQ += dS K
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int f = warp + j * NW;
-      const int fr = f / (HD / 16), fc = f % (HD / 16);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        FragA af;
-        FragB bfr;
-        wmma::load_matrix_sync(af, &dSs[fr * 16 * L::PLD + kk], L::PLD);
-        wmma::load_matrix_sync(bfr, &Ks[kk * L::QLD + fc * 16], L::QLD);
-        wmma::mma_sync(accs[j], af, bfr, accs[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = warp + j * NW;
-    const int fr = f / (HD / 16), fc = f % (HD / 16);
-    store_tile(accs[j], scale, stage + warp * 256, dq, qbase, q0 + fr * 16, Sq,
-               D, col0 + fc * 16, lane);
-  }
-}
-
-template <int HD, int BQ, int BKV>
-__global__ void __launch_bounds__(NT)
-bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
-               int D, float scale) {
-  using L = Smem<HD, BQ, BKV>;
-  constexpr int NTILE = (BKV / 16) * (HD / 16);  // of dK, and of dV
-  constexpr int NF = 2 * NTILE / NW;
-  static_assert(2 * NTILE % NW == 0, "dK/dV tiles per warp");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lses = reinterpret_cast<float*>(smem + L::lse);
-  float* dlts = reinterpret_cast<float*>(smem + L::dlt);
-  float* stage = reinterpret_cast<float*>(smem + L::stage);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kv0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const size_t col0 = (size_t)h * HD, qbase = (size_t)b * Sq,
-               kbase = (size_t)b * Skv;
-
-  load_tile<HD, BKV>(Ks, L::QLD, k, kbase, kv0, Skv, D, col0, tid);
-  load_tile<HD, BKV>(Vs, L::QLD, v, kbase, kv0, Skv, D, col0, tid);
-
-  Acc accs[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(accs[j], 0.f);
-
-  for (int q0 = 0; q0 < Sq; q0 += BQ) {
-    __syncthreads();  // previous block done with Qs/dOs/Ps/dSs
-    load_tile<HD, BQ>(Qs, L::QLD, q, qbase, q0, Sq, D, col0, tid);
-    load_tile<HD, BQ>(dOs, L::QLD, dout, qbase, q0, Sq, D, col0, tid);
-    for (int r = tid; r < BQ; r += NT) {
-      const bool in = q0 + r < Sq;
-      lses[r] = in ? lse[(qbase + q0 + r) * H + h] : 0.f;
-      dlts[r] = in ? delta[(qbase + q0 + r) * H + h] : 0.f;
-    }
-    __syncthreads();
-    scores<HD, BQ, BKV>(Qs, dOs, Ks, Vs, Ss, dPs, warp);
-    __syncthreads();
-    for (int i = tid; i < BQ * BKV; i += NT) {
-      const int r = i / BKV, c = i % BKV;
-      float p = 0.f;
-      if (q0 + r < Sq && kv0 + c < Skv)
-        p = expf(Ss[r * L::SLD + c] * scale - lses[r]);
-      Ps[r * L::PLD + c] = __float2bfloat16(p);
-      dSs[r * L::PLD + c] = __float2bfloat16(p * (dPs[r * L::SLD + c] - dlts[r]));
-    }
-    __syncthreads();
-    // tiles [0, NTILE) are dV += P^T dO, [NTILE, 2 NTILE) dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int f = warp + j * NW;
-      const bool is_dk = f >= NTILE;
-      const int t = is_dk ? f - NTILE : f;
-      const int fr = t / (HD / 16), fc = t % (HD / 16);
-      const bf16* Pm = is_dk ? dSs : Ps;
-      const bf16* Bm = is_dk ? Qs : dOs;
-#pragma unroll
-      for (int kk = 0; kk < BQ; kk += 16) {
-        FragAT af;
-        FragB bfr;
-        wmma::load_matrix_sync(af, &Pm[kk * L::PLD + fr * 16], L::PLD);
-        wmma::load_matrix_sync(bfr, &Bm[kk * L::QLD + fc * 16], L::QLD);
-        wmma::mma_sync(accs[j], af, bfr, accs[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = warp + j * NW;
-    const bool is_dk = f >= NTILE;
-    const int t = is_dk ? f - NTILE : f;
-    const int fr = t / (HD / 16), fc = t % (HD / 16);
-    store_tile(accs[j], is_dk ? scale : 1.f, stage + warp * 256,
-               is_dk ? dk : dv, kbase, kv0 + fr * 16, Skv, D, col0 + fc * 16,
-               lane);
-  }
-}
-
-template <int HD, int BQ1, int BKV1, int BQ2, int BKV2>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, const float* lse, float* delta, bf16* dq,
-           bf16* dk, bf16* dv, int B, int Sq, int Skv, int H,
-           cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)HD);
-  const int D = H * HD;
-  {
-    using L = Smem<HD, BQ1, BKV1>;
-    auto kern = bwd_dq_kernel<HD, BQ1, BKV1>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((Sq + BQ1 - 1) / BQ1, H, B);
-    kern<<<grid, NT, L::bytes, stream>>>(q, k, v, o, dout, lse, delta, dq, Sq,
-                                         Skv, D, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  {
-    using L = Smem<HD, BQ2, BKV2>;
-    auto kern = bwd_dkv_kernel<HD, BQ2, BKV2>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((Skv + BKV2 - 1) / BKV2, H, B);
-    kern<<<grid, NT, L::bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq,
-                                         Skv, D, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // hd = 64: wgmma fed by TMA
@@ -399,7 +161,6 @@ constexpr int BOX = ROWS * HD;        // elements of a box: 8 KB, 128-byte rows
 constexpr int THREADS = 128 + 32;     // one consumer warpgroup, one producer warp
 constexpr int NUM_SMS = 132;
 constexpr int SPLIT_MIN_TILES = 4;    // Q tiles a split walks at least
-constexpr float LOG2E = 1.4426950408889634f;
 
 // dq kernel: KV rows a tile, ring stages, blocks an SM (at least; its 122
 // registers give three)
@@ -484,38 +245,6 @@ struct Args {
   int nq, split, tps;
   float scale, scale_log2;
 };
-
-// delta = rowsum(dO * O) over each head's 64 columns, from 16-byte loads (8
-// threads a row), and lse * log2(e), both written as (B, H, Sqp), 0 past Sq.
-__global__ void __launch_bounds__(256)
-prologue_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, float* __restrict__ lse2,
-                float* __restrict__ delta, int B, int H, int Sq, int sqp) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = gid >> 3, rows = (long long)B * sqp * H;
-  const int sub = (int)(gid & 7);
-  const int h = (int)(row % H);
-  const int s = (int)((row / H) % sqp);
-  const int b = (int)(row / ((long long)H * sqp));
-  const bool in = row < rows && s < Sq;
-  float acc = 0.f;
-  if (in) {
-    const size_t off = ((size_t)b * Sq + s) * H * HD + h * HD + sub * 8;
-    Pack8 ov, dv;
-    ov.u = *reinterpret_cast<const uint4*>(o + off);
-    dv.u = *reinterpret_cast<const uint4*>(dout + off);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc += __bfloat162float(ov.h[e]) * __bfloat162float(dv.h[e]);
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (row < rows && sub == 0) {
-    const size_t idx = ((size_t)b * H + h) * sqp + s;
-    delta[idx] = in ? acc : 0.f;
-    lse2[idx] = in ? lse[((size_t)b * Sq + s) * H + h] * LOG2E : 0.f;
-  }
-}
 
 // Byte offset of the 4-byte pair at (row r, column c) of a 64 x 64 bf16
 // tile staged for a 16-byte-row store: the 16-byte chunks of row r are
@@ -947,10 +676,9 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
   a.scale = 1.0f / sqrtf((float)HD);
   a.scale_log2 = a.scale * LOG2E;
 
-  const long long pro_threads = (long long)B * p.sqp * H * 8;
-  prologue_kernel<<<(unsigned)((pro_threads + 255) / 256), 256, 0, stream>>>(
-      o, dout, lse, ws, ws + (size_t)B * H * p.sqp, B, H, Sq, p.sqp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_prologue<HD>(o, dout, lse, ws, ws + (size_t)B * H * p.sqp, B, H, Sq, p.sqp,
+                                 stream)) != cudaSuccess)
+    return (int)err;
   dqk<<<p.dq_grid, THREADS, DqL::bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dkvk<<<p.dkv_grid, THREADS, DkvL::bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
@@ -965,12 +693,486 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
 
 }  // namespace h64
 
+// ---------------------------------------------------------------------------
+// hd = 512: a scores kernel and a products kernel, wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace h512 {
+
+constexpr int HD = 512;
+constexpr int TILE = 128;          // Q and KV rows of a scores tile; rows and columns of a product tile
+constexpr int BOX = 64 * 64;       // elements of a TMA box (64 rows of 64 columns): 8 KB
+constexpr int THREADS = 256 + 32;  // two consumer warpgroups, one producer warp
+constexpr int CHUNKS = HD / 64;    // 64-column chunks of a head
+constexpr int SC_ST = 3;           // scores ring stages, 64 KB each
+constexpr int PR_ST = 4;           // products ring stages, 32 KB each
+constexpr int PR_K = 64;           // contraction rows a products step
+constexpr long long BAND_BYTES = 256LL << 20;  // P and dS of a band at most
+
+// Shared memory of the scores kernel: the ring (a stage holds 128 rows of a
+// 64-column chunk of Q, dO, K and V, as two boxes each), the tile's lse and
+// delta, the barriers. After the chunks, the ring stages P and dS.
+struct ScSmem {
+  static constexpr int stage = 8 * BOX * 2;
+  static constexpr int lse = SC_ST * stage;
+  static constexpr int dlt = lse + TILE * 4;
+  static constexpr int bars = dlt + TILE * 4;  // lbar, full[ST], empty[ST]
+  static constexpr int bytes = bars + 8 * (1 + 2 * SC_ST) + 1024;  // + alignment slack
+};
+// Of the products kernel: the ring (a stage holds the step's A as two boxes,
+// one a warpgroup, and its B as two 64-column boxes), each warpgroup's
+// output staging tile (64 x 128 bf16), the barriers.
+struct PrSmem {
+  static constexpr int stage = 4 * BOX * 2;
+  static constexpr int out = PR_ST * stage;
+  static constexpr int bars = out + 2 * 64 * TILE * 2;  // full[ST], empty[ST]
+  static constexpr int bytes = bars + 8 * 2 * PR_ST + 1024;
+};
+
+// A call's plan: the lengths rounded up to the tile, and the bands of Q
+// rows (each a multiple of 128 rows, the last maybe shorter) whose P and dS
+// fit in BAND_BYTES.
+struct Plan {
+  int sqp, skvp, nkv;
+  int bands, band_rows;
+};
+
+inline Plan plan(int B, int H, int Sq, int Skv) {
+  Plan p;
+  p.sqp = (Sq + TILE - 1) / TILE * TILE;
+  p.skvp = (Skv + TILE - 1) / TILE * TILE;
+  p.nkv = p.skvp / TILE;
+  const long long row_bytes = 2LL * B * H * p.skvp * 2;  // P and dS of a Q row
+  const long long fit = std::max<long long>(TILE, BAND_BYTES / row_bytes / TILE * TILE);
+  p.bands = (int)((p.sqp + fit - 1) / fit);
+  const int per = (p.sqp + p.bands - 1) / p.bands;
+  p.band_rows = (per + TILE - 1) / TILE * TILE;
+  return p;
+}
+
+// Q tiles of band `band`
+inline int band_tiles(const Plan& p, int band) {
+  return std::min(p.band_rows, p.sqp - band * p.band_rows) / TILE;
+}
+
+// Scratch: lse * log2(e) and delta as (B, H, Sqp) fp32; P and dS as
+// (B*H, band_rows, Skvp) bf16 each; for a banded call, the fp32 sums of dK
+// and dV over the bands before, (B, Skv, H*512) each.
+inline size_t workspace_bytes(const Plan& p, int B, int H, int Skv) {
+  size_t n = 2 * 4 * (size_t)B * H * p.sqp + 2 * 2 * (size_t)B * H * p.band_rows * p.skvp;
+  if (p.bands > 1) n += 2 * 4 * (size_t)B * Skv * H * HD;
+  return n;
+}
+
+struct Args {
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  const float* lse2;   // (B, H, Sqp): lse * log2(e), 0 past Sq
+  const float* delta;  // (B, H, Sqp), 0 past Sq
+  bf16* p;             // (B*H, band_rows, Skvp) P, 0 past Sq and Skv
+  bf16* ds;            // the same for dS
+  float* acc;          // banded calls: dK's fp32 sum, then dV's, (B, Skv, D) each
+  int B, H, Sq, Skv, sqp, skvp, D;
+  int band, bands, q0, ntq;  // the band, of `bands`; its first Q row; its Q tiles
+  int band_rows;
+  float scale, scale_log2;
+};
+
+// Byte offset of the 4-byte pair at (row r, column c) of a 64 x 128 bf16
+// tile staged for 16-byte-row stores: the 16-byte chunks of row r are
+// permuted by r % 8, so that a warp's fragment writes hit 32 banks.
+__device__ __forceinline__ int staged(int r, int c) {
+  return r * 256 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2;
+}
+
+// Round a warpgroup's 64 x 128 accumulator (times `mul`) into `st` in the
+// staged layout (thread `ct` of the warpgroup, accumulator layout).
+__device__ __forceinline__ void stage_tile(const float (&acc)[64], float mul, unsigned char* st,
+                                           int ct) {
+  const int w = ct >> 5, lane = ct & 31, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * w + (lane >> 2) + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(st + staged(r, 8 * j + 2 * t)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
+  }
+}
+
+// Store rows below `limit` of a staged 64 x 128 tile to `out` (rows `ld`
+// elements apart) in 16-byte rows.
+__device__ __forceinline__ void store_rows(const unsigned char* st, bf16* out, size_t ld,
+                                           int limit, int ct) {
+#pragma unroll 4
+  for (int i = ct; i < 64 * 16; i += 128) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    if (r < limit)
+      *reinterpret_cast<uint4*>(out + r * ld + c) =
+          *reinterpret_cast<const uint4*>(st + staged(r, c));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+scores_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+              const Args a) {
+  using L = ScSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (i2i::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* lses = reinterpret_cast<float*>(smem + L::lse);
+  float* dlts = reinterpret_cast<float*>(smem + L::dlt);
+  uint64_t* lbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = lbar + 1;
+  uint64_t* empty = full + SC_ST;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kv0 = blockIdx.x * TILE, qr = blockIdx.y * TILE, bh = blockIdx.z;
+  const int b = bh / a.H, h = bh % a.H, col0 = h * HD;
+  const int q0 = a.q0 + qr;  // the tile's first Q row
+
+  if (tid == 0) {
+    i2i::mbar_init(lbar, 1);
+#pragma unroll
+    for (int s = 0; s < SC_ST; ++s) {
+      i2i::mbar_init(&full[s], 1);
+      i2i::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    i2i::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer: one thread issues every load
+    if (lane == 0) {
+      const size_t srow = (size_t)bh * a.sqp + q0;
+      i2i::mbar_arrive_expect_tx(lbar, 2 * TILE * 4);
+      i2i::bulk_load(lses, a.lse2 + srow, TILE * 4, lbar);
+      i2i::bulk_load(dlts, a.delta + srow, TILE * 4, lbar);
+      for (int c = 0; c < CHUNKS; ++c) {
+        const int s = c % SC_ST;
+        i2i::mbar_wait(&empty[s], ((c / SC_ST) & 1) ^ 1);  // round 0 passes at once
+        i2i::mbar_arrive_expect_tx(&full[s], 8 * BOX * 2);
+        bf16* st = ring + s * 8 * BOX;
+        const int col = col0 + c * 64;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          i2i::tma_load_3d(st + r * BOX, &qmap, &full[s], col, q0 + 64 * r, b);
+          i2i::tma_load_3d(st + (2 + r) * BOX, &dmap, &full[s], col, q0 + 64 * r, b);
+          i2i::tma_load_3d(st + (4 + r) * BOX, &kmap, &full[s], col, kv0 + 64 * r, b);
+          i2i::tma_load_3d(st + (6 + r) * BOX, &vmap, &full[s], col, kv0 + 64 * r, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: its warp w owns Q rows q0 + 64 wg + 16 w
+  // .. + 15; register 4j+2hh+e of S and dP is that row + lane/4 + 8 hh,
+  // KV column kv0 + 8j + 2t + e
+  const int wg = warp >> 2, w = warp & 3, ct = tid & 127, t = lane & 3;
+  float sc[64], dp[64];
+  int prev = 0;
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int s = c % SC_ST;
+    i2i::mbar_wait(&full[s], (c / SC_ST) & 1);
+    const bf16* st = ring + s * 8 * BOX;
+    const bf16* qs = st + wg * BOX;
+    const bf16* ds = st + (2 + wg) * BOX;
+    const bf16* ks = st + 4 * BOX;
+    const bf16* vs = st + 6 * BOX;
+    i2i::reg_fence(sc);
+    i2i::reg_fence(dp);
+    i2i::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      i2i::wgmma_m64n128k16_ss(sc, i2i::smem_desc_sw128(qs + kk * 16, 16),
+                               i2i::smem_desc_sw128(ks + kk * 16, 16), c > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      i2i::wgmma_m64n128k16_ss(dp, i2i::smem_desc_sw128(ds + kk * 16, 16),
+                               i2i::smem_desc_sw128(vs + kk * 16, 16), c > 0 || kk > 0);
+    i2i::wgmma_commit();
+    // keep this chunk's group in flight; the previous one is done, so its
+    // stage goes back to the producer
+    i2i::wgmma_wait<1>();
+    i2i::reg_fence(sc);
+    i2i::reg_fence(dp);
+    if (c > 0) {
+      __syncwarp();
+      if (lane == 0) i2i::mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+  }
+  i2i::wgmma_wait<0>();
+  i2i::reg_fence(sc);
+  i2i::reg_fence(dp);
+
+  // ---- P = exp2(S scale log2(e) - lse log2(e)), 0 past Sq and Skv, and
+  // dS = P (dP - delta)
+  i2i::mbar_wait(lbar, 0);
+  float l2[2], dl[2];
+  bool rin[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 64 * wg + 16 * w + (lane >> 2) + 8 * hh;
+    l2[hh] = lses[r];
+    dl[hh] = dlts[r];
+    rin[hh] = q0 + r < a.Sq;
+  }
+  const bool ragged = kv0 + TILE > a.Skv;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * hh + e;
+        const float p = exp2f(fmaf(sc[x], a.scale_log2, -l2[hh]));
+        const bool in = rin[hh] && !(ragged && kv0 + 8 * j + 2 * t + e >= a.Skv);
+        sc[x] = in ? p : 0.f;
+        dp[x] = sc[x] * (dp[x] - dl[hh]);
+      }
+
+  // ---- both warpgroups are done with the ring: stage P and dS there (32
+  // KB a warpgroup) and store both tiles in 16-byte rows
+  i2i::named_bar_sync(1, 256);
+  unsigned char* stp = smem + wg * 2 * 64 * TILE * 2;
+  unsigned char* sts = stp + 64 * TILE * 2;
+  stage_tile(sc, 1.f, stp, ct);
+  stage_tile(dp, 1.f, sts, ct);
+  i2i::named_bar_sync(2 + wg, 128);
+  const size_t off = ((size_t)bh * a.band_rows + qr + 64 * wg) * a.skvp + kv0;
+  store_rows(stp, a.p + off, a.skvp, 64, ct);
+  store_rows(sts, a.ds + off, a.skvp, 64, ct);
+}
+
+// One warpgroup's 64 x 128 tile of a product over `nsteps` ring stages: A
+// (this warpgroup's box) K-major where TA = 0 (dS for dQ) or MN-major where
+// TA = 1 (dS^T for dK, P^T for dV); B MN-major, two 64-column boxes.
+template <int TA>
+__device__ __forceinline__ void product(float (&acc)[64], const bf16* ring, uint64_t* full,
+                                        uint64_t* empty, int nsteps, int wg, int lane) {
+  int s = 0, phase = 0, prev = 0;
+  for (int i = 0; i < nsteps; ++i) {
+    i2i::mbar_wait(&full[s], phase);
+    const bf16* as = ring + s * 4 * BOX + wg * BOX;
+    const bf16* bs = ring + s * 4 * BOX + 2 * BOX;
+    i2i::reg_fence(acc);
+    i2i::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < PR_K / 16; ++kc) {
+      const uint64_t da = TA ? i2i::smem_desc_sw128(as + kc * 16 * 64, BOX * 2)
+                             : i2i::smem_desc_sw128(as + kc * 16, 16);
+      i2i::wgmma_m64n128k16_ss_t<TA, 1>(acc, da, i2i::smem_desc_sw128(bs + kc * 16 * 64, BOX * 2),
+                                        i > 0 || kc > 0);
+    }
+    i2i::wgmma_commit();
+    i2i::wgmma_wait<1>();
+    i2i::reg_fence(acc);
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) i2i::mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+    if (++s == PR_ST) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  i2i::wgmma_wait<0>();
+  i2i::reg_fence(acc);
+}
+
+// Block x: the band's dQ tiles (ntq x 4), then dK's and dV's (nkv x 4 each),
+// the 4 column tiles of a row tile next to each other; y: (b, h).
+__global__ void __launch_bounds__(THREADS, 1)
+products_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap pmap,
+                const __grid_constant__ CUtensorMap smap, const Args a) {
+  using L = PrSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (i2i::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + PR_ST;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int nq = a.ntq * 4, nk = (a.skvp / TILE) * 4;
+  int kind = 0, tile = blockIdx.x;  // kind 0 dQ, 1 dK, 2 dV
+  if (tile >= nq) {
+    tile -= nq;
+    kind = 1 + tile / nk;
+    tile %= nk;
+  }
+  const int m = tile >> 2, n = tile & 3;
+  const int colb = h * HD + n * TILE;
+  const int nsteps = kind == 0 ? a.skvp / PR_K : a.ntq * TILE / PR_K;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < PR_ST; ++s) {
+      i2i::mbar_init(&full[s], 1);
+      i2i::mbar_init(&empty[s], 8);
+    }
+    i2i::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer
+    if (lane == 0) {
+      const CUtensorMap* am = kind == 2 ? &pmap : &smap;
+      const CUtensorMap* bm = kind == 0 ? &kmap : (kind == 1 ? &qmap : &dmap);
+      int s = 0, phase = 0;
+      for (int i = 0; i < nsteps; ++i) {
+        i2i::mbar_wait(&empty[s], phase ^ 1);
+        i2i::mbar_arrive_expect_tx(&full[s], 4 * BOX * 2);
+        bf16* st = ring + s * 4 * BOX;
+        const int k0 = i * PR_K;
+        if (kind == 0) {  // A: dS rows m*128 + 64r, KV columns k0; B: K rows k0
+          i2i::tma_load_3d(st, am, &full[s], k0, m * TILE, bh);
+          i2i::tma_load_3d(st + BOX, am, &full[s], k0, m * TILE + 64, bh);
+          i2i::tma_load_3d(st + 2 * BOX, bm, &full[s], colb, k0, b);
+          i2i::tma_load_3d(st + 3 * BOX, bm, &full[s], colb + 64, k0, b);
+        } else {  // A: dS or P rows k0, KV columns m*128 + 64r; B: Q or dO rows q0 + k0
+          i2i::tma_load_3d(st, am, &full[s], m * TILE, k0, bh);
+          i2i::tma_load_3d(st + BOX, am, &full[s], m * TILE + 64, k0, bh);
+          i2i::tma_load_3d(st + 2 * BOX, bm, &full[s], colb, a.q0 + k0, b);
+          i2i::tma_load_3d(st + 3 * BOX, bm, &full[s], colb + 64, a.q0 + k0, b);
+        }
+        if (++s == PR_ST) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: wg owns rows 64 wg .. + 63 of the tile
+  const int wg = warp >> 2, w = warp & 3, ct = tid & 127, t = lane & 3;
+  float acc[64];
+  if (kind == 0)
+    product<0>(acc, ring, full, empty, nsteps, wg, lane);
+  else
+    product<1>(acc, ring, full, empty, nsteps, wg, lane);
+
+  unsigned char* st = smem + L::out + wg * 64 * TILE * 2;
+  if (kind == 0) {  // dQ rows of this band: complete
+    const int row0 = a.q0 + m * TILE + 64 * wg;
+    stage_tile(acc, a.scale, st, ct);
+    i2i::named_bar_sync(1 + wg, 128);
+    store_rows(st, a.dq + ((size_t)b * a.Sq + row0) * a.D + colb, a.D, a.Sq - row0, ct);
+    return;
+  }
+  const int row0 = m * TILE + 64 * wg;
+  const int limit = a.Skv - row0;
+  if (a.bands > 1) {  // add the bands before, in band order; keep the sum unless last
+    float* sum = a.acc + (size_t)(kind - 1) * a.B * a.Skv * a.D +
+                 ((size_t)b * a.Skv + row0) * a.D + colb;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * w + (lane >> 2) + 8 * hh;
+      if (r >= limit) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float2* p2 = reinterpret_cast<float2*>(sum + (size_t)r * a.D + 8 * j + 2 * t);
+        if (a.band > 0) {
+          const float2 prev = *p2;
+          acc[4 * j + 2 * hh] = prev.x + acc[4 * j + 2 * hh];
+          acc[4 * j + 2 * hh + 1] = prev.y + acc[4 * j + 2 * hh + 1];
+        }
+        if (a.band < a.bands - 1) *p2 = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      }
+    }
+    if (a.band < a.bands - 1) return;
+  }
+  stage_tile(acc, kind == 1 ? a.scale : 1.f, st, ct);
+  i2i::named_bar_sync(1 + wg, 128);
+  store_rows(st, (kind == 1 ? a.dk : a.dv) + ((size_t)b * a.Skv + row0) * a.D + colb, a.D, limit,
+             ct);
+}
+
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+           const float* lse, void* ws, bf16* dq, bf16* dk, bf16* dv, int B, int Sq, int Skv,
+           int H, cudaStream_t stream) {
+  static thread_local int smem_set_on = -1;  // the device it was last set on
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != smem_set_on) {
+    err = cudaFuncSetAttribute(scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ScSmem::bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(products_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 PrSmem::bytes);
+    if (err == cudaSuccess) smem_set_on = dev;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = plan(B, H, Sq, Skv);
+  const int D = H * HD, BH = B * H;
+  float* lse2 = static_cast<float*>(ws);
+  float* delta = lse2 + (size_t)BH * p.sqp;
+  bf16* pw = reinterpret_cast<bf16*>(delta + (size_t)BH * p.sqp);
+  bf16* dsw = pw + (size_t)BH * p.band_rows * p.skvp;
+  float* acc = reinterpret_cast<float*>(dsw + (size_t)BH * p.band_rows * p.skvp);
+
+  CUtensorMap maps[6];  // q, k, v, dO, P, dS: boxes of 64 rows x 64 columns
+  int e = i2i::tensor_map_3d(&maps[0], q, D, Sq, B, 64);
+  if (!e) e = i2i::tensor_map_3d(&maps[1], k, D, Skv, B, 64);
+  if (!e) e = i2i::tensor_map_3d(&maps[2], v, D, Skv, B, 64);
+  if (!e) e = i2i::tensor_map_3d(&maps[3], dout, D, Sq, B, 64);
+  if (!e) e = i2i::tensor_map_3d(&maps[4], pw, p.skvp, p.band_rows, BH, 64);
+  if (!e) e = i2i::tensor_map_3d(&maps[5], dsw, p.skvp, p.band_rows, BH, 64);
+  if (e) return e;
+
+  Args a;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.lse2 = lse2;
+  a.delta = delta;
+  a.p = pw;
+  a.ds = dsw;
+  a.acc = acc;
+  a.B = B;
+  a.H = H;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.sqp = p.sqp;
+  a.skvp = p.skvp;
+  a.D = D;
+  a.bands = p.bands;
+  a.band_rows = p.band_rows;
+  a.scale = 1.0f / sqrtf((float)HD);
+  a.scale_log2 = a.scale * LOG2E;
+
+  if ((err = launch_prologue<HD>(o, dout, lse, lse2, delta, B, H, Sq, p.sqp, stream)) !=
+      cudaSuccess)
+    return (int)err;
+  for (int band = 0; band < p.bands; ++band) {
+    a.band = band;
+    a.q0 = band * p.band_rows;
+    a.ntq = band_tiles(p, band);
+    scores_kernel<<<dim3(p.nkv, a.ntq, BH), THREADS, ScSmem::bytes, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    products_kernel<<<dim3((a.ntq + 2 * p.nkv) * 4, BH), THREADS, PrSmem::bytes, stream>>>(
+        maps[0], maps[1], maps[3], maps[4], maps[5], a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+}  // namespace h512
+
 }  // namespace
 
 extern "C" {
 
 // q, o, dout: (B, Sq, H*hd); k, v: (B, Skv, H*hd), all bf16 and 16-byte
-// aligned; lse: (B, Sq, H) fp32 from the forward; workspace: fp32 scratch of
+// aligned; lse: (B, Sq, H) fp32 from the forward; workspace: scratch of
 // flash_attention_bwd_workspace_bytes(B, Sq, Skv, H, hd) bytes, 16-byte
 // aligned. Writes dq (B, Sq, H*hd), dk and dv (B, Skv, H*hd), bf16. hd must
 // be 64 or 512. Returns cudaGetLastError(), or TENSOR_MAP_ERROR + the
@@ -985,50 +1187,58 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   auto* oo = static_cast<const bf16*>(o);
   auto* gg = static_cast<const bf16*>(dout);
   auto* ll = static_cast<const float*>(lse);
-  auto* ws = static_cast<float*>(workspace);
   auto* gq = static_cast<bf16*>(dq);
   auto* gk = static_cast<bf16*>(dk);
   auto* gv = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return h64::launch(qq, kk, vv, oo, gg, ll, ws, gq, gk, gv, B, Sq, Skv, H, s);
-  if (hd == 512)  // ws: delta, (B, Sq, H) fp32
-    return launch<512, 32, 32, 64, 16>(qq, kk, vv, oo, gg, ll, ws, gq, gk, gv,
-                                       B, Sq, Skv, H, s);
+    return h64::launch(qq, kk, vv, oo, gg, ll, static_cast<float*>(workspace), gq, gk, gv, B, Sq,
+                       Skv, H, s);
+  if (hd == 512)
+    return h512::launch(qq, kk, vv, oo, gg, ll, workspace, gq, gk, gv, B, Sq, Skv, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The workspace a call needs, in bytes: at hd 64 the relaid lse and delta
-// and, for a split Q walk, the partial dK and dV; at hd 512 delta. 0 for a
-// head dim the kernels do not take.
+// The workspace a call needs, in bytes: the relaid lse and delta and, at hd
+// 64, for a split Q walk, the partial dK and dV; at hd 512 P and dS of a
+// band and, for a banded call, the fp32 sums of dK and dV. 0 for a head dim
+// the kernels do not take.
 long long flash_attention_bwd_workspace_bytes(int B, int Sq, int Skv, int H, int hd) {
   if (hd == 64) return 4 * (long long)h64::workspace_floats(h64::plan(B, H, Sq, Skv), B, H);
-  if (hd == 512) return 4LL * B * Sq * H;
+  if (hd == 512) return (long long)h512::workspace_bytes(h512::plan(B, H, Sq, Skv), B, H, Skv);
   return 0;
 }
 
-// The launch plan of a call, for run reports: plan[0..2] the dq grid,
-// plan[3] its Q rows a block, plan[4] its KV rows a tile, plan[5] its ring
-// stages (0: no ring); plan[6..8] the dk/dv grid, plan[9] its KV rows a
+// The launch plan of a call, for run reports, 16 ints. At hd 64: plan[0..2]
+// the dq grid, plan[3] its Q rows a block, plan[4] its KV rows a tile,
+// plan[5] its ring stages; plan[6..8] the dk/dv grid, plan[9] its KV rows a
 // block, plan[10] its Q rows a tile, plan[11] its ring stages; plan[12] the
 // splits of the Q walk, plan[13] the Q tiles a split walks; plan[14] the
-// kernels a call launches. Returns 0, or cudaErrorInvalidValue for a head
+// kernels a call launches; plan[15] 0. At hd 512: plan[0..2] the scores
+// grid of the first band, plan[3] its Q rows a block, plan[4] its KV rows a
+// block, plan[5] its ring stages; plan[6..8] the products grid of the first
+// band, plan[9] the rows of an output tile, plan[10] the contraction rows a
+// step, plan[11] its ring stages; plan[12] the bands of Q rows, plan[13]
+// the Q rows a band; plan[14] the kernels a call launches; plan[15] the
+// columns of an output tile. Returns 0, or cudaErrorInvalidValue for a head
 // dim the kernels do not take.
 int flash_attention_bwd_plan(int B, int H, int Sq, int Skv, int hd, int* plan) {
   if (hd == 64) {
     const h64::Plan p = h64::plan(B, H, Sq, Skv);
-    const int v[15] = {(int)p.dq_grid.x, (int)p.dq_grid.y, (int)p.dq_grid.z, h64::ROWS,
+    const int v[16] = {(int)p.dq_grid.x, (int)p.dq_grid.y, (int)p.dq_grid.z, h64::ROWS,
                        h64::DQ_BKV, h64::DQ_ST, (int)p.dkv_grid.x, (int)p.dkv_grid.y,
                        (int)p.dkv_grid.z, h64::ROWS, h64::ROWS, h64::DKV_ST, p.split, p.tps,
-                       p.split > 1 ? 4 : 3};
-    for (int i = 0; i < 15; ++i) plan[i] = v[i];
+                       p.split > 1 ? 4 : 3, 0};
+    for (int i = 0; i < 16; ++i) plan[i] = v[i];
     return 0;
   }
   if (hd == 512) {
-    const int nq = (Sq + 63) / 64;
-    const int v[15] = {(Sq + 31) / 32, H, B, 32, 32, 0, (Skv + 15) / 16, H, B, 16, 64, 0, 1,
-                       nq, 2};
-    for (int i = 0; i < 15; ++i) plan[i] = v[i];
+    const h512::Plan p = h512::plan(B, H, Sq, Skv);
+    const int ntq = h512::band_tiles(p, 0);
+    const int v[16] = {p.nkv, ntq, B * H, h512::TILE, h512::TILE, h512::SC_ST,
+                       (ntq + 2 * p.nkv) * 4, B * H, 1, h512::TILE, h512::PR_K, h512::PR_ST,
+                       p.bands, p.band_rows, 1 + 2 * p.bands, h512::TILE};
+    for (int i = 0; i < 16; ++i) plan[i] = v[i];
     return 0;
   }
   return (int)cudaErrorInvalidValue;

@@ -10,7 +10,7 @@ convs), fp32 biases and norm affines; linear weights stay nn.Linear's own
 CPU, where the wrappers compute their plain versions from them.
 
 Every entry point takes `kernels`: True routes through the kernel wrappers
-of `ops/` (which launch the CUDA/Triton kernels on a CUDA tensor and run
+of `ops/` (which launch the CUDA kernels on a CUDA tensor and run
 their plain versions on a CPU tensor), with GroupNorm statistics chained
 from the producing kernel exactly as the JAX package chains them on TPU;
 False is the plain PyTorch composition, the counterpart of the JAX

@@ -14,7 +14,8 @@ is never loaded. Nothing is built at import.
 Launch accounting: every kernel wrapper adds one to `launch_counts[name]`
 right where it launches its kernel, and nowhere else, so a run can show
 that its main path went through the kernels (K8's du counts as K1, the
-kernel the JAX package runs for it). Every wrapper but K5's and K9's
+kernel the JAX package runs for it; K5's GroupNorm combine counts as
+"group_norm_combine"). Every wrapper but K5's and K9's
 also counts its launches by shape in `launch_shapes[name, shape]` (K1
 "fused_gn_silu_conv3x3": (B, H, W, C, Co, GN prologue, extra bias,
 residual, Csk, stats); K4 "upsample2x_conv3x3": (B, H, W, C, Co, Csk,
@@ -41,7 +42,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("conv", "attention", "attention_bwd", "fused_matmul")
+SOURCES = ("conv", "attention", "attention_bwd", "fused_matmul", "groupnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

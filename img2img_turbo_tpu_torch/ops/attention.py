@@ -66,13 +66,21 @@ def _bwd_lib():
 
 def flash_attention_bwd_plan(b: int, h: int, sq: int, skv: int,
                              hd: int) -> dict:
-    """K7's launch plan for a call, as `csrc/attention_bwd.cu` chooses it:
-    each kernel's grid, tiles and ring stages, the splits of the dk/dv
-    kernel's Q walk, and the kernels a call launches (CUDA only: the plan
-    lives in the library)."""
-    p = (ctypes.c_int * 15)()
+    """K7's launch plan for a call, as `csrc/attention_bwd.cu` chooses it
+    (CUDA only: the plan lives in the library). At hd 64: each kernel's
+    grid, tiles and ring stages, the splits of the dk/dv kernel's Q walk,
+    and the kernels a call launches. At hd 512: the scores and products
+    kernels' grids (of the first band), tiles and ring stages, the bands of
+    Q rows, and the kernels a call launches."""
+    p = (ctypes.c_int * 16)()
     _build.check(_bwd_lib().flash_attention_bwd_plan(b, h, sq, skv, hd, p),
                  "flash_attention_bwd_plan")
+    if hd == 512:
+        return dict(scores_grid=tuple(p[0:3]), scores_tile=(p[3], p[4]),
+                    scores_stages=p[5], products_grid=tuple(p[6:9]),
+                    products_tile=(p[9], p[15]), products_k_step=p[10],
+                    products_stages=p[11], bands=p[12], band_rows=p[13],
+                    kernels=p[14])
     return dict(dq_grid=tuple(p[0:3]), dq_rows=p[3], dq_kv_tile=p[4],
                 dq_stages=p[5], dkv_grid=tuple(p[6:9]), dkv_rows=p[9],
                 dkv_q_tile=p[10], dkv_stages=p[11], split=p[12],
@@ -186,8 +194,9 @@ def flash_attention_folded_bwd(q, k, v, o, do, lse, num_heads: int):
     """K7: (dq, dk, dv) of flash_attention_folded from the forward's output
     o and logsumexp lse (B, Sq, H) fp32, and the output cotangent do. One
     call launches its kernels (at hd 64: the delta/lse prologue, dq, dk/dv
-    and, for a split Q walk, the split reduction; at hd 512: dq, dk/dv)
-    into a scratch buffer the library sizes. CPU tensors take the plain
+    and, for a split Q walk, the split reduction; at hd 512: the prologue,
+    then a scores and a products kernel per band of Q rows) into a scratch
+    buffer the library sizes. CPU tensors take the plain
     version."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, num_heads)

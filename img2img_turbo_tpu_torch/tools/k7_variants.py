@@ -1,39 +1,49 @@
-"""Time variants of this checkout's K7 hd-64 kernels (`csrc/attention_bwd.cu`)
+"""Time variants of this checkout's K7 kernels (`csrc/attention_bwd.cu`)
 on one CUDA card, to measure its design steps and the choices it makes:
 
     python3 img2img_turbo_tpu_torch/tools/k7_variants.py [--only base,nosplit]
+    python3 img2img_turbo_tpu_torch/tools/k7_variants.py \
+        --parent <checkout> --only parent,base,base,parent
 
 Each variant is the package copied under `img2img_turbo_tpu_torch/build/
 k7_variants/<name>/` (git-ignored) with `attention_bwd.cu` changed by text
 substitutions that must each apply once, built with nvcc (all variants at
-once, `tools/variants.py`), and run at `tools/time_kernels.py`'s hd-64
-K7_CASES in a process of its own:
+once, `tools/variants.py`), and run in a process of its own at
+`tools/time_kernels.py`'s K7_CASES (hd 64 and hd 512) and at the hd-512
+edge cases `HD512_EDGE` (the ragged S = 7350, a small ragged case at B = H
+= 2, S = 16384, which walks bands); `parent` runs the same cases in another
+checkout (`--parent`, built there, unpatched), so that parent, base, base,
+parent compares two commits on one card:
 
 - base: this tree;
-- step1, step2, step3: the design steps, each this tree less what the
-  later steps added: (1) both kernels on wgmma fed by TMA rings, a wait
+- step1, step2, step3: the hd-64 design steps, each this tree less what
+  the later steps added: (1) both kernels on wgmma fed by TMA rings, a wait
   for both S and dP before the exponentials, three stages, no split; (2)
   + the split Q walk where the dk/dv grid is under a block an SM, towards
   two blocks an SM, at least 2 Q tiles a split; (3) + the split towards
   one block an SM with at least 4 tiles, and two stages; base adds the dq
   kernel's P formed while dP runs;
-- one change against this tree each: rs_dq and rs_dkv (Q and dO, or K and
-  V, as register-A fragments loaded once, so that S and dP read only B
-  from shared memory), dq_serial (no overlap in the dq kernel),
+- one hd-64 change against this tree each: rs_dq and rs_dkv (Q and dO, or
+  K and V, as register-A fragments loaded once, so that S and dP read only
+  B from shared memory), dq_serial (no overlap in the dq kernel),
   dkv_overlap (the dk/dv kernel forms P^T while dP^T runs and dS^T while
   dV runs), nosplit, split2 (towards two blocks an SM), splitmin2 (at
   least 2 Q tiles a split), st3 (three ring stages), bkv128 (the dq
   kernel streams 128-row K and V tiles), wg_dkv (the dk/dv kernel with a
   producer warpgroup at 24 registers by setmaxnreg and its consumer at
   232), wg_rs_dkv and wg_rs_overlap_dkv (that, with rs_dkv, and with
-  dkv_overlap too).
+  dkv_overlap too);
+- one hd-512 change against this tree each: sc_st2 (the scores kernel's
+  ring at 2 stages, not 3), pr_st2 and pr_st6 (the products kernel's at 2
+  or 6, not 4), band64 (bands of at most 64 MiB of P and dS, so S = 4096
+  takes one band and S = 7350 four).
 
 Prints the card's name and power limit, then one JSON object per case
 (device time alone, a CUDA graph of 20 calls; max|err| / max|ref| against
-`attention_bwd_ref`; the split the variant's plan takes; each kernel's
-device time under torch.profiler), then each
-variant's time per train step (each case weighted by its launches in
-K7_CASES).
+`attention_bwd_ref`; the plan the variant takes; each kernel's device time
+under torch.profiler; at hd 512 also SDPA's memory-efficient backward's
+device time on the same inputs), then each variant's time per train step
+at each head dim (each case weighted by its launches in K7_CASES).
 """
 
 from __future__ import annotations
@@ -192,6 +202,12 @@ SPLIT2 = [("const int want = (NUM_SMS + blocks - 1) / blocks;",
 SPLITMIN2 = [("constexpr int SPLIT_MIN_TILES = 4;",
               "constexpr int SPLIT_MIN_TILES = 2;")]
 ST3 = [("DQ_ST = 2,", "DQ_ST = 3,"), ("DKV_ST = 2,", "DKV_ST = 3,")]
+# hd 512: ring depths, and smaller bands
+SC_ST2 = [("constexpr int SC_ST = 3;", "constexpr int SC_ST = 2;")]
+PR_ST2 = [("constexpr int PR_ST = 4;", "constexpr int PR_ST = 2;")]
+PR_ST6 = [("constexpr int PR_ST = 4;", "constexpr int PR_ST = 6;")]
+BAND64 = [("constexpr long long BAND_BYTES = 256LL << 20;",
+           "constexpr long long BAND_BYTES = 64LL << 20;")]
 VARIANTS = {
     "base": [],
     # the design steps, each the tree less what later steps added
@@ -211,7 +227,16 @@ VARIANTS = {
     "wg_dkv": WG_DKV,
     "wg_rs_dkv": WG_DKV + RS_DKV,
     "wg_rs_overlap_dkv": WG_DKV + RS_DKV + DKV_OVERLAP,
+    "sc_st2": SC_ST2,
+    "pr_st2": PR_ST2,
+    "pr_st6": PR_ST6,
+    "band64": BAND64,
 }
+# hd-512 cases beyond K7_CASES (timed, not weighted): (case, B, Sq, Skv, H)
+HD512_EDGE = [
+    ("hd=512 ragged S=7350", 1, 7350, 7350, 1),
+    ("hd=512 Sq=300 Skv=333 H=2 B=2", 2, 300, 333, 2),
+    ("hd=512 banded S=16384", 1, 16384, 16384, 1)]
 
 
 def by_kernel(fn, calls: int = 20) -> dict:
@@ -230,6 +255,8 @@ def by_kernel(fn, calls: int = 20) -> dict:
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             name = next((k for k in ("prologue_kernel", "dkv_reduce",
+                                     "scores_kernel", "products_kernel",
+                                     "bwd_dkv_kernel", "bwd_dq_kernel",
                                      "dkv_kernel", "dq_kernel")
                          if k in e.key), e.key[:40])
             out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
@@ -237,11 +264,11 @@ def by_kernel(fn, calls: int = 20) -> dict:
 
 
 def run_cases(name: str) -> None:
-    """In a variant's checkout: time each hd-64 K7 case."""
+    """In a variant's checkout: time each K7 case."""
     import torch
     from img2img_turbo_tpu_torch.ops import attention
     from img2img_turbo_tpu_torch.tools.time_kernels import (
-        K7_CASES, _k7_inputs, device_ms)
+        K7_CASES, _k7_inputs, device_ms, sdpa_backward)
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -249,11 +276,11 @@ def run_cases(name: str) -> None:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    step = 0.0
-    for case, b, sq, skv, h, hd, launches in K7_CASES:
-        if hd != 64:
-            continue
+    step = {64: 0.0, 512: 0.0}
+    for case, b, sq, skv, h, hd, launches in K7_CASES + [
+            (*c, 512, 0) for c in HD512_EDGE]:
         q, k, v, o, do, lse = _k7_inputs(rn, b, sq, skv, h, hd)
+
         def call():
             return attention.flash_attention_folded_bwd(q, k, v, o, do, lse,
                                                         h)
@@ -263,14 +290,18 @@ def run_cases(name: str) -> None:
                   / r.float().abs().max().item() for g, r in zip(
                       call(), attention.attention_bwd_ref(q, k, v, o, do,
                                                           lse, h)))
-        step += launches * ms
-        print(json.dumps({"variant": name, "case": case, "device_ms": ms,
-                          "rel_err": rel,
-                          "split": plan["split"],
-                          "dkv_grid": plan["dkv_grid"],
-                          "kernels_us": by_kernel(call)}), flush=True)
-    print(json.dumps({"variant": name, "case": "per train step, hd 64",
-                      "device_ms": step}), flush=True)
+        step[hd] += launches * ms
+        out = {"variant": name, "case": case, "device_ms": ms,
+               "rel_err": rel, "plan": plan, "kernels_us": by_kernel(call)}
+        if hd == 512:
+            backend, lib = sdpa_backward(q, k, v, do, h)
+            out[f"sdpa_{backend}_backward_device_ms"] = device_ms(lib)
+            del lib
+        print(json.dumps(out), flush=True)
+        torch.cuda.empty_cache()
+    for hd, ms in step.items():
+        print(json.dumps({"variant": name, "case": f"per train step, hd {hd}",
+                          "device_ms": ms}), flush=True)
 
 
 def main():

@@ -1,33 +1,46 @@
-"""Where the time of one paired train step goes, on the card.
+"""Where the time of one paired train step, or of one served request,
+goes, on the card.
 
-    python -m img2img_turbo_tpu_torch.training.profile_step
+    python -m img2img_turbo_tpu_torch.training.profile_step [--request]
 
-Builds the full-width paired run of chip_smoke.py's train phase (seeded
-random weights, 512x512 b1, bf16 activations, UNet remat), runs one step of
-the kernel path and one of the plain path to warm up, then one step of each
-under torch.profiler, and prints for each: the step's wall time, the device
-time summed over its GPU kernels, the number of GPU kernels, the GPU
-kernels that take the most device time, with their counts, and the
-package's hand-written kernels by the TPU kernel each replaces (`KERNELS`:
-launches and device time a step; the rest is PyTorch's). Needs a CUDA
-card; prints the card's name and power limit first.
+Without arguments: builds the full-width paired run of chip_smoke.py's
+train phase (seeded random weights, 512x512 b1, bf16 activations, UNet
+remat), runs one step of the kernel path and one of the plain path to
+warm up, then one step of each under torch.profiler. With --request: one
+512x512 b1 edge_to_image request of chip_smoke.py's engine phase (SD-Turbo
+widths, seeded random weights, bf16), on the kernel path and on the plain
+path, each after a warm-up. Prints for each: the wall time, the device time
+summed over its GPU kernels, the number of GPU kernels, the peak device
+memory (`max_memory_allocated`), the GPU kernels that take the most device
+time, with their counts, and the package's
+hand-written kernels by the TPU kernel each replaces (`KERNELS`: launches
+and device time; the rest is PyTorch's). Needs a CUDA card; prints the
+card's name and power limit first. It imports the package of the current
+directory, so run as a file from another checkout's root it profiles that
+checkout:
+
+    cd <other checkout> && python3 <this checkout>/img2img_turbo_tpu_torch/training/profile_step.py --request
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import os
 import subprocess
+import sys
 import time
 
 import torch
 
 
-SIZE = 512     # the train phase's image size
+SIZE = 512     # the train phase's and the request's image size
 TOP = 30       # GPU kernels listed per path
 # The package's kernels by the TPU kernel each replaces, matched in order
 # on the GPU kernel's name: (label, substrings). K1 and K4 share
-# conv_kernel, told apart by its mode (0 same, 1 upsample); K7's hd-64
-# kernels live in namespace h64.
+# conv_kernel, told apart by its mode (0 same, 1 upsample); K7's kernels
+# live in namespaces h64 and h512 beside their prologue; the wmma names are
+# an older checkout's hd-512 K7, partial_stats its Triton K5.
 KERNELS = (
     ("K1 conv", ("conv_kernel<0", "conv_reduce<0")),
     ("K4 upsample conv", ("conv_kernel<1", "conv_reduce<1")),
@@ -35,19 +48,23 @@ KERNELS = (
     ("K6 downsample conv", ("down_kernel", "down_reduce")),
     ("K3 fused matmul", ("mm_kernel",)),
     ("K2 attention", ("flash_kernel",)),
-    ("K7 attention bwd hd 64", ("h64::",)),
-    ("K7 attention bwd hd 512", ("bwd_dq_kernel", "bwd_dkv_kernel")),
+    ("K7 attention bwd hd 64", ("h64::", "prologue_kernel<64")),
+    ("K7 attention bwd hd 512", ("h512::", "prologue_kernel<512",
+                                 "bwd_dq_kernel", "bwd_dkv_kernel")),
     ("K5 group norm stats", ("partial_stats",)),
+    ("K5 group norm combine", ("combine_kernel",)),
 )
 
 
-def _profile_step(step, state, batch, noise):
+def _profile(fn):
+    """Run fn() once under torch.profiler and print where its time went."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, noise)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = collections.defaultdict(lambda: [0, 0.0])
@@ -60,8 +77,9 @@ def _profile_step(step, state, batch, noise):
             kernels[evt.name][1] += evt.device_time_total / 1e3
     device = sum(v[1] for v in kernels.values())
     n = sum(v[0] for v in kernels.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  wall {wall:.2f} ms, device (sum of GPU kernels) {device:.2f} "
-          f"ms, {n} GPU kernels", flush=True)
+          f"ms, {n} GPU kernels, peak memory {peak:.3f} GiB", flush=True)
     for name, (cnt, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[
             :TOP]:
         print(f"    {ms:9.3f} ms {cnt:6d}x  {name[:110]}", flush=True)
@@ -78,20 +96,11 @@ def _profile_step(step, state, batch, noise):
         print(f"    {ms:9.3f} ms {cnt:6d}x  {label}", flush=True)
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: this profile runs only on a GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _step(dev):
+    """The kernel and the plain path's paired train step, each a call."""
     from img2img_turbo_tpu_torch.models import clip_vit
-    from img2img_turbo_tpu_torch.ops import _build
     from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
     from img2img_turbo_tpu_torch.training import losses, paired, runner
-    _build.build()
-    dev = torch.device("cuda", 0)
     cfgs = GeneratorConfigs()
     models, state, meta = runner.build_paired_run(
         cfgs, clip_vit.CLIP_VIT_B32, seed=4321, device=dev)
@@ -109,10 +118,56 @@ def main():
         step = paired.make_paired_train_step(
             models, cfgs, losses.PairedLossConfig(), meta, kernels=kernels,
             remat=True, dtype=torch.bfloat16)
-        step(state, batch, noise)  # warm-up
-        print(f"{'kernel' if kernels else 'plain'} path, one {s}x{s} b1 "
-              f"step:", flush=True)
-        _profile_step(step, state, batch, noise)
+        yield (f"{'kernel' if kernels else 'plain'} path, one {s}x{s} b1 "
+               f"step", lambda step=step: step(state, batch, noise))
+
+
+def _request(dev):
+    """The kernel and the plain path's edge_to_image request, each a
+    call."""
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    from img2img_turbo_tpu_torch.weights import from_jax
+    cfgs = GeneratorConfigs()
+    g = torch.Generator(device=dev).manual_seed(1234)
+    params = {"unet": from_jax.random_model(cfgs.unet, g),
+              "vae": from_jax.random_model(cfgs.vae, g)}
+    caption = torch.randn(1, 77, cfgs.unet.cross_attention_dim, generator=g,
+                          device=dev)
+    img = torch.randint(0, 256, (1, SIZE, SIZE, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    for kernels in (True, False):
+        eng = ServingEngine(params, cfgs, dtype=torch.bfloat16, device=dev,
+                            use_kernels=kernels)
+        eng.warmup(1, SIZE, SIZE, caption)
+        yield (f"{'kernel' if kernels else 'plain'} path, one {SIZE}x{SIZE} "
+               f"b1 edge_to_image request",
+               lambda eng=eng: eng.run(img, caption,
+                                       torch.Generator(device=dev)
+                                       .manual_seed(1)))
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--request", action="store_true",
+                   help="profile one 512x512 edge_to_image request instead "
+                   "of a train step")
+    args = p.parse_args()
+    sys.path.insert(0, os.getcwd())
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this profile runs only on a GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from img2img_turbo_tpu_torch.ops import _build
+    _build.build()
+    dev = torch.device("cuda", 0)
+    for what, fn in (_request if args.request else _step)(dev):
+        fn()  # warm-up
+        print(f"{what}:", flush=True)
+        _profile(fn)
 
 
 if __name__ == "__main__":

@@ -147,6 +147,7 @@ def test_launch_table_matches_call_sites(setup, monkeypatch):
     spy(fused_matmul, "fused", "fused_matmul")
     spy(attention, "flash_attention_folded", "flash_attention_folded")
     spy(groupnorm, "partial_stats", "group_norm_stats")
+    spy(groupnorm, "combine_stats", "group_norm_combine")
     cap = torch.from_numpy(caption)
     for (h, w), want in (((64, 64), smoke.EXPECTED_LAUNCHES),
                          ((560, 840), smoke.EXPECTED_LAUNCHES_840x560)):

@@ -305,6 +305,7 @@ def test_launch_tables_of_image_and_sketch_requests(monkeypatch):
     spy(fused_matmul, "fused", "fused_matmul")
     spy(attention, "flash_attention_folded", "flash_attention_folded")
     spy(groupnorm, "partial_stats", "group_norm_stats")
+    spy(groupnorm, "combine_stats", "group_norm_combine")
     ctx = torch.zeros(1, 77, 32)
     img = smoke.synth_image(64, 64, 11)
     outs = {}

@@ -178,20 +178,25 @@ class TestGroupNormStats:
                                    rtol=1e-5, atol=1e-4)
 
     def test_combine_stats_matches_jax(self):
+        # (channels, groups): 32 in 8, and the UNet's widest concat, 2560
+        # channels in 32 groups of 80
         rng = np.random.RandomState(2)
-        y = _rand(rng, 2, 8, 8, 32, scale=2.0) + 0.5
-        parts = np.stack([
-            np.stack([y[:, :4].sum((1, 2)), (y[:, :4] ** 2).sum((1, 2))], 1),
-            np.stack([y[:, 4:].sum((1, 2)), (y[:, 4:] ** 2).sum((1, 2))], 1),
-        ], axis=1)
-        scale, bias = 1 + 0.1 * _rand(rng, 32), 0.1 * _rand(rng, 32)
-        want = jfc.combine_stats(jnp.asarray(parts), jnp.asarray(scale),
-                                 jnp.asarray(bias), 8, 1e-6, 64)
-        got = tgn.combine_stats(torch.from_numpy(parts),
-                                torch.from_numpy(scale),
-                                torch.from_numpy(bias), 8, 1e-6, 64)
-        for g, w in zip(got, want):
-            _close(g, w, GN_TOL)
+        for c, groups in ((32, 8), (2560, 32)):
+            y = _rand(rng, 2, 8, 8, c, scale=2.0) + 0.5
+            parts = np.stack([
+                np.stack([y[:, :4].sum((1, 2)), (y[:, :4] ** 2).sum((1, 2))],
+                         1),
+                np.stack([y[:, 4:].sum((1, 2)), (y[:, 4:] ** 2).sum((1, 2))],
+                         1),
+            ], axis=1)
+            scale, bias = 1 + 0.1 * _rand(rng, c), 0.1 * _rand(rng, c)
+            want = jfc.combine_stats(jnp.asarray(parts), jnp.asarray(scale),
+                                     jnp.asarray(bias), groups, 1e-6, 64)
+            got = tgn.combine_stats(torch.from_numpy(parts),
+                                    torch.from_numpy(scale),
+                                    torch.from_numpy(bias), groups, 1e-6, 64)
+            for g, w in zip(got, want):
+                _close(g, w, GN_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +569,11 @@ class TestWrapperRules:
         with pytest.raises(ValueError):
             tgn.partial_stats(x)
         with pytest.raises(ValueError):
+            tgn.group_norm_coeffs(x, b, b, 2, 1e-5)
+        with pytest.raises(ValueError):
+            tgn.combine_stats(torch.empty(1, 1, 2, 8, device=meta), b, b, 2,
+                              1e-5, 16)
+        with pytest.raises(ValueError):
             tattn.flash_attention_folded(x[0], x[0], x[0], 1)
         with pytest.raises(ValueError):
             tfm.fused(x, (w[0, 0],), (b,))
@@ -588,6 +598,7 @@ class TestWrapperRules:
         x = torch.randn(1, 4, 4, 8)
         tfc.fused_gn_silu_conv3x3(x, torch.randn(3, 3, 8, 8), torch.zeros(8))
         tgn.partial_stats(x)
+        tgn.group_norm_coeffs(x, torch.ones(8), torch.zeros(8), 2, 1e-5)
         q = torch.randn(1, 8, 64).bfloat16()
         tattn.flash_attention_folded(q, q, q, 1)
         tattn.flash_attention_folded_bwd(q, q, q, q, q,

@@ -91,7 +91,8 @@ def _rel_l2(got, want):
     (1, 37, 37, 2, 16),      # ragged Sq
     (2, 50, 77, 3, 8),       # Skv = 77 (cross-attention), several heads
     (1, 64, 24, 1, 64),
-    (1, 130, 77, 2, 64)])    # hd 64, ragged Sq, cross-attention Skv = 77
+    (1, 130, 77, 2, 64),     # hd 64, ragged Sq, cross-attention Skv = 77
+    (1, 72, 100, 1, 512)])   # hd 512 (the VAE mid attention), ragged
 def test_attention_backward_matches_jax_vjp(b, sq, skv, heads, hd):
     rng = np.random.RandomState(sq + skv)
     d = heads * hd
@@ -650,6 +651,7 @@ def test_train_launch_table_matches_call_sites(monkeypatch):
     spy(tattn, "flash_attention_folded", "flash_attention_folded")
     spy(tattn, "flash_attention_folded_bwd", "flash_attention_folded_bwd")
     spy(groupnorm, "partial_stats", "group_norm_stats")
+    spy(groupnorm, "combine_stats", "group_norm_combine")
     g = torch.Generator().manual_seed(1)
     cfgs = GeneratorConfigs(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_TEXT)
     models, state, meta = trunner.build_paired_run(
