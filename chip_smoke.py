@@ -1,5 +1,6 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
-(pix2pix-turbo) training step and the public attention op on one GPU.
+(pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps and the public
+attention op on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -54,7 +55,12 @@ Phases, each fatal on failure:
    bit-identical repeat; its combine alone runs on stats K1 emitted at
    four path shapes. Every case of every kernel reports its device time
    alone (a CUDA graph of 20 calls), and of its library call where it has
-   one;
+   one. Each kernel also runs every shape of the unpaired step that no
+   case above runs (tools/time_kernels.py's `*_UNPAIRED` tables, summed
+   apart as part "unpaired"), with the same checks; after the unpaired
+   phase every kernel's times are weighted per unpaired step by the
+   launches its wrapper counted by shape there (`per_unpaired_step`),
+   which must match those tables;
 3. attention path: `ops.attention.default_attention` (K9) at the UNet's
    (B, H, S, 64) shapes, its launches counted around those calls alone;
 4. engine phase: `ServingEngine(mode="edge_to_image")` at the full
@@ -73,7 +79,15 @@ Phases, each fatal on failure:
    the same seeded state, checked
    for finite losses, moved trainables and unmoved frozen weights, launch
    counts, pass-1 gradient agreement between the paths and a bit-identical
-   repeated step.
+   repeated step;
+7. unpaired phase: the CycleGAN-Turbo step at full width (SD-Turbo UNet
+   with its three rank-128 LoRA adapters, two VAEs with LoRA and skip
+   convs, two discriminators on CLIP ViT-B/32, VGG16 LPIPS), 256x256 b1,
+   fixed random caption embeddings, bf16 activations, fp32 masters, UNet
+   remat; a warm-up and three timed steps with kernels and as many plain,
+   with the train phase's checks (the cycle pass's gradients in place of
+   pass 1's, held against a plain step in fp32; both discriminators'
+   heads), its p50 and peak memory.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 error and times, and as its last line {"ok": true, "device": {...}}. Exits
@@ -202,6 +216,13 @@ def _attention_report(lib, B, Sq, Skv, H, hd, q, k, v, call) -> dict:
                 setup_us=setup_ns / 1e3)
 
 
+def _unseen(rows, seen, lo: int, hi: int) -> list:
+    """The rows of `rows` whose shape (columns lo:hi) no row of `seen`
+    has: the unpaired step's cases that no earlier case runs."""
+    have = {tuple(r[lo:hi]) for r in seen}
+    return [r for r in rows if tuple(r[lo:hi]) not in have]
+
+
 def _rel(a, b) -> tuple:
     a, b = a.float(), b.float()
     err = (a - b).abs().max().item()
@@ -221,8 +242,10 @@ def kernel_phase(dev, results: list):
         _build, attention, fused_conv as fc, fused_matmul as fm,
         groupnorm as gn)
     from img2img_turbo_tpu_torch.tools.time_kernels import (
-        DU_CASES, K1_CASES, K1_PATH_CASES, K3_SHAPES, K4_CASES, K5_CASES,
-        K6_CASES, K6_PATH_CASES, K7_CASES, conv_alone, device_ms, k3_name,
+        DU_CASES, DU_UNPAIRED, K1_CASES, K1_PATH_CASES, K1_UNPAIRED,
+        K3_SHAPES, K3_UNPAIRED_SHAPES, K4_CASES, K4_UNPAIRED, K5_CASES,
+        K5_UNPAIRED_CASES, K6_CASES, K6_PATH_CASES, K6_UNPAIRED, K7_CASES,
+        K7_UNPAIRED, conv_alone, device_ms, k3_name,
         one_call_ms as _time_ms, sdpa, sdpa_backward)
 
     bf = torch.bfloat16
@@ -294,8 +317,9 @@ def kernel_phase(dev, results: list):
             _fail(f"{name} {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
         return serr
 
+    k1_rows = K1_CASES + _unseen(K1_UNPAIRED, K1_CASES, 1, 11)
     for idx, (case, B, H, W, C, Co, norm, has_eb, has_res, csk, stats,
-              *_) in enumerate(K1_CASES):
+              *_) in enumerate(k1_rows):
         form = fc.conv_plan(B, H, W, C, Co, csk)
         k1_forms.add(f"{form['tile_rows']}x8")
         k1_forms.add("split" if form["splits"] > 1 else "unsplit")
@@ -358,7 +382,8 @@ def kernel_phase(dev, results: list):
                lib, device_ms=dev_ms, library_device_ms=lib_dev,
                conv_alone_ms=alone_ms, conv_alone_device_ms=alone_dev,
                shape=(B, H, W, C, Co, norm, has_eb, has_res, csk, stats),
-               form=form, part=None if idx < K1_PATH_CASES else "forms")
+               form=form, part=None if idx < K1_PATH_CASES else "forms"
+               if idx < len(K1_CASES) else "unpaired")
     every = {"16x8", "32x8", "small-N", "16-channel", "split", "unsplit"}
     if k1_forms != every:
         _fail(f"K1 ran the forms {sorted(k1_forms)} of {sorted(every)}: add "
@@ -377,7 +402,10 @@ def kernel_phase(dev, results: list):
     conv_lib.conv_dgrad_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
     form = (ctypes.c_int * 6)()
-    for case, B, H, W, C, Co, _ in DU_CASES:
+    for (case, B, H, W, C, Co, _), part in (
+            [(c, "du") for c in DU_CASES]
+            + [(c, "du_unpaired") for c in _unseen(DU_UNPAIRED, DU_CASES, 1,
+                                                    6)]):
         conv_lib.conv_dgrad_plan(B, H, W, C, Co, form)
         gy = rn(B, H, W, Co)
         w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
@@ -400,7 +428,7 @@ def kernel_phase(dev, results: list):
               f"{dev_ms:.4f}ms, F.conv_transpose2d device {lib_dev:.4f}ms",
               flush=True)
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
-               "F.conv_transpose2d", part="du", device_ms=dev_ms,
+               "F.conv_transpose2d", part=part, device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, H, W, C, Co))
 
     # ---- K4: every upsample of the paths (K4_CASES), each with its form,
@@ -409,7 +437,8 @@ def kernel_phase(dev, results: list):
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1758")
     k4_splits = set()
-    for case, B, H, W, C, Co, csk, stats, *_ in K4_CASES:
+    for idx, (case, B, H, W, C, Co, csk, stats, *_) in enumerate(
+            K4_CASES + _unseen(K4_UNPAIRED, K4_CASES, 1, 8)):
         form = fc.conv_plan(B, H, W, C, Co, csk, up=True)
         k4_splits.add(form["splits"] > 1)
         x = rn(B, H, W, C)
@@ -447,7 +476,7 @@ def kernel_phase(dev, results: list):
               f"repeat bit-identical; device {dev_ms:.4f}ms", flush=True)
         record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
                device_ms=dev_ms, shape=(B, H, W, C, Co, csk, stats),
-               form=form)
+               form=form, part=None if idx < len(K4_CASES) else "unpaired")
     if k4_splits != {False, True}:
         _fail(f"K4 did not run both a split and an unsplit call (split seen: "
               f"{sorted(k4_splits)})")
@@ -464,7 +493,8 @@ def kernel_phase(dev, results: list):
         ctypes.POINTER(ctypes.c_int)]
     k6_plan = (ctypes.c_int * 7)()
     forms = set()
-    for idx, (case, B, H, W, C, pad_lo, stats, *_) in enumerate(K6_CASES):
+    for idx, (case, B, H, W, C, pad_lo, stats, *_) in enumerate(
+            K6_CASES + _unseen(K6_UNPAIRED, K6_CASES, 1, 6)):
         conv_lib.downsample_plan(B, H, W, C, C, pad_lo, k6_plan)
         forms.add((k6_plan[0], k6_plan[3] > 1))
         x = rn(B, H, W, C)
@@ -516,7 +546,8 @@ def kernel_phase(dev, results: list):
         record(*k6, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv2d(stride=2)", device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, H, W, C, C, pad_lo),
-               part=None if idx < K6_PATH_CASES else "forms")
+               part=None if idx < K6_PATH_CASES else "forms"
+               if idx < len(K6_CASES) else "unpaired")
     every = {(th, sp) for th in (32, 16, 8) for sp in (False, True)}
     if forms != every:
         _fail(f"K6 ran the forms {sorted(forms)} of {sorted(every)}: add a "
@@ -529,7 +560,9 @@ def kernel_phase(dev, results: list):
     k5 = ("group_norm_stats", "cuda",
           "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
           "img2img_turbo_tpu/ops/groupnorm.py:81")
-    for case, shape in K5_CASES:
+    for (case, shape), part in (
+            [(c, None) for c in K5_CASES]
+            + [(c, "unpaired") for c in K5_UNPAIRED_CASES]):
         x = rn(*shape) * 2 + 0.5
         c = shape[-1]
         scale = 1 + 0.1 * rn(c, dtype=torch.float32)
@@ -561,17 +594,19 @@ def kernel_phase(dev, results: list):
         print(f"  {'':26s} K5 {case}: partials rel {rel_p:.1e}, repeat "
               f"bit-identical", flush=True)
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, pms, flops, nbytes, device_ms=dev_ms)
+               ms, pms, flops, nbytes, device_ms=dev_ms, part=part)
 
     # ---- K5's combine on the stats the conv kernels emit (K1 at four
     # path shapes), against its plain version, beside it; one launch
     kc = ("group_norm_combine", "cuda",
           "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1782 (XLA combine_stats)")
-    for case, B, H, W, C in (("vae 512^2x128", 1, 512, 512, 128),
-                             ("vae 128^2x512", 1, 128, 128, 512),
-                             ("unet 64^2x320", 1, 64, 64, 320),
-                             ("unet 8^2x1280", 1, 8, 8, 1280)):
+    for case, B, H, W, C, part in (
+            ("vae 512^2x128", 1, 512, 512, 128, None),
+            ("vae 128^2x512", 1, 128, 128, 512, None),
+            ("unet 64^2x320", 1, 64, 64, 320, None),
+            ("unet 8^2x1280", 1, 8, 8, 1280, None),
+            ("unet 4^2x1280", 1, 4, 4, 1280, "unpaired")):
         w = rn(3, 3, C, C, scale=1 / math.sqrt(9 * C))
         _, st = fc.fused_gn_silu_conv3x3(
             rn(B, H, W, C), w, rn(C, dtype=torch.float32), emit_stats=True,
@@ -591,7 +626,7 @@ def kernel_phase(dev, results: list):
               flush=True)
         record(*kc, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
                ms, pms, 2 * st.numel(), _nbytes(st, scale, bias, ka, kb),
-               device_ms=dev_ms)
+               device_ms=dev_ms, part=part)
 
     # ---- K3: every launch shape of the paths (tools/time_kernels.py's
     # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
@@ -607,7 +642,8 @@ def kernel_phase(dev, results: list):
         ctypes.POINTER(ctypes.c_int)]
     k3_lib.fused_matmul_plan.restype = ctypes.c_int
     plan = (ctypes.c_int * 7)()
-    for shape in K3_SHAPES:
+    for shape in K3_SHAPES + [s for s in K3_UNPAIRED_SHAPES
+                              if s not in K3_SHAPES]:
         M, C, Co, n_w, ln, gate, has_res = shape
         case = k3_name(shape)
         x = rn(1, M, C)
@@ -648,14 +684,17 @@ def kernel_phase(dev, results: list):
                linear_ms if exact else None, "F.linear" if exact else None,
                device_ms=dev_ms,
                library_device_ms=linear_dev if exact else None, shape=shape,
-               linear_ms=linear_ms, linear_device_ms=linear_dev)
+               linear_ms=linear_ms, linear_device_ms=linear_dev,
+               part=None if shape in K3_SHAPES else "unpaired")
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
           "img2img_turbo_tpu_torch/csrc/attention.cu",
           "img2img_turbo_tpu/ops/attention.py:261")
     lib = _attention_lib()
-    for case, B, Sq, Skv, H, hd in [c[:6] for c in K7_CASES] + K2_EXTRA_CASES:
+    k2_rows = [c[:6] for c in K7_CASES] + K2_EXTRA_CASES
+    for idx, (case, B, Sq, Skv, H, hd) in enumerate(
+            k2_rows + [c[:6] for c in _unseen(K7_UNPAIRED, k2_rows, 1, 6)]):
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         print(f"  {'':26s} {case}:", flush=True)
         report = _attention_report(
@@ -680,7 +719,8 @@ def kernel_phase(dev, results: list):
               flush=True)
         record(*k2, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                f"sdpa[{backend}]", library_device_ms=lib_dev, **report,
-               shape=(B, Sq, Skv, H, hd))
+               shape=(B, Sq, Skv, H, hd),
+               part=None if idx < len(k2_rows) else "unpaired")
 
     # ---- K9 -------------------------------------------------------------
     k9 = ("flash_attention", "cuda",
@@ -716,7 +756,9 @@ def kernel_phase(dev, results: list):
     k7_splits, k7_bands = set(), set()
     for case, B, Sq, Skv, H, hd, part in (
             [(*c[:6], None) for c in K7_CASES]
-            + [(*c, "edge") for c in K7_EDGE_CASES]):
+            + [(*c, "edge") for c in K7_EDGE_CASES]
+            + [(*c[:6], "unpaired")
+               for c in _unseen(K7_UNPAIRED, K7_CASES, 1, 6)]):
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         do = rn(B, Sq, H * hd)
         o, lse = attention.flash_attention_folded(q, k, v, H,
@@ -935,8 +977,10 @@ def main():
     engine_phase(dev, summary)
     modes_phase(dev, summary)
     train_phase(dev, summary)
+    unpaired_phase(dev, summary)
     paths = {p: summary["paths"][p] for p in (
-        "serve", "image", "sketch", "train", "default_attention")}
+        "serve", "image", "sketch", "train", "default_attention",
+        "unpaired")}
     kernels = _per_kernel(results, paths)
     k2 = next(e for e in kernels if e["name"] == "flash_attention_folded")
     k2_cases = [r for r in results if r["name"] == k2["name"]]
@@ -1039,11 +1083,53 @@ def main():
         print(f"K7 per_step hd {hd}: " + ", ".join(
             f"{n}={k7[f'per_step_hd{hd}'][n]:.4f}ms" for n in du_keys)
             + f" over {sum(shapes.values())} launches", flush=True)
+    # every kernel per unpaired step, weighted by its launches by shape in
+    # that step, which must be the unpaired tables of tools/time_kernels.py
+    # (K2's and K3's shapes are counted in the run, as on the other paths)
+    from img2img_turbo_tpu_torch.tools.time_kernels import (
+        DU_UNPAIRED, K1_UNPAIRED, K4_UNPAIRED, K6_UNPAIRED, K7_UNPAIRED)
+    du_unpaired = sum(c[-1] for c in DU_UNPAIRED)
+    k4 = next(e for e in kernels if e["name"] == "upsample2x_conv3x3")
+    k2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+    for entry, key, rows, shape_of, parts, launches, keys in (
+            (k1, "k1", K1_UNPAIRED, lambda c: tuple(c[1:11]),
+             (None, "forms", "unpaired"),
+             paths["unpaired"][k1["name"]] - du_unpaired, conv_keys),
+            (k1["du"], "du", DU_UNPAIRED, lambda c: tuple(c[1:6]),
+             ("du", "du_unpaired"), du_unpaired, du_keys),
+            (k4, "k4", K4_UNPAIRED, lambda c: tuple(c[1:8]),
+             (None, "unpaired"), paths["unpaired"][k4["name"]], du_keys),
+            (k6, "k6", K6_UNPAIRED,
+             lambda c: (c[1], c[2], c[3], c[4], c[4], c[5]),
+             (None, "forms", "unpaired"), paths["unpaired"][k6["name"]],
+             du_keys),
+            (k7, "k7", K7_UNPAIRED, lambda c: tuple(c[1:6]),
+             (None, "edge", "unpaired"), paths["unpaired"][k7["name"]],
+             du_keys),
+            (k2, "k2", None, None, (None, "unpaired"),
+             paths["unpaired"][k2["name"]], k2_keys),
+            (k3, "k3", None, None, (None, "unpaired"),
+             paths["unpaired"][k3["name"]], k3_keys)):
+        name = k1["name"] if entry is k1["du"] else entry["name"]
+        shapes = summary[f"{key}_shapes"]["unpaired"]
+        if rows is not None:
+            table = {shape_of(c): c[-1] for c in rows}
+            if shapes != table:
+                _fail(f"{key} launches by shape in an unpaired step {shapes} "
+                      f"differ from tools/time_kernels.py's table {table}")
+        entry["per_unpaired_step"] = _weighted(
+            [r for r in results if r["name"] == name and r["part"] in parts],
+            shapes, launches, "unpaired", keys)
+        print(f"{key.upper()} per_unpaired_step: " + ", ".join(
+            f"{n}={entry['per_unpaired_step'][n]:.4f}ms" for n in keys
+            if entry["per_unpaired_step"][n] is not None)
+            + f" over {launches} launches", flush=True)
     print(_smi(), flush=True)  # again, beside the results
     print(json.dumps({"kernels": kernels,
                       "engine": summary["engine"],
                       "modes": summary["modes"],
-                      "train": summary["train"]}), flush=True)
+                      "train": summary["train"],
+                      "unpaired": summary["unpaired"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1419,6 +1505,15 @@ EXPECTED_TRAIN_LAUNCHES = {
     "downsample2x_conv3x3": 2 * (6 + 3),
     "flash_attention_folded_bwd": 2 * 34}
 GRAD_REL_L2_TOL = 1e-1  # pass-1 gradients, kernel vs plain path, bf16
+# One unpaired (CycleGAN-Turbo) step runs eight generator forwards, each
+# with its backward (cycle 4, GAN 2, identity 2), where a paired step runs
+# two: four times a paired step's launches, at 256x256 in place of 512x512.
+# The gradient into the second hop of each cycle reaches the first
+# generator's output through the VAE encoder's prologue-free conv_in,
+# whose input gradient is the plain recompute of KernelFn (no launch);
+# the discriminators and LPIPS launch none.
+EXPECTED_UNPAIRED_LAUNCHES = {k: 4 * v
+                              for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
 TRAIN_STEPS = 3      # timed steps per path, after one warm-up step
 TRAIN_HW = 512
 
@@ -1439,11 +1534,98 @@ def _fingerprint(module):
     return sum(float(p.detach().double().sum()) for p in module.parameters())
 
 
+def _grad_rel(gk, gp, parts):
+    """Relative L2 of gradients `gk` against `gp` over all trainables and
+    over each part (a key prefix)."""
+    def rel(names):
+        num = sum(float((gk[n].float() - gp[n].float()).square().sum())
+                  for n in names)
+        den = sum(float(gp[n].float().square().sum()) for n in names)
+        return (num / max(den, 1e-30)) ** 0.5
+    return rel(list(gk)), {p: rel([n for n in gk if n.startswith(p + ":")])
+                           for p in parts}
+
+
+def _grad_agreement(gk, gp, parts, what, vs="kernel vs plain path"):
+    """Relative L2 of the kernel path's gradients `gk` against the plain
+    path's `gp` from the same state, over all trainables and over each
+    part (a key prefix); fails the run past GRAD_REL_L2_TOL."""
+    overall, per_part = _grad_rel(gk, gp, parts)
+    print(f"  {what} gradients, {vs}: rel L2 {overall:.3e} "
+          f"(tol {GRAD_REL_L2_TOL:.0e}, overall and for each part); by part "
+          f"{per_part}", flush=True)
+    if not overall <= GRAD_REL_L2_TOL:
+        _fail(f"{what} gradients disagree: rel L2 {overall:.3e}")
+    for part, r in per_part.items():
+        if not r <= GRAD_REL_L2_TOL:
+            _fail(f"{what} gradients of {part} disagree: rel L2 {r:.3e}")
+    return overall, per_part
+
+
+# kernel wrappers counted by shape, under the summary's "<key>_shapes"
+SHAPE_KEYS = (("k1", "fused_gn_silu_conv3x3"),
+              ("k2", "flash_attention_folded"),
+              ("k3", "fused_matmul"), ("k4", "upsample2x_conv3x3"),
+              ("k6", "downsample2x_conv3x3"),
+              ("k7", "flash_attention_folded_bwd"),
+              ("du", "conv3x3_input_grad"))
+
+
+def _run_steps(steps, state0, batch, noise, dev, summary, path):
+    """A warm-up step and TRAIN_STEPS timed steps (CUDA events) of the
+    kernel and the plain path (`steps`, {kernels: step}) from copies of
+    `state0`, in turns; `noise(i)` is step i's posterior noise. Fails on a
+    non-finite loss and on a kernel launched by the plain path. The kernel
+    path's step 0 gives the launch counts, and the launches by shape under
+    summary["<key>_shapes"][path]; both paths' step 0 their gradients.
+    Returns {"states", "times", "peaks", "metrics", "grads", "counts",
+    "start" (the kernel path's state before step 0), "after_first" (after
+    it), "first_metrics"}."""
+    import numpy as np
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    run = {"states": {k: _snapshot(state0) for k in (True, False)},
+           "times": {True: [], False: []}, "peaks": {True: 0, False: 0},
+           "metrics": {True: [], False: []}, "grads": {}}
+    states = run["states"]
+    for i in range(1 + TRAIN_STEPS):   # step 0: warm-up, launches, gradients
+        for k in (True, False):
+            if i == 0 and k:
+                run["start"] = _snapshot(states[k])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launch_counts()
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            m, gr = steps[k](states[k], batch, noise(i), keep_grads=i == 0)
+            e_ev.record()
+            e_ev.synchronize()
+            run["times"][k].append(s_ev.elapsed_time(e_ev))
+            run["peaks"][k] = max(run["peaks"][k],
+                                  torch.cuda.max_memory_allocated(dev))
+            m = {n: float(v) for n, v in m.items()}
+            run["metrics"][k].append(m)
+            if not all(np.isfinite(v) for v in m.values()):
+                _fail(f"{path} step {i} ({'kernels' if k else 'plain'}): "
+                      f"non-finite loss {m}")
+            if not k and sum(_build.launch_counts.values()):
+                _fail(f"the plain {path} step launched a kernel")
+            if i == 0:
+                run["grads"][k] = gr
+                if k:
+                    run["counts"] = dict(_build.launch_counts)
+                    for key, kernel in SHAPE_KEYS:
+                        summary[f"{key}_shapes"][path] = _shapes(kernel)
+                    run["after_first"] = _snapshot(states[k])
+                    run["first_metrics"] = m
+    return run
+
+
 def train_phase(dev, summary):
     import numpy as np
     import torch
     from img2img_turbo_tpu_torch.models import clip_vit
-    from img2img_turbo_tpu_torch.ops import _build
     from img2img_turbo_tpu_torch.ops import canny as canny_mod
     from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
     from img2img_turbo_tpu_torch.training import losses, paired, runner
@@ -1486,53 +1668,8 @@ def train_phase(dev, summary):
           f"bf16 activations, fp32 masters, UNet remat; set-up "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    states = {k: _snapshot(state0) for k in (True, False)}
-    times = {True: [], False: []}
-    peaks = {True: 0, False: 0}
-    metrics = {True: [], False: []}
-    grads1 = {}
-    counts = None
-    for i in range(1 + TRAIN_STEPS):   # step 0: warm-up, launches, gradients
-        for k in (True, False):
-            if i == 0 and k:
-                start = _snapshot(states[k])
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            _build.reset_launch_counts()
-            s_ev = torch.cuda.Event(enable_timing=True)
-            e_ev = torch.cuda.Event(enable_timing=True)
-            s_ev.record()
-            m, gr = steps[k](states[k], batch, noise(i), keep_grads=i == 0)
-            e_ev.record()
-            e_ev.synchronize()
-            times[k].append(s_ev.elapsed_time(e_ev))
-            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated(dev))
-            m = {n: float(v) for n, v in m.items()}
-            metrics[k].append(m)
-            if not all(np.isfinite(v) for v in m.values()):
-                _fail(f"train step {i} ({'kernels' if k else 'plain'}): "
-                      f"non-finite loss {m}")
-            if not k and sum(_build.launch_counts.values()):
-                _fail("the plain train step launched a kernel")
-            if i == 0:
-                grads1[k] = gr
-                if k:
-                    counts = dict(_build.launch_counts)
-                    summary["k1_shapes"]["train"] = _shapes(
-                        "fused_gn_silu_conv3x3")
-                    summary["k4_shapes"]["train"] = _shapes(
-                        "upsample2x_conv3x3")
-                    summary["k2_shapes"]["train"] = _shapes(
-                        "flash_attention_folded")
-                    summary["k3_shapes"]["train"] = _shapes("fused_matmul")
-                    summary["du_shapes"]["train"] = _shapes(
-                        "conv3x3_input_grad")
-                    summary["k6_shapes"]["train"] = _shapes(
-                        "downsample2x_conv3x3")
-                    summary["k7_shapes"]["train"] = _shapes(
-                        "flash_attention_folded_bwd")
-                    after_first = _snapshot(states[k])
-                    first_metrics = m
+    run = _run_steps(steps, state0, batch, noise, dev, summary, "train")
+    counts, metrics, states = run["counts"], run["metrics"], run["states"]
     print(f"  launches in one train step: {counts}", flush=True)
     if counts != EXPECTED_TRAIN_LAUNCHES:
         _fail(f"train launch counts {counts} != {EXPECTED_TRAIN_LAUNCHES}")
@@ -1542,26 +1679,9 @@ def train_phase(dev, summary):
             for m in metrics[k]), flush=True)
 
     # pass-1 gradients of the two paths from the same state
-    gk, gp = grads1[True], grads1[False]
-    num = sum(float((gk[n].float() - gp[n].float()).square().sum())
-              for n in gk)
-    den = sum(float(gp[n].float().square().sum()) for n in gp)
-    grad_rel = (num / max(den, 1e-30)) ** 0.5
-    per_group = {}
-    for part in ("unet_lora", "vae_lora", "unet", "vae"):
-        names = [n for n in gk if n.startswith(part + ":")]
-        nn_ = sum(float((gk[n].float() - gp[n].float()).square().sum())
-                  for n in names)
-        dd = sum(float(gp[n].float().square().sum()) for n in names)
-        per_group[part] = (nn_ / max(dd, 1e-30)) ** 0.5
-    print(f"  pass-1 gradients, kernel vs plain path: rel L2 {grad_rel:.3e} "
-          f"(tol {GRAD_REL_L2_TOL:.0e}, overall and for each part); by part "
-          f"{per_group}", flush=True)
-    if not grad_rel <= GRAD_REL_L2_TOL:
-        _fail(f"pass-1 gradients disagree: rel L2 {grad_rel:.3e}")
-    for part, rel in per_group.items():
-        if not rel <= GRAD_REL_L2_TOL:
-            _fail(f"pass-1 gradients of {part} disagree: rel L2 {rel:.3e}")
+    grad_rel, per_group = _grad_agreement(
+        run["grads"][True], run["grads"][False],
+        ("unet_lora", "vae_lora", "unet", "vae"), "pass-1")
 
     # trainables moved, frozen weights did not
     for k in (True, False):
@@ -1578,12 +1698,12 @@ def train_phase(dev, summary):
             _fail(f"frozen {n} weights moved")
 
     # a step repeated from the same state is bit-identical
-    again = start
+    again = run["start"]
     m2, _ = steps[True](again, batch, noise(0))
     m2 = {n: float(v) for n, v in m2.items()}
-    a_t, b_t = _state_tensors(after_first), _state_tensors(again)
+    a_t, b_t = _state_tensors(run["after_first"]), _state_tensors(again)
     same = all(torch.equal(a_t[n], b_t[n]) for n in a_t) \
-        and m2 == first_metrics
+        and m2 == run["first_metrics"]
     print(f"  repeated step bit-identical: {same}", flush=True)
     if not same:
         _fail("a step repeated from the same state gave other results")
@@ -1597,9 +1717,9 @@ def train_phase(dev, summary):
         _fail(f"eval step: {tuple(pred.shape)} {val}")
 
     p50 = {("kernels" if k else "plain"): sorted(v[1:])[TRAIN_STEPS // 2]
-           for k, v in times.items()}
+           for k, v in run["times"].items()}
     peak = {("kernels" if k else "plain"): v / 2 ** 30
-            for k, v in peaks.items()}
+            for k, v in run["peaks"].items()}
     print(f"  train step p50 {h}x{w} b1 ({TRAIN_STEPS} steps each after a "
           f"warm-up step, CUDA events): kernels {p50['kernels']:.2f} ms, "
           f"plain {p50['plain']:.2f} ms; peak memory kernels "
@@ -1608,12 +1728,160 @@ def train_phase(dev, summary):
     summary["paths"]["train"] = counts
     summary["train"] = {
         "step_ms": {("kernels" if k else "plain"): v
-                    for k, v in times.items()},
+                    for k, v in run["times"].items()},
         "p50_ms": p50, "peak_gib": peak, "grad_rel_l2": grad_rel,
         "grad_rel_l2_by_part": per_group, "launches": counts,
         "metrics": {("kernels" if k else "plain"): v
                     for k, v in metrics.items()},
         "eval": val}
+
+
+UNPAIRED_HW = 256   # the repo's CycleGAN-Turbo recipe: 256x256 crops
+
+
+def unpaired_phase(dev, summary):
+    """The unpaired (CycleGAN-Turbo) step at SD-Turbo width on seeded
+    random weights (seed 5432): the UNet with its three rank-128 adapters,
+    vae_a2b and vae_b2a with rank-4 adapters and their skip convs, two
+    discriminators on one CLIP ViT-B/32, VGG16 LPIPS; 256x256 b1, fixed
+    random caption embeddings (1, 77, 1024), bf16 activations, fp32
+    masters, UNet remat. A warm-up step and TRAIN_STEPS timed steps with
+    kernels and as many plain from the same state, checked for finite
+    losses, every trainable and both discriminators' heads moved, frozen
+    weights unmoved, launch counts (EXPECTED_UNPAIRED_LAUNCHES, and by
+    shape the unpaired tables of tools/time_kernels.py), the kernel path's
+    cycle-pass gradients against a plain fp32 step's from the same state,
+    and a bit-identical repeat."""
+    import torch
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
+                                                  unpaired)
+
+    t0 = time.perf_counter()
+    cfgs = GeneratorConfigs()
+    models, state0, meta = runner.build_unpaired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=5432, device=dev)
+    steps = {k: unpaired.make_unpaired_train_step(
+        models, cfgs, losses.UnpairedLossConfig(), meta, kernels=k,
+        remat=True, dtype=torch.bfloat16) for k in (True, False)}
+    frozen = {n: getattr(models, n) for n in (
+        "unet", "vae_a2b", "vae_b2a", "lpips", "disc_backbone")}
+    prints = {n: _fingerprint(m) for n, m in frozen.items()}
+    n_train = sum(v.numel() for v in state0.gen.values())
+    n_frozen = sum(p.numel() for m in frozen.values() for p in m.parameters())
+
+    h = w = UNPAIRED_HW
+    g = torch.Generator(device=dev).manual_seed(5433)
+    d = cfgs.unet.cross_attention_dim
+    batch = {"pixel_values_src": torch.as_tensor(
+                 synth_image(h, w, 7), device=dev).float() / 127.5 - 1.0,
+             "pixel_values_tgt": torch.as_tensor(
+                 synth_image(h, w, 8), device=dev).float() / 127.5 - 1.0,
+             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
+             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
+
+    def noise(step_i):
+        gn_ = torch.Generator(device=dev).manual_seed(2000 + step_i)
+        return tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
+                     for _ in range(unpaired.NUM_NOISE))
+
+    torch.cuda.synchronize()
+    print(f"unpaired phase: SD-Turbo UNet (3 LoRA adapters, rank "
+          f"{meta.rank_unet}) + vae_a2b/vae_b2a (LoRA rank {meta.rank_vae}), "
+          f"two discriminators on CLIP ViT-B/32, VGG16 LPIPS; "
+          f"{n_train / 1e6:.2f}M trainable, {n_frozen / 1e6:.1f}M frozen "
+          f"(random, seed 5432); {h}x{w} b1, bf16 activations, fp32 "
+          f"masters, UNet remat; set-up {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    run = _run_steps(steps, state0, batch, noise, dev, summary, "unpaired")
+    counts, metrics, states = run["counts"], run["metrics"], run["states"]
+    grads = run["grads"]
+    print(f"  launches in one unpaired step: {counts}", flush=True)
+    if counts != EXPECTED_UNPAIRED_LAUNCHES:
+        _fail(f"unpaired launch counts {counts} != "
+              f"{EXPECTED_UNPAIRED_LAUNCHES}")
+    for k in (True, False):
+        print(f"  {'kernels' if k else 'plain'}: " + "; ".join(
+            ", ".join(f"{n}={v:.4f}" for n, v in m.items())
+            for m in metrics[k]), flush=True)
+
+    # The cycle pass's gradients go through two chained generators, so two
+    # bf16 computations of them differ by more than pass 1's of the paired
+    # step: the kernel path is held against the plain path in fp32 from the
+    # same state and inputs (the exact composition), and the plain path in
+    # bf16 is measured against it beside, with the two bf16 paths' mutual
+    # difference.
+    parts = ("unet_lora:default_encoder", "unet_lora:default_decoder",
+             "unet_lora:default_others", "unet", "vae_a2b_lora", "vae_a2b",
+             "vae_b2a_lora", "vae_b2a")
+    ref_step = unpaired.make_unpaired_train_step(
+        models, cfgs, losses.UnpairedLossConfig(), meta, kernels=False,
+        remat=True, dtype=torch.float32)
+    _, ref = ref_step(_snapshot(state0), batch,
+                      tuple(n.float() for n in noise(0)), keep_grads=True)
+    grad_rel, per_part = _grad_agreement(
+        grads[True], ref, parts, "cycle-pass",
+        "bf16 kernel path vs fp32 plain path")
+    plain_rel = _grad_rel(grads[False], ref, parts)
+    mutual = _grad_rel(grads[True], grads[False], parts)
+    print(f"  cycle-pass gradients, bf16 plain path vs fp32 plain path: rel "
+          f"L2 {plain_rel[0]:.3e}, by part {plain_rel[1]}; bf16 kernel vs "
+          f"bf16 plain path: rel L2 {mutual[0]:.3e}, by part {mutual[1]}",
+          flush=True)
+    del ref
+
+    # every trainable and both discriminators' heads moved, frozen weights
+    # did not
+    for k in (True, False):
+        still = sorted(n for n, v in state0.gen.items()
+                       if torch.equal(v, states[k].gen[n]))
+        if still:
+            _fail(f"unpaired trainables did not move: {still}")
+        for side in ("a", "b"):
+            if all(torch.equal(v, states[k].disc[n])
+                   for n, v in state0.disc.items()
+                   if n.startswith(side + ":")):
+                _fail(f"discriminator {side}'s heads did not move")
+    for n, m in frozen.items():
+        if _fingerprint(m) != prints[n]:
+            _fail(f"frozen {n} weights moved in the unpaired step")
+
+    # a step repeated from the same state is bit-identical
+    again = run["start"]
+    m2, _ = steps[True](again, batch, noise(0))
+    m2 = {n: float(v) for n, v in m2.items()}
+    a_t, b_t = _state_tensors(run["after_first"]), _state_tensors(again)
+    same = all(torch.equal(a_t[n], b_t[n]) for n in a_t) \
+        and m2 == run["first_metrics"]
+    print(f"  repeated unpaired step bit-identical: {same}", flush=True)
+    if not same:
+        _fail("an unpaired step repeated from the same state gave other "
+              "results")
+
+    p50 = {("kernels" if k else "plain"): sorted(v[1:])[TRAIN_STEPS // 2]
+           for k, v in run["times"].items()}
+    peak = {("kernels" if k else "plain"): v / 2 ** 30
+            for k, v in run["peaks"].items()}
+    print(f"  unpaired step p50 {h}x{w} b1 ({TRAIN_STEPS} steps each after "
+          f"a warm-up step, CUDA events): kernels {p50['kernels']:.2f} ms, "
+          f"plain {p50['plain']:.2f} ms; peak memory kernels "
+          f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB",
+          flush=True)
+    summary["paths"]["unpaired"] = counts
+    summary["unpaired"] = {
+        "step_ms": {("kernels" if k else "plain"): v
+                    for k, v in run["times"].items()},
+        "p50_ms": p50, "peak_gib": peak, "grad_rel_l2": grad_rel,
+        "grad_rel_l2_by_part": per_part,
+        "grad_rel_l2_plain_bf16": plain_rel[0],
+        "grad_rel_l2_plain_bf16_by_part": plain_rel[1],
+        "grad_rel_l2_kernel_vs_plain_bf16": mutual[0],
+        "grad_rel_l2_kernel_vs_plain_bf16_by_part": mutual[1],
+        "launches": counts, "trainable_m": n_train / 1e6,
+        "metrics": {("kernels" if k else "plain"): v
+                    for k, v in metrics.items()}}
 
 
 if __name__ == "__main__":

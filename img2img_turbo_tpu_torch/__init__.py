@@ -2,8 +2,8 @@
 
 The counterpart of the JAX package `img2img_turbo_tpu`, module for module:
 the same NHWC layouts, the uint8-in/uint8-out serving path and the paired
-training step, with every Pallas kernel of those paths rewritten by hand
-for Hopper (CUDA C++ under `csrc/`) and a plain PyTorch
+and unpaired training steps, with every Pallas kernel of those paths
+rewritten by hand for Hopper (CUDA C++ under `csrc/`) and a plain PyTorch
 version beside each kernel. The package imports `torch` and never `jax`,
 nor any module of the JAX package: it keeps its own copy of the configs.
 """

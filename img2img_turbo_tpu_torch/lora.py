@@ -106,14 +106,14 @@ def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
 
 
 def merge_multi(base: Dict[str, torch.Tensor], loras: Sequence[Dict],
-                scale=1.0) -> Dict[str, torch.Tensor]:
+                scale=1.0, dtype=None) -> Dict[str, torch.Tensor]:
     """Several adapters merged one after the other (CycleGAN's encoder /
     decoder / others trio, lora.py:293): {"<name>.weight": merged} for
-    every module any of them adapts."""
+    every module any of them adapts, cast to `dtype` when given."""
     out: Dict[str, torch.Tensor] = {}
     for lora in loras:
         out.update(merge_lora({**base, **out}, lora, scale))
-    return out
+    return out if dtype is None else {k: v.to(dtype) for k, v in out.items()}
 
 
 @contextlib.contextmanager

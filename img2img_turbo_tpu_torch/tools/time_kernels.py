@@ -52,6 +52,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -320,6 +321,54 @@ K7_CASES = [
     ("unet mid self S=64 H=20", 1, 64, 64, 20, 64, 2),
     ("unet mid cross S=64 Skv=77 H=20", 1, 64, 77, 20, 64, 2),
     ("vae mid hd=512 S=4096", 1, 4096, 4096, 1, 512, 4)]
+
+
+# The unpaired (CycleGAN-Turbo) step at 256x256 runs every shape of the
+# paired step at 512x512 with its height and width halved (the UNet's
+# latent 32x32, its deepest level 4x4; S a quarter; the cross-attention's
+# 77 context rows unchanged), four times as often: eight generator
+# forwards, each with its backward, where the paired step runs two
+# (chip_smoke.py EXPECTED_UNPAIRED_LAUNCHES; it fails if the step counts
+# other shapes). Each table keeps its paired table's columns up to the
+# launches, then the launches per unpaired step.
+UNPAIRED_PER_PAIRED = 4
+
+
+def _halved(name: str) -> str:
+    """A case name at the halved size: H^2 or else the first HxW halved,
+    S quartered."""
+    if "^2" in name:
+        name = re.sub(r"(\d+)\^2", lambda m: f"{int(m[1]) // 2}^2", name)
+    else:
+        name = re.sub(r"(\d+)x(\d+)",
+                      lambda m: f"{int(m[1]) // 2}x{int(m[2]) // 2}", name,
+                      count=1)
+    return re.sub(r"\bS=(\d+)", lambda m: f"S={int(m[1]) // 4}", name)
+
+
+K1_UNPAIRED = [(_halved(c[0]), c[1], c[2] // 2, c[3] // 2, *c[4:11],
+                UNPAIRED_PER_PAIRED * c[12]) for c in K1_CASES if c[12]]
+K4_UNPAIRED = [(_halved(c[0]), c[1], c[2] // 2, c[3] // 2, *c[4:8],
+                UNPAIRED_PER_PAIRED * c[9]) for c in K4_CASES if c[9]]
+K6_UNPAIRED = [(_halved(c[0]), c[1], c[2] // 2, c[3] // 2, *c[4:7],
+                UNPAIRED_PER_PAIRED * c[8]) for c in K6_CASES if c[8]]
+DU_UNPAIRED = [(_halved(c[0]), c[1], c[2] // 2, c[3] // 2, *c[4:6],
+                UNPAIRED_PER_PAIRED * c[6]) for c in DU_CASES if c[6]]
+K7_UNPAIRED = [(_halved(c[0]), c[1], c[2] // 4,
+                c[3] if c[3] == 77 else c[3] // 4, *c[4:6],
+                UNPAIRED_PER_PAIRED * c[6]) for c in K7_CASES]
+# K5 with its combine at two of the unpaired step's GroupNorm inputs: the
+# UNet's deepest skip concat (16 rows, under one tile) and a VAE level
+K5_UNPAIRED_CASES = [
+    ("unet concat 4^2x2560", (1, 4, 4, 2560)),
+    ("vae 128^2x256", (1, 128, 128, 256))]
+# K3 at the unpaired step's transformer rows (32^2, 16^2, 8^2 and 4^2
+# latents) and VAE mid attention (32^2); its launches are counted by shape
+# in the run
+K3_UNPAIRED_SHAPES = sorted(set(
+    [s for m, c in ((1024, 320), (256, 640), (64, 1280), (16, 1280))
+     for s in k3_shapes(m, c)] + K3_KV_SHAPES + k3_vae_shapes(1024)),
+    key=lambda s: (-s[0], s))
 
 
 def k3_name(shape) -> str:

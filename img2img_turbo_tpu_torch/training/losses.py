@@ -1,7 +1,9 @@
 """Training losses (counterpart of `img2img_turbo_tpu/training/losses.py`):
-L2, LPIPS, CLIP-similarity and the GAN losses of the paired loop
+L2, L1, LPIPS, CLIP-similarity and the GAN losses of the paired loop
 (train_pix2pix_turbo.py:175-224: l2*lambda_l2 + lpips*lambda_lpips +
-clipsim*lambda_clipsim, then the GAN passes scaled by lambda_gan)."""
+clipsim*lambda_clipsim, then the GAN passes scaled by lambda_gan) and of the
+unpaired loop (train_cyclegan_turbo.py:181-256: cycle and identity L1 +
+LPIPS, then the GAN passes)."""
 
 from __future__ import annotations
 
@@ -21,8 +23,22 @@ class PairedLossConfig:
     gan_loss_type: str = "multilevel_sigmoid_s"
 
 
+@dataclasses.dataclass(frozen=True)
+class UnpairedLossConfig:
+    lambda_gan: float = 0.5
+    lambda_idt: float = 1.0
+    lambda_cycle: float = 1.0
+    lambda_cycle_lpips: float = 10.0
+    lambda_idt_lpips: float = 1.0
+    gan_loss_type: str = "multilevel_sigmoid"
+
+
 def l2_loss(pred, target):
     return (pred.float() - target.float()).square().mean()
+
+
+def l1_loss(pred, target):
+    return (pred.float() - target.float()).abs().mean()
 
 
 def lpips_loss(lpips_model, pred, target):

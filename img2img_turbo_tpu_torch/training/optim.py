@@ -106,6 +106,18 @@ class AdamW(torch.optim.Optimizer):
                   count=self.count)
         return st
 
+    def state_dict(self):
+        """torch.optim's state dict (the moments and groups) with the step
+        count, which the schedule and the bias correction read."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def step(self, closure=None):
         """One update of every parameter with a .grad, as a handful of

@@ -36,6 +36,7 @@ from img2img_turbo_tpu_torch.models import discriminator as disc_mod
 from img2img_turbo_tpu_torch.models.layers import has_kernel_layouts
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
                                                        generate_deterministic)
+from img2img_turbo_tpu_torch.training import accum
 from img2img_turbo_tpu_torch.training import losses as losses_mod
 from img2img_turbo_tpu_torch.training.optim import AdamW
 
@@ -60,7 +61,11 @@ class PairedModels:
 
 
 @dataclasses.dataclass
-class PairedState:
+class TrainState:
+    """The state of a paired or an unpaired run: the generator trainables,
+    the discriminator heads and spectral-norm vectors (for the unpaired run
+    both discriminators', keyed "a:<name>" and "b:<name>"), one AdamW over
+    each of the first two, and the step count."""
     gen: Dict[str, torch.Tensor]
     disc: Dict[str, torch.Tensor]
     disc_sn: Dict[str, torch.Tensor]
@@ -130,15 +135,15 @@ def draw_noise(generator: torch.Generator, batch: int, height: int,
 
 
 def make_state(gen, disc, disc_sn, gen_schedule, disc_schedule,
-               **adam_kwargs) -> PairedState:
+               **adam_kwargs) -> TrainState:
     """The training state, with one AdamW (clip + decoupled decay, optax's
     update) over the generator trainables and one over the heads."""
     disc = {k: v.detach().float().clone().requires_grad_(True)
             for k, v in disc.items()}
-    return PairedState(gen, disc, dict(disc_sn),
-                       AdamW(list(gen.values()), gen_schedule, **adam_kwargs),
-                       AdamW(list(disc.values()), disc_schedule,
-                             **adam_kwargs))
+    return TrainState(gen, disc, dict(disc_sn),
+                      AdamW(list(gen.values()), gen_schedule, **adam_kwargs),
+                      AdamW(list(disc.values()), disc_schedule,
+                            **adam_kwargs))
 
 
 def _apply(opt: AdamW, params: Dict, grads: Dict) -> None:
@@ -152,13 +157,16 @@ def _apply(opt: AdamW, params: Dict, grads: Dict) -> None:
 def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
                            loss_cfg: losses_mod.PairedLossConfig,
                            meta: LoraMeta, *, kernels: bool = True,
-                           remat: bool = True, dtype=torch.bfloat16):
+                           remat: bool = True, dtype=torch.bfloat16,
+                           accum_steps: int = 1):
     """Returns train_step(state, batch, noise, keep_grads=False) ->
     (metrics, pass-1 gradients or None); it updates `state` in place.
     batch: conditioning_pixel_values (B,H,W,3) [0,1], output_pixel_values
     [-1,1], input_ids (B,77); noise: the posterior noise of passes 1 and 2
     (`draw_noise`). kernels=False runs the plain PyTorch path on the same
-    weights."""
+    weights. accum_steps > 1 runs each pass over that many micro-batches
+    of the batch, one optimizer update a pass (`accum.accumulated_grads`;
+    B must be divisible by it)."""
     for m in (models.unet, models.vae):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -167,75 +175,87 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     alphas = scheduler.make_alphas_cumprod(device=dev)
     smooth = loss_cfg.gan_loss_type.endswith("_s")
 
-    def gen_pass(gen, c_t, caption_enc, noise, loss_fn):
-        """loss_fn(pred) -> (loss, parts); returns (loss, parts, grads
-        over gen, pred detached)."""
+    def gen_pass(gen, data, loss_fn):
+        """loss_fn(micro data, pred) -> (loss, aux); returns (loss, the
+        auxes, grads over gen), LoRA merged once for the pass."""
         params = build_gen_params(gen, models.unet, models.vae, meta, dtype)
+
+        def micro_loss(mb):
+            pred = generate_deterministic(
+                models.unet, models.vae, cfgs, alphas, mb["c_t"],
+                mb["caption_enc"], kernels=kernels, noise=mb["noise"],
+                remat=remat)
+            return loss_fn(mb, pred)
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae, params["vae"]):
-            pred = generate_deterministic(
-                models.unet, models.vae, cfgs, alphas, c_t, caption_enc,
-                kernels=kernels, noise=noise, remat=remat)
-            loss, parts = loss_fn(pred)
-            grads = torch.autograd.grad(loss, list(gen.values()))
-        return loss.detach(), parts, dict(zip(gen, grads)), pred.detach()
+            return accum.accumulated_grads(micro_loss, gen, data,
+                                           accum_steps)
 
-    def train_step(state: PairedState, batch, noise, keep_grads=False):
+    def disc_pass(heads, data, loss_fn):
+        return accum.accumulated_grads(lambda mb: (loss_fn(mb), None), heads,
+                                       data, accum_steps)
+
+    def train_step(state: TrainState, batch, noise, keep_grads=False):
         c_t = batch["conditioning_pixel_values"].to(dtype)
         x_tgt = batch["output_pixel_values"].to(dtype)
         ids = batch["input_ids"]
         with torch.no_grad():
             caption_enc = models.text(ids).to(dtype)
         metrics = {}
+        data = {"c_t": c_t, "x_tgt": x_tgt, "ids": ids,
+                "caption_enc": caption_enc}
 
         # ---- pass 1: reconstruction -----------------------------------
-        def recon(pred):
-            l2 = loss_cfg.lambda_l2 * losses_mod.l2_loss(pred, x_tgt)
+        def recon(mb, pred):
+            l2 = loss_cfg.lambda_l2 * losses_mod.l2_loss(pred, mb["x_tgt"])
             lp = loss_cfg.lambda_lpips * losses_mod.lpips_loss(
-                models.lpips, pred, x_tgt)
+                models.lpips, pred, mb["x_tgt"])
             parts = {"loss_l2": l2.detach(), "loss_lpips": lp.detach()}
             total = l2 + lp
             if loss_cfg.lambda_clipsim > 0:
                 cs = loss_cfg.lambda_clipsim * losses_mod.clipsim_loss(
-                    models.clip, pred, ids)
+                    models.clip, pred, mb["ids"])
                 parts["loss_clipsim"] = cs.detach()
                 total = total + cs
             return total, parts
 
-        _, parts, grads1, _ = gen_pass(state.gen, c_t, caption_enc,
-                                       noise[0], recon)
+        _, parts, grads1 = gen_pass(state.gen, {**data, "noise": noise[0]},
+                                    recon)
         _apply(state.gen_opt, state.gen, grads1)
-        metrics.update(parts)
+        metrics.update(accum.mean_aux(parts))
 
         # ---- pass 2: generator GAN (fresh forward, updated gen) --------
         sn = state.disc_sn
 
-        def gan_g(pred):
+        def gan_g(mb, pred):
             return loss_cfg.lambda_gan * losses_mod.gan_gen_loss(
-                models.disc_backbone, state.disc, sn, pred, smooth), {}
+                models.disc_backbone, state.disc, sn, pred, smooth), \
+                pred.detach()
 
-        loss_g, _, grads, pred2 = gen_pass(state.gen, c_t, caption_enc,
-                                           noise[1], gan_g)
+        loss_g, preds, grads = gen_pass(state.gen,
+                                        {**data, "noise": noise[1]}, gan_g)
+        pred2 = accum.merge_micro(preds)
         _apply(state.gen_opt, state.gen, grads)
         metrics["loss_gan_g"] = loss_g
         sn = disc_mod.sn_step(state.disc, sn)
 
         # ---- pass 3: discriminator on the real images ------------------
-        heads = list(state.disc.values())
-        loss_dr = loss_cfg.lambda_gan * losses_mod.gan_disc_real_loss(
-            models.disc_backbone, state.disc, sn, x_tgt, smooth)
-        grads = dict(zip(state.disc, torch.autograd.grad(loss_dr, heads)))
+        loss_dr, _, grads = disc_pass(
+            state.disc, {"x_tgt": x_tgt},
+            lambda mb: loss_cfg.lambda_gan * losses_mod.gan_disc_real_loss(
+                models.disc_backbone, state.disc, sn, mb["x_tgt"], smooth))
         sn = disc_mod.sn_step(state.disc, sn)   # the heads before the update
         _apply(state.disc_opt, state.disc, grads)
-        metrics["loss_d_real"] = loss_dr.detach()
+        metrics["loss_d_real"] = loss_dr
 
         # ---- pass 4: discriminator on pass 2's images, detached --------
-        loss_df = loss_cfg.lambda_gan * losses_mod.gan_disc_fake_loss(
-            models.disc_backbone, state.disc, sn, pred2, smooth)
-        grads = dict(zip(state.disc, torch.autograd.grad(loss_df, heads)))
+        loss_df, _, grads = disc_pass(
+            state.disc, {"pred": pred2},
+            lambda mb: loss_cfg.lambda_gan * losses_mod.gan_disc_fake_loss(
+                models.disc_backbone, state.disc, sn, mb["pred"], smooth))
         sn = disc_mod.sn_step(state.disc, sn)
         _apply(state.disc_opt, state.disc, grads)
-        metrics["loss_d_fake"] = loss_df.detach()
+        metrics["loss_d_fake"] = loss_df
 
         state.disc_sn = sn
         state.step += 1

@@ -1,12 +1,14 @@
-"""Where the time of one paired train step, or of one served request,
-goes, on the card.
+"""Where the time of one paired or unpaired train step, or of one served
+request, goes, on the card.
 
-    python -m img2img_turbo_tpu_torch.training.profile_step [--request]
+    python -m img2img_turbo_tpu_torch.training.profile_step [--request | --unpaired]
 
 Without arguments: builds the full-width paired run of chip_smoke.py's
 train phase (seeded random weights, 512x512 b1, bf16 activations, UNet
 remat), runs one step of the kernel path and one of the plain path to
-warm up, then one step of each under torch.profiler. With --request: one
+warm up, then one step of each under torch.profiler. With --unpaired: the
+same for the unpaired (CycleGAN-Turbo) run of chip_smoke.py's unpaired
+phase (256x256 b1, eight generator forwards a step). With --request: one
 512x512 b1 edge_to_image request of chip_smoke.py's engine phase (SD-Turbo
 widths, seeded random weights, bf16), on the kernel path and on the plain
 path, each after a warm-up. Prints for each: the wall time, the device time
@@ -35,6 +37,7 @@ import torch
 
 
 SIZE = 512     # the train phase's and the request's image size
+UNPAIRED_SIZE = 256   # the unpaired phase's
 TOP = 30       # GPU kernels listed per path
 # The package's kernels by the TPU kernel each replaces, matched in order
 # on the GPU kernel's name: (label, substrings). K1 and K4 share
@@ -122,6 +125,33 @@ def _step(dev):
                f"step", lambda step=step: step(state, batch, noise))
 
 
+def _unpaired_step(dev):
+    """The kernel and the plain path's unpaired train step, each a call."""
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
+                                                  unpaired)
+    cfgs = GeneratorConfigs()
+    models, state, meta = runner.build_unpaired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=5432, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5433)
+    s, d = UNPAIRED_SIZE, cfgs.unet.cross_attention_dim
+    batch = {"pixel_values_src": torch.rand(1, s, s, 3, generator=g,
+                                            device=dev) * 2 - 1,
+             "pixel_values_tgt": torch.rand(1, s, s, 3, generator=g,
+                                            device=dev) * 2 - 1,
+             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
+             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
+    noise = tuple(paired.draw_noise(g, 1, s, s, cfgs, torch.bfloat16)
+                  for _ in range(unpaired.NUM_NOISE))
+    for kernels in (True, False):
+        step = unpaired.make_unpaired_train_step(
+            models, cfgs, losses.UnpairedLossConfig(), meta, kernels=kernels,
+            remat=True, dtype=torch.bfloat16)
+        yield (f"{'kernel' if kernels else 'plain'} path, one {s}x{s} b1 "
+               f"unpaired step", lambda step=step: step(state, batch, noise))
+
+
 def _request(dev):
     """The kernel and the plain path's edge_to_image request, each a
     call."""
@@ -149,9 +179,13 @@ def _request(dev):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--request", action="store_true",
-                   help="profile one 512x512 edge_to_image request instead "
-                   "of a train step")
+    what = p.add_mutually_exclusive_group()
+    what.add_argument("--request", action="store_true",
+                      help="profile one 512x512 edge_to_image request "
+                      "instead of a train step")
+    what.add_argument("--unpaired", action="store_true",
+                      help="profile one 256x256 unpaired (CycleGAN-Turbo) "
+                      "train step instead of a paired one")
     args = p.parse_args()
     sys.path.insert(0, os.getcwd())
     if not torch.cuda.is_available():
@@ -164,7 +198,9 @@ def main():
     from img2img_turbo_tpu_torch.ops import _build
     _build.build()
     dev = torch.device("cuda", 0)
-    for what, fn in (_request if args.request else _step)(dev):
+    paths = (_request if args.request else
+             _unpaired_step if args.unpaired else _step)
+    for what, fn in paths(dev):
         fn()  # warm-up
         print(f"{what}:", flush=True)
         _profile(fn)

@@ -1,13 +1,13 @@
-"""Random-init model assembly for a paired run (counterpart of the offline
-branch of `img2img_turbo_tpu/training/runner.py:85-125`,
-`load_base_models` and `init_aux_models`). Pretrained SD-Turbo, CLIP, LPIPS
+"""Random-init model assembly for a paired or an unpaired run (counterpart
+of the offline branch of `img2img_turbo_tpu/training/runner.py:85-125`,
+`load_base_models` and `init_aux_models`, and of the model set-up of
+`cli/train_cyclegan_turbo.py:45-70`). Pretrained SD-Turbo, CLIP, LPIPS
 and VGG weights are not in the repository, so every model is drawn from a
 seeded torch.Generator on the device it will run on, following the JAX
 package's init scheme: convs and linears U(+-1/sqrt(fan_in)) (weight and
 bias), norms 1 and 0, embeddings and CLIP's class / position embeddings
 N(0, 0.02), projections N(0, 1/width), the LPIPS heads |N(0, 0.01)|, the
-VAE skip zero-convs 1e-5. The CLI, data loading and checkpoints are not
-ported yet.
+VAE skip zero-convs 1e-5. The training CLIs are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def build_paired_run(cfgs: GeneratorConfigs,
                      device=None):
     """Everything a paired run starts from, drawn from `seed` on `device`
     (the CUDA card unless the caller names another; without a card the
-    caller must pass device="cpu"): (PairedModels, a PairedState with the
+    caller must pass device="cpu"): (PairedModels, a TrainState with the
     reference's constant learning rate, LoraMeta); UNet LoRA rank 8 and VAE
     rank 4 (pix2pix_turbo.py:131-155)."""
     from img2img_turbo_tpu_torch import resolve_device
@@ -109,3 +109,41 @@ def build_paired_run(cfgs: GeneratorConfigs,
     state = paired.make_state(gen, heads, sn, sched, sched)
     return paired.PairedModels(unet, vae, text, lpips, backbone, clip), \
         state, meta
+
+
+def build_unpaired_run(cfgs: GeneratorConfigs,
+                       clip_cfg: clip_vit.CLIPViTConfig, seed: int = 0,
+                       device=None):
+    """Everything an unpaired (CycleGAN-Turbo) run starts from, drawn from
+    `seed` on `device` (the CUDA card unless the caller names another;
+    without a card the caller must pass device="cpu"): (UnpairedModels, a
+    TrainState with the reference's constant learning rate and the unpaired
+    clip norm, CycleLoraMeta). The UNet, vae_a2b and its copy vae_b2a, the
+    UNet adapter trio at rank 128 and a rank-4 adapter on each VAE
+    (`cyclegan.init_factored`); LPIPS; one frozen CLIP vision backbone
+    shared by two sets of discriminator heads and spectral-norm vectors.
+    No text encoder or CLIP-sim model: the step takes fixed caption
+    embeddings (cli/train_cyclegan_turbo.py:45-52)."""
+    from img2img_turbo_tpu_torch import resolve_device
+    from img2img_turbo_tpu_torch.pipelines import cyclegan
+    from img2img_turbo_tpu_torch.training import optim, unpaired
+    generator = torch.Generator(device=resolve_device(device))
+    generator.manual_seed(seed)
+    base, loras = cyclegan.init_factored(cfgs, generator)
+    lpips = random_init(VGGLPIPS, generator)
+    backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg), generator)
+    for m in (lpips, backbone):
+        m.requires_grad_(False)
+    disc, sn = {}, {}
+    for name in ("a", "b"):
+        heads, u = discriminator.init_heads(clip_cfg, generator)
+        disc.update({f"{name}:{k}": v for k, v in heads.items()})
+        sn.update({f"{name}:{k}": v for k, v in u.items()})
+    gen, meta = unpaired.split_trainable(
+        base["unet"], base["vae_a2b"], base["vae_b2a"], loras["unet"],
+        loras["vae_a2b"], loras["vae_b2a"])
+    sched = optim.make_lr_schedule("constant", LEARNING_RATE, 0, 1)
+    state = unpaired.make_state(gen, disc, sn, sched, sched)
+    models = unpaired.UnpairedModels(base["unet"], base["vae_a2b"],
+                                     base["vae_b2a"], lpips, backbone)
+    return models, state, meta

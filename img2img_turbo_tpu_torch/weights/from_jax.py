@@ -9,7 +9,8 @@ in torch layouts (conv HWIO -> OIHW, linear (in, out) -> (out, in)), which
 `clip_text_state_dict`, `clip_vision_state_dict`, `clip_state_dict`,
 `lpips_state_dict`, `disc_heads` and `gen_trainables` (the LoRA factors,
 the UNet conv_in and the skip convs) do the same for the trees of the
-paired training step, so that the tests feed both packages the same
+paired training step, and `disc_heads_pair` and `cycle_trainables` for
+the unpaired step's, so that the tests feed both packages the same
 numbers.
 
 `unet_state_dict` also takes a UNet whose conv_in is a TwinConv pair
@@ -276,6 +277,43 @@ def gen_trainables(gen) -> Dict[str, np.ndarray]:
         conv = {}
         _inv_conv(conv, f"decoder.skip_conv_{i + 1}", sk)
         out.update({"vae:" + k: v for k, v in conv.items()})
+    return out
+
+
+def disc_heads_pair(heads, sn):
+    """(heads, sn) of the unpaired step's two discriminators: the JAX
+    {"a": heads, "b": heads} and {"a": sn, "b": sn} trees -> flat
+    dictionaries keyed "a:<name>" and "b:<name>" (training/unpaired.py)."""
+    out: Dict[str, np.ndarray] = {}
+    flat_sn: Dict[str, np.ndarray] = {}
+    for d in ("a", "b"):
+        h, u = disc_heads(heads[d], sn[d])
+        out.update({f"{d}:{k}": v for k, v in h.items()})
+        flat_sn.update({f"{d}:{k}": v for k, v in u.items()})
+    return out, flat_sn
+
+
+def cycle_trainables(gen) -> Dict[str, np.ndarray]:
+    """The JAX unpaired step's trainable tree ({"unet_lora": {adapter:
+    modules}, "conv_in", "vae_a2b_lora", "vae_a2b_skip", "vae_b2a_lora",
+    "vae_b2a_skip"}) -> the port's flat `gen` keys (training/unpaired.py)."""
+    out: Dict[str, np.ndarray] = {}
+    for adapter, modules in gen["unet_lora"].items():
+        for name, e in modules.items():
+            for ab in ("a", "b"):
+                out[f"unet_lora:{adapter}:{name}.{ab}"] = \
+                    np.asarray(e[ab]).copy()
+    conv: Dict[str, np.ndarray] = {}
+    _inv_conv(conv, "conv_in", gen["conv_in"])
+    out.update({"unet:" + k: v for k, v in conv.items()})
+    for vae in ("vae_a2b", "vae_b2a"):
+        for name, e in gen[vae + "_lora"].items():
+            for ab in ("a", "b"):
+                out[f"{vae}_lora:{name}.{ab}"] = np.asarray(e[ab]).copy()
+        for i, sk in enumerate(gen[vae + "_skip"]):
+            conv = {}
+            _inv_conv(conv, f"decoder.skip_conv_{i + 1}", sk)
+            out.update({f"{vae}:" + k: v for k, v in conv.items()})
     return out
 
 
