@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
-(pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps and the public
-attention op on one GPU.
+(pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, both training
+CLIs and the public attention op on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -88,6 +88,22 @@ Phases, each fatal on failure:
    with the train phase's checks (the cycle pass's gradients in place of
    pass 1's, held against a plain step in fp32; both discriminators'
    heads), its p50 and peak memory.
+8. CLI phase: both training CLIs in-process through their `main`, at
+   full SD-Turbo width on seeded random weights, on two small synthetic
+   datasets written to a temporary directory: pix2pix-turbo (4 train and
+   2 test pairs at 512x512, bf16, 3 steps with a checkpoint at 2, eval
+   with val_fid and a viz panel at 3), then the same run resumed to step
+   4; CycleGAN-Turbo (4 + 4 train and 2 + 2 test images at 256x256, 3
+   steps with validation (FID and DINO-Struct in both directions), a viz
+   panel and a checkpoint at 3), then resumed at 3, which restores the
+   state and takes no step. Checked: finite metrics.jsonl rows with the
+   JAX CLIs' keys, the checkpoints and the reference-schema pkls (loaded
+   with torch.load, their keys), the viz and validation PNGs, the resumed
+   run's first and last step, and the launch counters: in each run K7's
+   and K8's du launches equal its steps times the per-step counts of
+   phases 6 and 7 exactly (eval, viz and validation run no backward), and
+   K1-K6 launch at least that. Each run's wall time, its eval or
+   validation time and its peak memory are printed.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 error and times, and as its last line {"ok": true, "device": {...}}. Exits
@@ -978,9 +994,10 @@ def main():
     modes_phase(dev, summary)
     train_phase(dev, summary)
     unpaired_phase(dev, summary)
+    cli_phase(dev, summary)
     paths = {p: summary["paths"][p] for p in (
         "serve", "image", "sketch", "train", "default_attention",
-        "unpaired")}
+        "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan")}
     kernels = _per_kernel(results, paths)
     k2 = next(e for e in kernels if e["name"] == "flash_attention_folded")
     k2_cases = [r for r in results if r["name"] == k2["name"]]
@@ -1129,7 +1146,8 @@ def main():
                       "engine": summary["engine"],
                       "modes": summary["modes"],
                       "train": summary["train"],
-                      "unpaired": summary["unpaired"]}), flush=True)
+                      "unpaired": summary["unpaired"],
+                      "cli": summary["cli"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1882,6 +1900,232 @@ def unpaired_phase(dev, summary):
         "launches": counts, "trainable_m": n_train / 1e6,
         "metrics": {("kernels" if k else "plain"): v
                     for k, v in metrics.items()}}
+
+
+CLI_STEPS = 3   # training steps of each CLI's first run
+
+
+def _write_datasets(root: str):
+    """The CLI phase's two datasets, from seeded synthetic images: paired
+    (train_A / train_B, 4 pairs at 512x512, test_A / test_B, 2 pairs, with
+    prompt files) and unpaired (4 + 4 train and 2 + 2 test images at
+    256x256, with the fixed prompts)."""
+    import json as json_mod
+    import os
+    from PIL import Image
+    paired_dir, unpaired_dir = (os.path.join(root, n)
+                                for n in ("paired", "unpaired"))
+    seed = 100
+    for split, n in (("train", 4), ("test", 2)):
+        prompts = {}
+        for i in range(n):
+            name = f"{split}_{i}.png"
+            for d, hw, folder in (("A", 512, paired_dir),
+                                  ("B", 512, paired_dir),
+                                  ("A", 256, unpaired_dir),
+                                  ("B", 256, unpaired_dir)):
+                os.makedirs(os.path.join(folder, f"{split}_{d}"),
+                            exist_ok=True)
+                seed += 1
+                Image.fromarray(synth_image(hw, hw, seed)[0]).save(
+                    os.path.join(folder, f"{split}_{d}", name))
+            prompts[name] = f"a photo of scene {i}"
+        with open(os.path.join(paired_dir, f"{split}_prompts.json"),
+                  "w") as f:
+            json_mod.dump(prompts, f)
+    for ab, text in (("a", "driving in the day"),
+                     ("b", "driving in the night")):
+        with open(os.path.join(unpaired_dir, f"fixed_prompt_{ab}.txt"),
+                  "w") as f:
+            f.write(text)
+    return paired_dir, unpaired_dir
+
+
+def _metrics_rows(out_dir: str):
+    import json as json_mod
+    import os
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json_mod.loads(line) for line in f]
+    for row in rows:
+        bad = {k: v for k, v in row.items()
+               if not isinstance(v, (int, float)) or not math.isfinite(v)}
+        if bad:
+            _fail(f"{out_dir}/metrics.jsonl: non-finite values {bad}")
+    return rows
+
+
+def _row_with(rows, step: int, keys) -> dict:
+    """The metrics row of `step` that carries all of `keys`."""
+    for row in rows:
+        if row["step"] == step and set(keys) <= set(row):
+            return row
+    _fail(f"no metrics row at step {step} with keys {sorted(keys)}: {rows}")
+
+
+def _cli_run(name, main_fn, args, dev, steps, per_step, summary):
+    """One CLI run with the counters zeroed just before it: its wall time,
+    peak memory and launches; K7's and the du's launches must be `steps`
+    times `per_step`'s, and every other kernel's at least that."""
+    import gc
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    gc.collect()   # an earlier run's models sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main_fn(args, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    counts = dict(_build.launch_counts)
+    du = sum(_shapes("conv3x3_input_grad").values())
+    if out["steps_run"] != steps:
+        _fail(f"{name}: {out['steps_run']} steps, expected {steps}")
+    want = {k: steps * v for k, v in per_step.items()}
+    got = dict(counts, conv3x3_input_grad=du)
+    for k, v in want.items():
+        exact = k in ("flash_attention_folded_bwd", "conv3x3_input_grad")
+        if (got.get(k, 0) != v) if exact else (got.get(k, 0) < v):
+            _fail(f"{name}: {k} launched {got.get(k, 0)} times, expected "
+                  f"{'exactly' if exact else 'at least'} {v} ({steps} steps "
+                  f"x {per_step[k]})")
+    print(f"  {name}: steps {out['start_step']}->{out['end_step']}, wall "
+          f"{wall:.1f}s, eval/validation {out['eval_seconds']:.1f}s, peak "
+          f"memory {peak:.2f} GiB ({held:.2f} GiB held before the run); "
+          f"launches {counts}, du {du}", flush=True)
+    summary["paths"][name] = counts
+    summary["cli"][name] = {"wall_s": wall, "eval_s": out["eval_seconds"],
+                            "peak_gib": peak, "held_gib": held,
+                            "start_step": out["start_step"],
+                            "end_step": out["end_step"],
+                            "steps_run": out["steps_run"], "launches": counts,
+                            "du_launches": du}
+    return out
+
+
+def cli_phase(dev, summary):
+    """Both training CLIs through their `main` at full width (module
+    docstring, phase 8). The per-step launches of phases 6 and 7 (one
+    paired step at 512x512 and one unpaired step at 256x256, both b1) set
+    what each run must launch."""
+    import os
+    import tempfile
+    import torch
+    from img2img_turbo_tpu_torch.cli import (train_cyclegan_turbo,
+                                             train_pix2pix_turbo)
+    from img2img_turbo_tpu_torch.utils import config_args
+
+    per_step = {}
+    for path in ("train", "unpaired"):
+        counts = dict(summary["paths"][path])
+        counts["conv3x3_input_grad"] = sum(summary["du_shapes"][path]
+                                           .values())
+        per_step[path] = counts
+    summary["cli"] = {}
+    print("CLI phase: both training CLIs at SD-Turbo width, random weights",
+          flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        paired_dir, unpaired_dir = _write_datasets(root)
+
+        # ---- pix2pix-turbo: 3 steps, then resumed to 4 ------------------
+        out = os.path.join(root, "out_pix2pix")
+        common = ["--dataset_folder", paired_dir, "--output_dir", out,
+                  "--train_batch_size", "1", "--mixed_precision", "bf16",
+                  "--gradient_checkpointing", "--checkpointing_steps", "2",
+                  "--eval_freq", "3", "--num_samples_eval", "2",
+                  "--track_val_fid", "--viz_freq", "3"]
+        _cli_run("cli_pix2pix", train_pix2pix_turbo.main,
+                 config_args.parse_args_paired_training(
+                     common + ["--max_train_steps", str(CLI_STEPS)]),
+                 dev, CLI_STEPS, per_step["train"], summary)
+        if sorted(os.listdir(os.path.join(out, "state"))) != ["2.pt", "3.pt"]:
+            _fail(f"pix2pix checkpoints: {os.listdir(out + '/state')}")
+        res = _cli_run("cli_pix2pix_resume", train_pix2pix_turbo.main,
+                       config_args.parse_args_paired_training(
+                           common + ["--max_train_steps", "4", "--resume"]),
+                       dev, 1, per_step["train"], summary)
+        if (res["start_step"], res["end_step"]) != (CLI_STEPS, 4):
+            _fail(f"the resumed pix2pix run ran {res}")
+        rows = _metrics_rows(out)
+        step_keys = ("loss_l2", "loss_lpips", "loss_clipsim", "loss_gan_g",
+                     "loss_d_real", "loss_d_fake", "steps_per_sec")
+        for step in (1, 4):   # the first step of each run
+            _row_with(rows, step, step_keys)
+        ev = _row_with(rows, 3, ("val_l2", "val_lpips", "val_clipsim",
+                                 "val_fid"))
+        saved = torch.load(os.path.join(out, "state", "4.pt"),
+                           map_location="cpu", weights_only=True)
+        if saved["step"] != 4:
+            _fail(f"pix2pix state 4.pt holds step {saved['step']}")
+        for step in (2, 3, 4):
+            pkl = torch.load(os.path.join(out, "checkpoints",
+                                          f"model_{step}.pkl"),
+                             map_location="cpu", weights_only=True)
+            keys = {"unet_lora_target_modules", "vae_lora_target_modules",
+                    "rank_unet", "rank_vae", "state_dict_unet",
+                    "state_dict_vae"}
+            sd_u, sd_v = pkl.get("state_dict_unet", {}), \
+                pkl.get("state_dict_vae", {})
+            if set(pkl) != keys or "conv_in.weight" not in sd_u \
+                    or not any(".lora_A.default." in k for k in sd_u) \
+                    or "decoder.skip_conv_1.base_layer.weight" not in sd_v \
+                    or not any(".lora_A.vae_skip." in k for k in sd_v):
+                _fail(f"pix2pix model_{step}.pkl: keys {sorted(pkl)}")
+        if not os.path.exists(os.path.join(out, "viz", "step_3.png")):
+            _fail("no pix2pix viz panel at step 3")
+        print(f"  pix2pix eval at step 3: {ev}; pkl state_dict_unet "
+              f"{len(sd_u)} tensors, state_dict_vae {len(sd_v)}", flush=True)
+
+        # ---- CycleGAN-Turbo: 3 steps with validation, then resumed ------
+        out = os.path.join(root, "out_cyclegan")
+        common = ["--dataset_folder", unpaired_dir, "--output_dir", out,
+                  "--tracker_project_name", "chip_smoke",
+                  "--train_img_prep", "no_resize", "--val_img_prep",
+                  "no_resize", "--train_batch_size", "1",
+                  "--validation_steps", "3", "--validation_num_images", "2",
+                  "--checkpointing_steps", "3", "--viz_freq", "3",
+                  "--max_train_steps", str(CLI_STEPS)]
+        _cli_run("cli_cyclegan", train_cyclegan_turbo.main,
+                 config_args.parse_args_unpaired_training(common), dev,
+                 CLI_STEPS, per_step["unpaired"], summary)
+        res = _cli_run("cli_cyclegan_resume", train_cyclegan_turbo.main,
+                       config_args.parse_args_unpaired_training(
+                           common + ["--resume"]),
+                       dev, 0, per_step["unpaired"], summary)
+        if res["start_step"] != CLI_STEPS:
+            _fail(f"the resumed CycleGAN run started at {res}")
+        rows = _metrics_rows(out)
+        _row_with(rows, 1, ("cycle_a", "cycle_b", "gan_a", "gan_b", "idt_a",
+                            "idt_b", "disc_fake", "disc_real",
+                            "steps_per_sec"))
+        val = _row_with(rows, 3, ("fid_a2b", "fid_b2a", "dino_struct_a2b",
+                                  "dino_struct_b2a"))
+        pkl = torch.load(os.path.join(out, "checkpoints", "model_3.pkl"),
+                         map_location="cpu", weights_only=True)
+        keys = {"l_target_modules_encoder", "l_target_modules_decoder",
+                "l_modules_others", "rank_unet", "sd_encoder", "sd_decoder",
+                "sd_other", "rank_vae", "vae_lora_target_modules",
+                "sd_vae_enc", "sd_vae_dec"}
+        sd_v = pkl.get("sd_vae_enc", {})
+        if set(pkl) != keys or pkl["rank_unet"] != 128 \
+                or not pkl["sd_encoder"] or not pkl["sd_decoder"] \
+                or not pkl["sd_other"] \
+                or "vae.decoder.skip_conv_1.base_layer.weight" not in sd_v \
+                or "vae_b2a.decoder.skip_conv_1.base_layer.weight" not in sd_v:
+            _fail(f"CycleGAN model_3.pkl: keys {sorted(pkl)}")
+        pngs = {d: sorted(os.listdir(os.path.join(out, "fid-3",
+                                                  f"samples_{d}")))
+                for d in ("a2b", "b2a")}
+        if any(len(v) != 2 for v in pngs.values()) or not os.path.exists(
+                os.path.join(out, "viz", "step_3.png")):
+            _fail(f"CycleGAN validation / viz files: {pngs}")
+        print(f"  CycleGAN validation at step 3: {val}; pkl sd_vae_enc "
+              f"{len(sd_v)} tensors", flush=True)
+    summary["cli"]["pix2pix_eval"] = ev
+    summary["cli"]["cyclegan_validation"] = val
 
 
 if __name__ == "__main__":

@@ -72,19 +72,21 @@ def forward_with_params(params: Dict, cfgs: GeneratorConfigs, alphas_cumprod,
     return torch.clamp(img, -1.0, 1.0)
 
 
-def init_factored(cfgs: GeneratorConfigs, generator: torch.Generator):
+def init_factored(cfgs: GeneratorConfigs, generator: torch.Generator,
+                  rank_unet: int = LORA_RANK_UNET,
+                  rank_vae: int = LORA_RANK_VAE):
     """Training init (cyclegan.py:108-133): seeded random SD-Turbo modules
     on generator.device, vae_b2a a copy of vae_a2b, the UNet adapter trio
-    at LORA_RANK_UNET and one LORA_RANK_VAE adapter per VAE. Returns (base
+    at `rank_unet` and one `rank_vae` adapter per VAE. Returns (base
     {"unet", "vae_a2b", "vae_b2a"}, loras {"unet": {adapter: lora},
     "vae_a2b", "vae_b2a"})."""
     from img2img_turbo_tpu_torch.weights import from_jax
     unet = from_jax.random_model(cfgs.unet, generator)
     vae = from_jax.random_model(cfgs.vae, generator)
     base = {"unet": unet, "vae_a2b": vae, "vae_b2a": copy.deepcopy(vae)}
-    loras = {"unet": cyclegan_unet_adapters(unet, LORA_RANK_UNET, generator)}
+    loras = {"unet": cyclegan_unet_adapters(unet, rank_unet, generator)}
     for name in ("vae_a2b", "vae_b2a"):
-        loras[name] = lora_mod.init_lora(base[name], LORA_RANK_VAE,
+        loras[name] = lora_mod.init_lora(base[name], rank_vae,
                                          lora_mod.CYCLEGAN_VAE_TARGETS,
                                          generator)
     return base, loras

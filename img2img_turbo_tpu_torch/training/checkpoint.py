@@ -13,8 +13,13 @@ saving leaves no partial checkpoint behind. The frozen models are not
 saved: a run rebuilds them (from the same seed or weights) before it
 restores.
 
-The reference-schema pkl export (`export_cyclegan_pkl`) waits for the pkl
-loaders (ROADMAP Queue 1 item 4).
+`export_pix2pix_pkl` and `export_cyclegan_pkl` write the reference's
+own checkpoint schema (a `torch.save` pickle of adapter state dicts in
+peft's key layout) from a run's trainables, key for key and tensor for
+tensor what the JAX package's exporters write
+(`pipelines/pix2pix.py:303 save_model`, `training/checkpoint.py:66`).
+Loading such a file back waits for the pkl loaders (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ from typing import Dict, List, Optional
 
 import torch
 
-from img2img_turbo_tpu_torch.training.paired import TrainState
+from img2img_turbo_tpu_torch import lora as lora_mod
+from img2img_turbo_tpu_torch.training.paired import TrainState, lora_modules
+from img2img_turbo_tpu_torch.weights.torch_export import (
+    lora_state_dict, peft_wrap_state_dict)
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -93,3 +101,72 @@ def restore_train_state(directory: str, state: TrainState,
     state.disc_opt.load_state_dict(saved["disc_opt"])
     state.step = saved["step"]
     return state
+
+
+# ---------------------------------------------------------------------------
+# Reference-schema pkl export
+# ---------------------------------------------------------------------------
+
+
+def _own(gen: Dict[str, torch.Tensor], part: str) -> Dict[str, torch.Tensor]:
+    """The trainable parameters of model `part` ("<part>:<name>" keys)."""
+    return {k.split(":", 1)[1]: v for k, v in gen.items()
+            if k.startswith(part + ":")}
+
+
+def export_pix2pix_pkl(outf: str, gen: Dict[str, torch.Tensor], meta
+                       ) -> None:
+    """The reference pix2pix-turbo pkl (pix2pix_turbo.py:221-229) from a
+    paired run's trainables: the UNet LoRA under adapter "default" with
+    the trained conv_in, the VAE LoRA under "vae_skip" with the skip convs'
+    weights under `.base_layer.` (peft wraps those targeted convs), the
+    target lists and ranks."""
+    sd_unet = lora_state_dict(lora_modules(gen, "unet_lora"), "default")
+    sd_unet.update({k: v.detach().float().cpu().contiguous()
+                    for k, v in _own(gen, "unet").items()})
+    sd_vae = lora_state_dict(lora_modules(gen, "vae_lora"), "vae_skip")
+    for k, v in _own(gen, "vae").items():
+        name, field = k.rsplit(".", 1)
+        sd_vae[f"{name}.base_layer.{field}"] = \
+            v.detach().float().cpu().contiguous()
+    torch.save({
+        "unet_lora_target_modules": list(lora_mod.PIX2PIX_UNET_TARGETS),
+        "vae_lora_target_modules": list(lora_mod.PIX2PIX_VAE_TARGETS),
+        "rank_unet": meta.rank_unet,
+        "rank_vae": meta.rank_vae,
+        "state_dict_unet": sd_unet,
+        "state_dict_vae": sd_vae,
+    }, outf)
+
+
+def export_cyclegan_pkl(outf: str, gen: Dict[str, torch.Tensor],
+                        vaes: Dict[str, torch.nn.Module], meta) -> None:
+    """The reference CycleGAN-Turbo pkl (train_cyclegan_turbo.py:293-307)
+    from an unpaired run's trainables and its two VAE modules (`vaes`,
+    {"vae_a2b", "vae_b2a"}): the three UNet adapters' state dicts (no
+    adapter name in the keys) with their sorted target lists, and
+    sd_vae_enc = sd_vae_dec = both whole VAEs under "vae." and "vae_b2a.",
+    the trained skip convs in place, every targeted module peft-wrapped
+    (`.base_layer.`, LoRA under "vae_skip"), so that the reference's strict
+    `load_state_dict` takes them."""
+    from img2img_turbo_tpu_torch.pipelines.cyclegan import ADAPTERS
+    unet = {a: lora_modules(gen, f"unet_lora:{a}") for a in ADAPTERS}
+    sd_vae: Dict[str, torch.Tensor] = {}
+    for prefix, part in (("vae.", "vae_a2b"), ("vae_b2a.", "vae_b2a")):
+        sd = {**vaes[part].state_dict(), **_own(gen, part)}
+        sd = peft_wrap_state_dict(sd, lora_modules(gen, part + "_lora"),
+                                  lora_mod.CYCLEGAN_VAE_TARGETS, "vae_skip")
+        sd_vae.update({prefix + k: v for k, v in sd.items()})
+    torch.save({
+        "l_target_modules_encoder": sorted(unet["default_encoder"]),
+        "l_target_modules_decoder": sorted(unet["default_decoder"]),
+        "l_modules_others": sorted(unet["default_others"]),
+        "rank_unet": meta.rank_unet,
+        "sd_encoder": lora_state_dict(unet["default_encoder"]),
+        "sd_decoder": lora_state_dict(unet["default_decoder"]),
+        "sd_other": lora_state_dict(unet["default_others"]),
+        "rank_vae": meta.rank_vae,
+        "vae_lora_target_modules": list(lora_mod.CYCLEGAN_VAE_TARGETS),
+        "sd_vae_enc": sd_vae,
+        "sd_vae_dec": sd_vae,
+    }, outf)

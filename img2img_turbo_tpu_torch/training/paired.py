@@ -51,7 +51,8 @@ class LoraMeta:
 
 @dataclasses.dataclass
 class PairedModels:
-    """The frozen modules of a paired run (fp32 parameters)."""
+    """The frozen modules of a paired run (fp32 parameters); `clip`, the
+    CLIP-sim model, is None in a run with lambda_clipsim = 0."""
     unet: torch.nn.Module
     vae: torch.nn.Module
     text: torch.nn.Module
@@ -97,13 +98,18 @@ def split_trainable(unet, vae, unet_lora, vae_lora
     return gen, meta
 
 
-def _lora_of(gen, part: str, rank: int, alpha: float) -> Dict:
+def lora_modules(gen, part: str) -> Dict:
+    """{module name: {"a", "b"}} of the adapter keyed "<part>:" in `gen`."""
     modules: Dict = {}
     for k, v in gen.items():
         if k.startswith(part + ":"):
             name, ab = k[len(part) + 1:].rsplit(".", 1)
             modules.setdefault(name, {})[ab] = v
-    return {"rank": rank, "alpha": alpha, "modules": modules}
+    return modules
+
+
+def _lora_of(gen, part: str, rank: int, alpha: float) -> Dict:
+    return {"rank": rank, "alpha": alpha, "modules": lora_modules(gen, part)}
 
 
 def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None) -> Dict:
@@ -267,8 +273,9 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
 def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
                    meta: LoraMeta, *, kernels: bool = True,
                    dtype=torch.bfloat16):
-    """Validation metrics L2, LPIPS and CLIP-sim of the current generator
-    (reference train_pix2pix_turbo.py:259-301). Returns
+    """Validation metrics L2, LPIPS and, when the run has a CLIP-sim model
+    (`models.clip`, None when lambda_clipsim is 0), CLIP-sim of the current
+    generator (reference train_pix2pix_turbo.py:259-301). Returns
     eval_step(gen, batch, noise) -> (pred, metrics)."""
     dev = next(models.unet.parameters()).device
     alphas = scheduler.make_alphas_cumprod(device=dev)
@@ -285,10 +292,11 @@ def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
             pred = generate_deterministic(models.unet, models.vae, cfgs,
                                           alphas, c_t, caption_enc,
                                           kernels=kernels, noise=noise)
-        return pred, {
-            "val_l2": losses_mod.l2_loss(pred, x_tgt),
-            "val_lpips": losses_mod.lpips_loss(models.lpips, pred, x_tgt),
-            "val_clipsim": 1.0 - losses_mod.clipsim_loss(models.clip, pred,
-                                                         ids)}
+        out = {"val_l2": losses_mod.l2_loss(pred, x_tgt),
+               "val_lpips": losses_mod.lpips_loss(models.lpips, pred, x_tgt)}
+        if models.clip is not None:
+            out["val_clipsim"] = 1.0 - losses_mod.clipsim_loss(
+                models.clip, pred, ids)
+        return pred, out
 
     return eval_step

@@ -1,22 +1,37 @@
-"""Random-init model assembly for a paired or an unpaired run (counterpart
-of the offline branch of `img2img_turbo_tpu/training/runner.py:85-125`,
-`load_base_models` and `init_aux_models`, and of the model set-up of
-`cli/train_cyclegan_turbo.py:45-70`). Pretrained SD-Turbo, CLIP, LPIPS
-and VGG weights are not in the repository, so every model is drawn from a
-seeded torch.Generator on the device it will run on, following the JAX
-package's init scheme: convs and linears U(+-1/sqrt(fan_in)) (weight and
-bias), norms 1 and 0, embeddings and CLIP's class / position embeddings
-N(0, 0.02), projections N(0, 1/width), the LPIPS heads |N(0, 0.01)|, the
-VAE skip zero-convs 1e-5. The training CLIs are not ported yet.
+"""Shared training-run machinery (counterpart of
+`img2img_turbo_tpu/training/runner.py` and of the model set-up of the two
+training CLIs): the metrics tracker, the configs a CLI's flags select, and
+random-init model assembly for a paired or an unpaired run.
+
+Tracker: a JSON line per logged step in `<output_dir>/metrics.jsonl`,
+always, and wandb as well when it is installed and asked for (the
+reference logs through accelerate's trackers, train_pix2pix_turbo.py:
+140-142, 232-241).
+
+Pretrained SD-Turbo, CLIP, LPIPS, VGG and Inception weights are not in the
+repository and their loaders are not ported yet (ROADMAP Queue 1 item 4),
+so every model is drawn from a seeded torch.Generator on the device it
+will run on, following the JAX package's init scheme: convs and linears
+U(+-1/sqrt(fan_in)) (weight and bias), norms 1 and 0, embeddings and
+CLIP's class / position embeddings N(0, 0.02), projections N(0, 1/width),
+the LPIPS heads |N(0, 0.01)|, the VAE skip zero-convs 1e-5. A CLI given a
+weight file stops with an error (`refuse_unported`) rather than train on
+random weights in its place.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from img2img_turbo_tpu_torch import configs
 from img2img_turbo_tpu_torch import lora as lora_mod
 from img2img_turbo_tpu_torch.models import clip_vit, discriminator
 from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
@@ -26,6 +41,113 @@ from img2img_turbo_tpu_torch.weights import from_jax
 
 
 LEARNING_RATE = 5e-6   # the reference trainers' --learning_rate default
+# flags that name pretrained files, whose loaders the port has not got yet
+WEIGHT_FLAGS = ("sd_turbo_path", "lpips_weights", "clip_weights",
+                "inception_weights")
+
+
+def make_tracker(report_to: str, project: str, output_dir: str,
+                 config: Dict) -> Callable[[Dict, int], None]:
+    """log(metrics, step): appends {metrics..., "step", "time"} as one JSON
+    line to <output_dir>/metrics.jsonl, and logs to wandb too when
+    report_to == "wandb" and wandb starts (runner.py:26-49)."""
+    os.makedirs(output_dir, exist_ok=True)
+    jsonl_path = os.path.join(output_dir, "metrics.jsonl")
+    wandb_run = None
+    if report_to == "wandb":
+        try:
+            import wandb
+            wandb_run = wandb.init(project=project, config=config,
+                                   dir=output_dir)
+        except Exception as err:   # not installed, or no network
+            print(f"wandb not used ({type(err).__name__}: {err}); metrics "
+                  f"go to {jsonl_path} only", flush=True)
+
+    def log(metrics: Dict, step: int) -> None:
+        row = {k: (float(v) if hasattr(v, "__float__") else v)
+               for k, v in metrics.items()}
+        row["step"] = step
+        row["time"] = time.time()
+        with open(jsonl_path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        if wandb_run is not None:
+            wandb_run.log(metrics, step=step)
+
+    return log
+
+
+def generator_configs(args) -> GeneratorConfigs:
+    """SD-Turbo's configs, or the TINY ones under --tiny_model."""
+    if getattr(args, "tiny_model", False):
+        return GeneratorConfigs(unet=configs.TINY_UNET, vae=configs.TINY_VAE,
+                                text=configs.TINY_TEXT)
+    return GeneratorConfigs()
+
+
+def clip_config(args) -> clip_vit.CLIPViTConfig:
+    """CLIP ViT-B/32, or TINY_CLIP_VIT under --tiny_model."""
+    if getattr(args, "tiny_model", False):
+        return clip_vit.TINY_CLIP_VIT
+    return clip_vit.CLIP_VIT_B32
+
+
+def refuse_unported(args) -> None:
+    """Stop a run whose flags ask for machinery the port has not got: a
+    pretrained-weight file (the loaders are ROADMAP Queue 1 item 4) or a
+    model axis above 1 (the port trains on one card; data parallelism is
+    item 6). Random init never stands in for a named file."""
+    given = [f"--{f}" for f in WEIGHT_FLAGS if getattr(args, f, None)]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: the port cannot load pretrained weights "
+            f"yet (its safetensors / torch-pickle loaders are not ported); "
+            f"omit the flag to train on seeded random weights")
+    if getattr(args, "tensor_parallel", 1) > 1:
+        raise NotImplementedError(
+            f"--tensor_parallel {args.tensor_parallel}: the port trains on "
+            f"one card; tensor and data parallelism are not ported")
+
+
+def activation_dtype(mixed_precision: Optional[str], device) -> torch.dtype:
+    """bf16 under --mixed_precision bf16, else fp32, as the JAX CLI casts
+    its batch (cli/train_pix2pix_turbo.py:145-149). The port's kernels take
+    bf16 only, so on a CUDA device any other dtype stops the run here
+    rather than fall back to the plain path."""
+    dtype = torch.bfloat16 if mixed_precision == "bf16" else torch.float32
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"--mixed_precision {mixed_precision}: on a CUDA device the "
+            f"port trains through its Hopper kernels, which take bf16 "
+            f"activations only; pass --mixed_precision bf16 (fp32 "
+            f"activations run only on the CPU, device='cpu')")
+    return dtype
+
+
+def init_inception(args, generator: torch.Generator):
+    """The FID feature extractor: seeded random (the JAX init); a
+    --inception_weights file stops the run (`refuse_unported`)."""
+    from img2img_turbo_tpu_torch.metrics import inception
+    refuse_unported(args)
+    return inception.random_inception(generator)
+
+
+class SmokeTokenizer:
+    """Word-hash ids for runs with no CLIP vocabulary on disk (smoke runs
+    and tests; runner.py:141-156). Not a tokenizer: ids come from Python's
+    hash() of each word, as in the JAX package, so they change with
+    PYTHONHASHSEED unless it is fixed."""
+
+    model_max_length = 77
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text):
+        words = (text if isinstance(text, str) else " ".join(text)).split()
+        ids = [(abs(hash(w)) % (self.vocab_size - 3)) + 1
+               for w in words][:75]
+        return np.asarray([[49406 % self.vocab_size] + ids
+                           + [0] * (76 - len(ids))], np.int32)
 
 
 @torch.no_grad()
@@ -65,71 +187,97 @@ def load_base_models(cfgs: GeneratorConfigs, generator: torch.Generator):
 
 
 def init_aux_models(clip_cfg: clip_vit.CLIPViTConfig,
-                    generator: torch.Generator):
+                    generator: torch.Generator, with_clipsim: bool = True):
     """(lpips, disc_backbone, clip, disc heads, disc sn): VGG16 +
     LPIPS heads, the discriminator's frozen CLIP vision tower, the CLIP
     model of the CLIP-sim loss (separate weights, as the JAX runner draws
-    them), and the discriminator heads with their spectral-norm vectors."""
+    them; None without `with_clipsim`, runner.py:91), and the
+    discriminator heads with their spectral-norm vectors."""
     lpips = random_init(VGGLPIPS, generator)
     backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg), generator)
     heads, sn = discriminator.init_heads(clip_cfg, generator)
-    clip = random_init(lambda: clip_vit.CLIPModel(clip_cfg), generator)
+    clip = (random_init(lambda: clip_vit.CLIPModel(clip_cfg), generator)
+            if with_clipsim else None)
     for m in (lpips, backbone, clip):
-        m.requires_grad_(False)
+        if m is not None:
+            m.requires_grad_(False)
     return lpips, backbone, clip, heads, sn
 
 
-def init_loras(unet, vae, generator: torch.Generator):
+def init_loras(unet, vae, generator: torch.Generator, rank_unet: int = 8,
+               rank_vae: int = 4):
     """Gaussian LoRA on the pix2pix targets, rank 8 on the UNet and 4 on
-    the VAE (reference pix2pix_turbo.py:131-155; peft's default alpha 8)."""
-    return (lora_mod.init_lora(unet, 8, lora_mod.PIX2PIX_UNET_TARGETS,
+    the VAE by default (reference pix2pix_turbo.py:131-155; peft's default
+    alpha 8)."""
+    return (lora_mod.init_lora(unet, rank_unet, lora_mod.PIX2PIX_UNET_TARGETS,
                                generator),
-            lora_mod.init_lora(vae, 4, lora_mod.PIX2PIX_VAE_TARGETS,
+            lora_mod.init_lora(vae, rank_vae, lora_mod.PIX2PIX_VAE_TARGETS,
                                generator))
+
+
+def _schedule(lr_schedule):
+    if lr_schedule is not None:
+        return lr_schedule
+    from img2img_turbo_tpu_torch.training import optim
+    return optim.make_lr_schedule("constant", LEARNING_RATE, 0, 1)
 
 
 def build_paired_run(cfgs: GeneratorConfigs,
                      clip_cfg: clip_vit.CLIPViTConfig, seed: int = 0,
-                     device=None):
+                     device=None, *, lr_schedule: Optional[Callable] = None,
+                     adam_kwargs: Optional[Dict] = None, rank_unet: int = 8,
+                     rank_vae: int = 4, with_clipsim: bool = True):
     """Everything a paired run starts from, drawn from `seed` on `device`
     (the CUDA card unless the caller names another; without a card the
-    caller must pass device="cpu"): (PairedModels, a TrainState with the
-    reference's constant learning rate, LoraMeta); UNet LoRA rank 8 and VAE
-    rank 4 (pix2pix_turbo.py:131-155)."""
+    caller must pass device="cpu"): (PairedModels, a TrainState, LoraMeta).
+    The state's AdamWs follow `lr_schedule` (count -> learning rate; the
+    reference's constant LEARNING_RATE when None) and `adam_kwargs`
+    (beta1, beta2, eps, weight_decay, max_grad_norm; AdamW's defaults when
+    None); LoRA at `rank_unet` and `rank_vae` (pix2pix_turbo.py:131-155);
+    no CLIP-sim model without `with_clipsim`."""
     from img2img_turbo_tpu_torch import resolve_device
-    from img2img_turbo_tpu_torch.training import optim, paired
+    from img2img_turbo_tpu_torch.training import paired
     generator = torch.Generator(device=resolve_device(device))
     generator.manual_seed(seed)
     unet, vae, text = load_base_models(cfgs, generator)
     text.requires_grad_(False)
-    lpips, backbone, clip, heads, sn = init_aux_models(clip_cfg, generator)
-    gen, meta = paired.split_trainable(unet, vae,
-                                       *init_loras(unet, vae, generator))
-    sched = optim.make_lr_schedule("constant", LEARNING_RATE, 0, 1)
-    state = paired.make_state(gen, heads, sn, sched, sched)
+    lpips, backbone, clip, heads, sn = init_aux_models(clip_cfg, generator,
+                                                       with_clipsim)
+    gen, meta = paired.split_trainable(
+        unet, vae, *init_loras(unet, vae, generator, rank_unet, rank_vae))
+    sched = _schedule(lr_schedule)
+    state = paired.make_state(gen, heads, sn, sched, sched,
+                              **(adam_kwargs or {}))
     return paired.PairedModels(unet, vae, text, lpips, backbone, clip), \
         state, meta
 
 
 def build_unpaired_run(cfgs: GeneratorConfigs,
                        clip_cfg: clip_vit.CLIPViTConfig, seed: int = 0,
-                       device=None):
+                       device=None, *, lr_schedule: Optional[Callable] = None,
+                       adam_kwargs: Optional[Dict] = None,
+                       rank_unet: Optional[int] = None,
+                       rank_vae: Optional[int] = None):
     """Everything an unpaired (CycleGAN-Turbo) run starts from, drawn from
     `seed` on `device` (the CUDA card unless the caller names another;
     without a card the caller must pass device="cpu"): (UnpairedModels, a
-    TrainState with the reference's constant learning rate and the unpaired
-    clip norm, CycleLoraMeta). The UNet, vae_a2b and its copy vae_b2a, the
-    UNet adapter trio at rank 128 and a rank-4 adapter on each VAE
-    (`cyclegan.init_factored`); LPIPS; one frozen CLIP vision backbone
-    shared by two sets of discriminator heads and spectral-norm vectors.
-    No text encoder or CLIP-sim model: the step takes fixed caption
-    embeddings (cli/train_cyclegan_turbo.py:45-52)."""
+    TrainState, CycleLoraMeta). The UNet, vae_a2b and its copy vae_b2a, the
+    UNet adapter trio at `rank_unet` and an adapter at `rank_vae` on each
+    VAE (`cyclegan.init_factored`; the unpaired trainer's 128 and 4 when
+    None); LPIPS; one frozen CLIP vision backbone shared by two sets of
+    discriminator heads and spectral-norm vectors. The AdamWs follow
+    `lr_schedule` and `adam_kwargs` as in `build_paired_run` (the clip
+    norm defaults to the unpaired trainer's). No text encoder or CLIP-sim
+    model: the step takes fixed caption embeddings
+    (cli/train_cyclegan_turbo.py:45-52)."""
     from img2img_turbo_tpu_torch import resolve_device
     from img2img_turbo_tpu_torch.pipelines import cyclegan
-    from img2img_turbo_tpu_torch.training import optim, unpaired
+    from img2img_turbo_tpu_torch.training import unpaired
     generator = torch.Generator(device=resolve_device(device))
     generator.manual_seed(seed)
-    base, loras = cyclegan.init_factored(cfgs, generator)
+    base, loras = cyclegan.init_factored(
+        cfgs, generator, rank_unet or cyclegan.LORA_RANK_UNET,
+        rank_vae or cyclegan.LORA_RANK_VAE)
     lpips = random_init(VGGLPIPS, generator)
     backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg), generator)
     for m in (lpips, backbone):
@@ -142,8 +290,9 @@ def build_unpaired_run(cfgs: GeneratorConfigs,
     gen, meta = unpaired.split_trainable(
         base["unet"], base["vae_a2b"], base["vae_b2a"], loras["unet"],
         loras["vae_a2b"], loras["vae_b2a"])
-    sched = optim.make_lr_schedule("constant", LEARNING_RATE, 0, 1)
-    state = unpaired.make_state(gen, disc, sn, sched, sched)
+    sched = _schedule(lr_schedule)
+    state = unpaired.make_state(gen, disc, sn, sched, sched,
+                                **(adam_kwargs or {}))
     models = unpaired.UnpairedModels(base["unet"], base["vae_a2b"],
                                      base["vae_b2a"], lpips, backbone)
     return models, state, meta

@@ -131,12 +131,13 @@ def build_gen_params(gen, models: UnpairedModels, meta: CycleLoraMeta,
 
 
 def make_state(gen, disc, disc_sn, gen_schedule, disc_schedule,
+               max_grad_norm: float = MAX_GRAD_NORM,
                **adam_kwargs) -> TrainState:
     """The unpaired run's state: `paired.make_state` over the generator
-    trainables and both discriminators' heads, clipped at the unpaired
-    trainer's norm."""
+    trainables and both discriminators' heads, clipped at `max_grad_norm`
+    (the unpaired trainer's by default)."""
     return paired.make_state(gen, disc, disc_sn, gen_schedule, disc_schedule,
-                             max_grad_norm=MAX_GRAD_NORM, **adam_kwargs)
+                             max_grad_norm=max_grad_norm, **adam_kwargs)
 
 
 def side(tensors: Dict[str, torch.Tensor], name: str):

@@ -9,8 +9,9 @@ in torch layouts (conv HWIO -> OIHW, linear (in, out) -> (out, in)), which
 `clip_text_state_dict`, `clip_vision_state_dict`, `clip_state_dict`,
 `lpips_state_dict`, `disc_heads` and `gen_trainables` (the LoRA factors,
 the UNet conv_in and the skip convs) do the same for the trees of the
-paired training step, and `disc_heads_pair` and `cycle_trainables` for
-the unpaired step's, so that the tests feed both packages the same
+paired training step, `disc_heads_pair` and `cycle_trainables` for
+the unpaired step's, and `inception_state_dict` and `dino_state_dict` for
+the metrics' networks, so that the tests feed both packages the same
 numbers.
 
 `unet_state_dict` also takes a UNet whose conv_in is a TwinConv pair
@@ -314,6 +315,50 @@ def cycle_trainables(gen) -> Dict[str, np.ndarray]:
             conv = {}
             _inv_conv(conv, f"decoder.skip_conv_{i + 1}", sk)
             out.update({f"{vae}:" + k: v for k, v in conv.items()})
+    return out
+
+
+def inception_state_dict(params) -> Dict[str, np.ndarray]:
+    """metrics/inception.InceptionV3 state dict from the JAX folded-BN tree
+    (`metrics/inception.py:init_inception`): each BasicConv2d's HWIO
+    kernel as an OIHW `weight`, its `scale` and `bias`; the trees' stride
+    and padding entries are structure, not weights."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        if "kernel" in tree:
+            _inv_conv(out, prefix, {"kernel": tree["kernel"]})
+            out[prefix + ".scale"] = np.asarray(tree["scale"]).copy()
+            out[prefix + ".bias"] = np.asarray(tree["bias"]).copy()
+            return
+        for k, v in tree.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk(params, "")
+    return out
+
+
+def dino_state_dict(params) -> Dict[str, np.ndarray]:
+    """models/dino.DINO state dict (torch.hub DINO names) from the JAX
+    tree (`models/dino.py:init_dino`): the 28x28 position grid and the
+    class position joined into `pos_embed` (1, 1 + 784, D) as the hub
+    model stores them."""
+    out: Dict[str, np.ndarray] = {}
+    _inv_conv(out, "patch_embed.proj", params["patch_embed"])
+    d = np.asarray(params["cls_token"]).shape[-1]
+    out["cls_token"] = np.asarray(params["cls_token"]).reshape(1, 1, d).copy()
+    grid = np.asarray(params["pos_embed_grid"]).reshape(-1, d)
+    out["pos_embed"] = np.concatenate(
+        [np.asarray(params["pos_embed_cls"]).reshape(1, d), grid])[None]
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"blocks.{i}."
+        _inv_norm(out, pre + "norm1", blk["ln1"])
+        _inv_lin(out, pre + "attn.qkv", blk["qkv"])
+        _inv_lin(out, pre + "attn.proj", blk["proj"])
+        _inv_norm(out, pre + "norm2", blk["ln2"])
+        _inv_lin(out, pre + "mlp.fc1", blk["fc1"])
+        _inv_lin(out, pre + "mlp.fc2", blk["fc2"])
+    _inv_norm(out, "norm", params["ln_final"])
     return out
 
 
