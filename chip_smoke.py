@@ -1,6 +1,7 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
-(pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, both training
-CLIs and the public attention op on one GPU.
+(pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, the weight
+loaders and both inference CLIs, both training CLIs and the public
+attention op on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -88,8 +89,29 @@ Phases, each fatal on failure:
    with the train phase's checks (the cycle pass's gradients in place of
    pass 1's, held against a plain step in fp32; both discriminators'
    heads), its p50 and peak memory.
-8. CLI phase: both training CLIs in-process through their `main`, at
-   full SD-Turbo width on seeded random weights, on two small synthetic
+8. weights phase: a full-width stabilityai/sd-turbo snapshot written in
+   the HF layout to a temporary directory with the port's own safetensors
+   writer (seeded random UNet, VAE and OpenCLIP-H text tower in fp16, as
+   sd-turbo's fp16 variant stores them, the text encoder with its
+   `text_model.` prefix and position_ids, a synthetic BPE tokenizer), and
+   three pkls written by the port's exporters (edge_to_image at ranks 8 / 4
+   with random B, a retrained conv_in and skip convs; the sketch model with
+   a TwinConv conv_in; CycleGAN-Turbo at rank 128 / 4 with both VAEs).
+   Each file read alone (wall, GB, GB/s); `Pix2PixTurbo.load_pretrained`
+   (deterministic and stochastic) and `CycleGANTurbo.load_pretrained`, every
+   loaded tensor equal to the file's, upcast from fp16, and every merged one
+   within 1e-6 of `lora.merge_lora` / `merge_multi` of the written factors;
+   peak memory. Then both inference CLIs in-process through `main` with
+   --use_fp16 on a 517x389 PNG (edge_to_image, sketch at --gamma 0.4,
+   CycleGAN by --model_path --prompt --direction a2b): each PNG at its
+   size, equal bit for bit to the pipeline called directly on the same
+   prepared input and seed, that pipeline's kernel path within
+   PATH_REL_L2_TOL of its plain path, K1-K6 launched and no backward
+   kernel; each CLI's wall and its time to the first image after load;
+9. CLI phase: both training CLIs in-process through their `main`, at
+   full SD-Turbo width, the pix2pix runs from the weights phase's
+   snapshot with its BPE tokenizer (CycleGAN on seeded random weights), on
+   two small synthetic
    datasets written to a temporary directory: pix2pix-turbo (4 train and
    2 test pairs at 512x512, bf16, 3 steps with a checkpoint at 2, eval
    with val_fid and a viz panel at 3), then the same run resumed to step
@@ -117,6 +139,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -576,9 +599,8 @@ def kernel_phase(dev, results: list):
     k5 = ("group_norm_stats", "cuda",
           "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
           "img2img_turbo_tpu/ops/groupnorm.py:81")
-    for (case, shape), part in (
-            [(c, None) for c in K5_CASES]
-            + [(c, "unpaired") for c in K5_UNPAIRED_CASES]):
+
+    def k5_case(case, shape, part):
         x = rn(*shape) * 2 + 0.5
         c = shape[-1]
         scale = 1 + 0.1 * rn(c, dtype=torch.float32)
@@ -610,13 +632,40 @@ def kernel_phase(dev, results: list):
         print(f"  {'':26s} K5 {case}: partials rel {rel_p:.1e}, repeat "
               f"bit-identical", flush=True)
         record(*k5, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, pms, flops, nbytes, device_ms=dev_ms, part=part)
+               ms, pms, flops, nbytes, device_ms=dev_ms, part=part,
+               shape=(shape[0], x.numel() // (shape[0] * c), c))
+
+    for (case, shape), part in (
+            [(c, None) for c in K5_CASES]
+            + [(c, "unpaired") for c in K5_UNPAIRED_CASES]):
+        k5_case(case, shape, part)
 
     # ---- K5's combine on the stats the conv kernels emit (K1 at four
     # path shapes), against its plain version, beside it; one launch
     kc = ("group_norm_combine", "cuda",
           "img2img_turbo_tpu_torch/csrc/groupnorm.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1782 (XLA combine_stats)")
+
+    def combine_case(case, st, count, part):
+        C = st.shape[-1]
+        scale = 1 + 0.1 * rn(C, dtype=torch.float32)
+        bias = 0.1 * rn(C, dtype=torch.float32)
+        ka, kb = gn.combine_stats(st, scale, bias, 32, 1e-6, count)
+        ra, rb = gn.combine_stats_ref(st, scale, bias, 32, 1e-6, count)
+        err_a, rel_a = _rel(ka, ra)
+        err_b, rel_b = _rel(kb, rb)
+        call = lambda: gn.combine_stats(st, scale, bias, 32,  # noqa: E731
+                                        1e-6, count)
+        ms, dev_ms = _time_ms(call), device_ms(call)
+        pms = _time_ms(lambda: gn.combine_stats_ref(st, scale, bias, 32,
+                                                    1e-6, count))
+        print(f"  {'':26s} combine {case}: {st.shape[1]} stats tiles",
+              flush=True)
+        record(*kc, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
+               ms, pms, 2 * st.numel(), _nbytes(st, scale, bias, ka, kb),
+               device_ms=dev_ms, part=part,
+               shape=(st.shape[0], st.shape[1], C, 32))
+
     for case, B, H, W, C, part in (
             ("vae 512^2x128", 1, 512, 512, 128, None),
             ("vae 128^2x512", 1, 128, 128, 512, None),
@@ -627,22 +676,21 @@ def kernel_phase(dev, results: list):
         _, st = fc.fused_gn_silu_conv3x3(
             rn(B, H, W, C), w, rn(C, dtype=torch.float32), emit_stats=True,
             w_packed=fc.pack_weights(w))
-        scale = 1 + 0.1 * rn(C, dtype=torch.float32)
-        bias = 0.1 * rn(C, dtype=torch.float32)
-        ka, kb = gn.combine_stats(st, scale, bias, 32, 1e-6, H * W)
-        ra, rb = gn.combine_stats_ref(st, scale, bias, 32, 1e-6, H * W)
-        err_a, rel_a = _rel(ka, ra)
-        err_b, rel_b = _rel(kb, rb)
-        call = lambda: gn.combine_stats(st, scale, bias, 32,  # noqa: E731
-                                        1e-6, H * W)
-        ms, dev_ms = _time_ms(call), device_ms(call)
-        pms = _time_ms(lambda: gn.combine_stats_ref(st, scale, bias, 32,
-                                                    1e-6, H * W))
-        print(f"  {'':26s} combine {case}: {st.shape[1]} stats tiles",
-              flush=True)
-        record(*kc, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
-               ms, pms, 2 * st.numel(), _nbytes(st, scale, bias, ka, kb),
-               device_ms=dev_ms, part=part)
+        combine_case(case, st, H * W, part)
+
+    def path_case(kernel, shape, part):
+        """K5 or its combine at a path's launch shape that no case above
+        runs: K5 on an input of that (B, S, C); the combine on fp32 partial
+        sums of that (B, tiles, C) over tiles of 64 rows."""
+        if kernel == "group_norm_stats":
+            b, rows, c = shape
+            k5_case(f"{part} {b}x{rows}x{c}", (b, rows, c), part)
+        else:
+            b, tiles, c, _ = shape
+            x = torch.randn(b, tiles, 64, c, generator=g, device=dev) * 2 \
+                + 0.5
+            st = torch.stack([x.sum(2), x.square().sum(2)], 2).contiguous()
+            combine_case(f"{part} {b}x{tiles}x{c}", st, tiles * 64, part)
 
     # ---- K3: every launch shape of the paths (tools/time_kernels.py's
     # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
@@ -883,6 +931,7 @@ def kernel_phase(dev, results: list):
     print(f"  wrappers refused all {len(refused)} unsupported CUDA inputs",
           flush=True)
     _build.reset_launch_counts()
+    return path_case
 
 
 def _summed(rs):
@@ -983,18 +1032,30 @@ def main():
 
     results: list = []
     print("kernel phase (bf16, kernel vs plain PyTorch version):", flush=True)
-    kernel_phase(dev, results)
+    path_case = kernel_phase(dev, results)
     torch.cuda.synchronize()
 
     summary: dict = {"paths": {}, "k1_shapes": {}, "k2_shapes": {},
-                     "k3_shapes": {}, "k4_shapes": {}, "k6_shapes": {},
-                     "k7_shapes": {}, "du_shapes": {}}
+                     "k3_shapes": {}, "k4_shapes": {}, "k5_shapes": {},
+                     "k5c_shapes": {}, "k6_shapes": {}, "k7_shapes": {},
+                     "du_shapes": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
     train_phase(dev, summary)
     unpaired_phase(dev, summary)
-    cli_phase(dev, summary)
+    # K5 and its combine at the unpaired step's launch shapes that no case
+    # of the kernel phase ran, so that both weigh per unpaired step
+    for key, kernel in (("k5", "group_norm_stats"),
+                        ("k5c", "group_norm_combine")):
+        have = {r["shape"] for r in results if r["name"] == kernel}
+        for shape in summary[f"{key}_shapes"]["unpaired"]:
+            if shape not in have:
+                path_case(kernel, shape, "unpaired")
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as root:
+        snap = weights_phase(dev, summary, root)
+        cli_phase(dev, summary, snap)
     paths = {p: summary["paths"][p] for p in (
         "serve", "image", "sketch", "train", "default_attention",
         "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan")}
@@ -1107,6 +1168,8 @@ def main():
         DU_UNPAIRED, K1_UNPAIRED, K4_UNPAIRED, K6_UNPAIRED, K7_UNPAIRED)
     du_unpaired = sum(c[-1] for c in DU_UNPAIRED)
     k4 = next(e for e in kernels if e["name"] == "upsample2x_conv3x3")
+    k5, k5c = (next(e for e in kernels if e["name"] == n)
+               for n in ("group_norm_stats", "group_norm_combine"))
     k2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     for entry, key, rows, shape_of, parts, launches, keys in (
             (k1, "k1", K1_UNPAIRED, lambda c: tuple(c[1:11]),
@@ -1126,7 +1189,14 @@ def main():
             (k2, "k2", None, None, (None, "unpaired"),
              paths["unpaired"][k2["name"]], k2_keys),
             (k3, "k3", None, None, (None, "unpaired"),
-             paths["unpaired"][k3["name"]], k3_keys)):
+             paths["unpaired"][k3["name"]], k3_keys),
+            (k5, "k5", None, None, (None, "unpaired"),
+             paths["unpaired"][k5["name"]], k2_keys),
+            # the combines launched alone: those K5 launched with its stats
+            # are in K5's time
+            (k5c, "k5c", None, None, (None, "unpaired"),
+             paths["unpaired"][k5c["name"]] - paths["unpaired"][k5["name"]],
+             k2_keys)):
         name = k1["name"] if entry is k1["du"] else entry["name"]
         shapes = summary[f"{key}_shapes"]["unpaired"]
         if rows is not None:
@@ -1147,6 +1217,7 @@ def main():
                       "modes": summary["modes"],
                       "train": summary["train"],
                       "unpaired": summary["unpaired"],
+                      "weights": summary["weights"],
                       "cli": summary["cli"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1584,6 +1655,7 @@ def _grad_agreement(gk, gp, parts, what, vs="kernel vs plain path"):
 SHAPE_KEYS = (("k1", "fused_gn_silu_conv3x3"),
               ("k2", "flash_attention_folded"),
               ("k3", "fused_matmul"), ("k4", "upsample2x_conv3x3"),
+              ("k5", "group_norm_stats"), ("k5c", "group_norm_combine"),
               ("k6", "downsample2x_conv3x3"),
               ("k7", "flash_attention_folded_bwd"),
               ("du", "conv3x3_input_grad"))
@@ -1902,6 +1974,465 @@ def unpaired_phase(dev, summary):
                     for k, v in metrics.items()}}
 
 
+# ---------------------------------------------------------------------------
+# weights phase
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_SEED = 4567
+PROMPT = "a red bird on a branch"        # the paired CLI's --prompt
+CAPTION = "driving in the night"         # the unpaired CLI's --prompt
+CLI_IMAGE_HW = (389, 517)                # neither side a multiple of 8
+RANK_EDGE = (8, 4)                       # the paired trainer's ranks
+RANK_CYCLEGAN = (128, 4)                 # the unpaired trainer's ranks
+MERGE_REL_TOL = 1e-6                     # loaded merged weights vs merge_lora
+TRAINING_PROMPTS = ("a photo of scene 0", "a photo of scene 1",
+                    "driving in the day", "driving in the night")
+
+
+def synth_bpe(texts):
+    """(vocab, merges) of a synthetic byte-level CLIP BPE: the 512 byte
+    symbols, merges that build each word of `texts` left to right (its
+    last character with the end-of-word mark), the two specials; every id
+    is under CLIP's 49,408."""
+    from img2img_turbo_tpu_torch.models.tokenizer import bytes_to_unicode
+    units = list(bytes_to_unicode().values())
+    vocab = {u: i for i, u in enumerate(units + [u + "</w>" for u in units])}
+    merges = []
+    for word in sorted({w for t in texts for w in t.lower().split()}):
+        syms = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(syms) > 1:
+            pair = (syms[0], syms[1])
+            if pair not in merges:
+                merges.append(pair)
+                vocab.setdefault(pair[0] + pair[1], len(vocab))
+            syms = [pair[0] + pair[1]] + syms[2:]
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return vocab, merges
+
+
+def write_snapshot(root: str, cfgs, dev):
+    """A full-width stabilityai/sd-turbo snapshot under `root` in the HF
+    layout, fp16 as sd-turbo's fp16 variant stores it: seeded random UNet,
+    VAE (no skip convs, as SD-Turbo's) and OpenCLIP-H text tower (with its
+    `text_model.` prefix and position_ids), and a synthetic BPE tokenizer.
+    Returns ({part: state dict as written, on the card}, {part: (path,
+    bytes, seconds)})."""
+    import os
+    import torch
+    from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
+    from img2img_turbo_tpu_torch.training.runner import random_init
+    from img2img_turbo_tpu_torch.weights import from_jax
+    from img2img_turbo_tpu_torch.weights import torch_import as ti
+
+    g = torch.Generator(device=dev).manual_seed(SNAPSHOT_SEED)
+    half = torch.float16
+    sds = {"unet": from_jax.random_params(cfgs.unet, g, dtype=half),
+           "vae": {k: v for k, v in from_jax.random_params(
+               cfgs.vae, g, dtype=half).items() if "skip_conv" not in k}}
+    text = random_init(lambda: CLIPTextModel(cfgs.text), g)
+    sds["text"] = {"text_model." + k: v.half()
+                   for k, v in text.state_dict().items()}
+    del text
+    sds["text"]["text_model.embeddings.position_ids"] = torch.arange(
+        cfgs.text.max_position_embeddings, device=dev)[None]
+    files = {}
+    for part, sd in sds.items():
+        path = os.path.join(root, ti.SNAPSHOT_FILES[part])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        n = ti.save_safetensors(sd, path)
+        files[part] = (path, n, time.perf_counter() - t0)
+    vocab, merges = synth_bpe((PROMPT, CAPTION) + TRAINING_PROMPTS)
+    tok = os.path.join(root, ti.SNAPSHOT_FILES["tokenizer"])
+    os.makedirs(tok)
+    with open(os.path.join(tok, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tok, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n"
+                + "".join(f"{a} {b}\n" for a, b in merges))
+    return sds, files
+
+
+def _random_b(loras, g, std=0.01):
+    """Random B factors (at init B = 0 and a merge would change nothing)."""
+    import torch
+    for lora in loras:
+        for e in lora["modules"].values():
+            e["b"] = torch.randn(e["b"].shape, generator=g,
+                                 device=g.device) * std
+
+
+def write_pkls(ckpt_dir: str, cfgs, sds, dev):
+    """The three reference-schema pkls, written by the port's exporters
+    (`training/checkpoint.py`) from seeded random trainables: edge (LoRA at
+    ranks 8 / 4, random B, a retrained conv_in and skip convs), sketch (the
+    same with a TwinConv conv_in) and CycleGAN (the UNet trio at rank 128,
+    a rank-4 adapter and skip convs per VAE, both VAEs whole under "vae."
+    and "vae_b2a."). Returns {name: (path, what was written: the adapters
+    and the retrained weights)}."""
+    import os
+    import torch
+    from img2img_turbo_tpu_torch import lora as lora_mod
+    from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+    from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
+    from img2img_turbo_tpu_torch.pipelines import cyclegan
+    from img2img_turbo_tpu_torch.training import checkpoint as ckpt
+    from img2img_turbo_tpu_torch.training.paired import LoraMeta
+    from img2img_turbo_tpu_torch.training.unpaired import CycleLoraMeta
+    from img2img_turbo_tpu_torch.weights import torch_import as ti
+
+    g = torch.Generator(device=dev).manual_seed(SNAPSHOT_SEED + 1)
+    with torch.device("meta"):      # shapes only
+        unet_m = UNet2DConditionModel(cfgs.unet)
+        vae_m = AutoencoderKL(cfgs.vae)
+
+    def rand(shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def flat(part, lora):
+        return {f"{part}:{n}.{ab}": e[ab]
+                for n, e in lora["modules"].items() for ab in ("a", "b")}
+
+    skips = {f"decoder.skip_conv_{i + 1}.weight": (oc, ic, 1, 1)
+             for i, (ic, oc) in enumerate(cfgs.vae.skip_conv_channels)}
+    w_in = sds["unet"]["conv_in.weight"].shape
+    out = {}
+    loras = {"unet": lora_mod.init_lora(unet_m, RANK_EDGE[0],
+                                        lora_mod.PIX2PIX_UNET_TARGETS, g),
+             "vae": lora_mod.init_lora(vae_m, RANK_EDGE[1],
+                                       lora_mod.PIX2PIX_VAE_TARGETS, g)}
+    _random_b(loras.values(), g)
+    for name, fname, conv_in in (
+            ("edge", "edge_to_image_loras.pkl", ("conv_in",)),
+            ("sketch", "sketch_to_image_stochastic_lora.pkl",
+             ("conv_in.conv_in_pretrained", "conv_in.conv_in_curr"))):
+        gen = {**flat("unet_lora", loras["unet"]),
+               **flat("vae_lora", loras["vae"])}
+        own = {"unet": {}, "vae": {k: rand(s) for k, s in skips.items()}}
+        for c in conv_in:
+            own["unet"][c + ".weight"] = rand(w_in)
+            own["unet"][c + ".bias"] = rand(w_in[:1])
+        for part, sd in own.items():
+            gen.update({f"{part}:{k}": v for k, v in sd.items()})
+        path = os.path.join(ckpt_dir, fname)
+        ckpt.export_pix2pix_pkl(path, gen, LoraMeta(rank_unet=RANK_EDGE[0],
+                                                    rank_vae=RANK_EDGE[1]))
+        out[name] = (path, {"lora": loras, "own": own})
+
+    trio = cyclegan.cyclegan_unet_adapters(unet_m, RANK_CYCLEGAN[0], g)
+    vae_loras = {v: lora_mod.init_lora(vae_m, RANK_CYCLEGAN[1],
+                                       lora_mod.CYCLEGAN_VAE_TARGETS, g)
+                 for v in ("vae_a2b", "vae_b2a")}
+    _random_b([*trio.values(), *vae_loras.values()], g)
+    gen, own = {}, {}
+    for a, lora in trio.items():
+        gen.update(flat(f"unet_lora:{a}", lora))
+    for v, lora in vae_loras.items():
+        gen.update(flat(f"{v}_lora", lora))
+        own[v] = {k: rand(s) for k, s in skips.items()}
+        gen.update({f"{v}:{k}": t for k, t in own[v].items()})
+    # both VAEs start from the snapshot's (vae_b2a is a copy of vae_a2b)
+    vae = ti.load_into(ti.build_on(lambda: AutoencoderKL(cfgs.vae), dev),
+                       {**sds["vae"], **own["vae_a2b"]})
+    path = os.path.join(ckpt_dir, "cyclegan.pkl")
+    ckpt.export_cyclegan_pkl(path, gen, {"vae_a2b": vae, "vae_b2a": vae},
+                             CycleLoraMeta(*RANK_CYCLEGAN))
+    out["cyclegan"] = (path, {"lora": {"unet": list(trio.values()),
+                                       **vae_loras}, "own": own})
+    return out
+
+
+def _check_loaded(what, module, base, loras):
+    """`module`'s every tensor (fp32, loaded) against what was written:
+    `base` ({name: tensor}, the snapshot's fp16 tensors and the pkl's
+    retrained ones) upcast exactly, and where `loras` adapt a module,
+    `lora.merge_multi` of the written factors onto that base within
+    MERGE_REL_TOL relative. Returns (tensors checked, worst merged rel)."""
+    import torch
+    from img2img_turbo_tpu_torch import lora as lora_mod
+    got = module.state_dict()
+    if set(got) != set(base):
+        _fail(f"{what}: loaded keys differ from the written ones: "
+              f"{sorted(set(got) ^ set(base))[:6]}")
+    base = {k: v.float() for k, v in base.items()}
+    merged = lora_mod.merge_multi(base, loras) if loras else {}
+    worst = 0.0
+    for k, v in got.items():
+        if v.dtype != torch.float32:
+            _fail(f"{what}: {k} loaded as {v.dtype}, not fp32")
+        if k in merged:
+            rel = _rel_l2(v, merged[k])
+            worst = max(worst, rel)
+            if not rel <= MERGE_REL_TOL:
+                _fail(f"{what}: merged {k} rel {rel:.2e} > "
+                      f"{MERGE_REL_TOL:.0e}")
+        elif not torch.equal(v, base[k]):
+            _fail(f"{what}: {k} differs from the written tensor")
+    return len(got), worst
+
+
+def _check_factors(what, got, want):
+    import torch
+    for part in ("unet", "vae"):
+        g, w = got[part], want[part]
+        if set(g["modules"]) != set(w["modules"]) or g["rank"] != w["rank"] \
+                or g["alpha"] != 8.0:
+            _fail(f"{what}: the {part} adapter loaded as rank {g['rank']} "
+                  f"alpha {g['alpha']} over {len(g['modules'])} modules")
+        for n, e in w["modules"].items():
+            for ab in ("a", "b"):
+                if not torch.equal(g["modules"][n][ab], e[ab]):
+                    _fail(f"{what}: {part} factor {n}.{ab} differs")
+
+
+def load_checks(dev, cfgs, snap, ckpt_dir, sds, pkls):
+    """Each snapshot file and pkl read alone (wall, GB, GB/s), then
+    Pix2PixTurbo (deterministic and stochastic) and CycleGANTurbo
+    `load_pretrained` with every tensor checked against the file."""
+    import os
+    import torch
+    from img2img_turbo_tpu_torch.pipelines.cyclegan import CycleGANTurbo
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import Pix2PixTurbo
+    from img2img_turbo_tpu_torch.weights import torch_import as ti
+
+    reads = {}
+    for part in ("unet", "vae", "text"):
+        path = os.path.join(snap, ti.SNAPSHOT_FILES[part])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = ti.load_safetensors(path, dev)
+        torch.cuda.synchronize()
+        reads[part] = (os.path.getsize(path), time.perf_counter() - t0)
+        for k, v in sds[part].items():
+            if not torch.equal(sd[k], v):
+                _fail(f"load_safetensors: {part} {k} differs")
+        del sd
+    for name, (path, _) in pkls.items():
+        t0 = time.perf_counter()
+        ti.load_torch_pickle(path)
+        reads[name + ".pkl"] = (os.path.getsize(path),
+                                time.perf_counter() - t0)
+    for k, (n, dt) in reads.items():
+        print(f"  read {k}: {n / 1e9:.3f} GB in {dt:.3f}s, "
+              f"{n / 1e9 / dt:.2f} GB/s", flush=True)
+    total_b = sum(n for n, _ in reads.values())
+    total_s = sum(dt for _, dt in reads.values())
+    print(f"  read total: {total_b / 1e9:.3f} GB in {total_s:.3f}s, "
+          f"{total_b / 1e9 / total_s:.2f} GB/s", flush=True)
+
+    text_sd = {k[len("text_model."):]: v for k, v in sds["text"].items()
+               if not k.endswith("position_ids")}
+    loads, checked = {}, {}
+    for name in ("edge", "sketch", "cyclegan"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "cyclegan":
+            kw = CycleGANTurbo.load_pretrained(
+                snap, pkls[name][0], CAPTION, "a2b", cfgs, device=dev)
+        else:
+            kw = Pix2PixTurbo.load_pretrained(
+                snap, "sketch_to_image_stochastic" if name == "sketch"
+                else "edge_to_image", cfgs=cfgs, ckpt_folder=ckpt_dir,
+                device=dev)
+        torch.cuda.synchronize()
+        loads[name] = time.perf_counter() - t0
+        wrote = pkls[name][1]
+        res = {"text": _check_loaded(f"{name} text", kw["text"], text_sd,
+                                     [])}
+        if name == "edge":
+            for part in ("unet", "vae"):
+                res[part] = _check_loaded(
+                    f"edge {part}", kw["params"][part],
+                    {**sds[part], **wrote["own"][part]},
+                    [wrote["lora"][part]])
+        elif name == "sketch":
+            for part in ("unet", "vae"):
+                res[part] = _check_loaded(
+                    f"sketch {part}", kw["base"][part],
+                    {**{k: v for k, v in sds[part].items()
+                        if not k.startswith("conv_in.")},
+                     **wrote["own"][part]}, [])
+            _check_factors("sketch", kw["lora"], wrote["lora"])
+        else:
+            res["unet"] = _check_loaded("cyclegan unet", kw["params"]["unet"],
+                                        sds["unet"], wrote["lora"]["unet"])
+            for v in ("vae_a2b", "vae_b2a"):
+                res[v] = _check_loaded(
+                    f"cyclegan {v}", kw["params"][v],
+                    {**sds["vae"], **wrote["own"][v]}, [wrote["lora"][v]])
+            if (kw["caption"], kw["direction"]) != (CAPTION, "a2b"):
+                _fail(f"cyclegan caption / direction {kw['caption']!r} "
+                      f"{kw['direction']!r}")
+        checked[name] = {p: {"tensors": n, "merged_rel_max": r}
+                         for p, (n, r) in res.items()}
+        print(f"  {name}: load_pretrained {loads[name]:.2f}s; every tensor "
+              f"equal to the file, merged within {MERGE_REL_TOL:.0e}: "
+              + ", ".join(f"{p} {n} tensors (merged rel max {r:.1e})"
+                          for p, (n, r) in res.items()), flush=True)
+        del kw
+    return {"reads": {k: {"bytes": n, "seconds": dt, "gb_per_s":
+                          n / 1e9 / dt} for k, (n, dt) in reads.items()},
+            "read_total": {"bytes": total_b, "seconds": total_s,
+                           "gb_per_s": total_b / 1e9 / total_s},
+            "load_pretrained_s": loads, "checked": checked}
+
+
+def _cli_counts():
+    from img2img_turbo_tpu_torch.ops import _build
+    counts = dict(_build.launch_counts)
+    counts["conv3x3_input_grad"] = sum(_shapes("conv3x3_input_grad")
+                                       .values())
+    return counts
+
+
+INFERENCE_KERNELS = ("fused_gn_silu_conv3x3", "flash_attention_folded",
+                     "fused_matmul", "upsample2x_conv3x3",
+                     "group_norm_stats", "group_norm_combine",
+                     "downsample2x_conv3x3")
+
+
+def inference_clis(dev, cfgs, snap, ckpt_dir, pkl_cyc, root):
+    """Both inference CLIs in-process through `main` with --use_fp16 on a
+    517x389 PNG: edge_to_image, sketch at --gamma 0.4, and CycleGAN by
+    --model_path --prompt --direction a2b. Each PNG must exist at its
+    size, equal bit for bit the pipeline called directly (loaded anew) on
+    the same prepared input and seed, stay within PATH_REL_L2_TOL of the
+    same pipeline's plain path, and come from a run that launched K1-K6
+    and no backward kernel."""
+    import os
+    import numpy as np
+    import torch
+    from PIL import Image
+    from img2img_turbo_tpu_torch.cli import (inference_paired,
+                                             inference_unpaired)
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.ops import image as image_mod
+    from img2img_turbo_tpu_torch.pipelines.cyclegan import CycleGANTurbo
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import Pix2PixTurbo
+
+    h, w = CLI_IMAGE_HW
+    png = os.path.join(root, "input.png")
+    Image.fromarray(synth_image(h, w, 9)[0]).save(png)
+    runs = {}
+    for name, cli, argv in (
+            ("edge", inference_paired,
+             ["--prompt", PROMPT, "--model_name", "edge_to_image"]),
+            ("sketch", inference_paired,
+             ["--prompt", PROMPT, "--model_name",
+              "sketch_to_image_stochastic", "--gamma", "0.4"]),
+            ("cyclegan", inference_unpaired,
+             ["--prompt", CAPTION, "--model_path", pkl_cyc, "--direction",
+              "a2b"])):
+        out_dir = os.path.join(root, "out_" + name)
+        args = cli.build_parser().parse_args(
+            ["--input_image", png, "--sd_turbo_path", snap, "--ckpt_folder",
+             ckpt_dir, "--output_dir", out_dir, "--use_fp16"] + argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cli.main(args, device=dev, cfgs=cfgs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cli_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        missing = [k for k in INFERENCE_KERNELS if not counts.get(k)]
+        if missing or counts.get("flash_attention_folded_bwd") \
+                or counts["conv3x3_input_grad"]:
+            _fail(f"{name} CLI: launches {counts}: kernels {missing} did not "
+                  f"run, or a backward kernel did")
+        got = np.asarray(Image.open(res["output"]))
+        want_hw = (h, w) if name == "cyclegan" else (h - h % 8, w - w % 8)
+        if got.shape != want_hw + (3,) or got.dtype != np.uint8 \
+                or got.std() == 0:
+            _fail(f"{name} CLI: PNG {got.shape} {got.dtype}, expected "
+                  f"{want_hw + (3,)}, or constant")
+
+        # the pipeline called directly on the same prepared input and seed
+        if name == "cyclegan":
+            pipe = CycleGANTurbo.from_pretrained(
+                snap, pkl_cyc, CAPTION, "a2b", cfgs, torch.bfloat16,
+                device=dev)
+            x, size = inference_unpaired.prepare(args, png)
+            outs = {}
+            for k in (True, False):
+                pipe.use_kernels = k
+                outs[k] = pipe(x.to(torch.bfloat16))
+            direct = np.asarray(Image.fromarray(image_mod.signed_to_uint8(
+                outs[True])[0].cpu().numpy()).resize(size, Image.LANCZOS))
+        else:
+            pipe = Pix2PixTurbo.from_pretrained(
+                snap, args.model_name, cfgs=cfgs, dtype=torch.bfloat16,
+                ckpt_folder=ckpt_dir, device=dev)
+            _, arr = inference_paired.load_multiple_of_8(png)
+            outs = {}
+            for k in (True, False):
+                pipe.use_kernels = k
+                c_t, kw = inference_paired.prepare(args, arr, torch.bfloat16,
+                                                   dev)
+                outs[k] = pipe(c_t, prompt=PROMPT, **kw)
+            direct = image_mod.signed_to_uint8(outs[True])[0].cpu().numpy()
+        del pipe
+        if not np.array_equal(direct, got):
+            _fail(f"{name} CLI: the PNG differs from the direct pipeline "
+                  f"call ({int((direct != got).sum())} values)")
+        rel = _rel_l2(outs[True], outs[False])
+        if not rel <= PATH_REL_L2_TOL:
+            _fail(f"{name} CLI: kernel path vs plain path rel L2 {rel:.3e}")
+        runs[name] = {"wall_s": wall, "load_s": res["load_seconds"],
+                      "first_image_s": res["image_seconds"],
+                      "peak_gib": peak, "png": list(got.shape),
+                      "kernel_vs_plain_rel_l2": rel, "launches": counts}
+        print(f"  {name} CLI: wall {wall:.2f}s (load {res['load_seconds']:.2f}"
+              f"s, first image after load {res['image_seconds']:.3f}s), peak "
+              f"{peak:.2f} GiB; PNG {got.shape[1]}x{got.shape[0]} equal to "
+              f"the direct call; kernel vs plain rel L2 {rel:.2e}; launches "
+              f"{counts}", flush=True)
+    return runs
+
+
+def weights_phase(dev, summary, root: str):
+    """The weights phase (module docstring, phase 8): a full-width
+    snapshot and three pkls written under `root`, loaded and checked, and
+    both inference CLIs run on them. Returns the snapshot's path, which
+    the CLI phase's pix2pix runs train from."""
+    import os
+    import torch
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+
+    cfgs = GeneratorConfigs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    snap, ckpt_dir = (os.path.join(root, n) for n in ("sd-turbo",
+                                                     "checkpoints"))
+    os.makedirs(ckpt_dir)
+    t0 = time.perf_counter()
+    sds, files = write_snapshot(snap, cfgs, dev)
+    pkls = write_pkls(ckpt_dir, cfgs, sds, dev)
+    n_params = sum(v.numel() for sd in sds.values() for v in sd.values())
+    print(f"weights phase: wrote a full-width SD-Turbo snapshot (fp16, "
+          f"{n_params / 1e9:.3f} G values: "
+          + ", ".join(f"{p} {n / 1e9:.3f} GB in {dt:.2f}s"
+                      for p, (_, n, dt) in files.items())
+          + ") and pkls (" + ", ".join(
+              f"{k} {os.path.getsize(p) / 1e9:.3f} GB"
+              for k, (p, _) in pkls.items())
+          + f") in {time.perf_counter() - t0:.1f}s", flush=True)
+    out = load_checks(dev, cfgs, snap, ckpt_dir, sds, pkls)
+    del sds, pkls
+    torch.cuda.synchronize()
+    out["peak_gib_load"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.empty_cache()
+    print(f"  peak device memory (write + load checks): "
+          f"{out['peak_gib_load']:.2f} GiB", flush=True)
+    out["cli"] = inference_clis(dev, cfgs, snap, ckpt_dir,
+                                os.path.join(ckpt_dir, "cyclegan.pkl"), root)
+    out["snapshot_bytes"] = {p: n for p, (_, n, _) in files.items()}
+    summary["weights"] = out
+    return snap
+
+
 CLI_STEPS = 3   # training steps of each CLI's first run
 
 
@@ -2006,16 +2537,19 @@ def _cli_run(name, main_fn, args, dev, steps, per_step, summary):
     return out
 
 
-def cli_phase(dev, summary):
+def cli_phase(dev, summary, sd_turbo_path: str):
     """Both training CLIs through their `main` at full width (module
-    docstring, phase 8). The per-step launches of phases 6 and 7 (one
-    paired step at 512x512 and one unpaired step at 256x256, both b1) set
-    what each run must launch."""
+    docstring, phase 9), the pix2pix runs from the weights phase's
+    snapshot `sd_turbo_path` (its UNet, VAE and text encoder, prompts
+    through its BPE tokenizer). The per-step launches of phases 6 and 7
+    (one paired step at 512x512 and one unpaired step at 256x256, both b1)
+    set what each run must launch."""
     import os
     import tempfile
     import torch
     from img2img_turbo_tpu_torch.cli import (train_cyclegan_turbo,
                                              train_pix2pix_turbo)
+    from img2img_turbo_tpu_torch.training import runner
     from img2img_turbo_tpu_torch.utils import config_args
 
     per_step = {}
@@ -2036,11 +2570,28 @@ def cli_phase(dev, summary):
                   "--train_batch_size", "1", "--mixed_precision", "bf16",
                   "--gradient_checkpointing", "--checkpointing_steps", "2",
                   "--eval_freq", "3", "--num_samples_eval", "2",
-                  "--track_val_fid", "--viz_freq", "3"]
-        _cli_run("cli_pix2pix", train_pix2pix_turbo.main,
-                 config_args.parse_args_paired_training(
-                     common + ["--max_train_steps", str(CLI_STEPS)]),
-                 dev, CLI_STEPS, per_step["train"], summary)
+                  "--track_val_fid", "--viz_freq", "3",
+                  "--sd_turbo_path", sd_turbo_path]
+        # what the CLI's loader returned: the snapshot's BPE tokenizer
+        load_base_models, loaded = runner.load_base_models, []
+
+        def recording(cfgs, generator, path=None):
+            out_ = load_base_models(cfgs, generator, path)
+            loaded.append((path, type(out_[3]).__name__))
+            return out_
+        runner.load_base_models = recording
+        try:
+            _cli_run("cli_pix2pix", train_pix2pix_turbo.main,
+                     config_args.parse_args_paired_training(
+                         common + ["--max_train_steps", str(CLI_STEPS)]),
+                     dev, CLI_STEPS, per_step["train"], summary)
+        finally:
+            runner.load_base_models = load_base_models
+        if loaded != [(sd_turbo_path, "CLIPTokenizer")]:
+            _fail(f"the pix2pix CLI loaded {loaded}, not the snapshot and "
+                  f"its BPE tokenizer")
+        print(f"  pix2pix CLI trained from the snapshot {sd_turbo_path} with "
+              f"its BPE tokenizer", flush=True)
         if sorted(os.listdir(os.path.join(out, "state"))) != ["2.pt", "3.pt"]:
             _fail(f"pix2pix checkpoints: {os.listdir(out + '/state')}")
         res = _cli_run("cli_pix2pix_resume", train_pix2pix_turbo.main,

@@ -10,8 +10,10 @@ resume:
 
 In the JAX CLI's order: seeds; the UNet with its three adapters at
 --lora_rank_unet, the two VAEs with adapters at --lora_rank_vae, LPIPS and
-two discriminators on one CLIP backbone (seeded random weights: a
-pretrained-weight flag stops the run, as does --tensor_parallel above 1,
+two discriminators on one CLIP backbone (SD-Turbo and its text encoder and
+BPE tokenizer from the --sd_turbo_path snapshot, the backbone from
+--clip_weights, LPIPS from --lpips_weights, seeded random weights for what
+no flag names; --tensor_parallel above 1 stops the run,
 `runner.refuse_unported`); the fixed caption embeddings, computed once by
 the text encoder from the dataset's fixed prompts (the encoder is dropped
 after); AdamW from the --adam_*, --lr_* and --max_grad_norm flags;
@@ -33,7 +35,9 @@ lets cuBLAS use TF32 for the fp32 matmuls left. Posterior noise comes from
 a device torch.Generator seeded with seed + 1; validation and viz
 translations draw theirs from one seeded 0 for each image (the JAX CLI's
 PRNGKey(0)). A resumed run restarts the loader from its seed, as the JAX
-CLI does. Prompts go through `runner.SmokeTokenizer`.
+CLI does. Prompts go through the snapshot's BPE tokenizer, or, without
+--sd_turbo_path, `runner.SmokeTokenizer`. FID's Inception comes from
+--inception_weights when given.
 """
 
 from __future__ import annotations
@@ -89,7 +93,13 @@ def _train(args, dev, dtype, log):
     np.random.seed(args.seed)
     cfgs = runner.generator_configs(args)
     clip_cfg = runner.clip_config(args)
-    tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
+    base, text, tok = None, None, None
+    if args.sd_turbo_path:
+        unet, vae, text, tok = runner.load_base_models(
+            cfgs, torch.Generator(device=dev), args.sd_turbo_path)
+        base = (unet, vae)
+    if tok is None:
+        tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
 
     dataset = data.UnpairedDataset(args.dataset_folder, "train",
                                    args.train_img_prep, tok)
@@ -103,12 +113,15 @@ def _train(args, dev, dtype, log):
                 max_grad_norm=args.max_grad_norm)
     models, state, meta = runner.build_unpaired_run(
         cfgs, clip_cfg, args.seed, dev, lr_schedule=sched, adam_kwargs=adam,
-        rank_unet=args.lora_rank_unet, rank_vae=args.lora_rank_vae)
+        rank_unet=args.lora_rank_unet, rank_vae=args.lora_rank_vae,
+        base=base, clip_weights=args.clip_weights,
+        lpips_weights=args.lpips_weights)
 
     # the fixed caption embeddings, once (train_cyclegan_turbo.py:140-144)
-    text = runner.random_init(
-        lambda: CLIPTextModel(cfgs.text),
-        torch.Generator(device=dev).manual_seed(args.seed + 2))
+    if text is None:
+        text = runner.random_init(
+            lambda: CLIPTextModel(cfgs.text),
+            torch.Generator(device=dev).manual_seed(args.seed + 2))
     with torch.no_grad():
         emb_a2b, emb_b2a = (text(torch.as_tensor(
             ids[None].astype(np.int64), device=dev))

@@ -6,8 +6,10 @@ src/train_pix2pix_turbo.py`, train_pix2pix_turbo.py:27-307), with resume:
         --dataset_folder data/edges --output_dir out --mixed_precision bf16
 
 In the JAX CLI's order: seeds; the models with LoRA at --lora_rank_*
-(seeded random weights: a pretrained-weight flag stops the run, as does
---tensor_parallel above 1, `runner.refuse_unported`); AdamW from the
+(SD-Turbo from the --sd_turbo_path snapshot with its BPE tokenizer, CLIP
+from --clip_weights, LPIPS from --lpips_weights; seeded random weights for
+what no flag names; --tensor_parallel above 1 stops the run,
+`runner.refuse_unported`); AdamW from the
 --adam_*, --lr_* and --max_grad_norm flags; --resume from the newest
 checkpoint in <output_dir>/state; the training set through the loader,
 micro-batch accumulation and a prefetch thread; the four-pass step with
@@ -30,8 +32,9 @@ plain PyTorch). Posterior noise comes from a device torch.Generator seeded
 with seed + 1, the eval noise from one seeded 42 and the viz noise from
 one seeded 0 (the JAX CLI's PRNGKey(seed + 1), PRNGKey(42), PRNGKey(0)).
 A resumed run restarts the loader from its seed, as the JAX CLI does.
-Prompts go through `runner.SmokeTokenizer` (the BPE tokenizer is not
-ported yet).
+Prompts go through the snapshot's BPE tokenizer, or, without
+--sd_turbo_path, `runner.SmokeTokenizer` (cli/train_pix2pix_turbo.py:34-36).
+FID's Inception comes from --inception_weights when given.
 """
 
 from __future__ import annotations
@@ -90,7 +93,12 @@ def _train(args, dev, dtype, log):
     seed = args.seed or 0
     cfgs = runner.generator_configs(args)
     clip_cfg = runner.clip_config(args)
-    tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
+    base, tok = None, None
+    if args.sd_turbo_path:
+        *base, tok = runner.load_base_models(
+            cfgs, torch.Generator(device=dev), args.sd_turbo_path)
+    if tok is None:
+        tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
 
     # models and optimizers ----------------------------------------------
     sched = optim.make_lr_schedule(args.lr_scheduler, args.learning_rate,
@@ -102,7 +110,8 @@ def _train(args, dev, dtype, log):
     models, state, meta = runner.build_paired_run(
         cfgs, clip_cfg, seed, dev, lr_schedule=sched, adam_kwargs=adam,
         rank_unet=args.lora_rank_unet, rank_vae=args.lora_rank_vae,
-        with_clipsim=args.lambda_clipsim > 0)
+        with_clipsim=args.lambda_clipsim > 0, base=base,
+        clip_weights=args.clip_weights, lpips_weights=args.lpips_weights)
 
     # resume --------------------------------------------------------------
     state_dir = os.path.join(args.output_dir, "state")

@@ -12,12 +12,19 @@ dtype (`lora.py:263-290`). `swap_params` puts such tensors in place of a
 module's parameters for the length of a `with` block, so that a forward,
 its backward and any activation checkpointing recompute inside the block
 all read the merged weights.
+
+`lora_from_torch_state_dict` and `overlay_base_weights` read the
+reference's pkl checkpoints (lora.py:307-386): peft's
+`<module>.lora_{A,B}[.<adapter>].weight` keys into this layout, and the
+plain weights a checkpoint retrains (conv_in, the skip convs, under
+`.base_layer.` where peft wraps them) onto a module.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Sequence
+import re
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -137,3 +144,68 @@ def swap_params(model: nn.Module,
     finally:
         for mod, leaf, p in reversed(saved):
             mod._parameters[leaf] = p
+
+
+# ---------------------------------------------------------------------------
+# Reference-pkl ingestion (schemas: pix2pix_turbo.py:221-229,
+# train_cyclegan_turbo.py:293-307)
+# ---------------------------------------------------------------------------
+
+_LORA_RE = re.compile(r"^(.*)\.lora_([AB])(?:\.([^.]+))?\.weight$")
+
+
+def lora_from_torch_state_dict(sd: Dict[str, torch.Tensor], rank: int,
+                               alpha: Optional[float] = None,
+                               adapter: Optional[str] = None) -> Dict:
+    """An adapter from peft keys `<module>.lora_{A,B}.<adapter>.weight`, or
+    `<module>.lora_{A,B}.weight` as `get_peft_model_state_dict` writes them;
+    other keys are ignored, as are other adapters' when `adapter` is given.
+    lora_A (r, in, kh, kw) or (r, in) -> a (kh, kw, in, r) or (in, r);
+    lora_B (out, r, 1, 1) or (out, r) -> b (r, out); fp32. alpha defaults
+    to peft's 8.0 (so the scale is 8 / rank)."""
+    modules: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, v in sd.items():
+        m = _LORA_RE.match(k)
+        if m is None:
+            continue
+        name, ab, name_adapter = m.groups()
+        if adapter is not None and name_adapter is not None \
+                and name_adapter != adapter:
+            continue
+        v = v.detach().float()
+        if ab == "A":
+            t = v.permute(2, 3, 1, 0) if v.ndim == 4 else v.t()
+        else:
+            t = (v[:, :, 0, 0] if v.ndim == 4 else v).t()
+        entry = modules.setdefault(name.replace(".base_layer", ""), {})
+        entry["a" if ab == "A" else "b"] = t.contiguous()
+    for name, entry in modules.items():
+        if set(entry) != {"a", "b"}:
+            raise ValueError(f"incomplete LoRA pair: {name}")
+    return {"rank": rank, "alpha": float(alpha if alpha is not None else 8.0),
+            "modules": modules}
+
+
+def overlay_base_weights(model: nn.Module, sd: Dict[str, torch.Tensor]
+                         ) -> List[str]:
+    """Copy the plain (non-LoRA) conv and linear weights and biases of a
+    reference checkpoint onto `model`, in place: the retrained conv_in and
+    skip convs (pix2pix_turbo.py:226-228), `.base_layer.` stripped. Keys
+    naming no conv or linear of the model are skipped. Returns the keys
+    applied."""
+    mods = weight_modules(model)
+    applied = []
+    with torch.no_grad():
+        for k, v in sd.items():
+            if ".lora_" in k or not k.endswith((".weight", ".bias")):
+                continue
+            name, field = k.rsplit(".", 1)
+            name = name.replace(".base_layer", "")
+            if name not in mods:
+                continue
+            p = getattr(mods[name], field)
+            if p is None:
+                raise ValueError(f"{k}: {name} has no {field}")
+            p.copy_(v)
+            applied.append(k)
+    return applied

@@ -12,15 +12,17 @@ branch is a max pool. `fid_variant=False` gives torchvision's pools.
 The JAX package computes this network outside Pallas, so the port runs it
 in plain PyTorch (cuDNN convs, PyTorch pools), NCHW inside, in fp32.
 Parameter names follow the JAX tree: `<block>.<conv>.weight` (OIHW),
-`.scale`, `.bias`. Pretrained weights need a loader the port has not got
-yet (ROADMAP Queue 1 item 4): `random_inception` draws the JAX package's
-init (kernels N(0, 1/fan_in), scale 1, bias 0).
+`.scale`, `.bias`. `convert_inception_state_dict` folds a torchvision
+inception_v3 state dict into them; `random_inception` draws the JAX
+package's init (kernels N(0, 1/fan_in), scale 1, bias 0).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -209,3 +211,29 @@ def random_inception(generator: torch.Generator) -> InceptionV3:
         else:
             p.fill_(1.0 if name.endswith(".scale") else 0.0)
     return model.requires_grad_(False).eval()
+
+
+def convert_inception_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """A torchvision inception_v3 state dict ("<block>.conv.weight",
+    "<block>.bn.{weight, bias, running_mean, running_var}") -> this
+    network's state dict, each batch norm (eps 1e-3) folded into its conv's
+    `scale` and `bias` in fp32 numpy, as inception.py:298-320 folds it; the
+    auxiliary and classifier heads are not read."""
+    with torch.device("meta"):
+        names = [k for k, _ in InceptionV3().named_parameters()]
+    out: Dict[str, torch.Tensor] = {}
+    for k in names:
+        prefix, field = k.rsplit(".", 1)
+        if field != "weight":
+            continue
+
+        def get(key):
+            return np.asarray(torch.as_tensor(sd[f"{prefix}.{key}"])
+                              .detach().float().cpu())
+        var = get("bn.running_var")
+        scale = get("bn.weight") / np.sqrt(var + np.float32(1e-3))
+        out[k] = torch.from_numpy(get("conv.weight"))
+        out[prefix + ".scale"] = torch.from_numpy(scale)
+        out[prefix + ".bias"] = torch.from_numpy(
+            get("bn.bias") - get("bn.running_mean") * scale)
+    return out

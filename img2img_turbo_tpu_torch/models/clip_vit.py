@@ -5,7 +5,9 @@ vision-aided discriminator (`models/discriminator.py`), which taps the
 per-block token features that `vision_forward` returns.
 
 Parameter names are transformers' CLIPModel names (`vision_model.*`,
-`text_model.*`, `visual_projection`, `text_projection`, `logit_scale`).
+`text_model.*`, `visual_projection`, `text_projection`, `logit_scale`);
+`convert_clip_state_dict` maps an OpenAI `clip` state dict or a
+transformers CLIPModel one onto them.
 The JAX package runs these towers in XLA ops, so the port runs them in
 plain PyTorch, in the input's dtype with weights cast at use.
 """
@@ -13,6 +15,8 @@ plain PyTorch, in the input's dtype with weights cast at use.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Dict
 
 import torch
 import torch.nn as nn
@@ -165,3 +169,70 @@ def clip_similarity(model: CLIPModel, images, text_ids):
     iemb = iemb / iemb.norm(dim=-1, keepdim=True)
     temb = temb / temb.norm(dim=-1, keepdim=True)
     return 100.0 * (iemb * temb).sum(-1)
+
+
+def _openai_blocks(sd, out, src, dst, n_layers):
+    """OpenAI resblocks (fused in_proj q/k/v, c_fc, c_proj, ln_1/2) ->
+    transformers' CLIPEncoderLayer names."""
+    for i in range(n_layers):
+        s, d = f"{src}.resblocks.{i}", f"{dst}.layers.{i}"
+        for part, t in zip(("q", "k", "v"),
+                           sd[s + ".attn.in_proj_weight"].chunk(3)):
+            out[f"{d}.self_attn.{part}_proj.weight"] = t
+        for part, t in zip(("q", "k", "v"),
+                           sd[s + ".attn.in_proj_bias"].chunk(3)):
+            out[f"{d}.self_attn.{part}_proj.bias"] = t
+        for a, b in (("attn.out_proj", "self_attn.out_proj"),
+                     ("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+                     ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2")):
+            for field in ("weight", "bias"):
+                out[f"{d}.{b}.{field}"] = sd[f"{s}.{a}.{field}"]
+
+
+def convert_clip_state_dict(sd, cfg: CLIPViTConfig = CLIP_VIT_B32
+                            ) -> Dict[str, torch.Tensor]:
+    """An OpenAI `clip` state dict (ViT-B-32.pt's, "visual.proj" present)
+    or a transformers CLIPModel one ("visual_projection.weight") ->
+    CLIPModel's state dict (clip_vit.py:274-340). The vision keys alone
+    (`vision_model.*`, `visual_projection.weight`) load a CLIPVision, the
+    discriminator's backbone. Without a logit scale in the file it is
+    log(1 / 0.07)."""
+    out: Dict[str, torch.Tensor] = {}
+    if "visual.proj" in sd:
+        vm, tm = "vision_model.", "text_model."
+        out[vm + "embeddings.patch_embedding.weight"] = sd["visual.conv1.weight"]
+        out[vm + "embeddings.class_embedding"] = sd["visual.class_embedding"]
+        out[vm + "embeddings.position_embedding.weight"] = \
+            sd["visual.positional_embedding"]
+        for a, b in (("visual.ln_pre", vm + "pre_layrnorm"),
+                     ("visual.ln_post", vm + "post_layernorm"),
+                     ("ln_final", tm + "final_layer_norm")):
+            for field in ("weight", "bias"):
+                out[f"{b}.{field}"] = sd[f"{a}.{field}"]
+        _openai_blocks(sd, out, "visual.transformer", vm + "encoder",
+                       cfg.num_layers)
+        _openai_blocks(sd, out, "transformer", tm + "encoder",
+                       cfg.text_layers)
+        out["visual_projection.weight"] = sd["visual.proj"].t()
+        out[tm + "embeddings.token_embedding.weight"] = \
+            sd["token_embedding.weight"]
+        out[tm + "embeddings.position_embedding.weight"] = \
+            sd["positional_embedding"]
+        out["text_projection.weight"] = sd["text_projection"].t()
+    elif "visual_projection.weight" in sd:
+        for k, v in sd.items():
+            if k.endswith("position_ids"):
+                continue
+            # transformers' older name for the pre-LN
+            out[k.replace("vision_model.pre_layernorm.",
+                          "vision_model.pre_layrnorm.")] = v
+        key = "vision_model.embeddings.class_embedding"
+        out[key] = out[key].reshape(-1)
+    else:
+        raise ValueError(
+            "unrecognized CLIP state dict: expected OpenAI ('visual.proj') "
+            "or HF CLIPModel ('visual_projection.weight') key layout")
+    out["logit_scale"] = torch.as_tensor(
+        sd.get("logit_scale", math.log(1.0 / 0.07)),
+        dtype=torch.float32).reshape(())
+    return {k: v.contiguous() for k, v in out.items()}

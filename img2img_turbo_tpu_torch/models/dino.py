@@ -179,3 +179,18 @@ def random_dino(cfg: DINOConfig, generator: torch.Generator) -> DINO:
             bound = 1.0 / math.sqrt(math.prod(mod.weight.shape[1:]))
             p.uniform_(-bound, bound, generator=generator)
     return model.requires_grad_(False).eval()
+
+
+def convert_dino_state_dict(sd, cfg: DINOConfig = DINO_VITB8
+                            ) -> Dict[str, torch.Tensor]:
+    """A torch.hub DINO state dict -> this module's (dino.py:109-142): the
+    hub's names are kept; the keys DINO does not have (a classifier head)
+    are dropped, and the position grid must be the stored 28 x 28."""
+    with torch.device("meta"):
+        want = dict(DINO(cfg).state_dict())
+    out = {k: torch.as_tensor(sd[k]).float() for k in want}
+    grid = int(round(math.sqrt(out["pos_embed"].shape[1] - 1)))
+    if grid != POS_GRID:
+        raise ValueError(f"pos_embed holds a {grid}x{grid} grid; the model "
+                         f"stores {POS_GRID}x{POS_GRID}")
+    return out

@@ -4,9 +4,13 @@ LPIPS shift/scale, VGG16 features at relu1_2 / 2_2 / 3_3 / 4_3 / 5_3,
 channel-unit normalisation, 1x1 linear heads, spatial mean, summed over
 the five layers. NHWC activations; convolutions run in the input's dtype
 (weights cast at use), as the JAX package's XLA convs do.
+`load_lpips_weights` reads the `lpips` package's VGG file
+(vgg_lpips.py:106-154).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn as nn
@@ -75,3 +79,50 @@ class VGGLPIPS(nn.Module):
             d = (unit(f1) - unit(f2)).square()
             total = total + L.conv2d(lin, d.float()).mean(dim=(1, 2, 3))
         return total
+
+
+# torchvision vgg16.features indices of each block's convs
+VGG_FEATURE_INDICES = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21),
+                       (24, 26, 28))
+
+
+def convert_lpips_state_dict(vgg_sd: Dict[str, torch.Tensor],
+                             lin_sd: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """A torchvision vgg16.features state dict ("features.<i>.weight") and
+    the LPIPS heads ("lin<i>.model.1.weight", (1, C, 1, 1)) -> VGGLPIPS's
+    state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for b, idxs in enumerate(VGG_FEATURE_INDICES):
+        for j, i in enumerate(idxs):
+            for field in ("weight", "bias"):
+                out[f"blocks.{b}.{j}.{field}"] = vgg_sd[f"features.{i}.{field}"]
+    for i in range(len(VGG_FEATURE_INDICES)):
+        out[f"lins.{i}.weight"] = lin_sd[f"lin{i}.model.1.weight"]
+    return out
+
+
+def load_lpips_weights(path: str) -> Dict[str, torch.Tensor]:
+    """VGGLPIPS's state dict from one torch file: an
+    `lpips.LPIPS(net="vgg")` state dict ("net.slice<k>.<i>.weight" and
+    "lin<i>.model.1.weight"), or {"vgg": torchvision features state dict,
+    "lins": the heads}."""
+    from img2img_turbo_tpu_torch.weights.torch_import import load_torch_pickle
+    sd = load_torch_pickle(path)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and "vgg" in sd and "lins" in sd:
+        return convert_lpips_state_dict(sd["vgg"], sd["lins"])
+    vgg_sd, lin_sd = {}, {}
+    for k, v in sd.items():
+        if k.startswith("net.slice"):
+            # lpips names a slice's convs by their torchvision index
+            vgg_sd["features." + k.split(".", 2)[2]] = v
+        elif k.startswith("lin"):
+            lin_sd[k] = v
+        elif k.startswith("features."):
+            vgg_sd[k] = v
+    if not lin_sd:
+        raise ValueError(f"{path}: no lpips lin-head weights found "
+                         "(expected 'linN.model.1.weight' keys)")
+    return convert_lpips_state_dict(vgg_sd, lin_sd)

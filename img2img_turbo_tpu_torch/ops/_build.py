@@ -15,7 +15,7 @@ Launch accounting: every kernel wrapper adds one to `launch_counts[name]`
 right where it launches its kernel, and nowhere else, so a run can show
 that its main path went through the kernels (K8's du counts as K1, the
 kernel the JAX package runs for it; K5's GroupNorm combine counts as
-"group_norm_combine"). Every wrapper but K5's and K9's
+"group_norm_combine"). Every wrapper but K9's
 also counts its launches by shape in `launch_shapes[name, shape]` (K1
 "fused_gn_silu_conv3x3": (B, H, W, C, Co, GN prologue, extra bias,
 residual, Csk, stats); K4 "upsample2x_conv3x3": (B, H, W, C, Co, Csk,
@@ -23,8 +23,10 @@ stats) of its low-resolution input; K2 "flash_attention_folded" and K7
 "flash_attention_folded_bwd": (B, Sq, Skv, H, hd); K3 "fused_matmul": (M,
 C, Co, outputs, LN, gate, residual); K6 "downsample2x_conv3x3": (B, H, W,
 C, Co, pad_lo) of its input; du "conv3x3_input_grad": (B, H, W, C, Co) of
-the forward conv C -> Co), so a run can weight its per-shape times by the
-launches of a path.
+the forward conv C -> Co; K5 "group_norm_stats": (B, S, C) of its input,
+with the combine of the same host call; K5's combine launched alone
+"group_norm_combine": (B, tiles, C, groups) of the partial sums), so a
+run can weight its per-shape times by the launches of a path.
 """
 
 from __future__ import annotations

@@ -123,6 +123,7 @@ def partial_stats(x):
         _build.ptr(x), int(x.dtype == torch.bfloat16), _build.ptr(out), b, s,
         c, _build.stream()), "group_norm_partial_stats")
     _build.launch_counts["group_norm_stats"] += 1
+    _build.launch_shapes["group_norm_stats", (b, s, c)] += 1
     return out
 
 
@@ -154,6 +155,8 @@ def combine_stats(partials, scale, bias, num_groups: int, eps: float,
         _build.ptr(out[1]), bsz, c, num_groups, eps, count, _build.stream()),
         "group_norm_combine")
     _build.launch_counts["group_norm_combine"] += 1
+    _build.launch_shapes["group_norm_combine",
+                         (bsz, n_tiles, c, num_groups)] += 1
     return out[0], out[1]
 
 
@@ -181,6 +184,7 @@ def group_norm_coeffs(x, scale, bias, num_groups: int, eps: float):
         "group_norm_coeffs")
     _build.launch_counts["group_norm_stats"] += 1
     _build.launch_counts["group_norm_combine"] += 1
+    _build.launch_shapes["group_norm_stats", (b, s, c)] += 1
     return out[0], out[1]
 
 

@@ -1,22 +1,23 @@
 """Shared training-run machinery (counterpart of
 `img2img_turbo_tpu/training/runner.py` and of the model set-up of the two
 training CLIs): the metrics tracker, the configs a CLI's flags select, and
-random-init model assembly for a paired or an unpaired run.
+the model assembly of a paired or an unpaired run.
 
 Tracker: a JSON line per logged step in `<output_dir>/metrics.jsonl`,
 always, and wandb as well when it is installed and asked for (the
 reference logs through accelerate's trackers, train_pix2pix_turbo.py:
 140-142, 232-241).
 
-Pretrained SD-Turbo, CLIP, LPIPS, VGG and Inception weights are not in the
-repository and their loaders are not ported yet (ROADMAP Queue 1 item 4),
-so every model is drawn from a seeded torch.Generator on the device it
-will run on, following the JAX package's init scheme: convs and linears
+Weights: a local SD-Turbo snapshot (`load_base_models`, with its BPE
+tokenizer), a CLIP file (`init_aux_models`: one file feeds the
+discriminator backbone and the CLIP-sim model), an LPIPS file and an
+Inception file (`init_inception`) are read when a CLI names them
+(--sd_turbo_path, --clip_weights, --lpips_weights, --inception_weights).
+Whatever is not named is drawn from a seeded torch.Generator on the device
+it will run on, following the JAX package's init scheme: convs and linears
 U(+-1/sqrt(fan_in)) (weight and bias), norms 1 and 0, embeddings and
 CLIP's class / position embeddings N(0, 0.02), projections N(0, 1/width),
-the LPIPS heads |N(0, 0.01)|, the VAE skip zero-convs 1e-5. A CLI given a
-weight file stops with an error (`refuse_unported`) rather than train on
-random weights in its place.
+the LPIPS heads |N(0, 0.01)|, the VAE skip zero-convs 1e-5.
 """
 
 from __future__ import annotations
@@ -35,15 +36,14 @@ from img2img_turbo_tpu_torch import configs
 from img2img_turbo_tpu_torch import lora as lora_mod
 from img2img_turbo_tpu_torch.models import clip_vit, discriminator
 from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
-from img2img_turbo_tpu_torch.models.vgg_lpips import VGGLPIPS
+from img2img_turbo_tpu_torch.models.vgg_lpips import (VGGLPIPS,
+                                                      load_lpips_weights)
 from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
 from img2img_turbo_tpu_torch.weights import from_jax
+from img2img_turbo_tpu_torch.weights import torch_import as ti
 
 
 LEARNING_RATE = 5e-6   # the reference trainers' --learning_rate default
-# flags that name pretrained files, whose loaders the port has not got yet
-WEIGHT_FLAGS = ("sd_turbo_path", "lpips_weights", "clip_weights",
-                "inception_weights")
 
 
 def make_tracker(report_to: str, project: str, output_dir: str,
@@ -92,16 +92,8 @@ def clip_config(args) -> clip_vit.CLIPViTConfig:
 
 
 def refuse_unported(args) -> None:
-    """Stop a run whose flags ask for machinery the port has not got: a
-    pretrained-weight file (the loaders are ROADMAP Queue 1 item 4) or a
-    model axis above 1 (the port trains on one card; data parallelism is
-    item 6). Random init never stands in for a named file."""
-    given = [f"--{f}" for f in WEIGHT_FLAGS if getattr(args, f, None)]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the port cannot load pretrained weights "
-            f"yet (its safetensors / torch-pickle loaders are not ported); "
-            f"omit the flag to train on seeded random weights")
+    """Stop a run whose flags ask for a model axis above 1: the port trains
+    on one card (data parallelism is ROADMAP Queue 1 item 6)."""
     if getattr(args, "tensor_parallel", 1) > 1:
         raise NotImplementedError(
             f"--tensor_parallel {args.tensor_parallel}: the port trains on "
@@ -124,18 +116,30 @@ def activation_dtype(mixed_precision: Optional[str], device) -> torch.dtype:
 
 
 def init_inception(args, generator: torch.Generator):
-    """The FID feature extractor: seeded random (the JAX init); a
-    --inception_weights file stops the run (`refuse_unported`)."""
+    """The FID feature extractor on generator.device: a torchvision
+    inception_v3 state dict from --inception_weights, folded
+    (`metrics.inception.convert_inception_state_dict`), or seeded random
+    (the JAX init)."""
     from img2img_turbo_tpu_torch.metrics import inception
-    refuse_unported(args)
-    return inception.random_inception(generator)
+    path = getattr(args, "inception_weights", "")
+    if not path:
+        return inception.random_inception(generator)
+    sd = _state_dict_of(ti.load_torch_pickle(path))
+    return ti.load_into(ti.build_on(inception.InceptionV3, generator.device),
+                        inception.convert_inception_state_dict(sd)
+                        ).requires_grad_(False).eval()
+
+
+def _state_dict_of(obj):
+    return obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj \
+        else obj
 
 
 class SmokeTokenizer:
-    """Word-hash ids for runs with no CLIP vocabulary on disk (smoke runs
-    and tests; runner.py:141-156). Not a tokenizer: ids come from Python's
-    hash() of each word, as in the JAX package, so they change with
-    PYTHONHASHSEED unless it is fixed."""
+    """Word-hash ids for runs with no CLIP vocabulary on disk, i.e. without
+    --sd_turbo_path (smoke runs and tests; runner.py:141-156). Not a
+    tokenizer: ids come from Python's hash() of each word, as in the JAX
+    package, so they change with PYTHONHASHSEED unless it is fixed."""
 
     model_max_length = 77
 
@@ -177,27 +181,58 @@ def random_init(build, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def load_base_models(cfgs: GeneratorConfigs, generator: torch.Generator):
-    """(unet, vae, text encoder), seeded random, fp32, on the generator's
-    device; the VAE skip convs start at 1e-5 (the reference's zero-convs)."""
+def load_base_models(cfgs: GeneratorConfigs, generator: torch.Generator,
+                     sd_turbo_path: Optional[str] = None):
+    """(unet, vae, text encoder, tokenizer), fp32 on the generator's
+    device: from a local SD-Turbo snapshot with its BPE tokenizer
+    (runner.py:65-88), or seeded random with tokenizer None (the VAE skip
+    convs at 1e-5, the reference's zero-convs)."""
+    if sd_turbo_path:
+        snap = ti.load_snapshot(sd_turbo_path, cfgs, generator.device)
+        return snap["unet"], snap["vae"], snap["text"], snap["tokenizer"]
     unet = from_jax.random_model(cfgs.unet, generator)
     vae = from_jax.random_model(cfgs.vae, generator)
     text = random_init(lambda: CLIPTextModel(cfgs.text), generator)
-    return unet, vae, text
+    return unet, vae, text, None
 
 
 def init_aux_models(clip_cfg: clip_vit.CLIPViTConfig,
-                    generator: torch.Generator, with_clipsim: bool = True):
+                    generator: torch.Generator, with_clipsim: bool = True,
+                    clip_weights: Optional[str] = None,
+                    lpips_weights: Optional[str] = None):
     """(lpips, disc_backbone, clip, disc heads, disc sn): VGG16 +
     LPIPS heads, the discriminator's frozen CLIP vision tower, the CLIP
-    model of the CLIP-sim loss (separate weights, as the JAX runner draws
-    them; None without `with_clipsim`, runner.py:91), and the
-    discriminator heads with their spectral-norm vectors."""
-    lpips = random_init(VGGLPIPS, generator)
-    backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg), generator)
+    model of the CLIP-sim loss (None without `with_clipsim`, runner.py:91),
+    and the discriminator heads with their spectral-norm vectors. A
+    `clip_weights` file feeds both the backbone and the CLIP-sim model,
+    an `lpips_weights` file the LPIPS network (runner.py:91-125); what no
+    file names is seeded random (separate weights for the two CLIPs, as
+    the JAX runner draws them)."""
+    dev = generator.device
+    if lpips_weights:
+        lpips = ti.load_into(ti.build_on(VGGLPIPS, dev),
+                             load_lpips_weights(lpips_weights))
+    else:
+        lpips = random_init(VGGLPIPS, generator)
+    clip_sd = None
+    if clip_weights:   # an OpenAI or transformers CLIP file
+        clip_sd = clip_vit.convert_clip_state_dict(
+            _state_dict_of(ti.load_torch_pickle(clip_weights)), clip_cfg)
+    if clip_sd is not None:
+        backbone = ti.load_into(
+            ti.build_on(lambda: clip_vit.CLIPVision(clip_cfg), dev),
+            {k: v for k, v in clip_sd.items()
+             if k.startswith(("vision_model.", "visual_projection."))})
+    else:
+        backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg),
+                               generator)
     heads, sn = discriminator.init_heads(clip_cfg, generator)
-    clip = (random_init(lambda: clip_vit.CLIPModel(clip_cfg), generator)
-            if with_clipsim else None)
+    clip = None
+    if with_clipsim:
+        clip = (ti.load_into(ti.build_on(
+            lambda: clip_vit.CLIPModel(clip_cfg), dev), clip_sd)
+            if clip_sd is not None else
+            random_init(lambda: clip_vit.CLIPModel(clip_cfg), generator))
     for m in (lpips, backbone, clip):
         if m is not None:
             m.requires_grad_(False)
@@ -226,7 +261,10 @@ def build_paired_run(cfgs: GeneratorConfigs,
                      clip_cfg: clip_vit.CLIPViTConfig, seed: int = 0,
                      device=None, *, lr_schedule: Optional[Callable] = None,
                      adam_kwargs: Optional[Dict] = None, rank_unet: int = 8,
-                     rank_vae: int = 4, with_clipsim: bool = True):
+                     rank_vae: int = 4, with_clipsim: bool = True,
+                     base: Optional[tuple] = None,
+                     clip_weights: Optional[str] = None,
+                     lpips_weights: Optional[str] = None):
     """Everything a paired run starts from, drawn from `seed` on `device`
     (the CUDA card unless the caller names another; without a card the
     caller must pass device="cpu"): (PairedModels, a TrainState, LoraMeta).
@@ -234,15 +272,18 @@ def build_paired_run(cfgs: GeneratorConfigs,
     reference's constant LEARNING_RATE when None) and `adam_kwargs`
     (beta1, beta2, eps, weight_decay, max_grad_norm; AdamW's defaults when
     None); LoRA at `rank_unet` and `rank_vae` (pix2pix_turbo.py:131-155);
-    no CLIP-sim model without `with_clipsim`."""
+    no CLIP-sim model without `with_clipsim`. `base`: (unet, vae, text)
+    already loaded (`load_base_models` from a snapshot) in place of random
+    ones; `clip_weights` / `lpips_weights` as in `init_aux_models`."""
     from img2img_turbo_tpu_torch import resolve_device
     from img2img_turbo_tpu_torch.training import paired
     generator = torch.Generator(device=resolve_device(device))
     generator.manual_seed(seed)
-    unet, vae, text = load_base_models(cfgs, generator)
+    unet, vae, text = base if base is not None \
+        else load_base_models(cfgs, generator)[:3]
     text.requires_grad_(False)
-    lpips, backbone, clip, heads, sn = init_aux_models(clip_cfg, generator,
-                                                       with_clipsim)
+    lpips, backbone, clip, heads, sn = init_aux_models(
+        clip_cfg, generator, with_clipsim, clip_weights, lpips_weights)
     gen, meta = paired.split_trainable(
         unet, vae, *init_loras(unet, vae, generator, rank_unet, rank_vae))
     sched = _schedule(lr_schedule)
@@ -257,7 +298,10 @@ def build_unpaired_run(cfgs: GeneratorConfigs,
                        device=None, *, lr_schedule: Optional[Callable] = None,
                        adam_kwargs: Optional[Dict] = None,
                        rank_unet: Optional[int] = None,
-                       rank_vae: Optional[int] = None):
+                       rank_vae: Optional[int] = None,
+                       base: Optional[tuple] = None,
+                       clip_weights: Optional[str] = None,
+                       lpips_weights: Optional[str] = None):
     """Everything an unpaired (CycleGAN-Turbo) run starts from, drawn from
     `seed` on `device` (the CUDA card unless the caller names another;
     without a card the caller must pass device="cpu"): (UnpairedModels, a
@@ -269,7 +313,9 @@ def build_unpaired_run(cfgs: GeneratorConfigs,
     `lr_schedule` and `adam_kwargs` as in `build_paired_run` (the clip
     norm defaults to the unpaired trainer's). No text encoder or CLIP-sim
     model: the step takes fixed caption embeddings
-    (cli/train_cyclegan_turbo.py:45-52)."""
+    (cli/train_cyclegan_turbo.py:45-52). `base`: (unet, vae) already
+    loaded, in place of random ones; `clip_weights` (the backbone) and
+    `lpips_weights` as in `init_aux_models`."""
     from img2img_turbo_tpu_torch import resolve_device
     from img2img_turbo_tpu_torch.pipelines import cyclegan
     from img2img_turbo_tpu_torch.training import unpaired
@@ -277,16 +323,14 @@ def build_unpaired_run(cfgs: GeneratorConfigs,
     generator.manual_seed(seed)
     base, loras = cyclegan.init_factored(
         cfgs, generator, rank_unet or cyclegan.LORA_RANK_UNET,
-        rank_vae or cyclegan.LORA_RANK_VAE)
-    lpips = random_init(VGGLPIPS, generator)
-    backbone = random_init(lambda: clip_vit.CLIPVision(clip_cfg), generator)
-    for m in (lpips, backbone):
-        m.requires_grad_(False)
-    disc, sn = {}, {}
-    for name in ("a", "b"):
-        heads, u = discriminator.init_heads(clip_cfg, generator)
-        disc.update({f"{name}:{k}": v for k, v in heads.items()})
-        sn.update({f"{name}:{k}": v for k, v in u.items()})
+        rank_vae or cyclegan.LORA_RANK_VAE, base=base)
+    lpips, backbone, _, heads, u = init_aux_models(
+        clip_cfg, generator, False, clip_weights, lpips_weights)
+    disc = {f"a:{k}": v for k, v in heads.items()}
+    sn = {f"a:{k}": v for k, v in u.items()}
+    heads, u = discriminator.init_heads(clip_cfg, generator)
+    disc.update({f"b:{k}": v for k, v in heads.items()})
+    sn.update({f"b:{k}": v for k, v in u.items()})
     gen, meta = unpaired.split_trainable(
         base["unet"], base["vae_a2b"], base["vae_b2a"], loras["unet"],
         loras["vae_a2b"], loras["vae_b2a"])

@@ -252,7 +252,7 @@ def test_lora_targets_and_merge_match_jax():
     g = torch.Generator().manual_seed(0)
     cfgs = trunner.GeneratorConfigs(tcfg.TINY_UNET, tcfg.TINY_VAE,
                                     tcfg.TINY_TEXT)
-    unet, vae, _ = trunner.load_base_models(cfgs, g)
+    unet, vae, _, _ = trunner.load_base_models(cfgs, g)
     sds = {m: {k: v.numpy() for k, v in mod.state_dict().items()}
            for m, mod in (("unet", unet), ("vae", vae))}
     jparams = {"unet": ti.convert_unet_state_dict(sds["unet"],

@@ -9,14 +9,18 @@
   `checkpoint.export_cyclegan_pkl`), on MICRO weights drawn by the port
   and converted by the JAX package's `torch_import`, with random LoRA B
   factors, conv_in and skip convs so that no tensor is its init;
+- each CLI at --tiny_model trained from a snapshot written in the HF
+  layout (`--sd_turbo_path`): the run's UNet and VAE are the file's, its
+  prompts go through the snapshot's BPE tokenizer;
 - each CLI end to end at --tiny_model on 64x64 `no_resize` images: one
   step with a checkpoint, eval or validation and a viz panel, then a
   --resume run to step 2 that starts from the restored state: the JAX
   CLIs' files and metric keys;
-- the flags whose machinery is not ported (a pretrained-weight file,
-  --tensor_parallel > 1) and a non-bf16 activation dtype on a CUDA device
-  stop a run with a message, as does a run with no CUDA device that did
-  not ask for the CPU; none of these needs a card;
+- every weight flag reaches its loader (a missing file stops the run
+  before any step); --tensor_parallel > 1 (not ported) and a non-bf16
+  activation dtype on a CUDA device stop a run with a message, as does a
+  run with no CUDA device that did not ask for the CPU; none of these
+  needs a card;
 - a wandb init that fails and keeps its exception does not keep the
   run's models alive after `main` returns;
 - `unpaired.make_state` takes `max_grad_norm` (the unpaired CLI forwards
@@ -416,6 +420,91 @@ def test_cyclegan_cli_trains_validates_and_resumes(datasets, tmp_path,
     assert [r["step"] for r in _rows(out)] == [1, 1, 2]
 
 
+@pytest.fixture(scope="module")
+def tiny_snapshot(tmp_path_factory):
+    """A --tiny_model SD-Turbo snapshot in the HF layout (random weights,
+    the VAE without skip convs) with a BPE tokenizer, and what it holds."""
+    from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
+    from img2img_turbo_tpu_torch.models.tokenizer import bytes_to_unicode
+    from img2img_turbo_tpu_torch.weights import from_jax
+    from img2img_turbo_tpu_torch.weights import torch_import as tti
+    root = str(tmp_path_factory.mktemp("snapshot"))
+    g = torch.Generator().manual_seed(60)
+    sds = {"unet": from_jax.random_params(tcfg.TINY_UNET, g),
+           "vae": {k: v for k, v in from_jax.random_params(
+               tcfg.TINY_VAE, g).items() if "skip_conv" not in k},
+           "text": {"text_model." + k: v for k, v in trunner.random_init(
+               lambda: CLIPTextModel(tcfg.TINY_TEXT), g).state_dict().items()}}
+    for part, sd in sds.items():
+        path = os.path.join(root, tti.SNAPSHOT_FILES[part])
+        os.makedirs(os.path.dirname(path))
+        tti.save_safetensors(sd, path)
+    units = list(bytes_to_unicode().values())
+    vocab = {u: i for i, u in enumerate(units + [u + "</w>" for u in units])}
+    merges = [("r", "e"), ("re", "d</w>"), ("h", "o"), ("ho", "r")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    tok = os.path.join(root, "tokenizer")
+    os.makedirs(tok)
+    with open(os.path.join(tok, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tok, "merges.txt"), "w") as f:
+        f.write("\n".join(f"{a} {b}" for a, b in merges) + "\n")
+    return root, sds
+
+
+@pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])
+def test_cli_trains_from_a_snapshot(cli, datasets, tiny_snapshot, tmp_path,
+                                    monkeypatch):
+    """--sd_turbo_path: the run's UNet and VAE are the snapshot's (skip
+    convs at 1e-5), its prompts go through the snapshot's BPE tokenizer."""
+    from img2img_turbo_tpu_torch.models.tokenizer import CLIPTokenizer
+    from img2img_turbo_tpu_torch.training import data as tdata
+    root, sds = tiny_snapshot
+    seen = {}
+    real_build = getattr(trunner, f"build_{'' if cli == 'pix2pix' else 'un'}"
+                         f"paired_run")
+
+    def build(*args, **kw):
+        out = real_build(*args, **kw)
+        seen["models"] = out[0]
+        return out
+    monkeypatch.setattr(trunner, real_build.__name__, build)
+    dataset_cls = "PairedDataset" if cli == "pix2pix" else "UnpairedDataset"
+    real_ds = getattr(tdata, dataset_cls)
+
+    def dataset(*args, **kw):
+        seen.setdefault("tokenizers", []).append(args[3])
+        return real_ds(*args, **kw)
+    monkeypatch.setattr(tdata, dataset_cls, dataset)
+    main, args = _args(cli, [
+        "--dataset_folder", datasets[0 if cli == "pix2pix" else 1],
+        "--output_dir", str(tmp_path / "out"), "--tiny_model",
+        "--report_to", "none", "--sd_turbo_path", root,
+        "--max_train_steps", "1", "--train_batch_size", "1"]
+        + (["--train_image_prep", "no_resize", "--test_image_prep",
+            "no_resize", "--eval_freq", "100", "--viz_freq", "100"]
+           if cli == "pix2pix" else
+           ["--validation_steps", "100", "--viz_freq", "100",
+            "--lora_rank_unet", "8"]))
+    assert main(args, device="cpu")["steps_run"] == 1
+    assert all(isinstance(t, CLIPTokenizer) for t in seen["tokenizers"])
+    models = seen["models"]
+    vaes = ([models.vae] if cli == "pix2pix"
+            else [models.vae_a2b, models.vae_b2a])
+    for module, want in [(models.unet, sds["unet"])] + [
+            (v, sds["vae"]) for v in vaes]:
+        got = module.state_dict()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+    for v in vaes:
+        for i in range(1, 5):
+            assert (v.state_dict()[f"decoder.skip_conv_{i}.weight"]
+                    == 1e-5).all()
+
+
 def test_failed_wandb_init_does_not_hold_the_run(datasets, tmp_path,
                                                   monkeypatch):
     """wandb keeps the exception of an init that fails (no API key) with
@@ -475,10 +564,18 @@ def _args(which, extra=()):
 @pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])
 @pytest.mark.parametrize("flag", ["--sd_turbo_path", "--lpips_weights",
                                   "--clip_weights", "--inception_weights"])
-def test_weight_flags_stop_the_run(cli, flag):
-    main, args = _args(cli, [flag, "weights.bin"])
-    with pytest.raises(NotImplementedError, match=flag):
+def test_weight_flags_stop_the_run(cli, flag, datasets, tmp_path):
+    """Each weight flag reaches its loader: naming a file that is not there
+    stops the run, before any step, with FileNotFoundError naming it."""
+    missing = str(tmp_path / "weights.bin")
+    main, args = _args(cli, [
+        "--dataset_folder", datasets[0 if cli == "pix2pix" else 1],
+        "--output_dir", str(tmp_path / "out"), "--tiny_model",
+        "--report_to", "none", flag, missing]
+        + (["--track_val_fid"] if cli == "pix2pix" else []))
+    with pytest.raises(FileNotFoundError, match="weights.bin"):
         main(args, device="cpu")
+    assert not os.path.exists(str(tmp_path / "out" / "metrics.jsonl"))
 
 
 @pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])

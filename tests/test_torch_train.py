@@ -473,7 +473,7 @@ def paired_setup():
     g = torch.Generator().manual_seed(0)
     cfgs = GeneratorConfigs(tcfg.MICRO_UNET, tcfg.MICRO_VAE, tcfg.TINY_TEXT)
     clip_cfg = tclip_vit.TINY_CLIP_VIT
-    unet, vae, text = trunner.load_base_models(cfgs, g)
+    unet, vae, text, _ = trunner.load_base_models(cfgs, g)
     lpips, backbone, clip, heads, sn = trunner.init_aux_models(clip_cfg, g)
     unet_lora, vae_lora = trunner.init_loras(unet, vae, g)
     # B = 0 at init would leave pass 1 blind to A's gradients; give B
