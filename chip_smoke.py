@@ -1,7 +1,8 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
 (pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, the weight
-loaders and both inference CLIs, both training CLIs and the public
-attention op on one GPU.
+loaders and both inference CLIs, both training CLIs, the public attention
+op, data parallelism on torch.distributed, the profiling helpers, the web
+demo and the parity and conversion CLIs on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -126,6 +127,42 @@ Phases, each fatal on failure:
    phases 6 and 7 exactly (eval, viz and validation run no backward), and
    K1-K6 launch at least that. Each run's wall time, its eval or
    validation time and its peak memory are printed.
+10. DP phase (after phase 7, the train and unpaired models freed): data
+   parallelism on torch.distributed, two gloo ranks sharing the card
+   (spawned, `file://` rendezvous in a temporary directory; the exchange
+   goes through the host, so its times are not NCCL's). Each rank: (a) the
+   paired step at full width, 512x512 b1 a rank, seeds as phase 6's, tiled
+   (both ranks phase 6's row and noise): every trainable, both AdamW
+   moments, the heads and the spectral-norm vectors bit-identical to the
+   same process's step without a mesh and across the ranks (a fingerprint
+   all-reduce), the metrics equal, the launch table that step's and
+   EXPECTED_TRAIN_LAUNCHES; then distinct rows (rank r row r of the global
+   batch and its noise), a warm-up and TRAIN_STEPS timed steps, finite
+   metrics, the state identical across ranks, the all-reduce timed (per
+   pass, and its bytes); (c) rank 0: NCCL at world size 1 (a one-rank NCCL
+   group beside the gloo world), the step through `mesh=` bit-identical to
+   the step without a mesh; (b) the unpaired step at full width, 256x256
+   b1 a rank, tiled, the same identity checks, launches
+   EXPECTED_UNPAIRED_LAUNCHES; (d) `ServingEngine(mode="edge_to_image",
+   mesh=...)`, a global batch of 2 at 512x512: each rank's rows equal bit
+   for bit to the engine without a mesh on those rows and the global
+   noise's rows, the gathered batch the same on both ranks, the launches a
+   b1 request's. Frozen modules and engine weights are checked to agree
+   across ranks;
+11. tools phase (after phase 9, on phase 8's files): `utils/profiling.
+   device_time_per_call` on one 512x512 request beside
+   `training/profile_step.py`'s profile of it, `device_memory_stats`;
+   `serving/web_demo.launch_in_thread` on the full-width edge (merged) and
+   sketch (factored) models, one POST /api/canny and one POST /api/sketch
+   at 512x512, each response equal bit for bit to the direct
+   `CannyDemo.process` / `SketchDemo.run`; `cli/convert_weights` on the
+   snapshot and the edge pkl, read back (`weights/native.load_native`)
+   equal tensor for tensor to `Pix2PixTurbo.load_pretrained`, with its
+   write and read times and GB; `cli/accept_parity` on the snapshot and
+   the edge pkl against phase 8's edge PNG (its CLI run seeded 0, the
+   generator accept_parity draws from) with random LPIPS, below 1e-3.
+Each of these phases prints its numbers with the card's name and power
+limit.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 error and times, and as its last line {"ok": true, "device": {...}}. Exits
@@ -1053,9 +1090,11 @@ def main():
             if shape not in have:
                 path_case(kernel, shape, "unpaired")
     torch.cuda.synchronize()
+    dp_phase(dev, summary)
     with tempfile.TemporaryDirectory() as root:
         snap = weights_phase(dev, summary, root)
         cli_phase(dev, summary, snap)
+        tools_phase(dev, summary, root, snap)
     paths = {p: summary["paths"][p] for p in (
         "serve", "image", "sketch", "train", "default_attention",
         "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan")}
@@ -1218,7 +1257,8 @@ def main():
                       "train": summary["train"],
                       "unpaired": summary["unpaired"],
                       "weights": summary["weights"],
-                      "cli": summary["cli"]}), flush=True)
+                      "cli": summary["cli"], "dp": summary["dp"],
+                      "tools": summary["tools"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2316,8 +2356,11 @@ def inference_clis(dev, cfgs, snap, ckpt_dir, pkl_cyc, root):
     Image.fromarray(synth_image(h, w, 9)[0]).save(png)
     runs = {}
     for name, cli, argv in (
+            # seed 0: the generator accept_parity's pipeline call draws
+            # from, so that the tools phase holds it to this PNG
             ("edge", inference_paired,
-             ["--prompt", PROMPT, "--model_name", "edge_to_image"]),
+             ["--prompt", PROMPT, "--model_name", "edge_to_image",
+              "--seed", "0"]),
             ("sketch", inference_paired,
              ["--prompt", PROMPT, "--model_name",
               "sketch_to_image_stochastic", "--gamma", "0.4"]),
@@ -2677,6 +2720,567 @@ def cli_phase(dev, summary, sd_turbo_path: str):
               f"{len(sd_v)} tensors", flush=True)
     summary["cli"]["pix2pix_eval"] = ev
     summary["cli"]["cyclegan_validation"] = val
+
+
+# ---------------------------------------------------------------------------
+# DP phase: data parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2        # gloo ranks sharing the one card
+
+
+def _state_all(state) -> dict:
+    """Every tensor of a train state by name: the trainables, the heads,
+    the spectral-norm vectors and both AdamW moments."""
+    out = dict(_state_tensors(state))
+    for part, opt, params in (("gen", state.gen_opt, state.gen),
+                              ("disc", state.disc_opt, state.disc)):
+        for k, p_ in params.items():
+            for m, v in opt.state.get(p_, {}).items():
+                if hasattr(v, "shape"):
+                    out[f"{part}_opt.{m}.{k}"] = v
+    return out
+
+
+def _same_state(a, b) -> list:
+    """Names of the tensors that differ between two train states."""
+    import torch
+    a, b = _state_all(a), _state_all(b)
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def _dp_setup(rank: int, world: int, init_file: str):
+    """A rank's process: the card, the smoke's numerics flags, the kernels
+    (built by the parent), the gloo group and the data mesh."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build()
+    mesh_mod.init_distributed("file://" + init_file, world, rank,
+                              device=dev, backend="gloo")
+    return dev, mesh_mod.make_mesh(device=dev)
+
+
+def _timed_step(step, state, batch, noise, mesh):
+    """One step with the launch counters and the mesh's all-reduce stats
+    reset before it; returns (metrics as floats, ms by CUDA events, launch
+    counts, all-reduce stats)."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    if mesh is not None:
+        mesh.reset_stats()
+    s_ev = torch.cuda.Event(enable_timing=True)
+    e_ev = torch.cuda.Event(enable_timing=True)
+    s_ev.record()
+    m, _ = step(state, batch, noise)
+    e_ev.record()
+    e_ev.synchronize()
+    return ({n: float(v) for n, v in m.items()}, s_ev.elapsed_time(e_ev),
+            dict(_build.launch_counts),
+            dict(mesh.stats) if mesh is not None else None)
+
+
+def _paired_row(cfgs, dev, i: int):
+    """Row i of the DP phase's paired batches: row 0 is the train phase's
+    (synth images 3 and 4, ids from a generator seeded 4322)."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import canny as canny_mod
+    h = w = TRAIN_HW
+    img = torch.as_tensor(synth_image(h, w, 3 + 10 * i), device=dev)
+    g = torch.Generator(device=dev).manual_seed(4322 + i)
+    return {"conditioning_pixel_values":
+            canny_mod.canny_3ch_unit(img, 100, 200),
+            "output_pixel_values": torch.as_tensor(
+                synth_image(h, w, 4 + 10 * i), device=dev).float()
+            / 127.5 - 1.0,
+            "input_ids": torch.randint(0, cfgs.text.vocab_size, (1, 77),
+                                       generator=g, device=dev)}
+
+
+def _dp_paired(mesh, dev) -> dict:
+    """(a) the paired step at full width, 512x512, each rank b1, seeds as
+    the train phase's: tiled (both ranks the train phase's row and noise),
+    held against this process's one-process step; distinct (rank r row r,
+    the global noise's row r), a warm-up and TRAIN_STEPS timed steps with
+    the all-reduce timed; (c) rank 0: NCCL at world size 1 through a
+    one-rank NCCL group, against the step without a mesh."""
+    import torch
+    import torch.distributed as dist
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import losses, paired, runner
+    cfgs = GeneratorConfigs()
+    t0 = time.perf_counter()
+    models, state0, meta = runner.build_paired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=4321, device=dev)
+    frozen_differ = mesh_mod.differing(
+        {n: getattr(models, n) for n in ("unet", "vae", "text", "lpips",
+                                         "disc_backbone", "clip")}, mesh)
+
+    def make(m):
+        return paired.make_paired_train_step(
+            models, cfgs, losses.PairedLossConfig(), meta, kernels=True,
+            remat=True, dtype=torch.bfloat16, mesh=m)
+
+    def noise(i, b=1):
+        g = torch.Generator(device=dev).manual_seed(1000 + i)
+        return tuple(paired.draw_noise(g, b, TRAIN_HW, TRAIN_HW, cfgs,
+                                       torch.bfloat16) for _ in range(2))
+
+    out = {"setup_s": time.perf_counter() - t0, "frozen_differ":
+           frozen_differ, "trainable": sum(v.numel()
+                                           for v in state0.gen.values())}
+    row0 = _paired_row(cfgs, dev, 0)
+    one = _snapshot(state0)
+    out["one_metrics"], out["one_ms"], out["one_counts"], _ = _timed_step(
+        make(None), one, row0, noise(0), None)
+    step = make(mesh)
+    tiled = mesh_mod.replicate(_snapshot(state0), mesh)
+    out["tiled_metrics"], out["tiled_ms"], out["tiled_counts"], \
+        out["tiled_allreduce"] = _timed_step(step, tiled, row0, noise(0),
+                                             mesh)
+    out["tiled_vs_one_differ"] = _same_state(tiled, one)
+    out["tiled_metrics_equal"] = out["tiled_metrics"] == out["one_metrics"]
+    out["tiled_ranks_differ"] = mesh_mod.differing(
+        {"state": _state_all(tiled)}, mesh)
+    del tiled
+
+    # distinct rows: rank r takes row r of the global batch and its noise
+    row = _paired_row(cfgs, dev, mesh.rank)
+    st = mesh_mod.replicate(_snapshot(state0), mesh)
+    mesh.timed = True
+    runs = [_timed_step(step, st, row, mesh_mod.shard_batch(
+        noise(100 + i, DP_WORLD), mesh), mesh)
+        for i in range(1 + TRAIN_STEPS)]
+    mesh.timed = False
+    out["distinct_metrics"] = [r[0] for r in runs]
+    out["distinct_ms"] = [r[1] for r in runs]
+    out["distinct_counts"] = runs[0][2]
+    out["distinct_allreduce"] = [r[3] for r in runs]
+    out["distinct_ranks_differ"] = mesh_mod.differing(
+        {"state": _state_all(st)}, mesh)
+    out["gen_pass_bytes"] = 4 * (out["trainable"] + 3)
+    del st
+
+    # (c) NCCL at world size 1: a one-rank NCCL group beside the gloo world
+    nccl = dist.new_group([0], backend="nccl")
+    if mesh.rank == 0:
+        m1 = mesh_mod.make_mesh(device=dev, group=nccl)
+        m1.timed = True
+        st = _snapshot(state0)
+        out["nccl_metrics"], out["nccl_ms"], out["nccl_counts"], \
+            out["nccl_allreduce"] = _timed_step(make(m1), st, row0,
+                                                noise(0), m1)
+        out["nccl_backend"] = str(m1.backend)
+        out["nccl_vs_one_differ"] = _same_state(st, one)
+        del st
+    mesh_mod.barrier(mesh)
+    return out
+
+
+def _dp_unpaired(mesh, dev) -> dict:
+    """(b) the unpaired step at full width, 256x256, each rank b1, tiled
+    (the unpaired phase's row and noise), against this process's
+    one-process step."""
+    import torch
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
+                                                  unpaired)
+    cfgs = GeneratorConfigs()
+    t0 = time.perf_counter()
+    models, state0, meta = runner.build_unpaired_run(
+        cfgs, clip_vit.CLIP_VIT_B32, seed=5432, device=dev)
+    out = {"frozen_differ": mesh_mod.differing(
+        {n: getattr(models, n) for n in ("unet", "vae_a2b", "vae_b2a",
+                                         "lpips", "disc_backbone")}, mesh),
+        "trainable": sum(v.numel() for v in state0.gen.values())}
+    h = w = UNPAIRED_HW
+    g = torch.Generator(device=dev).manual_seed(5433)
+    d = cfgs.unet.cross_attention_dim
+    batch = {"pixel_values_src": torch.as_tensor(
+                 synth_image(h, w, 7), device=dev).float() / 127.5 - 1.0,
+             "pixel_values_tgt": torch.as_tensor(
+                 synth_image(h, w, 8), device=dev).float() / 127.5 - 1.0,
+             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
+             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
+    gn_ = torch.Generator(device=dev).manual_seed(2000)
+    noise = tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
+                  for _ in range(unpaired.NUM_NOISE))
+    out["setup_s"] = time.perf_counter() - t0
+
+    def make(m):
+        return unpaired.make_unpaired_train_step(
+            models, cfgs, losses.UnpairedLossConfig(), meta, kernels=True,
+            remat=True, dtype=torch.bfloat16, mesh=m)
+
+    one = _snapshot(state0)
+    out["one_metrics"], out["one_ms"], out["one_counts"], _ = _timed_step(
+        make(None), one, batch, noise, None)
+    tiled = mesh_mod.replicate(_snapshot(state0), mesh)
+    del state0
+    mesh.timed = True
+    out["tiled_metrics"], out["tiled_ms"], out["tiled_counts"], \
+        out["tiled_allreduce"] = _timed_step(make(mesh), tiled, batch, noise,
+                                             mesh)
+    mesh.timed = False
+    out["tiled_vs_one_differ"] = _same_state(tiled, one)
+    out["tiled_metrics_equal"] = out["tiled_metrics"] == out["one_metrics"]
+    out["tiled_ranks_differ"] = mesh_mod.differing(
+        {"state": _state_all(tiled)}, mesh)
+    return out
+
+
+def _dp_engine(mesh, dev) -> dict:
+    """(d) `ServingEngine(mode="edge_to_image", mesh=...)` at full width,
+    a global batch of 2 at 512x512: each rank's rows against the engine
+    without a mesh on those rows with the global noise's rows; the
+    gathered batch the same on every rank."""
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    from img2img_turbo_tpu_torch.weights import from_jax
+    cfgs = GeneratorConfigs()
+    g = torch.Generator(device=dev).manual_seed(1234)
+    params = {"unet": from_jax.random_model(cfgs.unet, g),
+              "vae": from_jax.random_model(cfgs.vae, g)}
+    caption = torch.randn(1, 77, cfgs.unet.cross_attention_dim, generator=g,
+                          device=dev)
+    eng = ServingEngine(params, cfgs, dtype=torch.bfloat16, mesh=mesh)
+    out = {"params_differ": mesh_mod.differing(params, mesh)}
+    imgs = torch.cat([torch.as_tensor(synth_image(512, 512, i), device=dev)
+                      for i in range(DP_WORLD)])
+    eng.run(imgs, caption, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = eng.run(imgs, caption,
+                  torch.Generator(device=dev).manual_seed(0))["out"]
+    torch.cuda.synchronize()
+    out["mesh_s"] = time.perf_counter() - t0
+    out["mesh_counts"] = dict(_build.launch_counts)
+    lat = (DP_WORLD, 64, 64, cfgs.vae.latent_channels)
+    noise = torch.randn(lat, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev, dtype=torch.bfloat16)
+    eng.mesh = None
+    rows = mesh_mod.shard_batch({"img": imgs, "noise": noise}, mesh)
+    _build.reset_launch_counts()
+    one = eng.run(rows["img"], caption, noise=rows["noise"])["out"]
+    out["one_counts"] = dict(_build.launch_counts)
+    out["rows_equal"] = bool(torch.equal(
+        mesh_mod.shard_batch(got, mesh), one))
+    out["gathered_differ"] = mesh_mod.differing({"out": got}, mesh)
+    out["shape"] = list(got.shape)
+    return out
+
+
+def _dp_rank(rank: int, world: int, init_file: str, out_dir: str):
+    """One spawned rank of the DP phase: (a), (c), (b), (d) in turn, its
+    results written as JSON for the parent to check."""
+    import gc
+    import os
+    import torch
+    import torch.distributed as dist
+    dev, mesh = _dp_setup(rank, world, init_file)
+    res = {"backend": mesh.backend, "world": mesh.world}
+    for name, fn in (("paired", _dp_paired), ("unpaired", _dp_unpaired),
+                     ("engine", _dp_engine)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res[name] = fn(mesh, dev)
+        res[name]["wall_s"] = time.perf_counter() - t0
+        res[name]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dp_phase(dev, summary):
+    """The DP phase (module docstring, phase 10): DP_WORLD gloo ranks
+    sharing the card, spawned with a file:// rendezvous in a temporary
+    directory; every check's failure fails the smoke."""
+    import gc
+    import os
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_dp_rank, args=(DP_WORLD, os.path.join(d, "rendezvous"), d),
+                 nprocs=DP_WORLD, join=True)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    print(f"DP phase: {DP_WORLD} gloo ranks sharing one card (the exchange "
+          f"goes through the host; not NCCL), spawned, wall {wall:.1f}s; "
+          f"{smi}", flush=True)
+    for r, res in enumerate(ranks):
+        p_, u_, e_ = res["paired"], res["unpaired"], res["engine"]
+        for what, bad in (("paired frozen modules", p_["frozen_differ"]),
+                          ("unpaired frozen modules", u_["frozen_differ"]),
+                          ("engine weights", e_["params_differ"])):
+            if bad:
+                _fail(f"DP rank {r}: {what} differ across ranks: {bad}")
+        for name, part, expected in (("paired", p_, EXPECTED_TRAIN_LAUNCHES),
+                                     ("unpaired", u_,
+                                      EXPECTED_UNPAIRED_LAUNCHES)):
+            if part["tiled_vs_one_differ"] or not part["tiled_metrics_equal"]:
+                _fail(f"DP rank {r}: the tiled {name} step differs from the "
+                      f"one-process step: {part['tiled_vs_one_differ'][:8]} "
+                      f"{part['tiled_metrics']} {part['one_metrics']}")
+            if part["tiled_ranks_differ"]:
+                _fail(f"DP rank {r}: the tiled {name} state differs across "
+                      f"ranks")
+            if not part["tiled_counts"] == part["one_counts"] == expected:
+                _fail(f"DP rank {r}: {name} launches {part['tiled_counts']}, "
+                      f"one-process {part['one_counts']}, expected "
+                      f"{expected}")
+        if p_["distinct_ranks_differ"] or not all(
+                np.isfinite(v) for m in p_["distinct_metrics"]
+                for v in m.values()):
+            _fail(f"DP rank {r}: distinct-row paired steps: state differs "
+                  f"across ranks or metrics not finite "
+                  f"{p_['distinct_metrics']}")
+        if p_["distinct_counts"] != EXPECTED_TRAIN_LAUNCHES:
+            _fail(f"DP rank {r}: distinct-row launches "
+                  f"{p_['distinct_counts']}")
+        if r == 0 and (p_["nccl_vs_one_differ"] or p_["nccl_backend"] !=
+                       "nccl" or not p_["nccl_allreduce"]["calls"] or
+                       p_["nccl_metrics"] != p_["one_metrics"]):
+            _fail(f"DP rank 0: the NCCL world-size-1 step differs from the "
+                  f"step without a mesh: {p_['nccl_vs_one_differ'][:8]}, "
+                  f"{p_['nccl_backend']}, {p_['nccl_allreduce']}")
+        if not e_["rows_equal"] or e_["gathered_differ"] \
+                or e_["mesh_counts"] != e_["one_counts"] \
+                or e_["mesh_counts"] != EXPECTED_LAUNCHES:
+            _fail(f"DP rank {r}: engine rows equal {e_['rows_equal']}, "
+                  f"gathered differ {e_['gathered_differ']}, launches "
+                  f"{e_['mesh_counts']} vs {e_['one_counts']}")
+        times = sorted(p_["distinct_ms"][1:])
+        ar = p_["distinct_allreduce"][1:]
+        calls = sum(a["calls"] for a in ar)
+        ar_pass_ms = 1e3 * sum(a["seconds"] for a in ar) / max(calls, 1)
+        uar = u_["tiled_allreduce"]
+        print(f"  rank {r}: paired 512x512 b1 a rank: tiled step "
+              f"{p_['tiled_ms']:.2f} ms (one-process "
+              f"{p_['one_ms']:.2f} ms) bit-identical to the one-process "
+              f"step and across ranks; distinct rows p50 "
+              f"{times[len(times) // 2]:.2f} ms over {len(times)} steps "
+              f"{[round(t, 2) for t in p_['distinct_ms']]}; all-reduce "
+              f"{ar_pass_ms:.2f} ms a pass ({calls // len(ar)} a step, "
+              f"{ar[0]['bytes'] / 1e6:.2f} MB a step, the generator pass "
+              f"{p_['gen_pass_bytes'] / 1e6:.2f} MB) through gloo via the "
+              f"host; peak {p_['peak_gib']:.2f} GiB", flush=True)
+        print(f"  rank {r}: unpaired 256x256 b1 a rank: tiled step "
+              f"{u_['tiled_ms']:.2f} ms (one-process {u_['one_ms']:.2f} ms) "
+              f"bit-identical to the one-process step and across ranks; "
+              f"all-reduce {1e3 * uar['seconds']:.2f} ms over "
+              f"{uar['calls']} passes, {uar['bytes'] / 1e6:.2f} MB a step "
+              f"({u_['trainable'] / 1e6:.2f}M trainables); peak "
+              f"{u_['peak_gib']:.2f} GiB", flush=True)
+        print(f"  rank {r}: engine edge_to_image global batch "
+              f"{e_['shape'][0]} at 512x512 in {1e3 * e_['mesh_s']:.2f} ms; "
+              f"rows bit-identical to the one-process b1 call, gathered "
+              f"batch the same on every rank; launches {e_['mesh_counts']}",
+              flush=True)
+        if r == 0:
+            print(f"  rank 0: NCCL at world size 1: step "
+                  f"{p_['nccl_ms']:.2f} ms, bit-identical to the step "
+                  f"without a mesh; all-reduce {p_['nccl_allreduce']}",
+                  flush=True)
+    summary["dp"] = {"wall_s": wall, "card": smi, "ranks": [
+        {"paired": {k: res["paired"][k] for k in (
+            "tiled_ms", "one_ms", "distinct_ms", "distinct_allreduce",
+            "tiled_allreduce", "gen_pass_bytes", "peak_gib", "wall_s")},
+         "unpaired": {k: res["unpaired"][k] for k in (
+             "tiled_ms", "one_ms", "tiled_allreduce", "peak_gib", "wall_s")},
+         "engine": {k: res["engine"][k] for k in ("mesh_s", "wall_s")},
+         "nccl_world1": {k: res["paired"][k] for k in (
+             "nccl_ms", "nccl_allreduce") if k in res["paired"]}}
+        for res in ranks]}
+
+
+# ---------------------------------------------------------------------------
+# tools phase: profiling helpers, the web demo, convert_weights and
+# accept_parity
+# ---------------------------------------------------------------------------
+
+
+def _post(port: int, path: str, body: dict) -> dict:
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def _png_array(data_url: str):
+    import numpy as np
+    from img2img_turbo_tpu_torch.serving import web_demo
+    return np.asarray(web_demo._decode_data_url(data_url).convert("RGB"))
+
+
+def tools_phase(dev, summary, root: str, snap: str):
+    """The tools phase (module docstring, phase 11) on the weights phase's
+    snapshot and pkls under `root`."""
+    import gc
+    import os
+    import numpy as np
+    import torch
+    from PIL import Image
+    from img2img_turbo_tpu_torch.cli import accept_parity, convert_weights
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
+                                                           Pix2PixTurbo)
+    from img2img_turbo_tpu_torch.serving import demo, web_demo
+    from img2img_turbo_tpu_torch.training import profile_step
+    from img2img_turbo_tpu_torch.utils import profiling
+    from img2img_turbo_tpu_torch.weights import native
+
+    out = {"card": _smi()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tools phase: {out['card']}", flush=True)
+
+    # device time of one 512x512 request: the helper beside the profile
+    _, fn = next(profile_step._request(dev))
+    fn()
+    dt = profiling.device_time_per_call(fn, (), iters=10)
+    if not dt.get("device_p50_per_call_s"):
+        _fail(f"device_time_per_call found no device time: {dt}")
+    print(f"  device_time_per_call, one 512x512 edge_to_image request "
+          f"(10 calls): p50 {1e3 * dt['device_p50_per_call_s']:.3f} ms, p90 "
+          f"{1e3 * dt['device_p90_per_call_s']:.3f} ms, span a call "
+          f"{1e3 * dt['device_span_per_call_s']:.3f} ms, "
+          f"{dt['kernels_per_call']:.0f} GPU kernels a call; "
+          f"training/profile_step.py's profile of the same request:",
+          flush=True)
+    prof = profile_step._profile(fn)
+    out["device_time_per_call"] = dt
+    out["profile_step_request"] = prof
+    mem = profiling.device_memory_stats()
+    if not mem:
+        _fail("device_memory_stats found no card")
+    print(f"  device_memory_stats: {mem}", flush=True)
+    out["device_memory_stats"] = mem
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the web demo on the full-width pipelines: edge_to_image merged, the
+    # sketch model factored, one pipeline holding both
+    cfgs = GeneratorConfigs()
+    ckpt_dir = os.path.join(root, "checkpoints")
+    edge_pkl = os.path.join(ckpt_dir, "edge_to_image_loras.pkl")
+    kw = Pix2PixTurbo.load_pretrained(snap, "sketch_to_image_stochastic",
+                                      ckpt_folder=ckpt_dir, device=dev)
+    kw["params"] = Pix2PixTurbo.load_pretrained(snap, edge_pkl,
+                                                device=dev)["params"]
+    pipe = Pix2PixTurbo(**kw, dtype=torch.bfloat16, device=dev)
+    del kw
+    server, port = web_demo.launch_in_thread(pipe)
+    img = Image.fromarray(synth_image(512, 512, 11)[0])
+    url = web_demo._encode_data_url(img)
+    t0 = time.perf_counter()
+    got = _post(port, "/api/canny", {"image": url, "prompt": PROMPT,
+                                     "low": 100, "high": 200})
+    canny_s = time.perf_counter() - t0
+    edges, want = demo.CannyDemo(pipe).process(img, PROMPT, 100, 200)
+    t0 = time.perf_counter()
+    got_s = _post(port, "/api/sketch", {"image": url, "prompt": PROMPT,
+                                        "style": "Anime", "seed": 7,
+                                        "r": 0.4})
+    sketch_s = time.perf_counter() - t0
+    want_s = demo.SketchDemo(pipe).run(img, PROMPT, "Anime", 7, 0.4)
+    server.shutdown()
+    server.server_close()
+    same = {"canny edges": np.array_equal(_png_array(got["edges"]),
+                                          np.asarray(edges.convert("RGB"))),
+            "canny image": np.array_equal(_png_array(got["image"]),
+                                          np.asarray(want)),
+            "sketch image": np.array_equal(_png_array(got_s["image"]),
+                                           np.asarray(want_s))}
+    print(f"  web demo (full width, 512x512): POST /api/canny "
+          f"{canny_s:.2f}s, POST /api/sketch {sketch_s:.2f}s; each "
+          f"response equal bit for bit to the direct call: {same}",
+          flush=True)
+    if not all(same.values()) or np.asarray(want).std() == 0:
+        _fail(f"web demo responses differ from the direct calls: {same}")
+    out["web_demo"] = {"canny_s": canny_s, "sketch_s": sketch_s}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # convert_weights on the snapshot and the edge pkl, read back
+    native_dir = os.path.join(root, "native_edge")
+    res = convert_weights.main(["--sd_turbo_path", snap, "--ckpt_path",
+                                edge_pkl, "--out", native_dir], device=dev)
+    t0 = time.perf_counter()
+    back = native.load_native(native_dir, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want = Pix2PixTurbo.load_pretrained(snap, edge_pkl, device=dev)
+    bad = []
+    for part, a, b in (("unet", back["params"]["unet"],
+                        want["params"]["unet"]),
+                       ("vae", back["params"]["vae"], want["params"]["vae"]),
+                       ("text", back["text"], want["text"])):
+        sa, sb = a.state_dict(), b.state_dict()
+        if set(sa) != set(sb):
+            bad.append(part)
+        bad += [f"{part}.{k}" for k in sb if not torch.equal(sa[k], sb[k])]
+    gb = res["bytes"] / 1e9
+    print(f"  convert_weights: {res['values'] / 1e6:.1f}M values, "
+          f"{res['tensors']} tensors, {gb:.3f} GB; load_pretrained "
+          f"{res['load_seconds']:.2f}s, write {res['write_seconds']:.2f}s "
+          f"({gb / res['write_seconds']:.2f} GB/s), read back "
+          f"{read_s:.2f}s ({gb / read_s:.2f} GB/s); equal to "
+          f"load_pretrained tensor for tensor: {not bad}", flush=True)
+    if bad:
+        _fail(f"the native checkpoint differs from load_pretrained: "
+              f"{bad[:8]}")
+    out["convert_weights"] = {"gb": gb, "write_s": res["write_seconds"],
+                              "read_s": read_s,
+                              "load_s": res["load_seconds"]}
+    del back, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # accept_parity against phase 8's edge PNG (the same image)
+    args = accept_parity.build_parser().parse_args(
+        ["--sd_turbo_path", snap, "--model_path", edge_pkl, "--input_image",
+         os.path.join(root, "input.png"), "--prompt", PROMPT,
+         "--reference_output", os.path.join(root, "out_edge", "input.png")])
+    t0 = time.perf_counter()
+    line = accept_parity.main(args, device=dev)
+    if not line["lpips"] < 1e-3:
+        _fail(f"accept_parity on phase 8's own edge PNG: {line}")
+    out["accept_parity"] = dict(line, wall_s=time.perf_counter() - t0)
+    print(f"  accept_parity: LPIPS {line['lpips']} against phase 8's edge "
+          f"PNG (random LPIPS weights; the same image), "
+          f"{out['accept_parity']['wall_s']:.2f}s", flush=True)
+    summary["tools"] = out
 
 
 if __name__ == "__main__":

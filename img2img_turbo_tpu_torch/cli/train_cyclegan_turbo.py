@@ -1,12 +1,23 @@
-"""Unpaired (CycleGAN-Turbo) training CLI on one card (counterpart of
-`cli/train_cyclegan_turbo.py`; reference `accelerate launch
-src/train_cyclegan_turbo.py`, train_cyclegan_turbo.py:25-390), with
-resume:
+"""Unpaired (CycleGAN-Turbo) training CLI on one card or data-parallel
+over several (counterpart of `cli/train_cyclegan_turbo.py`; reference
+`accelerate launch src/train_cyclegan_turbo.py`,
+train_cyclegan_turbo.py:25-390), with resume:
 
     python -m img2img_turbo_tpu_torch.cli.train_cyclegan_turbo \\
         --dataset_folder data/horse2zebra --output_dir out \\
         --tracker_project_name h2z --train_img_prep \\
         resize_286_randomcrop_256x256_hflip --val_img_prep resize_256
+    torchrun --nproc_per_node N -m \\
+        img2img_turbo_tpu_torch.cli.train_cyclegan_turbo ...
+
+Under torchrun, as in the paired CLI: each rank on `cuda:LOCAL_RANK`,
+--train_batch_size the global batch (each rank its contiguous rows of the
+same seeded loader's batch, and of the global batch's noise), every pass's
+losses and gradients averaged over the ranks before its update, the
+frozen modules and the caption embeddings checked to agree across ranks,
+a fresh state broadcast from rank 0; rank 0 alone logs, validates (FID and
+DINO-Struct), writes viz panels, checkpoints and pkls while the others
+wait at a barrier.
 
 In the JAX CLI's order: seeds; the UNet with its three adapters at
 --lora_rank_unet, the two VAEs with adapters at --lora_rank_vae, LPIPS and
@@ -59,23 +70,25 @@ def main(args, device=None):
     on `device` (the CUDA card when None). Returns {"start_step",
     "end_step", "steps_run", "eval_seconds"}."""
     import torch
-    from img2img_turbo_tpu_torch import resolve_device
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import runner
 
     runner.refuse_unported(args)
-    dev = resolve_device(device)
+    dev = mesh_mod.local_device(device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
-    # The tracker is made here, apart from the run's models: a wandb init
-    # that fails (no API key) keeps its exception, whose traceback holds
-    # this frame and so would hold the models until the process exits.
-    log = runner.make_tracker(args.report_to, args.tracker_project_name,
-                              args.output_dir, vars(args))
-    return _train(args, dev, dtype, log)
+    with mesh_mod.distributed(device) as mesh:
+        # The tracker is made here, apart from the run's models: a wandb
+        # init that fails (no API key) keeps its exception, whose traceback
+        # holds this frame and so would hold the models until the process
+        # exits.
+        log = runner.make_tracker(args.report_to, args.tracker_project_name,
+                                  args.output_dir, vars(args))
+        return _train(args, mesh.device, dtype, log, mesh)
 
 
-def _train(args, dev, dtype, log):
+def _train(args, dev, dtype, log, mesh):
     import numpy as np
     import torch
     from img2img_turbo_tpu_torch import lora as lora_mod
@@ -83,6 +96,7 @@ def _train(args, dev, dtype, log):
     from img2img_turbo_tpu_torch.metrics.dino_struct import DinoStructureLoss
     from img2img_turbo_tpu_torch.models import dino as dino_mod
     from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.pipelines.cyclegan import forward_with_params
     from img2img_turbo_tpu_torch.training import (checkpoint as ckpt_mod,
                                                   data, eval_unpaired,
@@ -100,6 +114,7 @@ def _train(args, dev, dtype, log):
         base = (unet, vae)
     if tok is None:
         tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
+    runner.check_tokenizer(tok, mesh)
 
     dataset = data.UnpairedDataset(args.dataset_folder, "train",
                                    args.train_img_prep, tok)
@@ -127,20 +142,29 @@ def _train(args, dev, dtype, log):
             ids[None].astype(np.int64), device=dev))
             for ids in (dataset.input_ids_tgt, dataset.input_ids_src))
     del text
+    mesh_mod.assert_replicated(
+        {"unet": models.unet, "vae_a2b": models.vae_a2b,
+         "vae_b2a": models.vae_b2a, "lpips": models.lpips,
+         "disc_backbone": models.disc_backbone,
+         "caption embeddings": [emb_a2b, emb_b2a]}, mesh,
+        "the frozen modules")
 
     state_dir = os.path.join(args.output_dir, "state")
     start_step = 0
-    if args.resume:
-        latest = ckpt_mod.latest_step(state_dir)
-        if latest is not None:
-            ckpt_mod.restore_train_state(state_dir, state)
-            start_step = int(latest)
+    latest = ckpt_mod.latest_step(state_dir) if args.resume else None
+    if latest is not None:
+        ckpt_mod.restore_train_state(state_dir, state, mesh=mesh)
+        start_step = int(latest)
+        if mesh.is_main:
             print(f"resumed from step {start_step}", flush=True)
+    else:
+        mesh_mod.replicate(state, mesh)
 
+    # every rank the global batch's loader, then its rows
     loader = data.data_loader(dataset, args.train_batch_size, seed=args.seed)
     loader = data.accumulate_batches(loader,
                                      args.gradient_accumulation_steps)
-    loader = data.prefetch(loader, depth=2)
+    loader = data.prefetch(data.shard(loader, mesh), depth=2)
     loss_cfg = losses_mod.UnpairedLossConfig(
         lambda_gan=args.lambda_gan, lambda_idt=args.lambda_idt,
         lambda_cycle=args.lambda_cycle,
@@ -150,9 +174,11 @@ def _train(args, dev, dtype, log):
     step_fn = unpaired.make_unpaired_train_step(
         models, cfgs, loss_cfg, meta, kernels=True,
         remat=args.gradient_checkpointing or not args.tiny_model,
-        dtype=dtype, accum_steps=args.gradient_accumulation_steps)
+        dtype=dtype, accum_steps=args.gradient_accumulation_steps,
+        mesh=mesh)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
     alphas = scheduler.make_alphas_cumprod(device=dev)
     mods = {"unet": models.unet, "vae_a2b": models.vae_a2b,
             "vae_b2a": models.vae_b2a}
@@ -177,7 +203,7 @@ def _train(args, dev, dtype, log):
     test_a = _images(os.path.join(args.dataset_folder, "test_A"))
     test_b = _images(os.path.join(args.dataset_folder, "test_B"))
     val = None
-    if test_a and test_b:
+    if test_a and test_b and mesh.is_main:
         val_T = data.build_transform(args.val_img_prep)
         inception = runner.init_inception(
             args, torch.Generator(device=dev).manual_seed(7))
@@ -217,12 +243,15 @@ def _train(args, dev, dtype, log):
                 batch["pixel_values_tgt"]).to(dev),
             "emb_a2b": emb_a2b.expand(bsz, *emb_a2b.shape[1:]).contiguous(),
             "emb_b2a": emb_b2a.expand(bsz, *emb_b2a.shape[1:]).contiguous()}
-        noise = tuple(paired.draw_noise(noise_gen, bsz, h, w, cfgs, dtype)
-                      for _ in range(unpaired.NUM_NOISE))
+        # the global batch's noise on every rank, then this rank's rows
+        noise = mesh_mod.shard_batch(tuple(
+            paired.draw_noise(noise_gen, bsz * mesh.world, h, w, cfgs, dtype)
+            for _ in range(unpaired.NUM_NOISE)), mesh)
         metrics, _ = step_fn(state, dev_batch, noise)
         steps_run += 1
 
-        if (step_i + 1) % 10 == 0 or step_i == start_step:
+        if mesh.is_main and ((step_i + 1) % 10 == 0
+                             or step_i == start_step):
             m = {k: float(v) for k, v in metrics.items()}
             m["steps_per_sec"] = 10.0 / max(time.time() - t_last, 1e-9)
             t_last = time.time()
@@ -230,28 +259,38 @@ def _train(args, dev, dtype, log):
             print(f"step {step_i + 1}: " +
                   " ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
 
-        if val is not None and (step_i + 1) % args.validation_steps == 0:
+        # validation and viz on rank 0 (its rows start with the global
+        # batch's first pair) while the others wait
+        if test_a and test_b and (step_i + 1) % args.validation_steps == 0:
             t0 = time.time()
-            run_validation(step_i + 1)
+            if mesh.is_main:
+                run_validation(step_i + 1)
+            mesh_mod.barrier(mesh)
             eval_s += time.time() - t0
 
         if (step_i + 1) % args.viz_freq == 0:
-            with torch.no_grad():
-                params = unpaired.build_gen_params(state.gen, models, meta,
-                                                   dtype)
-            _save_viz(args.output_dir, step_i + 1, dev_batch,
-                      {d: translator(params, d, e) for d, e in
-                       (("a2b", emb_a2b), ("b2a", emb_b2a))})
-            del params
+            if mesh.is_main:
+                with torch.no_grad():
+                    params = unpaired.build_gen_params(state.gen, models,
+                                                       meta, dtype)
+                _save_viz(args.output_dir, step_i + 1, dev_batch,
+                          {d: translator(params, d, e) for d, e in
+                           (("a2b", emb_a2b), ("b2a", emb_b2a))})
+                del params
+            mesh_mod.barrier(mesh)
 
         if (step_i + 1) % args.checkpointing_steps == 0:
-            ckpt_mod.save_train_state(state_dir, step_i + 1, state)
-            ckpt_mod.export_cyclegan_pkl(
-                os.path.join(ckpt_dir, f"model_{step_i + 1}.pkl"), state.gen,
-                {"vae_a2b": models.vae_a2b, "vae_b2a": models.vae_b2a}, meta)
+            if mesh.is_main:
+                ckpt_mod.export_cyclegan_pkl(
+                    os.path.join(ckpt_dir, f"model_{step_i + 1}.pkl"),
+                    state.gen, {"vae_a2b": models.vae_a2b,
+                                "vae_b2a": models.vae_b2a}, meta)
+            ckpt_mod.save_train_state(state_dir, step_i + 1, state,
+                                      mesh=mesh)
 
-    ckpt_mod.save_train_state(state_dir, total, state)
-    print("training done", flush=True)
+    ckpt_mod.save_train_state(state_dir, total, state, mesh=mesh)
+    if mesh.is_main:
+        print("training done", flush=True)
     return {"start_step": start_step, "end_step": total,
             "steps_run": steps_run, "eval_seconds": eval_s}
 

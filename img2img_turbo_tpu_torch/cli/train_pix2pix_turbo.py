@@ -1,9 +1,26 @@
-"""Paired (pix2pix-turbo) training CLI on one card (counterpart of
-`cli/train_pix2pix_turbo.py`; reference `accelerate launch
-src/train_pix2pix_turbo.py`, train_pix2pix_turbo.py:27-307), with resume:
+"""Paired (pix2pix-turbo) training CLI on one card or data-parallel over
+several (counterpart of `cli/train_pix2pix_turbo.py`; reference
+`accelerate launch src/train_pix2pix_turbo.py`,
+train_pix2pix_turbo.py:27-307), with resume:
 
     python -m img2img_turbo_tpu_torch.cli.train_pix2pix_turbo \\
         --dataset_folder data/edges --output_dir out --mixed_precision bf16
+    torchrun --nproc_per_node N -m \\
+        img2img_turbo_tpu_torch.cli.train_pix2pix_turbo ...
+
+Under torchrun each rank joins the process group from the environment
+(`parallel.mesh.distributed`: NCCL when each rank has a card of its own,
+gloo when ranks share one) and runs on `cuda:LOCAL_RANK`. As in the JAX CLI,
+--train_batch_size is the global batch: every rank iterates the same seeded
+loader and takes its contiguous rows (`data.shard`), draws the posterior
+noise for the global batch and takes its rows, and the step averages each
+pass's losses and gradients over the ranks before the update, so a W-rank
+run computes the one-process run's steps up to summation order. The frozen
+modules are built on every rank and checked to agree (a fingerprint
+all-reduce); a fresh state is broadcast from rank 0, a resumed one read by
+every rank and checked. Rank 0 alone logs, writes checkpoints, pkls and
+viz panels and runs eval (val_fid included) while the others wait at a
+barrier.
 
 In the JAX CLI's order: seeds; the models with LoRA at --lora_rank_*
 (SD-Turbo from the --sd_turbo_path snapshot with its BPE tokenizer, CLIP
@@ -65,25 +82,28 @@ def main(args, device=None):
     `device` (the CUDA card when None). Returns {"start_step", "end_step",
     "steps_run", "eval_seconds"}."""
     import torch
-    from img2img_turbo_tpu_torch import resolve_device
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import runner
 
     runner.refuse_unported(args)
-    dev = resolve_device(device)
-    dtype = runner.activation_dtype(args.mixed_precision, dev)
+    dtype = runner.activation_dtype(args.mixed_precision,
+                                    mesh_mod.local_device(device))
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
-    # The tracker is made here, apart from the run's models: a wandb init
-    # that fails (no API key) keeps its exception, whose traceback holds
-    # this frame and so would hold the models until the process exits.
-    log = runner.make_tracker(args.report_to, args.tracker_project_name,
-                              args.output_dir, vars(args))
-    return _train(args, dev, dtype, log)
+    with mesh_mod.distributed(device) as mesh:
+        # The tracker is made here, apart from the run's models: a wandb
+        # init that fails (no API key) keeps its exception, whose traceback
+        # holds this frame and so would hold the models until the process
+        # exits.
+        log = runner.make_tracker(args.report_to, args.tracker_project_name,
+                                  args.output_dir, vars(args))
+        return _train(args, mesh.device, dtype, log, mesh)
 
 
-def _train(args, dev, dtype, log):
+def _train(args, dev, dtype, log, mesh):
     import numpy as np
     import torch
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import (checkpoint as ckpt_mod,
                                                   data, losses as losses_mod,
                                                   optim, paired, runner)
@@ -99,6 +119,7 @@ def _train(args, dev, dtype, log):
             cfgs, torch.Generator(device=dev), args.sd_turbo_path)
     if tok is None:
         tok = runner.SmokeTokenizer(cfgs.text.vocab_size)
+    runner.check_tokenizer(tok, mesh)
 
     # models and optimizers ----------------------------------------------
     sched = optim.make_lr_schedule(args.lr_scheduler, args.learning_rate,
@@ -112,24 +133,30 @@ def _train(args, dev, dtype, log):
         rank_unet=args.lora_rank_unet, rank_vae=args.lora_rank_vae,
         with_clipsim=args.lambda_clipsim > 0, base=base,
         clip_weights=args.clip_weights, lpips_weights=args.lpips_weights)
+    mesh_mod.assert_replicated(
+        {n: getattr(models, n) for n in ("unet", "vae", "text", "lpips",
+                                         "disc_backbone", "clip")
+         if getattr(models, n) is not None}, mesh, "the frozen modules")
 
     # resume --------------------------------------------------------------
     state_dir = os.path.join(args.output_dir, "state")
     start_step = 0
-    if args.resume:
-        latest = ckpt_mod.latest_step(state_dir)
-        if latest is not None:
-            ckpt_mod.restore_train_state(state_dir, state)
-            start_step = int(latest)
+    latest = ckpt_mod.latest_step(state_dir) if args.resume else None
+    if latest is not None:
+        ckpt_mod.restore_train_state(state_dir, state, mesh=mesh)
+        start_step = int(latest)
+        if mesh.is_main:
             print(f"resumed from step {start_step}", flush=True)
+    else:
+        mesh_mod.replicate(state, mesh)
 
-    # data ----------------------------------------------------------------
+    # data: every rank the global batch's loader, then its rows -----------
     dataset = data.PairedDataset(args.dataset_folder, "train",
                                  args.train_image_prep, tok)
     loader = data.data_loader(dataset, args.train_batch_size, seed=seed)
     loader = data.accumulate_batches(loader,
                                      args.gradient_accumulation_steps)
-    loader = data.prefetch(loader, depth=2)
+    loader = data.prefetch(data.shard(loader, mesh), depth=2)
     try:
         val_dataset = data.PairedDataset(args.dataset_folder, "test",
                                          args.test_image_prep, tok)
@@ -144,15 +171,17 @@ def _train(args, dev, dtype, log):
     step_fn = paired.make_paired_train_step(
         models, cfgs, loss_cfg, meta, kernels=True,
         remat=args.gradient_checkpointing or not args.tiny_model,
-        dtype=dtype, accum_steps=args.gradient_accumulation_steps)
+        dtype=dtype, accum_steps=args.gradient_accumulation_steps,
+        mesh=mesh)
     eval_fn = paired.make_eval_step(models, cfgs, meta, kernels=True,
                                     dtype=dtype)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     # clean-FID against the test targets (train_pix2pix_turbo.py:152-163)
     fid_ctx = None
-    if args.track_val_fid and val_dataset is not None:
+    if args.track_val_fid and val_dataset is not None and mesh.is_main:
         from PIL import Image
         from img2img_turbo_tpu_torch.metrics import fid as fid_mod
         inception = runner.init_inception(
@@ -170,12 +199,15 @@ def _train(args, dev, dtype, log):
                              loader):
         dev_batch = _device_batch(batch, dev)
         b, h, w = dev_batch["output_pixel_values"].shape[:3]
-        noise = tuple(paired.draw_noise(noise_gen, b, h, w, cfgs, dtype)
-                      for _ in range(2))
+        # the global batch's noise on every rank, then this rank's rows
+        noise = mesh_mod.shard_batch(tuple(
+            paired.draw_noise(noise_gen, b * mesh.world, h, w, cfgs, dtype)
+            for _ in range(2)), mesh)
         metrics, _ = step_fn(state, dev_batch, noise)
         steps_run += 1
 
-        if (step_i + 1) % 10 == 0 or step_i == start_step:
+        if mesh.is_main and ((step_i + 1) % 10 == 0
+                             or step_i == start_step):
             m = {k: float(v) for k, v in metrics.items()}
             m["steps_per_sec"] = 10.0 / max(time.time() - t_last, 1e-9)
             t_last = time.time()
@@ -184,30 +216,39 @@ def _train(args, dev, dtype, log):
                   " ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
 
         if (step_i + 1) % args.checkpointing_steps == 0:
-            _save(state_dir, ckpt_dir, step_i + 1, state, meta)
+            _save(state_dir, ckpt_dir, step_i + 1, state, meta, mesh)
 
+        # viz and eval on rank 0 (its rows start with the global batch's
+        # first pair) while the others wait
         if (step_i + 1) % args.viz_freq == 0:
-            _save_viz(args.output_dir, step_i + 1, dev_batch, state, eval_fn,
-                      cfgs, dtype)
+            if mesh.is_main:
+                _save_viz(args.output_dir, step_i + 1, dev_batch, state,
+                          eval_fn, cfgs, dtype)
+            mesh_mod.barrier(mesh)
 
         if val_dataset is not None and (step_i + 1) % args.eval_freq == 0:
             t0 = time.time()
-            _run_eval(eval_fn, state, val_dataset, args, log, step_i + 1,
-                      dev, cfgs, dtype, fid_ctx)
+            if mesh.is_main:
+                _run_eval(eval_fn, state, val_dataset, args, log, step_i + 1,
+                          dev, cfgs, dtype, fid_ctx)
+            mesh_mod.barrier(mesh)
             eval_s += time.time() - t0
 
-    _save(state_dir, ckpt_dir, args.max_train_steps, state, meta)
-    print("training done", flush=True)
+    _save(state_dir, ckpt_dir, args.max_train_steps, state, meta, mesh)
+    if mesh.is_main:
+        print("training done", flush=True)
     return {"start_step": start_step, "end_step": args.max_train_steps,
             "steps_run": steps_run, "eval_seconds": eval_s}
 
 
-def _save(state_dir, ckpt_dir, step, state, meta):
-    """The full state and the reference-schema pkl at `step`."""
+def _save(state_dir, ckpt_dir, step, state, meta, mesh):
+    """The reference-schema pkl and the full state at `step`, written by
+    rank 0 (`checkpoint.save_train_state` ends with a barrier)."""
     from img2img_turbo_tpu_torch.training import checkpoint as ckpt_mod
-    ckpt_mod.save_train_state(state_dir, step, state)
-    ckpt_mod.export_pix2pix_pkl(os.path.join(ckpt_dir, f"model_{step}.pkl"),
-                                state.gen, meta)
+    if mesh.is_main:
+        ckpt_mod.export_pix2pix_pkl(
+            os.path.join(ckpt_dir, f"model_{step}.pkl"), state.gen, meta)
+    ckpt_mod.save_train_state(state_dir, step, state, mesh=mesh)
 
 
 def _run_eval(eval_fn, state, val_dataset, args, log, step, dev, cfgs, dtype,

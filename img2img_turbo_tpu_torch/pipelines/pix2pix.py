@@ -256,6 +256,17 @@ class Pix2PixTurbo:
                                          cfgs, ckpt_folder, device),
                    dtype=dtype, device=device, use_kernels=use_kernels)
 
+    @classmethod
+    def from_native(cls, path: str, cfgs: Optional[GeneratorConfigs] = None,
+                    dtype=torch.bfloat16, device=None,
+                    use_kernels: bool = True) -> "Pix2PixTurbo":
+        """The pipeline of a native checkpoint written by
+        `cli/convert_weights.py` (`weights/native.py`): merged params, or
+        base + factored LoRA, the text tower and the tokenizer."""
+        from img2img_turbo_tpu_torch.weights.native import load_native
+        return cls(**load_native(path, cfgs, device), dtype=dtype,
+                   device=device, use_kernels=use_kernels)
+
     # -- prompts -----------------------------------------------------------
 
     @torch.no_grad()

@@ -17,6 +17,14 @@ the engine's dtype:
 `use_kernels=False` runs the plain PyTorch path on the same weights (the
 reference the kernel path is checked against); there is no other way to
 reach it.
+
+With `mesh` (a `parallel.mesh.DataMesh`) the engine serves one global
+batch across the ranks of a data axis (engine.py:88-106): every rank calls
+`run` with the same global batch, draws the posterior noise (and in sketch
+mode the noise map) for the global batch from the same generator, computes
+its contiguous rows through its own kernels, and `gather_batch` returns the
+global batch on every rank. Each rank's rows are then the one-process
+engine's output on those rows with that noise.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from img2img_turbo_tpu_torch import resolve_device, scheduler
 from img2img_turbo_tpu_torch.models.layers import prepare_kernels
 from img2img_turbo_tpu_torch.ops import canny as canny_mod
 from img2img_turbo_tpu_torch.ops import image as image_mod
+from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
                                                        generate_unclamped,
                                                        lora_merged_at)
@@ -99,7 +108,7 @@ class ServingEngine:
                  canny_low: float = 100.0, canny_high: float = 200.0,
                  device=None, use_kernels: bool = True,
                  base: Optional[Dict[str, torch.nn.Module]] = None,
-                 lora: Optional[Dict] = None):
+                 lora: Optional[Dict] = None, mesh=None):
         if mode not in MODES:
             raise ValueError(f"unknown serving mode {mode!r}")
         if mode == "sketch" and (base is None or lora is None):
@@ -111,7 +120,9 @@ class ServingEngine:
         self.mode, self.dtype = mode, dtype
         self.canny_low, self.canny_high = canny_low, canny_high
         self.use_kernels = use_kernels
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and
+                                     mesh is not None else device)
         if mode == "sketch":
             self.unet, self.vae = (base[k].to(device=self.device,
                                               dtype=dtype).eval()
@@ -126,6 +137,27 @@ class ServingEngine:
                 for k in ("unet", "vae"))
         self.alphas = scheduler.make_alphas_cumprod(device=self.device)
 
+    @classmethod
+    def from_native(cls, path: str, mode: Optional[str] = None,
+                    cfgs: Optional[GeneratorConfigs] = None, **kw
+                    ) -> "ServingEngine":
+        """An engine on a native checkpoint (`cli/convert_weights.py`): a
+        deterministic one serves `mode` ("edge_to_image" by default, or
+        "image"), a stochastic one "sketch". `kw` as the constructor's."""
+        from img2img_turbo_tpu_torch.weights.native import load_native
+        dev = kw.get("device")
+        if dev is None and kw.get("mesh") is not None:
+            dev = kw["mesh"].device
+        loaded = load_native(path, cfgs, dev)
+        if "params" in loaded:
+            return cls(loaded["params"], loaded["cfgs"],
+                       mode=mode or "edge_to_image", **kw)
+        if mode not in (None, "sketch"):
+            raise ValueError(f"{path} holds a stochastic model: mode "
+                             f"'sketch', not {mode!r}")
+        return cls(cfgs=loaded["cfgs"], mode="sketch", base=loaded["base"],
+                   lora=loaded["lora"], **kw)
+
     @torch.no_grad()
     def run(self, image_u8, caption_enc, generator=None, noise=None,
             r: float = 0.4, noise_map=None) -> Dict[str, torch.Tensor]:
@@ -135,7 +167,8 @@ class ServingEngine:
         torch.Generator on the engine's device; seed 0 when None). Sketch
         mode only: r (float or 0-d tensor) and the noise map
         (B, H/8, W/8, 4), drawn from `generator` before the posterior noise
-        when not given."""
+        when not given. With a mesh of W ranks, B must divide by W; the
+        returned tensors are the global batch on every rank."""
         if not isinstance(image_u8, torch.Tensor):
             image_u8 = torch.from_numpy(np.asarray(image_u8))
         image_u8 = image_u8.to(self.device)
@@ -154,6 +187,30 @@ class ServingEngine:
         caption_enc = caption_enc.contiguous()
         if noise is None and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        f = 2 ** (self.cfgs.vae.num_levels - 1)
+        lat = (b, h // f, w // f, self.cfgs.vae.latent_channels)
+        if self.mode == "sketch" and noise_map is None:
+            noise_map = torch.randn(lat, generator=generator,
+                                    device=self.device, dtype=self.dtype)
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            return self._run(image_u8, caption_enc, generator, noise, r,
+                             noise_map)
+        if b % mesh.world:
+            raise ValueError(f"batch {b} is not divisible by the "
+                             f"{mesh.world} ranks of the data axis")
+        if noise is None:   # the global batch's draw, as one process makes
+            noise = torch.randn(lat, generator=generator,
+                                device=self.device, dtype=self.dtype)
+        rows = mesh_mod.shard_batch(
+            {"image_u8": image_u8, "caption_enc": caption_enc,
+             "noise": noise, "noise_map": noise_map}, mesh)
+        res = self._run(rows["image_u8"], rows["caption_enc"].contiguous(),
+                        None, rows["noise"], r, rows["noise_map"])
+        return {k: mesh_mod.gather_batch(v.contiguous(), mesh)
+                for k, v in res.items()}
+
+    def _run(self, image_u8, caption_enc, generator, noise, r, noise_map):
         common = dict(kernels=self.use_kernels, noise=noise,
                       generator=generator)
         if self.mode == "edge_to_image":
@@ -163,11 +220,6 @@ class ServingEngine:
         if self.mode == "image":
             return _serve_image(self.unet, self.vae, self.cfgs, self.alphas,
                                 image_u8, caption_enc, **common)
-        f = 2 ** (self.cfgs.vae.num_levels - 1)
-        if noise_map is None:
-            noise_map = torch.randn(
-                b, h // f, w // f, self.cfgs.vae.latent_channels,
-                generator=generator, device=self.device, dtype=self.dtype)
         r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
         return _serve_sketch(self.unet, self.vae, self.lora, self.cfgs,
                              self.alphas, image_u8, caption_enc, r,

@@ -50,12 +50,23 @@ def _tensors(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def save_train_state(directory: str, step: int, state: TrainState,
-                     max_to_keep: int = 3) -> str:
+                     max_to_keep: int = 3, mesh=None) -> str:
     """Write `state` as checkpoint `step` of `directory` (created if
     missing) and delete all but the newest `max_to_keep`. Returns the
-    file's path."""
-    os.makedirs(directory, exist_ok=True)
+    file's path. With a data mesh (`parallel.mesh.DataMesh`), whose ranks
+    hold the same state, rank 0 alone writes and every rank then waits at
+    a barrier, so no rank reads a checkpoint before it is whole."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     path = os.path.join(directory, f"{int(step)}.pt")
+    if mesh is None or mesh.is_main:
+        _write_state(directory, path, state, max_to_keep)
+    mesh_mod.barrier(mesh)
+    return path
+
+
+def _write_state(directory: str, path: str, state: TrainState,
+                 max_to_keep: int) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp"
     torch.save({"gen": _tensors(state.gen), "disc": _tensors(state.disc),
                 "disc_sn": _tensors(state.disc_sn),
@@ -65,7 +76,6 @@ def save_train_state(directory: str, step: int, state: TrainState,
     os.replace(tmp, path)
     for old in _steps(directory)[:-max_to_keep]:
         os.remove(os.path.join(directory, f"{old}.pt"))
-    return path
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -76,11 +86,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 @torch.no_grad()
 def restore_train_state(directory: str, state: TrainState,
-                        step: Optional[int] = None) -> TrainState:
+                        step: Optional[int] = None, mesh=None) -> TrainState:
     """Load checkpoint `step` (the newest when None) of `directory` into
     `state` in place: the same keys and shapes, the values copied into its
     own tensors (which its optimizers hold), the optimizers' moments and
-    counts loaded. Returns `state`."""
+    counts loaded. Returns `state`. With a data mesh every rank reads the
+    file, then a fingerprint all-reduce checks that all ranks restored the
+    same state (`parallel.mesh.assert_replicated`)."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -100,6 +113,7 @@ def restore_train_state(directory: str, state: TrainState,
     state.gen_opt.load_state_dict(saved["gen_opt"])
     state.disc_opt.load_state_dict(saved["disc_opt"])
     state.step = saved["step"]
+    mesh_mod.assert_replicated({"restored state": state}, mesh)
     return state
 
 

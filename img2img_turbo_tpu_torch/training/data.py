@@ -192,6 +192,17 @@ def prefetch(loader: Iterator[Dict], depth: int = 2) -> Iterator[Dict]:
         yield item
 
 
+def shard(loader: Iterator[Dict], mesh) -> Iterator[Dict]:
+    """This rank's rows of each global batch of `loader`
+    (`parallel.mesh.shard_batch`): every rank iterates the same seeded
+    loader of the global batch and takes its contiguous rows, so a data-
+    parallel run sees the batches a one-process run sees (the JAX CLI
+    shards the global batch over its data axis the same way)."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    for batch in loader:
+        yield mesh_mod.shard_batch(batch, mesh)
+
+
 def accumulate_batches(loader: Iterator[Dict], k: int) -> Iterator[Dict]:
     """Concatenate k micro-batches into one logical batch (host side).
 

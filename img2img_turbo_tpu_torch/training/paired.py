@@ -34,6 +34,7 @@ import torch
 from img2img_turbo_tpu_torch import lora as lora_mod, scheduler
 from img2img_turbo_tpu_torch.models import discriminator as disc_mod
 from img2img_turbo_tpu_torch.models.layers import has_kernel_layouts
+from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
                                                        generate_deterministic)
 from img2img_turbo_tpu_torch.training import accum
@@ -164,7 +165,7 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
                            loss_cfg: losses_mod.PairedLossConfig,
                            meta: LoraMeta, *, kernels: bool = True,
                            remat: bool = True, dtype=torch.bfloat16,
-                           accum_steps: int = 1):
+                           accum_steps: int = 1, mesh=None):
     """Returns train_step(state, batch, noise, keep_grads=False) ->
     (metrics, pass-1 gradients or None); it updates `state` in place.
     batch: conditioning_pixel_values (B,H,W,3) [0,1], output_pixel_values
@@ -172,7 +173,17 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     (`draw_noise`). kernels=False runs the plain PyTorch path on the same
     weights. accum_steps > 1 runs each pass over that many micro-batches
     of the batch, one optimizer update a pass (`accum.accumulated_grads`;
-    B must be divisible by it)."""
+    B must be divisible by it).
+
+    mesh: a `parallel.mesh.DataMesh` when the step runs on every rank of a
+    data axis, each on its rows of the global batch (the counterpart of
+    JAX's `axis_name`): each pass's loss, scalar metrics and gradients are
+    averaged over the ranks after the local accumulation and before the
+    optimizer update (`mesh.pmean_pass`), so the state stays the same on
+    every rank. Pass 2's images stay on their rank for its discriminator
+    passes; the spectral-norm vectors advance on each rank from the same
+    heads and are not reduced. The returned pass-1 gradients are the
+    averaged ones."""
     for m in (models.unet, models.vae):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -194,12 +205,12 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
             return loss_fn(mb, pred)
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae, params["vae"]):
-            return accum.accumulated_grads(micro_loss, gen, data,
-                                           accum_steps)
+            out = accum.accumulated_grads(micro_loss, gen, data, accum_steps)
+        return mesh_mod.pmean_pass(*out, mesh)
 
     def disc_pass(heads, data, loss_fn):
-        return accum.accumulated_grads(lambda mb: (loss_fn(mb), None), heads,
-                                       data, accum_steps)
+        return mesh_mod.pmean_pass(*accum.accumulated_grads(
+            lambda mb: (loss_fn(mb), None), heads, data, accum_steps), mesh)
 
     def train_step(state: TrainState, batch, noise, keep_grads=False):
         c_t = batch["conditioning_pixel_values"].to(dtype)

@@ -60,7 +60,9 @@ KERNELS = (
 
 
 def _profile(fn):
-    """Run fn() once under torch.profiler and print where its time went."""
+    """Run fn() once under torch.profiler and print where its time went.
+    Returns {"wall_ms", "device_ms" (the sum of its GPU kernels),
+    "kernels" (their number), "peak_gib"}."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -97,6 +99,8 @@ def _profile(fn):
     print("  by kernel (GPU kernels launched, device ms):", flush=True)
     for label, (cnt, ms) in by.items():
         print(f"    {ms:9.3f} ms {cnt:6d}x  {label}", flush=True)
+    return {"wall_ms": wall, "device_ms": device, "kernels": n,
+            "peak_gib": peak}
 
 
 def _step(dev):

@@ -50,7 +50,12 @@ def make_tracker(report_to: str, project: str, output_dir: str,
                  config: Dict) -> Callable[[Dict, int], None]:
     """log(metrics, step): appends {metrics..., "step", "time"} as one JSON
     line to <output_dir>/metrics.jsonl, and logs to wandb too when
-    report_to == "wandb" and wandb starts (runner.py:26-49)."""
+    report_to == "wandb" and wandb starts (runner.py:26-49). On a rank
+    other than 0 of a data-parallel run it writes nothing and logs
+    nothing."""
+    from img2img_turbo_tpu_torch.parallel.mesh import is_main_process
+    if not is_main_process():
+        return lambda metrics, step: None
     os.makedirs(output_dir, exist_ok=True)
     jsonl_path = os.path.join(output_dir, "metrics.jsonl")
     wandb_run = None
@@ -92,12 +97,15 @@ def clip_config(args) -> clip_vit.CLIPViTConfig:
 
 
 def refuse_unported(args) -> None:
-    """Stop a run whose flags ask for a model axis above 1: the port trains
-    on one card (data parallelism is ROADMAP Queue 1 item 6)."""
+    """Stop a run whose flags ask for a model axis above 1: the model axis
+    (tensor parallelism) is not ported; each rank of a data-parallel run
+    holds the whole model on one card."""
     if getattr(args, "tensor_parallel", 1) > 1:
         raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: the port trains on "
-            f"one card; tensor and data parallelism are not ported")
+            f"--tensor_parallel {args.tensor_parallel}: the model axis "
+            f"(tensor parallelism) is not ported; each rank holds the whole "
+            f"model on one card (data parallelism: torchrun "
+            f"--nproc_per_node N)")
 
 
 def activation_dtype(mixed_precision: Optional[str], device) -> torch.dtype:
@@ -152,6 +160,18 @@ class SmokeTokenizer:
                for w in words][:75]
         return np.asarray([[49406 % self.vocab_size] + ids
                            + [0] * (76 - len(ids))], np.int32)
+
+
+def check_tokenizer(tok, mesh) -> None:
+    """Under data parallelism, stop unless every rank's tokenizer gives the
+    same ids: `SmokeTokenizer`'s come from hash(), which differs between
+    processes unless PYTHONHASHSEED is fixed for all of them."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    ids = torch.as_tensor(np.asarray(tok("a photo of a red bird")))
+    mesh_mod.assert_replicated(
+        {"prompt ids": ids}, mesh,
+        "the tokenizer's ids (without --sd_turbo_path the word-hash "
+        "SmokeTokenizer needs the same PYTHONHASHSEED on every rank)")
 
 
 @torch.no_grad()

@@ -40,6 +40,7 @@ import torch
 from img2img_turbo_tpu_torch import lora as lora_mod, scheduler
 from img2img_turbo_tpu_torch.models import discriminator as disc_mod
 from img2img_turbo_tpu_torch.models.layers import has_kernel_layouts
+from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
 from img2img_turbo_tpu_torch.pipelines.cyclegan import (ADAPTERS,
                                                         forward_with_params)
 from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
@@ -156,7 +157,7 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
                              loss_cfg: losses_mod.UnpairedLossConfig,
                              meta: CycleLoraMeta, *, kernels: bool = True,
                              remat: bool = True, dtype=torch.bfloat16,
-                             accum_steps: int = 1):
+                             accum_steps: int = 1, mesh=None):
     """Returns train_step(state, batch, noise, keep_grads=False) ->
     (metrics, cycle-pass gradients or None); it updates `state` (a
     `TrainState`) in place. batch: pixel_values_src / pixel_values_tgt
@@ -165,7 +166,11 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
     (`NUM_NOISE` tensors, `paired.draw_noise`, in the order above).
     kernels=False runs the plain PyTorch path on the same weights.
     accum_steps > 1 runs each pass over that many micro-batches, one
-    optimizer update a pass (B must be divisible by it)."""
+    optimizer update a pass (B must be divisible by it). mesh: as in
+    `paired.make_paired_train_step` (JAX unpaired.py:128-135): the five
+    passes' losses, scalar metrics and gradients are averaged over the
+    ranks before each optimizer update; pass 2's fakes stay on their rank
+    for the discriminator passes."""
     for m in (models.unet, models.vae_a2b, models.vae_b2a):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -192,11 +197,12 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae_a2b, params["vae_a2b"]), \
                 lora_mod.swap_params(models.vae_b2a, params["vae_b2a"]):
-            return accum.accumulated_grads(loss_fn, gen, data, accum_steps)
+            out = accum.accumulated_grads(loss_fn, gen, data, accum_steps)
+        return mesh_mod.pmean_pass(*out, mesh)
 
     def disc_pass(disc, data, loss_fn):
-        return accum.accumulated_grads(lambda mb: (loss_fn(mb), None), disc,
-                                       data, accum_steps)
+        return mesh_mod.pmean_pass(*accum.accumulated_grads(
+            lambda mb: (loss_fn(mb), None), disc, data, accum_steps), mesh)
 
     def gan(loss, disc, sn, name, images):
         """lambda_gan * `loss` (one of losses_mod's GAN losses) of

@@ -9,20 +9,20 @@
   `checkpoint.export_cyclegan_pkl`), on MICRO weights drawn by the port
   and converted by the JAX package's `torch_import`, with random LoRA B
   factors, conv_in and skip convs so that no tensor is its init;
-- each CLI at --tiny_model trained from a snapshot written in the HF
-  layout (`--sd_turbo_path`): the run's UNet and VAE are the file's, its
-  prompts go through the snapshot's BPE tokenizer;
-- each CLI end to end at --tiny_model on 64x64 `no_resize` images: one
-  step with a checkpoint, eval or validation and a viz panel, then a
-  --resume run to step 2 that starts from the restored state: the JAX
-  CLIs' files and metric keys;
+- each CLI end to end at --tiny_model on 64x64 `no_resize` images, from a
+  snapshot written in the HF layout (`--sd_turbo_path`): one step with a
+  checkpoint, eval or validation and a viz panel, then a --resume run to
+  step 2 that starts from the restored state: the JAX CLIs' files and
+  metric keys; the run's UNet and VAE are the file's, its prompts go
+  through the snapshot's BPE tokenizer. The two runs of each CLI are
+  module fixtures, shared by the tests that check them;
 - every weight flag reaches its loader (a missing file stops the run
   before any step); --tensor_parallel > 1 (not ported) and a non-bf16
   activation dtype on a CUDA device stop a run with a message, as does a
   run with no CUDA device that did not ask for the CPU; none of these
   needs a card;
 - a wandb init that fails and keeps its exception does not keep the
-  run's models alive after `main` returns;
+  run's models alive after `main` returns (the pix2pix runs' first run);
 - `unpaired.make_state` takes `max_grad_norm` (the unpaired CLI forwards
   it) and clips at the unpaired trainer's 10.0 by default.
 
@@ -287,32 +287,12 @@ def datasets(tmp_path_factory):
     return str(paired), str(unpaired)
 
 
-@pytest.fixture
-def fid_calls(monkeypatch):
+def _fid_stub(calls):
     """The Fréchet distance as a recording stand-in (module docstring)."""
-    calls = []
-
     def distance(mu1, s1, mu2, s2):
         calls.append((mu1.shape, s1.shape, mu2.shape, s2.shape))
         return float(np.sum((mu1 - mu2) ** 2))
-
-    monkeypatch.setattr(tfid, "frechet_distance", distance)
-    return calls
-
-
-@pytest.fixture
-def restored(monkeypatch):
-    """The state each restore_train_state call left, copied."""
-    out = []
-    real = tckpt.restore_train_state
-
-    def restore(directory, state, step=None):
-        state = real(directory, state, step)
-        out.append({k: v.detach().clone() for k, v in state.gen.items()})
-        return state
-
-    monkeypatch.setattr(tckpt, "restore_train_state", restore)
-    return out
+    return distance
 
 
 def _rows(out_dir):
@@ -336,88 +316,6 @@ def _resumed_from(out_dir, restored, first, last):
     assert final["step"] == last
     assert any(not torch.equal(final["gen"][k], v)
                for k, v in saved["gen"].items())
-
-
-def test_pix2pix_cli_trains_evaluates_and_resumes(datasets, tmp_path,
-                                                  fid_calls, restored):
-    out = str(tmp_path / "out")
-    common = ["--dataset_folder", datasets[0], "--output_dir", out,
-              "--tiny_model", "--train_image_prep", "no_resize",
-              "--test_image_prep", "no_resize", "--train_batch_size", "1",
-              "--checkpointing_steps", "1", "--report_to", "none"]
-    res = train_pix2pix_turbo.main(targs.parse_args_paired_training(
-        common + ["--max_train_steps", "1", "--eval_freq", "1", "--viz_freq",
-                  "1", "--num_samples_eval", "2", "--track_val_fid"]),
-        device="cpu")
-    assert res == {"start_step": 0, "end_step": 1, "steps_run": 1,
-                   "eval_seconds": res["eval_seconds"]}
-    assert fid_calls == [((2048,), (2048, 2048), (2048,), (2048, 2048))]
-    rows = _rows(out)
-    assert [r["step"] for r in rows] == [1, 1]
-    assert set(rows[0]) == {"loss_l2", "loss_lpips", "loss_clipsim",
-                            "loss_gan_g", "loss_d_real", "loss_d_fake",
-                            "steps_per_sec", "step", "time"}
-    assert set(rows[1]) == {"val_l2", "val_lpips", "val_clipsim", "val_fid",
-                            "step", "time"}
-    assert os.listdir(os.path.join(out, "state")) == ["1.pt"]
-    pkl = torch.load(os.path.join(out, "checkpoints", "model_1.pkl"),
-                     weights_only=True)
-    assert set(pkl) == {"unet_lora_target_modules", "vae_lora_target_modules",
-                        "rank_unet", "rank_vae", "state_dict_unet",
-                        "state_dict_vae"}
-    assert (pkl["rank_unet"], pkl["rank_vae"]) == (8, 4)
-    assert Image.open(os.path.join(out, "viz", "step_1.png")).size == \
-        (3 * 64, 64)
-
-    res = train_pix2pix_turbo.main(targs.parse_args_paired_training(
-        common + ["--max_train_steps", "2", "--eval_freq", "100",
-                  "--viz_freq", "100", "--resume"]), device="cpu")
-    assert (res["start_step"], res["end_step"], res["steps_run"]) == (1, 2, 1)
-    _resumed_from(out, restored, 1, 2)
-    assert [r["step"] for r in _rows(out)] == [1, 1, 2]
-    assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == [
-        "model_1.pkl", "model_2.pkl"]
-
-
-def test_cyclegan_cli_trains_validates_and_resumes(datasets, tmp_path,
-                                                   fid_calls, restored):
-    out = str(tmp_path / "out")
-    common = ["--dataset_folder", datasets[1], "--output_dir", out,
-              "--tiny_model", "--train_img_prep", "no_resize",
-              "--val_img_prep", "no_resize", "--tracker_project_name", "t",
-              "--train_batch_size", "1", "--checkpointing_steps", "1",
-              "--report_to", "none", "--lora_rank_unet", "8"]
-    res = train_cyclegan_turbo.main(targs.parse_args_unpaired_training(
-        common + ["--max_train_steps", "1", "--validation_steps", "1",
-                  "--viz_freq", "1"]), device="cpu")
-    assert (res["start_step"], res["end_step"], res["steps_run"]) == (0, 1, 1)
-    assert len(fid_calls) == 2
-    rows = _rows(out)
-    assert [r["step"] for r in rows] == [1, 1]
-    assert set(rows[0]) == {"cycle_a", "cycle_b", "gan_a", "gan_b", "idt_a",
-                            "idt_b", "disc_fake", "disc_real",
-                            "steps_per_sec", "step", "time"}
-    assert set(rows[1]) == {"fid_a2b", "dino_struct_a2b", "fid_b2a",
-                            "dino_struct_b2a", "step", "time"}
-    for tag in ("a2b", "b2a"):
-        assert sorted(os.listdir(os.path.join(out, f"fid_reference_{tag}"))) \
-            == ["0.png", "1.png"]
-        assert sorted(os.listdir(os.path.join(out, "fid-1",
-                                              f"samples_{tag}"))) == \
-            ["0.png", "1.png"]
-    pkl = torch.load(os.path.join(out, "checkpoints", "model_1.pkl"),
-                     weights_only=True)
-    assert pkl["rank_unet"] == 8 and pkl["sd_vae_enc"] is not None
-    assert any(k.startswith("vae_b2a.") for k in pkl["sd_vae_dec"])
-    assert Image.open(os.path.join(out, "viz", "step_1.png")).size == \
-        (3 * 64, 2 * 64)
-
-    res = train_cyclegan_turbo.main(targs.parse_args_unpaired_training(
-        common + ["--max_train_steps", "2", "--validation_steps", "100",
-                  "--viz_freq", "100", "--resume"]), device="cpu")
-    assert (res["start_step"], res["end_step"], res["steps_run"]) == (1, 2, 1)
-    _resumed_from(out, restored, 1, 2)
-    assert [r["step"] for r in _rows(out)] == [1, 1, 2]
 
 
 @pytest.fixture(scope="module")
@@ -455,94 +353,208 @@ def tiny_snapshot(tmp_path_factory):
     return root, sds
 
 
-@pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])
-def test_cli_trains_from_a_snapshot(cli, datasets, tiny_snapshot, tmp_path,
-                                    monkeypatch):
-    """--sd_turbo_path: the run's UNet and VAE are the snapshot's (skip
-    convs at 1e-5), its prompts go through the snapshot's BPE tokenizer."""
-    from img2img_turbo_tpu_torch.models.tokenizer import CLIPTokenizer
-    from img2img_turbo_tpu_torch.training import data as tdata
-    root, sds = tiny_snapshot
-    seen = {}
-    real_build = getattr(trunner, f"build_{'' if cli == 'pix2pix' else 'un'}"
-                         f"paired_run")
-
-    def build(*args, **kw):
-        out = real_build(*args, **kw)
-        seen["models"] = out[0]
-        return out
-    monkeypatch.setattr(trunner, real_build.__name__, build)
-    dataset_cls = "PairedDataset" if cli == "pix2pix" else "UnpairedDataset"
-    real_ds = getattr(tdata, dataset_cls)
-
-    def dataset(*args, **kw):
-        seen.setdefault("tokenizers", []).append(args[3])
-        return real_ds(*args, **kw)
-    monkeypatch.setattr(tdata, dataset_cls, dataset)
-    main, args = _args(cli, [
-        "--dataset_folder", datasets[0 if cli == "pix2pix" else 1],
-        "--output_dir", str(tmp_path / "out"), "--tiny_model",
-        "--report_to", "none", "--sd_turbo_path", root,
-        "--max_train_steps", "1", "--train_batch_size", "1"]
-        + (["--train_image_prep", "no_resize", "--test_image_prep",
-            "no_resize", "--eval_freq", "100", "--viz_freq", "100"]
-           if cli == "pix2pix" else
-           ["--validation_steps", "100", "--viz_freq", "100",
-            "--lora_rank_unet", "8"]))
-    assert main(args, device="cpu")["steps_run"] == 1
-    assert all(isinstance(t, CLIPTokenizer) for t in seen["tokenizers"])
-    models = seen["models"]
-    vaes = ([models.vae] if cli == "pix2pix"
-            else [models.vae_a2b, models.vae_b2a])
-    for module, want in [(models.unet, sds["unet"])] + [
-            (v, sds["vae"]) for v in vaes]:
-        got = module.state_dict()
-        for k, v in want.items():
-            assert torch.equal(got[k], v), k
-    for v in vaes:
-        for i in range(1, 5):
-            assert (v.state_dict()[f"decoder.skip_conv_{i}.weight"]
-                    == 1e-5).all()
-
-
-def test_failed_wandb_init_does_not_hold_the_run(datasets, tmp_path,
-                                                  monkeypatch):
-    """wandb keeps the exception of an init that fails (no API key) with
-    its traceback; the run's models must still be freed when `main`
-    returns (a stand-in wandb keeps the exception as wandb's early logger
-    does)."""
-    import gc
+def _cli_runs(cli, datasets, tiny_snapshot, out, first, second,
+              report_to="none"):
+    """Each CLI's two runs, shared by the tests of this module that check
+    them: from the tiny snapshot (--sd_turbo_path), a first run with
+    `first`'s flags, then a --resume run with `second`'s. Recorded on the
+    way: the Fréchet distance's calls (a stand-in), the state each restore
+    left, the tokenizers the datasets were given, the frozen weights the
+    run built (copies) and a weak reference to its UNet, a wandb stand-in
+    whose init fails and keeps its exception."""
     import sys
     import types
     import weakref
+    from img2img_turbo_tpu_torch.training import data as tdata
+    rec = {"fid_calls": [], "restored": [], "tokenizers": [], "built": [],
+           "weights": [], "wandb_kept": []}
+    main, parse = _mains(cli)
+    build_name = f"build_{'' if cli == 'pix2pix' else 'un'}paired_run"
+    real_build = getattr(trunner, build_name)
+    dataset_cls = "PairedDataset" if cli == "pix2pix" else "UnpairedDataset"
+    real_ds = getattr(tdata, dataset_cls)
+    real_restore = tckpt.restore_train_state
 
-    kept = []
+    def build(*args, **kw):
+        models, *rest = real_build(*args, **kw)
+        vaes = ([models.vae] if cli == "pix2pix"
+                else [models.vae_a2b, models.vae_b2a])
+        rec["weights"].append([{k: v.detach().clone() for k, v in
+                                m.state_dict().items()}
+                               for m in [models.unet] + vaes])
+        rec["built"].append(weakref.ref(models.unet))
+        return (models, *rest)
+
+    def dataset(*args, **kw):
+        rec["tokenizers"].append(type(args[3]).__name__)
+        return real_ds(*args, **kw)
+
+    def restore(directory, state, step=None, mesh=None):
+        state = real_restore(directory, state, step, mesh)
+        rec["restored"].append({k: v.detach().clone()
+                                for k, v in state.gen.items()})
+        return state
 
     def init(**kwargs):
         try:
             raise RuntimeError("No API key configured")
         except RuntimeError:
-            kept.append(sys.exc_info())
+            rec["wandb_kept"].append(sys.exc_info())
             raise
 
-    monkeypatch.setitem(sys.modules, "wandb", types.SimpleNamespace(init=init))
-    built = []
-    real = trunner.build_paired_run
+    common = ["--dataset_folder", datasets[0 if cli == "pix2pix" else 1],
+              "--output_dir", out, "--tiny_model", "--sd_turbo_path",
+              tiny_snapshot[0], "--train_batch_size", "1",
+              "--checkpointing_steps", "1"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfid, "frechet_distance", _fid_stub(rec["fid_calls"]))
+        mp.setattr(trunner, build_name, build)
+        mp.setattr(tdata, dataset_cls, dataset)
+        mp.setattr(tckpt, "restore_train_state", restore)
+        mp.setitem(sys.modules, "wandb", types.SimpleNamespace(init=init))
+        rec["results"] = [main(parse(common + ["--report_to", report_to]
+                                     + first), device="cpu")]
+        rec["first_rows"] = _rows(out)
+        rec["first_state"] = sorted(os.listdir(os.path.join(out, "state")))
+        rec["results"].append(main(parse(common + ["--report_to", "none"]
+                                         + second), device="cpu"))
+    return rec
 
-    def build(*args, **kwargs):
-        out = real(*args, **kwargs)
-        built.append(weakref.ref(out[0].unet))
-        return out
 
-    monkeypatch.setattr(trunner, "build_paired_run", build)
-    train_pix2pix_turbo.main(targs.parse_args_paired_training(
-        ["--dataset_folder", datasets[0], "--output_dir", str(tmp_path),
-         "--tiny_model", "--train_image_prep", "no_resize",
-         "--test_image_prep", "no_resize", "--train_batch_size", "1",
-         "--max_train_steps", "1", "--report_to", "wandb"]), device="cpu")
+def _mains(cli):
+    if cli == "pix2pix":
+        return (train_pix2pix_turbo.main,
+                targs.parse_args_paired_training)
+    return (train_cyclegan_turbo.main, targs.parse_args_unpaired_training)
+
+
+@pytest.fixture(scope="module")
+def pix2pix_runs(datasets, tiny_snapshot, tmp_path_factory):
+    """One step with a checkpoint, eval (FID), a viz panel and a wandb
+    tracker whose init fails, then a --resume run to step 2."""
+    out = str(tmp_path_factory.mktemp("pix2pix") / "out")
+    prep = ["--train_image_prep", "no_resize", "--test_image_prep",
+            "no_resize"]
+    rec = _cli_runs("pix2pix", datasets, tiny_snapshot, out,
+                    prep + ["--max_train_steps", "1", "--eval_freq", "1",
+                            "--viz_freq", "1", "--num_samples_eval", "2",
+                            "--track_val_fid"],
+                    prep + ["--max_train_steps", "2", "--eval_freq", "100",
+                            "--viz_freq", "100", "--resume"],
+                    report_to="wandb")
+    return dict(rec, out=out)
+
+
+@pytest.fixture(scope="module")
+def cyclegan_runs(datasets, tiny_snapshot, tmp_path_factory):
+    """One step with a checkpoint, validation and a viz panel, then a
+    --resume run to step 2."""
+    out = str(tmp_path_factory.mktemp("cyclegan") / "out")
+    prep = ["--train_img_prep", "no_resize", "--val_img_prep", "no_resize",
+            "--tracker_project_name", "t", "--lora_rank_unet", "8"]
+    rec = _cli_runs("cyclegan", datasets, tiny_snapshot, out,
+                    prep + ["--max_train_steps", "1", "--validation_steps",
+                            "1", "--viz_freq", "1"],
+                    prep + ["--max_train_steps", "2", "--validation_steps",
+                            "100", "--viz_freq", "100", "--resume"])
+    return dict(rec, out=out)
+
+
+def test_pix2pix_cli_trains_evaluates_and_resumes(pix2pix_runs):
+    run = pix2pix_runs
+    out, res = run["out"], run["results"]
+    assert res[0] == {"start_step": 0, "end_step": 1, "steps_run": 1,
+                      "eval_seconds": res[0]["eval_seconds"]}
+    assert run["fid_calls"] == [((2048,), (2048, 2048), (2048,),
+                                 (2048, 2048))]
+    rows = run["first_rows"]
+    assert [r["step"] for r in rows] == [1, 1]
+    assert set(rows[0]) == {"loss_l2", "loss_lpips", "loss_clipsim",
+                            "loss_gan_g", "loss_d_real", "loss_d_fake",
+                            "steps_per_sec", "step", "time"}
+    assert set(rows[1]) == {"val_l2", "val_lpips", "val_clipsim", "val_fid",
+                            "step", "time"}
+    assert run["first_state"] == ["1.pt"]
+    for step in (1, 2):
+        pkl = torch.load(os.path.join(out, "checkpoints",
+                                      f"model_{step}.pkl"), weights_only=True)
+        assert set(pkl) == {"unet_lora_target_modules",
+                            "vae_lora_target_modules", "rank_unet",
+                            "rank_vae", "state_dict_unet", "state_dict_vae"}
+        assert (pkl["rank_unet"], pkl["rank_vae"]) == (8, 4)
+    assert Image.open(os.path.join(out, "viz", "step_1.png")).size == \
+        (3 * 64, 64)
+
+    assert (res[1]["start_step"], res[1]["end_step"],
+            res[1]["steps_run"]) == (1, 2, 1)
+    _resumed_from(out, run["restored"], 1, 2)
+    assert [r["step"] for r in _rows(out)] == [1, 1, 2]
+    assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == [
+        "model_1.pkl", "model_2.pkl"]
+
+
+def test_cyclegan_cli_trains_validates_and_resumes(cyclegan_runs):
+    run = cyclegan_runs
+    out, res = run["out"], run["results"]
+    assert (res[0]["start_step"], res[0]["end_step"],
+            res[0]["steps_run"]) == (0, 1, 1)
+    assert len(run["fid_calls"]) == 2
+    rows = run["first_rows"]
+    assert [r["step"] for r in rows] == [1, 1]
+    assert set(rows[0]) == {"cycle_a", "cycle_b", "gan_a", "gan_b", "idt_a",
+                            "idt_b", "disc_fake", "disc_real",
+                            "steps_per_sec", "step", "time"}
+    assert set(rows[1]) == {"fid_a2b", "dino_struct_a2b", "fid_b2a",
+                            "dino_struct_b2a", "step", "time"}
+    for tag in ("a2b", "b2a"):
+        assert sorted(os.listdir(os.path.join(out, f"fid_reference_{tag}"))) \
+            == ["0.png", "1.png"]
+        assert sorted(os.listdir(os.path.join(out, "fid-1",
+                                              f"samples_{tag}"))) == \
+            ["0.png", "1.png"]
+    pkl = torch.load(os.path.join(out, "checkpoints", "model_1.pkl"),
+                     weights_only=True)
+    assert pkl["rank_unet"] == 8 and pkl["sd_vae_enc"] is not None
+    assert any(k.startswith("vae_b2a.") for k in pkl["sd_vae_dec"])
+    assert Image.open(os.path.join(out, "viz", "step_1.png")).size == \
+        (3 * 64, 2 * 64)
+
+    assert (res[1]["start_step"], res[1]["end_step"],
+            res[1]["steps_run"]) == (1, 2, 1)
+    _resumed_from(out, run["restored"], 1, 2)
+    assert [r["step"] for r in _rows(out)] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])
+def test_cli_trains_from_a_snapshot(cli, request, tiny_snapshot):
+    """--sd_turbo_path: the run's UNet and VAE are the snapshot's (skip
+    convs at 1e-5), its prompts go through the snapshot's BPE tokenizer
+    (the first run of each CLI's shared runs)."""
+    run = request.getfixturevalue(f"{cli}_runs")
+    _, sds = tiny_snapshot
+    assert run["results"][0]["steps_run"] == 1
+    assert run["tokenizers"] and \
+        set(run["tokenizers"]) == {"CLIPTokenizer"}
+    unet, *vaes = run["weights"][0]
+    assert len(vaes) == (1 if cli == "pix2pix" else 2)
+    for got, want in [(unet, sds["unet"])] + [(v, sds["vae"]) for v in vaes]:
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+    for v in vaes:
+        for i in range(1, 5):
+            assert (v[f"decoder.skip_conv_{i}.weight"] == 1e-5).all()
+
+
+def test_failed_wandb_init_does_not_hold_the_run(pix2pix_runs):
+    """wandb keeps the exception of an init that fails (no API key) with
+    its traceback; the run's models must still be freed when `main`
+    returns (the shared pix2pix runs' first run tracks to a stand-in wandb
+    that keeps the exception as wandb's early logger does)."""
+    import gc
     gc.collect()
-    assert len(kept) == 1 and len(built) == 1
-    assert built[0]() is None
+    assert len(pix2pix_runs["wandb_kept"]) == 1
+    assert len(pix2pix_runs["built"]) == 2
+    assert all(ref() is None for ref in pix2pix_runs["built"])
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,12 @@ drawn from its key, handed to the port), the loaded weights within 1e-6
 relative. The CLIs: the same flags, defaults and SystemExit messages as
 JAX's, and a TINY `main(..., device="cpu", cfgs=...)` PNG that equals the
 JAX CLI's (run on the same loaded JAX pipeline, so that each JAX program
-compiles once) within 1 uint8 level on at most 0.1% of the values.
+compiles once) within 1 uint8 level on at most 0.1% of the values. On the
+same JAX pipelines: the demos' `CannyDemo.process` and `SketchDemo.run`
+(`serving/demo.py`) within that bar, and `cli/convert_weights.py`'s
+payload against JAX's `from_pretrained` (`text`, `base` and `lora` bit for
+bit, merged `params` within 1e-6 relative), read back by
+`Pix2PixTurbo.from_native` and `ServingEngine.from_native`.
 """
 
 import importlib.util
@@ -41,6 +46,8 @@ from img2img_turbo_tpu.training import checkpoint as jckpt
 from img2img_turbo_tpu.training import unpaired as junpaired
 from img2img_turbo_tpu.weights import torch_import as jti
 from img2img_turbo_tpu_torch import configs as tcfg
+from img2img_turbo_tpu.serving import demo as jdemo
+from img2img_turbo_tpu_torch.cli import convert_weights
 from img2img_turbo_tpu_torch.cli import inference_paired as tip
 from img2img_turbo_tpu_torch.cli import inference_unpaired as tiu
 from img2img_turbo_tpu_torch.models.clip_text import CLIPTextModel
@@ -48,8 +55,11 @@ from img2img_turbo_tpu_torch.models.tokenizer import bytes_to_unicode
 from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
 from img2img_turbo_tpu_torch.pipelines import cyclegan as tcg
 from img2img_turbo_tpu_torch.pipelines import pix2pix as tp2p
+from img2img_turbo_tpu_torch.serving import demo as tdemo
+from img2img_turbo_tpu_torch.serving.engine import ServingEngine
 from img2img_turbo_tpu_torch.training import runner as trunner
 from img2img_turbo_tpu_torch.weights import from_jax
+from img2img_turbo_tpu_torch.weights import native
 from img2img_turbo_tpu_torch.weights import torch_import as ti
 
 torch.set_num_threads(2)
@@ -574,3 +584,124 @@ def test_inference_cli_own_noise_is_seeded(files, tmp_path):
     assert outs[0].shape == (H, W, 3)
     assert np.array_equal(outs[0], outs[1])
     assert not np.array_equal(outs[0], outs[2])
+
+
+# ---------------------------------------------------------------------------
+# the demos and convert_weights, on the JAX pipelines above (compiled once)
+# ---------------------------------------------------------------------------
+
+
+def _agree(got, want):
+    """1 uint8 level on at most 0.1% of the values, as `_png_agrees`."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= MAX_LEVELS, diff.max()
+    assert (diff > 0).mean() <= MAX_FRACTION, (diff > 0).mean()
+    assert want.std() > 0
+
+
+def _image(seed=60):
+    return Image.fromarray(_synth(H, W, seed))
+
+
+def test_canny_demo_matches_jax(pipes, monkeypatch):
+    jpipe, tpipe = pipes["edge"]
+    img = _image()
+    want_edges, want = jdemo.CannyDemo(jpipe).process(img, PROMPT, 100, 200)
+    _with_noise(monkeypatch, tp2p.Pix2PixTurbo,
+                _noise(jax.random.PRNGKey(0)))
+    edges, got = tdemo.CannyDemo(tpipe).process(img, PROMPT, 100, 200)
+    np.testing.assert_array_equal(np.asarray(edges), np.asarray(want_edges))
+    _agree(got, want)
+
+
+def test_sketch_demo_matches_jax(pipes, monkeypatch):
+    """The JAX demo draws its noise map and posterior noise from one key."""
+    jpipe, tpipe = pipes["sketch"]
+    img = _image(61)
+    want = jdemo.SketchDemo(jpipe).run(img, PROMPT, "Anime", 7, 0.4)
+    nz = _noise(jax.random.PRNGKey(7))
+    _with_noise(monkeypatch, tp2p.Pix2PixTurbo, nz, nz)
+    got = tdemo.SketchDemo(tpipe).run(img, PROMPT, "Anime", 7, 0.4)
+    _agree(got, want)
+
+
+def _payload(out):
+    return ti.load_safetensors(os.path.join(out, native.FILE))
+
+
+def _part(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+@pytest.mark.parametrize("model", ["edge", "sketch"])
+def test_convert_weights_payload_equals_jax(pipes, files, tmp_path, model):
+    """The payload against JAX's `from_pretrained` on the same files
+    (through from_jax's inverse converters): `text`, and `base` + `lora`
+    bit for bit; the merged `params` within relative L2 1e-6. Read back
+    by `Pix2PixTurbo.from_native` and `ServingEngine.from_native`, the
+    weights and an image equal the pipeline `from_pretrained` builds."""
+    jpipe, tpipe = pipes[model]
+    out = str(tmp_path / "native")
+    snap = files["legacy" if model == "edge" else "modern"]
+    argv = ["--sd_turbo_path", snap, "--ckpt_path", files[model], "--out",
+            out] + (["--stochastic"] if model == "sketch" else [])
+    res = convert_weights.main(argv, device="cpu", cfgs=CFGS)
+    assert res["path"] == os.path.join(out, native.FILE)
+    assert os.path.isfile(os.path.join(out, "tokenizer", "vocab.json"))
+    sd = _payload(out)
+    want = from_jax.clip_text_state_dict(jpipe.text_params)
+    got = _part(sd, "text.")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), k)
+    if model == "edge":
+        assert not any(k.startswith(("base.", "lora.")) for k in sd)
+        for m, conv in (("unet", from_jax.unet_state_dict),
+                        ("vae", from_jax.vae_state_dict)):
+            want, got = conv(jpipe.params[m]), _part(sd, f"params.{m}.")
+            assert set(got) == set(want)
+            for k, v in want.items():
+                assert rel_l2(got[k], v) <= W_REL, (m, k)
+    else:
+        assert not any(k.startswith("params.") for k in sd)
+        for m, conv in (("unet", from_jax.unet_state_dict),
+                        ("vae", from_jax.vae_state_dict)):
+            want, got = conv(jpipe.base[m]), _part(sd, f"base.{m}.")
+            assert set(got) == set(want)
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(v),
+                                              f"{m}.{k}")
+            lora = _part(sd, f"lora.{m}.")
+            for n, e in jpipe.lora[m]["modules"].items():
+                for ab in ("a", "b"):
+                    np.testing.assert_array_equal(
+                        lora[f"{n}.{ab}"].numpy(), np.asarray(e[ab]))
+
+    back = tp2p.Pix2PixTurbo.from_native(out, cfgs=CFGS, dtype=torch.float32,
+                                         device="cpu")
+    group = "params" if model == "edge" else "base"
+    for m in ("unet", "vae"):
+        a = getattr(back, group)[m].state_dict()
+        for k, v in getattr(tpipe, group)[m].state_dict().items():
+            assert torch.equal(a[k], v), (m, k)
+    assert back.tokenizer(PROMPT).tolist() == tpipe.tokenizer(PROMPT).tolist()
+    x = torch.from_numpy(_synth(H, W, 63))[None]
+    caption = tpipe.encode_prompt(PROMPT)
+    if model == "edge":
+        engines = [ServingEngine.from_native(out, cfgs=CFGS,
+                                             dtype=torch.float32,
+                                             device="cpu"),
+                   ServingEngine(tpipe.params, CFGS, dtype=torch.float32,
+                                 device="cpu")]
+    else:
+        assert back.lora["unet"]["rank"] == tpipe.lora["unet"]["rank"]
+        engines = [ServingEngine.from_native(out, cfgs=CFGS,
+                                             dtype=torch.float32,
+                                             device="cpu"),
+                   ServingEngine(cfgs=CFGS, mode="sketch", base=tpipe.base,
+                                 lora=tpipe.lora, dtype=torch.float32,
+                                 device="cpu")]
+    a, b = (e(x, caption, torch.Generator().manual_seed(1)) for e in engines)
+    assert torch.equal(a, b)

@@ -633,9 +633,23 @@ class TestWrapperRules:
             assert (_build.CSRC / f"{name}.cu").exists()
 
 
+# the modules of the port's data parallelism, tools, demos and parity and
+# conversion CLIs, which both import tests must see imported
+PORT_MODULES = [
+    "img2img_turbo_tpu_torch.parallel.mesh",
+    "img2img_turbo_tpu_torch.utils.profiling",
+    "img2img_turbo_tpu_torch.serving.demo",
+    "img2img_turbo_tpu_torch.serving.web_demo",
+    "img2img_turbo_tpu_torch.cli.accept_parity",
+    "img2img_turbo_tpu_torch.cli.convert_weights",
+    "img2img_turbo_tpu_torch.weights.native",
+]
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys, importlib, pkgutil\n"
+        f"NEW = {PORT_MODULES}\n"
         "import img2img_turbo_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -643,6 +657,8 @@ def test_port_never_imports_jax():
         "k.startswith('jax.') or k.startswith('jaxlib') or "
         "k == 'img2img_turbo_tpu' or k.startswith('img2img_turbo_tpu.'))\n"
         "assert not bad, bad\n"
+        "missing = [m for m in NEW if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

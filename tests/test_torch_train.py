@@ -534,9 +534,11 @@ def paired_setup():
     sched_t = toptim.make_lr_schedule("constant", 5e-4, 0, 100)
     gen_t, meta_t = tpaired.split_trainable(unet, vae, unet_lora, vae_lora)
     text.requires_grad_(False)
+    init = ({k: v.detach().clone() for k, v in gen_t.items()}, heads,
+            dict(sn))
     port_state = tpaired.make_state(gen_t, heads, sn, sched_t, sched_t)
     models = tpaired.PairedModels(unet, vae, text, lpips, backbone, clip)
-    return dict(gen0=from_jax.gen_trainables(_np_tree(gen)),
+    return dict(init=init,gen0=from_jax.gen_trainables(_np_tree(gen)),
                 gen1=from_jax.gen_trainables(_np_tree(new_state["gen"])),
                 grads1=from_jax.gen_trainables(_np_tree(grads1)),
                 disc1=from_jax.disc_heads(_np_tree(new_state["disc"]),
@@ -561,26 +563,52 @@ def port_step(paired_setup):
     return dict(state=state, metrics=metrics, grads1=grads1, gen0=gen0)
 
 
-def test_paired_step_losses_match_jax(paired_setup, port_step):
-    """All four passes' losses within 1e-4 relative (fp32, same weights,
-    same posterior noise)."""
+def _assert_losses(paired_setup, metrics):
     want = paired_setup["metrics"]
-    got = {k: float(v) for k, v in port_step["metrics"].items()}
+    got = {k: float(v) for k, v in metrics.items()}
     assert set(got) == set(want)
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-3), \
             (k, got[k], want[k])
 
 
+def _assert_grads(paired_setup, got):
+    want = paired_setup["grads1"]
+    assert set(got) == set(want)
+    errs = {k: _rel_l2(_np(got[k]), want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= MODEL_TOL, (worst, errs[worst])
+
+
+def _assert_trainables(paired_setup, gen0, gen, disc, disc_sn):
+    want0, want1 = paired_setup["gen0"], paired_setup["gen1"]
+    g1 = paired_setup["grads1"]
+    for k in want1:
+        np.testing.assert_array_equal(_np(gen0[k]), want0[k])
+        d_want = want1[k] - want0[k]
+        d_got = _np(gen[k]) - _np(gen0[k])
+        diff = np.abs(d_got - d_want)
+        assert diff.max() <= 5e-4, (k, diff.max())
+        strong = np.abs(g1[k]) >= 1e-2 * np.abs(g1[k]).max()
+        err = _rel_l2(d_got[strong], d_want[strong])
+        assert err <= 1e-4, (k, err, strong.mean())
+    heads, sn = paired_setup["disc1"]
+    for k, v in heads.items():
+        _close(disc[k], v, tol=1e-5)
+    for k, v in sn.items():
+        _close(disc_sn[k], v, tol=1e-5)
+
+
+def test_paired_step_losses_match_jax(paired_setup, port_step):
+    """All four passes' losses within 1e-4 relative (fp32, same weights,
+    same posterior noise)."""
+    _assert_losses(paired_setup, port_step["metrics"])
+
+
 def test_paired_step_pass1_gradients_match_jax(paired_setup, port_step):
     """Every trainable's pass-1 gradient within relative L2 2e-4 of
     jax.grad of the step's recon loss."""
-    want = paired_setup["grads1"]
-    got = port_step["grads1"]
-    assert set(got) == set(want)
-    errs = {k: _rel_l2(got[k].numpy(), want[k]) for k in want}
-    worst = max(errs, key=errs.get)
-    assert errs[worst] <= MODEL_TOL, (worst, errs[worst])
+    _assert_grads(paired_setup, port_step["grads1"])
 
 
 def test_paired_step_trainables_match_jax(paired_setup, port_step):
@@ -592,25 +620,50 @@ def test_paired_step_trainables_match_jax(paired_setup, port_step):
     as the CPU thread count changes the sums' order, with 1e-2 at most
     4.4e-5); every element within one update, 5e-4, of the JAX value. The
     discriminator heads and spectral-norm vectors within 1e-5."""
-    want0, want1 = paired_setup["gen0"], paired_setup["gen1"]
-    g1 = paired_setup["grads1"]
-    got0, state = port_step["gen0"], port_step["state"]
-    worst = 0.0
-    for k in want1:
-        np.testing.assert_array_equal(got0[k].numpy(), want0[k])
-        d_want = want1[k] - want0[k]
-        d_got = state.gen[k].detach().numpy() - got0[k].numpy()
-        diff = np.abs(d_got - d_want)
-        assert diff.max() <= 5e-4, (k, diff.max())
-        strong = np.abs(g1[k]) >= 1e-2 * np.abs(g1[k]).max()
-        err = _rel_l2(d_got[strong], d_want[strong])
-        worst = max(worst, err)
-        assert err <= 1e-4, (k, err, strong.mean())
-    heads, sn = paired_setup["disc1"]
-    for k, v in heads.items():
-        _close(state.disc[k], v, tol=1e-5)
-    for k, v in sn.items():
-        _close(state.disc_sn[k], v, tol=1e-5)
+    state = port_step["state"]
+    _assert_trainables(paired_setup, port_step["gen0"], state.gen,
+                       state.disc, state.disc_sn)
+
+
+# ---------------------------------------------------------------------------
+# the step data-parallel over two gloo ranks, against the JAX step
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dp_port_step(paired_setup, tmp_path_factory):
+    """The port's paired step under two gloo ranks (`torch_dp.Ranks`, one
+    intra-op thread each), tiled: both ranks take paired_setup's row and
+    noise. JAX's TestShardMapDP::test_exact_vs_single_device pins its own
+    tiled DP step to the single step these tests hold the port to."""
+    import torch_dp
+    s = paired_setup
+    batch = {k: torch.from_numpy(v) for k, v in s["batch"].items()}
+    batch["input_ids"] = batch["input_ids"].long()
+    noise = tuple(torch.from_numpy(n) for n in s["noise"])
+    gen0 = s["init"][0]
+    ranks = torch_dp.Ranks(2, tmp_path_factory.mktemp("rendezvous"))
+    try:
+        out = ranks.run(torch_dp.given_step, s["models"], s["cfgs"],
+                        s["meta"], s["init"], batch, noise)
+    finally:
+        ranks.close()
+    return dict(out=out, gen0=gen0)
+
+
+@pytest.mark.parametrize("check", ["losses", "pass1_gradients",
+                                   "trainables"])
+def test_paired_dp_step_tiled_matches_jax(paired_setup, dp_port_step,
+                                          check):
+    """On both ranks, at the tolerances of test_paired_step_*_match_jax."""
+    for res in dp_port_step["out"]:
+        if check == "losses":
+            _assert_losses(paired_setup, res["metrics"])
+        elif check == "pass1_gradients":
+            _assert_grads(paired_setup, res["grads"])
+        else:
+            _assert_trainables(paired_setup, dp_port_step["gen0"],
+                               res["gen"], res["disc"], res["disc_sn"])
 
 
 # ---------------------------------------------------------------------------

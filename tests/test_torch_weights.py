@@ -53,6 +53,7 @@ from img2img_turbo_tpu.models.tokenizer import \
     vocab_from_merges as jvocab_from_merges
 from img2img_turbo_tpu.weights import torch_import as jti
 from img2img_turbo_tpu_torch import configs as tcfg
+from test_torch_ops import PORT_MODULES
 from img2img_turbo_tpu_torch import lora as tlora
 from img2img_turbo_tpu_torch.metrics import inception as tinc
 from img2img_turbo_tpu_torch.models import clip_vit as tclip
@@ -611,7 +612,9 @@ def test_port_never_imports_safetensors_or_transformers():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'img2img_turbo_tpu', 'safetensors', "
         "'transformers'))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        f"missing = [m for m in {PORT_MODULES} if m not in sys.modules]\n"
+        "assert not missing, missing\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
