@@ -1,8 +1,9 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
 (pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, the weight
 loaders and both inference CLIs, both training CLIs, the public attention
-op, data parallelism on torch.distributed, the profiling helpers, the web
-demo and the parity and conversion CLIs on one GPU.
+op, data parallelism and the model axis on torch.distributed, the
+profiling helpers, the web demo and the parity and conversion CLIs on one
+GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -160,7 +161,25 @@ Phases, each fatal on failure:
    equal tensor for tensor to `Pix2PixTurbo.load_pretrained`, with its
    write and read times and GB; `cli/accept_parity` on the snapshot and
    the edge pkl against phase 8's edge PNG (its CLI run seeded 0, the
-   generator accept_parity draws from) with random LPIPS, below 1e-3.
+   generator accept_parity draws from) with random LPIPS, below 1e-3;
+12. model-axis phase (after phase 10, before phase 8; the earlier models
+   freed): two gloo ranks sharing the card at mesh (1, 2) (spawned as
+   phase 10's; the exchange goes through the host, so its times are not
+   NCCL's). Each rank serves edge_to_image at full width on phase 4's
+   weights (seed 1234) and image a2b on phase 5's CycleGAN (seed 2345),
+   512x512 b1: first the one-process kernel-path engine on fixed
+   posterior noise, then `ServingEngine(mesh=make_mesh(1, 2))` on the
+   same weights, its UNet sharded in place. Checked: the UNet holds only
+   this rank's shards (every parameter's shape against the rule, its bytes
+   beside the whole's); the image within PATH_REL_L2_TOL of the
+   one-process request (x0's rel L2 and the uint8 levels printed); both
+   ranks' results bit-identical and a repeat bit-identical; the launch
+   table the one-process request's and EXPECTED_LAUNCHES (K2 on the
+   local heads). Edge_to_image prints its p50 of 5 requests and the
+   collectives' calls, bytes and time a request. Then every kernel runs
+   each launch shape of the ranks that the one-process requests and no
+   case ran (the shards' channel counts) against its `*_ref`, part
+   "model_axis" of the kernels line.
 Each of these phases prints its numbers with the card's name and power
 limit.
 
@@ -393,9 +412,8 @@ def kernel_phase(dev, results: list):
             _fail(f"{name} {case}: stats rel err {serr:.3e} > {STATS_TOL:.0e}")
         return serr
 
-    k1_rows = K1_CASES + _unseen(K1_UNPAIRED, K1_CASES, 1, 11)
-    for idx, (case, B, H, W, C, Co, norm, has_eb, has_res, csk, stats,
-              *_) in enumerate(k1_rows):
+    def k1_case(case, B, H, W, C, Co, norm, has_eb, has_res, csk, stats,
+                part):
         form = fc.conv_plan(B, H, W, C, Co, csk)
         k1_forms.add(f"{form['tile_rows']}x8")
         k1_forms.add("split" if form["splits"] > 1 else "unsplit")
@@ -458,8 +476,12 @@ def kernel_phase(dev, results: list):
                lib, device_ms=dev_ms, library_device_ms=lib_dev,
                conv_alone_ms=alone_ms, conv_alone_device_ms=alone_dev,
                shape=(B, H, W, C, Co, norm, has_eb, has_res, csk, stats),
-               form=form, part=None if idx < K1_PATH_CASES else "forms"
-               if idx < len(K1_CASES) else "unpaired")
+               form=form, part=part)
+
+    k1_rows = K1_CASES + _unseen(K1_UNPAIRED, K1_CASES, 1, 11)
+    for idx, (case, *shape) in enumerate(k1_rows):
+        k1_case(case, *shape[:10], None if idx < K1_PATH_CASES else "forms"
+                if idx < len(K1_CASES) else "unpaired")
     every = {"16x8", "32x8", "small-N", "16-channel", "split", "unsplit"}
     if k1_forms != every:
         _fail(f"K1 ran the forms {sorted(k1_forms)} of {sorted(every)}: add "
@@ -513,8 +535,8 @@ def kernel_phase(dev, results: list):
     k4 = ("upsample2x_conv3x3", "cuda", "img2img_turbo_tpu_torch/csrc/conv.cu",
           "img2img_turbo_tpu/ops/fused_conv.py:1758")
     k4_splits = set()
-    for idx, (case, B, H, W, C, Co, csk, stats, *_) in enumerate(
-            K4_CASES + _unseen(K4_UNPAIRED, K4_CASES, 1, 8)):
+
+    def k4_case(case, B, H, W, C, Co, csk, stats, part):
         form = fc.conv_plan(B, H, W, C, Co, csk, up=True)
         k4_splits.add(form["splits"] > 1)
         x = rn(B, H, W, C)
@@ -552,7 +574,12 @@ def kernel_phase(dev, results: list):
               f"repeat bit-identical; device {dev_ms:.4f}ms", flush=True)
         record(*k4, case, err, rel, REL_TOL, ms, pms, flops, nbytes,
                device_ms=dev_ms, shape=(B, H, W, C, Co, csk, stats),
-               form=form, part=None if idx < len(K4_CASES) else "unpaired")
+               form=form, part=part)
+
+    for idx, (case, *shape) in enumerate(
+            K4_CASES + _unseen(K4_UNPAIRED, K4_CASES, 1, 8)):
+        k4_case(case, *shape[:7], None if idx < len(K4_CASES)
+                else "unpaired")
     if k4_splits != {False, True}:
         _fail(f"K4 did not run both a split and an unsplit call (split seen: "
               f"{sorted(k4_splits)})")
@@ -569,13 +596,13 @@ def kernel_phase(dev, results: list):
         ctypes.POINTER(ctypes.c_int)]
     k6_plan = (ctypes.c_int * 7)()
     forms = set()
-    for idx, (case, B, H, W, C, pad_lo, stats, *_) in enumerate(
-            K6_CASES + _unseen(K6_UNPAIRED, K6_CASES, 1, 6)):
-        conv_lib.downsample_plan(B, H, W, C, C, pad_lo, k6_plan)
+
+    def k6_case(case, B, H, W, C, Co, pad_lo, stats, part):
+        conv_lib.downsample_plan(B, H, W, C, Co, pad_lo, k6_plan)
         forms.add((k6_plan[0], k6_plan[3] > 1))
         x = rn(B, H, W, C)
-        w = rn(3, 3, C, C, scale=1 / math.sqrt(9 * C))
-        bias = rn(C, scale=0.1, dtype=torch.float32)
+        w = rn(3, 3, C, Co, scale=1 / math.sqrt(9 * C))
+        bias = rn(Co, scale=0.1, dtype=torch.float32)
         wp = fc.pack_weights(w)
         y, st = fc.downsample2x_conv3x3(x, w, bias, pad_lo, emit_stats=True,
                                         w_packed=wp)
@@ -590,7 +617,7 @@ def kernel_phase(dev, results: list):
             _fail(f"K6 {case}: a repeated call gave another y or stats")
         err, rel = _rel(y, yr)
         ho, wo = y.shape[1:3]
-        one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        one, zero = torch.ones(Co, device=dev), torch.zeros(Co, device=dev)
         ca = gn.combine_stats(st, one, zero, 32, 1e-6, ho * wo)
         cr = gn.combine_stats(fc.output_stats(y), one, zero, 32, 1e-6,
                               ho * wo)
@@ -610,7 +637,7 @@ def kernel_phase(dev, results: list):
         bb = bias.to(bf)
         lib_call = lambda: F.conv2d(xpad, w_oihw, bb, stride=2)  # noqa: E731
         lms, lib_dev = _time_ms(lib_call), device_ms(lib_call)
-        flops = 2 * B * ho * wo * C * 9 * C
+        flops = 2 * B * ho * wo * C * 9 * Co
         nbytes = _nbytes(x, wp, bias, y, st if stats else None)
         print(f"  {'':26s} {case}: {k6_plan[0]}x8 pixel tiles, "
               f"{k6_plan[1]} channels a chunk, {k6_plan[2]}-stage weight "
@@ -621,9 +648,14 @@ def kernel_phase(dev, results: list):
               flush=True)
         record(*k6, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv2d(stride=2)", device_ms=dev_ms,
-               library_device_ms=lib_dev, shape=(B, H, W, C, C, pad_lo),
-               part=None if idx < K6_PATH_CASES else "forms"
-               if idx < len(K6_CASES) else "unpaired")
+               library_device_ms=lib_dev, shape=(B, H, W, C, Co, pad_lo),
+               part=part)
+
+    for idx, (case, B, H, W, C, pad_lo, stats, *_) in enumerate(
+            K6_CASES + _unseen(K6_UNPAIRED, K6_CASES, 1, 6)):
+        k6_case(case, B, H, W, C, C, pad_lo, stats,
+                None if idx < K6_PATH_CASES else "forms"
+                if idx < len(K6_CASES) else "unpaired")
     every = {(th, sp) for th in (32, 16, 8) for sp in (False, True)}
     if forms != every:
         _fail(f"K6 ran the forms {sorted(forms)} of {sorted(every)}: add a "
@@ -715,20 +747,6 @@ def kernel_phase(dev, results: list):
             w_packed=fc.pack_weights(w))
         combine_case(case, st, H * W, part)
 
-    def path_case(kernel, shape, part):
-        """K5 or its combine at a path's launch shape that no case above
-        runs: K5 on an input of that (B, S, C); the combine on fp32 partial
-        sums of that (B, tiles, C) over tiles of 64 rows."""
-        if kernel == "group_norm_stats":
-            b, rows, c = shape
-            k5_case(f"{part} {b}x{rows}x{c}", (b, rows, c), part)
-        else:
-            b, tiles, c, _ = shape
-            x = torch.randn(b, tiles, 64, c, generator=g, device=dev) * 2 \
-                + 0.5
-            st = torch.stack([x.sum(2), x.square().sum(2)], 2).contiguous()
-            combine_case(f"{part} {b}x{tiles}x{c}", st, tiles * 64, part)
-
     # ---- K3: every launch shape of the paths (tools/time_kernels.py's
     # K3_SHAPES: the transformers and VAE mid attentions of a 512x512 and
     # an 840x560 request, which a train step shares), weights in nn.Linear's
@@ -742,10 +760,10 @@ def kernel_phase(dev, results: list):
     k3_lib.fused_matmul_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
     k3_lib.fused_matmul_plan.restype = ctypes.c_int
-    plan = (ctypes.c_int * 7)()
-    for shape in K3_SHAPES + [s for s in K3_UNPAIRED_SHAPES
-                              if s not in K3_SHAPES]:
+
+    def k3_case(shape, part):
         M, C, Co, n_w, ln, gate, has_res = shape
+        plan = (ctypes.c_int * 7)()
         case = k3_name(shape)
         x = rn(1, M, C)
         wrows = 2 * Co if gate else Co
@@ -786,7 +804,11 @@ def kernel_phase(dev, results: list):
                device_ms=dev_ms,
                library_device_ms=linear_dev if exact else None, shape=shape,
                linear_ms=linear_ms, linear_device_ms=linear_dev,
-               part=None if shape in K3_SHAPES else "unpaired")
+               part=part)
+
+    for shape in K3_SHAPES + [s for s in K3_UNPAIRED_SHAPES
+                              if s not in K3_SHAPES]:
+        k3_case(shape, None if shape in K3_SHAPES else "unpaired")
 
     # ---- K2 -------------------------------------------------------------
     k2 = ("flash_attention_folded", "cuda",
@@ -794,8 +816,8 @@ def kernel_phase(dev, results: list):
           "img2img_turbo_tpu/ops/attention.py:261")
     lib = _attention_lib()
     k2_rows = [c[:6] for c in K7_CASES] + K2_EXTRA_CASES
-    for idx, (case, B, Sq, Skv, H, hd) in enumerate(
-            k2_rows + [c[:6] for c in _unseen(K7_UNPAIRED, k2_rows, 1, 6)]):
+
+    def k2_case(case, B, Sq, Skv, H, hd, part):
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         print(f"  {'':26s} {case}:", flush=True)
         report = _attention_report(
@@ -820,8 +842,12 @@ def kernel_phase(dev, results: list):
               flush=True)
         record(*k2, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                f"sdpa[{backend}]", library_device_ms=lib_dev, **report,
-               shape=(B, Sq, Skv, H, hd),
-               part=None if idx < len(k2_rows) else "unpaired")
+               shape=(B, Sq, Skv, H, hd), part=part)
+
+    for idx, (case, B, Sq, Skv, H, hd) in enumerate(
+            k2_rows + [c[:6] for c in _unseen(K7_UNPAIRED, k2_rows, 1, 6)]):
+        k2_case(case, B, Sq, Skv, H, hd,
+                None if idx < len(k2_rows) else "unpaired")
 
     # ---- K9 -------------------------------------------------------------
     k9 = ("flash_attention", "cuda",
@@ -968,6 +994,37 @@ def kernel_phase(dev, results: list):
     print(f"  wrappers refused all {len(refused)} unsupported CUDA inputs",
           flush=True)
     _build.reset_launch_counts()
+    def path_case(kernel, shape, part):
+        """A kernel at a path's launch shape (as its wrapper counts it in
+        `_build.launch_shapes`) that no case above runs, with that kernel's
+        checks, recorded under `part`: K1, K4, K6 (timed without stats, as
+        the UNet calls it), K3, K2, K5 on an input of that (B, S, C), and
+        the combine on fp32 partial sums of that (B, tiles, C) over tiles
+        of 64 rows."""
+        case = f"{part} " + "x".join(
+            str(int(v) if isinstance(v, bool) else v) for v in shape)
+        if kernel == "fused_gn_silu_conv3x3":
+            k1_case(case, *shape, part)
+        elif kernel == "upsample2x_conv3x3":
+            k4_case(case, *shape, part)
+        elif kernel == "downsample2x_conv3x3":
+            k6_case(case, *shape, False, part)
+        elif kernel == "fused_matmul":
+            k3_case(tuple(shape), part)
+        elif kernel == "flash_attention_folded":
+            k2_case(case, *shape, part)
+        elif kernel == "group_norm_stats":
+            b, rows, c = shape
+            k5_case(f"{part} {b}x{rows}x{c}", (b, rows, c), part)
+        elif kernel == "group_norm_combine":
+            b, tiles, c, _ = shape
+            x = torch.randn(b, tiles, 64, c, generator=g, device=dev) * 2 \
+                + 0.5
+            st = torch.stack([x.sum(2), x.square().sum(2)], 2).contiguous()
+            combine_case(f"{part} {b}x{tiles}x{c}", st, tiles * 64, part)
+        else:
+            _fail(f"no case for the kernel {kernel}")
+
     return path_case
 
 
@@ -1091,13 +1148,28 @@ def main():
                 path_case(kernel, shape, "unpaired")
     torch.cuda.synchronize()
     dp_phase(dev, summary)
+    # the model axis, and every kernel at the shard shapes it launched that
+    # no case ran, checked against its *_ref (part "model_axis")
+    t0 = time.perf_counter()
+    tp_shapes = tp_phase(dev, summary)
+    n_new = 0
+    for kernel, shapes in tp_shapes.items():
+        have = {tuple(r["shape"]) for r in results
+                if r["name"] == kernel and "shape" in r}
+        for shape in sorted(shapes - have, key=str):
+            path_case(kernel, shape, "model_axis")
+            n_new += 1
+    torch.cuda.synchronize()
+    print(f"model-axis phase with its {n_new} new kernel cases: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     with tempfile.TemporaryDirectory() as root:
         snap = weights_phase(dev, summary, root)
         cli_phase(dev, summary, snap)
         tools_phase(dev, summary, root, snap)
     paths = {p: summary["paths"][p] for p in (
         "serve", "image", "sketch", "train", "default_attention",
-        "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan")}
+        "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan",
+        "model_axis")}
     kernels = _per_kernel(results, paths)
     k2 = next(e for e in kernels if e["name"] == "flash_attention_folded")
     k2_cases = [r for r in results if r["name"] == k2["name"]]
@@ -1258,6 +1330,7 @@ def main():
                       "unpaired": summary["unpaired"],
                       "weights": summary["weights"],
                       "cli": summary["cli"], "dp": summary["dp"],
+                      "model_axis": summary["model_axis"],
                       "tools": summary["tools"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3119,6 +3192,265 @@ def dp_phase(dev, summary):
          "nccl_world1": {k: res["paired"][k] for k in (
              "nccl_ms", "nccl_allreduce") if k in res["paired"]}}
         for res in ranks]}
+
+
+# ---------------------------------------------------------------------------
+# model-axis phase: the UNet sharded over two model ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2        # gloo model ranks sharing the one card: a (1, 2) mesh
+
+
+def _param_bytes(module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def _sha(t) -> str:
+    """A tensor's bytes, hashed: equal on two ranks only if bit-identical."""
+    import hashlib
+    import torch
+    b = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b.tobytes()).hexdigest()
+
+
+def _shard_mismatch(unet, cfgs, n_model: int) -> list:
+    """Names of `unet`'s parameters whose shape is not this rank's shard of
+    the whole SD-Turbo UNet's (a meta model) by `parallel.tensor`'s rule,
+    or whose module is sharded and not marked so."""
+    import torch
+    from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+    with torch.device("meta"):
+        whole = dict(UNet2DConditionModel(cfgs.unet).named_parameters())
+    specs = tensor_mod.param_shardings(whole, n_model)
+    modules = dict(unet.named_modules())
+    bad = []
+    for name, p in unet.named_parameters():
+        shape, dim = list(whole[name].shape), specs[name]
+        if dim is not None:
+            shape[dim] //= n_model
+        marked = getattr(modules[name.rsplit(".", 1)[0]], "tp_sharded",
+                         False)
+        if list(p.shape) != shape or (dim is not None and not marked):
+            bad.append(name)
+    return bad
+
+
+def _tp_serve(tp, dev, params, caption, img, mode: str, timed: bool) -> dict:
+    """One mode under the model axis: the one-process kernel-path engine on
+    `params` first (a warm-up and one request on fixed posterior noise),
+    then `ServingEngine(mesh=tp)` on the same weights (the UNet sharded in
+    place): its UNet parameters against its shards, a warm-up, one request
+    with the launch counters read around it, a repeat, and the request
+    against the one-process one; with `timed`, the p50 of 5 requests (CUDA
+    events) and one request with the collectives timed."""
+    import collections
+    import torch
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    cfgs, bf = GeneratorConfigs(), torch.bfloat16
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    noise = torch.randn(1, 64, 64, 4, generator=gen(7), device=dev, dtype=bf)
+    one = ServingEngine(params, cfgs, mode=mode, dtype=bf, device=dev)
+    whole_bytes = _param_bytes(one.unet)
+    one.run(img, caption, noise=noise)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    ref = one.run(img, caption, noise=noise)
+    torch.cuda.synchronize()
+    out = {"one_counts": dict(_build.launch_counts),
+           "one_k2": [[list(sh), n] for (k, sh), n in
+                      _build.launch_shapes.items()
+                      if k == "flash_attention_folded"],
+           "one_shapes": [[k, list(sh)] for k, sh in _build.launch_shapes]}
+    ref = {k: ref[k].clone() for k in ("x0", "img", "out")}
+    del one
+
+    eng = ServingEngine(params, cfgs, mode=mode, dtype=bf, device=dev,
+                        mesh=tp)
+    out.update(unet_bytes=_param_bytes(eng.unet), whole_bytes=whole_bytes,
+               shard_mismatch=_shard_mismatch(eng.unet, cfgs, tp.n_model))
+    eng.run(img, caption, noise=noise)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = eng.run(img, caption, noise=noise)
+    torch.cuda.synchronize()
+    out["counts"] = dict(_build.launch_counts)
+    out["shapes"] = [[k, list(sh), n]
+                     for (k, sh), n in _build.launch_shapes.items()]
+    k2 = collections.Counter()
+    for sh, n in out["one_k2"]:   # K2 on the local heads where they split
+        heads = sh[3] // tp.n_model if sh[3] % tp.n_model == 0 else sh[3]
+        k2[(*sh[:3], heads, sh[4])] += n
+    out["k2_local_heads"] = dict(k2) == {
+        tuple(sh): n for k, sh, n in out["shapes"]
+        if k == "flash_attention_folded"}
+    again = eng.run(img, caption, noise=noise)
+    out["repeat_equal"] = all(torch.equal(again[k], got[k])
+                              for k in ("x0", "img", "out"))
+    out["rel_l2"] = {k: _rel_l2(got[k], ref[k]) for k in ("x0", "img")}
+    diff = (got["out"].int() - ref["out"].int()).abs()
+    out["uint8"] = {"max": int(diff.max()),
+                    "frac_differ": float((diff > 0).float().mean())}
+    out["sha"] = {k: _sha(got[k]) for k in ("x0", "img", "out")}
+    out["finite"] = bool(torch.isfinite(got["img"].float()).all())
+    if timed:
+        times = []
+        for i in range(5):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            eng(img, caption, gen(100 + i))
+            e_ev.record()
+            e_ev.synchronize()
+            times.append(s_ev.elapsed_time(e_ev))
+        out["ms"] = times
+        tp.reset_stats()
+        tp.timed = True
+        t0 = time.perf_counter()
+        eng(img, caption, gen(200))
+        torch.cuda.synchronize()
+        out["timed_request_ms"] = 1e3 * (time.perf_counter() - t0)
+        tp.timed = False
+        out["collectives"] = dict(tp.stats)
+    return out
+
+
+def _tp_rank(rank: int, world: int, init_file: str, out_dir: str):
+    """One spawned rank of the model-axis phase: edge_to_image on phase 4's
+    weights (seed 1234), then image a2b on phase 5's CycleGAN (seed 2345),
+    its results written as JSON for the parent to check."""
+    import gc
+    import os
+    import torch
+    import torch.distributed as dist
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.weights import from_jax
+    dev, _ = _dp_setup(rank, world, init_file)
+    tp = mesh_mod.make_mesh(1, world, device=dev)
+    cfgs = GeneratorConfigs()
+    res = {"backend": tp.backend, "model_rank": tp.model_rank,
+           "n_model": tp.n_model}
+    for name in ("edge", "image_a2b"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if name == "edge":
+            g = torch.Generator(device=dev).manual_seed(1234)
+            params = {"unet": from_jax.random_model(cfgs.unet, g),
+                      "vae": from_jax.random_model(cfgs.vae, g)}
+            img = synth_image(512, 512, 0)
+        else:
+            g = torch.Generator(device=dev).manual_seed(2345)
+            cyc = from_jax.random_cyclegan_model(cfgs, g)
+            params = {"unet": cyc["unet"], "vae": cyc["vae_a2b"]}
+            del cyc
+            img = synth_image(512, 512, 5)
+        caption = torch.randn(1, 77, cfgs.unet.cross_attention_dim,
+                              generator=g, device=dev)
+        res[name] = _tp_serve(tp, dev, params, caption,
+                              torch.as_tensor(img, device=dev),
+                              "edge_to_image" if name == "edge" else "image",
+                              timed=name == "edge")
+        res[name]["wall_s"] = time.perf_counter() - t0
+        res[name]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def tp_phase(dev, summary) -> dict:
+    """The model-axis phase (module docstring, phase 12): TP_WORLD gloo
+    ranks sharing the card at a (1, TP_WORLD) mesh, spawned with a file://
+    rendezvous in a temporary directory; every check's failure fails the
+    smoke. Returns {kernel: the launch shapes the ranks ran that the
+    one-process requests did not}, for the new kernel cases."""
+    import gc
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_tp_rank, args=(TP_WORLD, os.path.join(d, "rendezvous"), d),
+                 nprocs=TP_WORLD, join=True)
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    print(f"model-axis phase: mesh (1, {TP_WORLD}), {TP_WORLD} gloo ranks "
+          f"sharing one card (the exchange goes through the host; not "
+          f"NCCL), spawned, wall {wall:.1f}s; {smi}", flush=True)
+    expected = {"edge": EXPECTED_LAUNCHES, "image_a2b": EXPECTED_LAUNCHES_IMAGE}
+    shapes: dict = {}
+    one_process: set = set()
+    for r, res in enumerate(ranks):
+        for mode, want in expected.items():
+            m = res[mode]
+            what = f"model axis rank {r} {mode}"
+            if m["shard_mismatch"] or not m["unet_bytes"] < \
+                    0.6 * m["whole_bytes"]:
+                _fail(f"{what}: the UNet holds {m['unet_bytes']} bytes of "
+                      f"{m['whole_bytes']}, not only its shards: "
+                      f"{m['shard_mismatch'][:8]}")
+            if not m["counts"] == m["one_counts"] == want:
+                _fail(f"{what}: launches {m['counts']}, one-process "
+                      f"{m['one_counts']}, expected {want}")
+            if not m["k2_local_heads"]:
+                _fail(f"{what}: K2 did not run the local heads")
+            if not (m["repeat_equal"] and m["finite"]):
+                _fail(f"{what}: a repeated request differs or the image is "
+                      f"not finite")
+            if not m["rel_l2"]["img"] <= PATH_REL_L2_TOL:
+                _fail(f"{what}: the image is off the one-process kernel "
+                      f"path's by rel L2 {m['rel_l2']} (tol "
+                      f"{PATH_REL_L2_TOL:.0e})")
+            if m["sha"] != ranks[0][mode]["sha"]:
+                _fail(f"{what}: the ranks' results differ")
+            for k, sh, n in m["shapes"]:
+                shapes.setdefault(k, set()).add(tuple(sh))
+            for k, sh in m["one_shapes"]:
+                one_process.add((k, tuple(sh)))
+            print(f"  rank {r} {mode}: UNet parameters "
+                  f"{m['unet_bytes'] / 1e9:.3f} GB of the whole "
+                  f"{m['whole_bytes'] / 1e9:.3f} GB (bf16), only its shards; "
+                  f"vs the one-process kernel path rel L2 x0 "
+                  f"{m['rel_l2']['x0']:.3e}, img {m['rel_l2']['img']:.3e}, "
+                  f"uint8 max {m['uint8']['max']} on "
+                  f"{100 * m['uint8']['frac_differ']:.3f}% of values; "
+                  f"bit-identical across ranks and on a repeat; launches "
+                  f"{m['counts']} (K2 on the local heads); wall "
+                  f"{m['wall_s']:.1f}s, peak {m['peak_gib']:.2f} GiB",
+                  flush=True)
+        e = res["edge"]
+        times = sorted(e["ms"])
+        col = e["collectives"]
+        print(f"  rank {r} edge_to_image 512x512 b1: p50 "
+              f"{times[len(times) // 2]:.2f} ms over 5 requests "
+              f"{[round(t, 2) for t in e['ms']]}; collectives a request "
+              f"{col['calls']} calls, {col['bytes'] / 1e6:.2f} MB, "
+              f"{1e3 * col['seconds']:.2f} ms when timed (a request "
+              f"{e['timed_request_ms']:.2f} ms then), through gloo via the "
+              f"host", flush=True)
+    summary["paths"]["model_axis"] = ranks[0]["edge"]["counts"]
+    summary["model_axis"] = {"wall_s": wall, "card": smi, "ranks": [
+        {mode: {k: res[mode][k] for k in (
+            "unet_bytes", "whole_bytes", "rel_l2", "uint8", "wall_s",
+            "peak_gib") + (("ms", "collectives", "timed_request_ms")
+                           if mode == "edge" else ())}
+         for mode in expected} for res in ranks]}
+    return {k: {sh for sh in v if (k, sh) not in one_process}
+            for k, v in shapes.items()}
 
 
 # ---------------------------------------------------------------------------

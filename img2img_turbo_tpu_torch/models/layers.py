@@ -29,6 +29,20 @@ other kernels' backward is autograd through
 their plain version, recomputed from the saved inputs (`KernelFn`), and
 attention's is K7 (`ops.attention.FlashAttention`). The plain path needs
 no Function: autograd runs through its PyTorch ops.
+
+The model axis (serving): the entry points take `tp`, a mesh
+(`parallel.mesh.DataMesh`) with n_model above 1, and act on the modules
+that `parallel.tensor.shard_module` sharded (`tp_sharded`); without `tp`,
+or on a whole module, they are the one-process code. A sharded conv is
+column-parallel: each rank runs K1 / K4 / K6 on the whole input with its
+slice of the output channels (its slices of the bias, the time embedding's
+extra bias, the residual and the 1x1 skip weight), then gathers the output
+and K1's per-channel statistics over the model ranks, so that every rank
+computes the next GroupNorm's coefficients from the whole channels. An
+attention block is head-parallel (K3's LN + q/k/v columns and K2 on the
+rank's heads) and the GEGLU feed-forward column-parallel; both end
+row-parallel (K3 on the rank's input slice of `to_out` / `out`, the bias
+and residual on model rank 0 alone, then a sum over the ranks).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch.nn.functional as F
 from img2img_turbo_tpu_torch.ops import attention as attn_ops
 from img2img_turbo_tpu_torch.ops import fused_conv, fused_matmul
 from img2img_turbo_tpu_torch.ops import groupnorm as gn_ops
+from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
 
 
 # ---------------------------------------------------------------------------
@@ -118,9 +133,11 @@ def prepare_kernels(model: nn.Module) -> nn.Module:
 # ---------------------------------------------------------------------------
 
 
-def conv2d(conv: nn.Conv2d, x, stride: int = 1, padding="SAME"):
+def conv2d(conv: nn.Conv2d, x, stride: int = 1, padding="SAME", tp=None):
     """NHWC cross-correlation. padding: 'SAME', 'VALID' or explicit
     ((lo, hi), (lo, hi)) for the two spatial dims."""
+    if _tp_on(tp, conv):
+        return _gathered(tp, conv2d(conv, x, stride, padding), False)
     kh = conv.weight.shape[2]
     if padding == "SAME":
         padding = ((kh // 2, kh // 2), (kh // 2, kh // 2))
@@ -202,6 +219,50 @@ def upsample_nearest_to(x, size):
 # ---------------------------------------------------------------------------
 # Entry points (kernel or plain)
 # ---------------------------------------------------------------------------
+
+
+def _tp_on(tp, module) -> bool:
+    """True when `module` holds a model-axis shard and `tp` is the mesh."""
+    return tp is not None and getattr(module, "tp_sharded", False)
+
+
+def _channels(tp, t):
+    """This model rank's contiguous slice of the last dim of a whole `t`
+    (a residual or an extra bias of a column-parallel conv), or None."""
+    if t is None:
+        return None
+    k = t.shape[-1] // tp.n_model
+    return t[..., tp.model_rank * k:(tp.model_rank + 1) * k].contiguous()
+
+
+def _gathered(tp, out, emit_stats: bool):
+    """A column-parallel conv's output (and its per-channel statistics,
+    when emitted) gathered over the model ranks on the channel axis."""
+    if not emit_stats:
+        return mesh_mod.model_all_gather(out.contiguous(), tp)
+    y, stats = out
+    return (mesh_mod.model_all_gather(y.contiguous(), tp),
+            None if stats is None else mesh_mod.model_all_gather(stats, tp))
+
+
+def _row_parallel(lin: Linear, x, residual, tp, *, kernels: bool):
+    """lin(x) + residual with `lin`'s weight sharded on its input dim and x
+    this rank's matching slice: each rank's partial product (the bias and
+    the residual on model rank 0 alone), summed over the model ranks."""
+    first = tp.model_rank == 0
+    if not kernels:
+        (y,) = fused_matmul.fused_plain(
+            x, (lin.weight,), (lin.bias if first else None,),
+            residual=residual if first else None)
+    elif has_kernel_layouts(lin):
+        (y,) = fused_matmul.fused(
+            x.contiguous(), (lin.weight.detach(),),
+            (lin.kb if first else torch.zeros_like(lin.kb),),
+            residual=residual.contiguous() if first else None)
+    else:
+        raise ValueError("the model axis runs modules with kernel layouts "
+                         "(prepare_kernels) on the kernel path")
+    return mesh_mod.model_all_reduce(y, tp)
 
 
 class Skip(NamedTuple):
@@ -507,13 +568,20 @@ def _linears_fwd(n_w: int, has_ln: bool, gate: bool, eps: float):
 def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
                  eps: float, *, kernels: bool, extra_bias=None,
                  residual=None, x_stats=None, emit_stats: bool = False,
-                 skip: Optional[Skip] = None, bias=None):
+                 skip: Optional[Skip] = None, bias=None, tp=None):
     """conv3x3(silu(GroupNorm(x))) + bias [+ extra_bias (B, Co)]
     [+ residual] [+ skip]. With kernels: one K1 launch (GN coefficients
     from `x_stats` or K5); emit_stats returns (y, partial sums) for the next
     GroupNorm. `bias` (fp32) overrides conv.kb on the kernel path: the
     resnet passes conv2 + shortcut bias, summed once at load. Plain path:
-    stats are None."""
+    stats are None. With `tp` and a sharded conv: column-parallel (module
+    docstring), the output and stats gathered."""
+    if _tp_on(tp, conv):
+        return _gathered(tp, gn_silu_conv(
+            norm, conv, x, num_groups, eps, kernels=kernels,
+            extra_bias=_channels(tp, extra_bias),
+            residual=_channels(tp, residual), x_stats=x_stats,
+            emit_stats=emit_stats, skip=skip, bias=bias), emit_stats)
     if not kernels:
         a, b = gn_ops.group_norm_coeffs_plain(x, norm.weight, norm.bias,
                                               num_groups, eps)
@@ -545,8 +613,11 @@ def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
 
 
 def plain_conv3x3(conv: Conv2d, x, emit_stats: bool = False, *,
-                  kernels: bool):
+                  kernels: bool, tp=None):
     """Stride-1 SAME conv3x3 with no norm prologue (conv_in)."""
+    if _tp_on(tp, conv):
+        return _gathered(tp, plain_conv3x3(conv, x, emit_stats,
+                                           kernels=kernels), emit_stats)
     if not kernels:
         y = fused_conv.gn_silu_conv3x3_plain(x, conv.weight, conv.bias)
         return (y, None) if emit_stats else y
@@ -561,9 +632,12 @@ def plain_conv3x3(conv: Conv2d, x, emit_stats: bool = False, *,
 
 
 def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
-                    skip: Optional[Skip] = None, *, kernels: bool):
+                    skip: Optional[Skip] = None, *, kernels: bool, tp=None):
     """conv3x3(nearest_upsample_2x(x)) [+ skip] (diffusers Upsample2D);
     K4 with kernels."""
+    if _tp_on(tp, conv):
+        return _gathered(tp, upsample2x_conv(conv, x, emit_stats, skip,
+                                             kernels=kernels), emit_stats)
     if not kernels:
         y = fused_conv.upsample2x_conv3x3_plain(x, conv.weight, conv.bias,
                                                 *_plain_skip(skip))
@@ -585,13 +659,16 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
 
 
 def downsample2x_conv(conv: Conv2d, x, pad_lo: int, emit_stats: bool = False,
-                      *, kernels: bool):
+                      *, kernels: bool, tp=None):
     """Stride-2 conv3x3 with ((pad_lo, 1), (pad_lo, 1)) padding: pad_lo=0
     in the VAE encoder, 1 in the UNet (layers.py:605-633). With kernels:
     K6, whose emitted stats feed the next GroupNorm; a module with live
     weights goes through `KernelFn` (K6 forward, autograd through the plain
     strided conv backward, as `_make_fused_downconv`). Plain path: the
     strided conv, stats None."""
+    if _tp_on(tp, conv):
+        return _gathered(tp, downsample2x_conv(conv, x, pad_lo, emit_stats,
+                                               kernels=kernels), emit_stats)
     if not kernels:
         y, _ = fused_conv.downsample2x_conv3x3_plain(x, conv.weight,
                                                      conv.bias, pad_lo)
@@ -662,10 +739,15 @@ class Attention(nn.Module):
 
 
 def attention_block(attn: Attention, norm: LayerNorm, x, context=None, *,
-                    num_heads: int, kernels: bool, eps: float = 1e-5):
+                    num_heads: int, kernels: bool, eps: float = 1e-5,
+                    tp=None):
     """x + attention(LN(x)): with kernels, LN + q/k/v as one 3-output K3
     launch (self) or LN-q plus a 2-output kv launch on the context
-    (cross), K2, and the out projection with the residual fused (K3)."""
+    (cross), K2, and the out projection with the residual fused (K3). With
+    `tp` and sharded heads: this rank's heads, `to_out` row-parallel."""
+    sharded = _tp_on(tp, attn.to_q)
+    if sharded:
+        num_heads //= tp.n_model
     if context is None:
         q, k, v = fused_linears((attn.to_q, attn.to_k, attn.to_v), x, norm,
                                 kernels=kernels, eps=eps)
@@ -674,6 +756,8 @@ def attention_block(attn: Attention, norm: LayerNorm, x, context=None, *,
         k, v = fused_linears((attn.to_k, attn.to_v), context,
                              kernels=kernels)
     o = multihead_attention(q, k, v, num_heads, kernels=kernels)
+    if sharded:
+        return _row_parallel(attn.to_out[0], o, x, tp, kernels=kernels)
     return linear_fused(attn.to_out[0], o, residual=x, kernels=kernels)
 
 
@@ -693,12 +777,16 @@ class FeedForward(nn.Module):
 
 
 def geglu_ff_block(ff: FeedForward, norm: LayerNorm, x, *, kernels: bool,
-                   eps: float = 1e-5):
+                   eps: float = 1e-5, tp=None):
     """x + geglu_ff(LN(x)); with kernels, LN + the packed GEGLU projection
-    as one gated K3 launch, then the output projection + residual."""
+    as one gated K3 launch, then the output projection + residual. With
+    `tp` and a sharded `proj` (this rank's value and gate slices): `out`
+    row-parallel."""
     proj, out = ff.net[0].proj, ff.net[2]
     (u,) = fused_linears((proj,), x, norm, kernels=kernels, gate=True,
                          eps=eps)
+    if _tp_on(tp, proj):
+        return _row_parallel(out, u, x, tp, kernels=kernels)
     return linear_fused(out, u, residual=x, kernels=kernels)
 
 
@@ -755,16 +843,18 @@ class ResnetBlock2D(nn.Module):
                         + self.conv_shortcut.bias.detach().float())
 
     def forward(self, x, temb=None, *, kernels: bool, x_stats=None,
-                emit_stats: bool = False, epilogue_skip: Optional[Skip] = None):
+                emit_stats: bool = False, epilogue_skip: Optional[Skip] = None,
+                tp=None):
         """x_stats / emit_stats chain GroupNorm partial sums between kernels:
         GN1 reads x_stats, conv1 emits for GN2, conv2 emits on request.
-        epilogue_skip: a VAE skip zero-conv fused into conv2's epilogue."""
+        epilogue_skip: a VAE skip zero-conv fused into conv2's epilogue.
+        tp: the model axis's mesh, for a sharded block."""
         t = None
         if hasattr(self, "time_emb_proj"):
             t = linear(self.time_emb_proj, silu(temb))
         h, s1 = gn_silu_conv(self.norm1, self.conv1, x, self.groups,
                              self.eps, kernels=kernels, extra_bias=t,
-                             x_stats=x_stats, emit_stats=True)
+                             x_stats=x_stats, emit_stats=True, tp=tp)
         bias = None
         if hasattr(self, "conv_shortcut") and epilogue_skip is None:
             residual, skip = None, Skip(x, self.conv_shortcut)
@@ -775,4 +865,5 @@ class ResnetBlock2D(nn.Module):
             skip = epilogue_skip
         return gn_silu_conv(self.norm2, self.conv2, h, self.groups, self.eps,
                             kernels=kernels, residual=residual, x_stats=s1,
-                            emit_stats=emit_stats, skip=skip, bias=bias)
+                            emit_stats=emit_stats, skip=skip, bias=bias,
+                            tp=tp)

@@ -44,7 +44,7 @@ class Transformer2DModel(nn.Module):
             [BasicTransformerBlock(ch, cfg.cross_attention_dim)])
         self.proj_out = L.Linear(ch, ch)
 
-    def forward(self, x, context, *, kernels: bool, x_stats=None):
+    def forward(self, x, context, *, kernels: bool, x_stats=None, tp=None):
         b, h, w, c = x.shape
         cfg, heads = self.cfg, self.num_heads
         hidden = L.group_norm(self.norm, x, cfg.norm_num_groups,
@@ -53,10 +53,11 @@ class Transformer2DModel(nn.Module):
                                 kernels=kernels)
         blk = self.transformer_blocks[0]
         hidden = L.attention_block(blk.attn1, blk.norm1, hidden,
-                                   num_heads=heads, kernels=kernels)
+                                   num_heads=heads, kernels=kernels, tp=tp)
         hidden = L.attention_block(blk.attn2, blk.norm2, hidden, context,
-                                   num_heads=heads, kernels=kernels)
-        hidden = L.geglu_ff_block(blk.ff, blk.norm3, hidden, kernels=kernels)
+                                   num_heads=heads, kernels=kernels, tp=tp)
+        hidden = L.geglu_ff_block(blk.ff, blk.norm3, hidden, kernels=kernels,
+                                  tp=tp)
         hidden = L.linear_fused(self.proj_out, hidden,
                                 residual=x.reshape(b, h * w, c),
                                 kernels=kernels)
@@ -149,7 +150,7 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = L.Conv2d(chans[0], cfg.out_channels, 3)
 
     def forward(self, x, timesteps, context, *, kernels: bool,
-                remat: bool = False, r=None):
+                remat: bool = False, r=None, tp=None):
         """x: (B, H, W, 4) latents; timesteps: (B,) int; context:
         (B, 77, cross_dim). Returns eps (B, H, W, 4). remat: recompute each
         down, mid and up block in the backward (torch.utils.checkpoint,
@@ -157,7 +158,9 @@ class UNet2DConditionModel(nn.Module):
         training; a recompute launches the block's kernels again. r: the
         TwinConv blend factor (a float or 0-d tensor), required when
         conv_in is a TwinConv and unused otherwise, as in the JAX
-        package."""
+        package. tp: the mesh of a model axis over which
+        `parallel.tensor.shard_module` sharded this UNet (every rank of the
+        model group calls forward alike and gets the whole eps)."""
         cfg = self.cfg
         temb = L.timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -174,45 +177,47 @@ class UNet2DConditionModel(nn.Module):
                 # in attention-free blocks); the chain breaks at the
                 # transformer's residual add and at the downsample
                 sample, stats = res(sample, temb, kernels=kernels,
-                                    x_stats=stats, emit_stats=True)
+                                    x_stats=stats, emit_stats=True, tp=tp)
                 if attns is not None:
                     sample = attns[j](sample, context, kernels=kernels,
-                                      x_stats=stats)
+                                      x_stats=stats, tp=tp)
                     stats = None
                 outs.append(sample)
             if hasattr(block, "downsamplers"):
                 sample = L.downsample2x_conv(block.downsamplers[0].conv,
                                              sample, pad_lo=1,
-                                             kernels=kernels)
+                                             kernels=kernels, tp=tp)
                 outs.append(sample)
             return sample, outs
 
         def run_mid(sample, temb, context):
             mid = self.mid_block
             sample, stats = mid.resnets[0](sample, temb, kernels=kernels,
-                                           emit_stats=True)
+                                           emit_stats=True, tp=tp)
             sample = mid.attentions[0](sample, context, kernels=kernels,
-                                       x_stats=stats)
-            return mid.resnets[1](sample, temb, kernels=kernels)
+                                       x_stats=stats, tp=tp)
+            return mid.resnets[1](sample, temb, kernels=kernels, tp=tp)
 
         def run_up_block(block, sample, res_samples, temb, context, size):
             attns = getattr(block, "attentions", None)
             for j, res in enumerate(block.resnets):
                 cat = torch.cat([sample, res_samples[-(j + 1)]], dim=-1)
                 sample, stats = res(cat, temb, kernels=kernels,
-                                    emit_stats=True)
+                                    emit_stats=True, tp=tp)
                 if attns is not None:
                     sample = attns[j](sample, context, kernels=kernels,
-                                      x_stats=stats)
+                                      x_stats=stats, tp=tp)
             if hasattr(block, "upsamplers"):
                 conv = block.upsamplers[0].conv
                 h, w = sample.shape[1:3]
                 if size != (2 * h, 2 * w):
                     # odd skip sizes: torch-nearest upsample to the stored
                     # residual's size, then a plain conv (unet.py:350-355)
-                    sample = L.conv2d(conv, L.upsample_nearest_to(sample, size))
+                    sample = L.conv2d(conv, L.upsample_nearest_to(sample, size),
+                                      tp=tp)
                 else:
-                    sample = L.upsample2x_conv(conv, sample, kernels=kernels)
+                    sample = L.upsample2x_conv(conv, sample, kernels=kernels,
+                                               tp=tp)
             return sample
 
         if remat:
@@ -226,12 +231,12 @@ class UNet2DConditionModel(nn.Module):
                 raise ValueError("a TwinConv conv_in needs the blend factor r")
             r = torch.as_tensor(r, dtype=x.dtype, device=x.device)
             x1 = L.plain_conv3x3(self.conv_in.conv_in_pretrained, x,
-                                 kernels=kernels).detach()
+                                 kernels=kernels, tp=tp).detach()
             x2 = L.plain_conv3x3(self.conv_in.conv_in_curr, x,
-                                 kernels=kernels)
+                                 kernels=kernels, tp=tp)
             sample = x1 * (1.0 - r) + x2 * r
         else:
-            sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels)
+            sample = L.plain_conv3x3(self.conv_in, x, kernels=kernels, tp=tp)
         res_stack = [sample]
         for block in self.down_blocks:
             sample, outs = run_down_block(block, sample, temb, context)
@@ -248,4 +253,4 @@ class UNet2DConditionModel(nn.Module):
 
         return L.gn_silu_conv(self.conv_norm_out, self.conv_out, sample,
                               cfg.norm_num_groups, cfg.norm_eps,
-                              kernels=kernels)
+                              kernels=kernels, tp=tp)

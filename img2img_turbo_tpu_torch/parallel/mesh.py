@@ -1,35 +1,47 @@
-"""Data parallelism on torch.distributed (counterpart of
-`img2img_turbo_tpu/parallel/mesh.py:1-156`).
+"""Data and model parallelism on torch.distributed (counterpart of
+`img2img_turbo_tpu/parallel/mesh.py`).
 
-The JAX package runs data parallelism as a `(data, model)` device mesh:
-each shard runs the single-device program, Pallas kernels included, on its
-contiguous rows of the global batch, and the training steps `pmean` their
-losses and gradients over the data axis before every optimizer update. The
-port keeps those semantics with one process a rank:
+The JAX package runs a `(data, model)` device mesh (`mesh.py:49-66`): its
+device `grid[d, m]` is `devices.reshape(n_data, n_model)`. Each data shard
+runs the single-device program, Pallas kernels included, on its contiguous
+rows of the global batch, and the training steps `pmean` their losses and
+gradients over the data axis before every optimizer update; a model axis
+above 1 shards the UNet's weights by `_tp_spec_for` (`mesh.py:162-201`,
+here `parallel/tensor.py`). The port keeps those semantics with one
+process a rank:
 
-- a `DataMesh` holds the process group, this rank, the world size and the
-  rank's device; every rank runs the one-card program (the port's Hopper
-  kernels included) on its rows;
+- `make_mesh(n_data, n_model)` gives this rank its `DataMesh`: global rank
+  `d * n_model + m` is JAX's `grid[d, m]`; `rank` / `world` are the data
+  axis (d, n_data) and `model_rank` / `n_model` the model axis, each axis
+  with a process group of its own (`mesh_groups`);
 - `shard_batch` takes this rank's contiguous rows of a global batch (the
-  rows JAX's `P(data)` places on shard r); `gather_batch` puts the global
-  batch back together on every rank;
-- `pmean` averages a list or dict of tensors in one flat fp32 bucket with
-  one all-reduce (the paired generator alone has hundreds of LoRA leaves);
-- `replicate` broadcasts a state from rank 0; `assert_replicated` checks
-  through one all-reduce of fingerprints that every rank holds the same
-  tensors (frozen modules are built on each rank from the same seed or
-  files and checked, never broadcast).
+  rows JAX's `P(data)` places on data shard d: the ranks of one model group
+  get the same rows); `gather_batch` puts the global batch back together on
+  every rank;
+- `pmean` averages a list or dict of tensors over the data axis in one
+  flat fp32 bucket with one all-reduce (the paired generator alone has
+  hundreds of LoRA leaves);
+- `replicate` broadcasts a state from data rank 0; `assert_replicated`
+  checks through one all-reduce of fingerprints that every rank of the data
+  axis holds the same tensors (frozen modules are built on each rank from
+  the same seed or files and checked, never broadcast);
+- `model_all_gather` and `model_all_reduce` are the model axis's two
+  collectives, which the sharded UNet's layers call (`models/layers.py`).
 
 The backend is NCCL when each rank has a CUDA card of its own and gloo
 otherwise (ranks sharing a card, or on the CPU). gloo implements only
 `broadcast` and `all_reduce` on CUDA tensors, so every collective here is
 built from those two: a gather is a SUM all-reduce of a zeroed global
-buffer in which each rank wrote its rows (as bytes, so that it is exact
-for every dtype). Nothing here falls back to another device or catches a
-collective's failure.
+buffer in which each rank wrote its part (as bytes, so that it is exact
+for every dtype and a -0.0 keeps its sign); the model axis's sum adds the
+ranks' partial results in fp32. Nothing here falls back to another device
+or catches a collective's failure.
 
-The model axis (tensor parallelism, `mesh.py:158-201`) is not ported:
-`make_mesh(n_model > 1)` raises.
+Serving: `torchrun --nproc_per_node N` runs N ranks; each builds its
+`ServingEngine(mesh=make_mesh(n_data, n_model))` (N = n_data * n_model),
+which shards the UNet over the model axis. Under a model axis the VAE
+stays whole on every rank, and the sketch mode and both training steps are
+not ported (they raise).
 """
 
 from __future__ import annotations
@@ -45,10 +57,14 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class DataMesh:
-    """One rank's view of the data axis. `group` is None only for a
-    one-process run without a process group, where every collective is the
-    identity. `stats` counts the all-reduces of `pmean` ("calls", "bytes")
-    and, when `timed` is set, their wall time ("seconds": the device
+    """One rank's view of the mesh. `rank` and `world` are its place on the
+    data axis and that axis's size, `group` that axis's process group (None
+    when the data axis has one rank, or in a one-process run without a
+    process group: every data collective is then the identity).
+    `model_rank`, `n_model` and `model_group` are the model axis's (the
+    group is None when n_model is 1). `stats` counts the all-reduces of
+    `pmean` and of the model axis's collectives ("calls", "bytes") and,
+    when `timed` is set, their wall time ("seconds": the device
     synchronised before and after each)."""
     rank: int
     world: int
@@ -58,10 +74,13 @@ class DataMesh:
     timed: bool = False
     stats: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
+    model_rank: int = 0
+    n_model: int = 1
+    model_group: Optional[object] = None
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.rank == 0 and self.model_rank == 0
 
     def reset_stats(self) -> None:
         self.stats.update(calls=0, bytes=0, seconds=0.0)
@@ -131,32 +150,73 @@ def is_main_process() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def mesh_groups(n_data: int, n_model: int):
+    """(data groups, model groups) of a (n_data, n_model) mesh as lists of
+    ranks: rank d * n_model + m is JAX's `grid[d, m]` (mesh.py:65), so data
+    group m is the grid's column m and model group d its row d."""
+    data = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+    model = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+    return data, model
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device=None, group=None) -> DataMesh:
-    """This rank's data mesh over `group` (the default group when there is
-    one; none in a one-process run), on `device` (`local_device`). n_data
-    defaults to the group's size and must equal it. A model axis above 1
-    is not ported and raises."""
-    if n_model != 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: the model axis (tensor parallelism) is not "
-            f"ported; each rank holds the whole model")
+    """This rank's mesh over `group` (the default group when there is one;
+    none in a one-process run), on `device` (`local_device`). n_data
+    defaults to the group's size over n_model, and n_data * n_model must
+    equal it. With n_model above 1 every rank of `group` must call this
+    alike: it makes the data and model subgroups (`mesh_groups`), each
+    collectively."""
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     world = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data={n_data} but the process group has "
-                         f"{world} ranks")
-    return DataMesh(rank, world, local_device(device), group,
-                    dist.get_backend(group) if group is not None else None)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"n_model={n_model}: the model axis needs a "
+                         f"divisor of the process group's {world} ranks")
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh needs "
+                         f"{n_data * n_model} ranks; the process group has "
+                         f"{world}")
+    dev = local_device(device)
+    backend = dist.get_backend(group) if group is not None else None
+    if n_model == 1:
+        return DataMesh(rank, world, dev, group, backend)
+    ranks = dist.get_process_group_ranks(group)     # group rank -> global
+    d, m = divmod(rank, n_model)
+    data_groups, model_groups = mesh_groups(n_data, n_model)
+    made = {}
+    for kind, groups in (("data", data_groups if n_data > 1 else []),
+                         ("model", model_groups)):
+        for members in groups:
+            g = dist.new_group([ranks[r] for r in members], backend=backend)
+            if rank in members:
+                made[kind] = g
+    return DataMesh(d, n_data, dev, made.get("data"), backend,
+                    model_rank=m, n_model=n_model,
+                    model_group=made["model"])
+
+
+def refuse_model_axis(mesh: Optional[DataMesh], what: str) -> None:
+    """Raise when `mesh` has a model axis, which `what` does not run."""
+    if mesh is not None and mesh.n_model > 1:
+        raise NotImplementedError(
+            f"{what} under a model axis (n_model={mesh.n_model}) is not "
+            f"ported (ROADMAP, Queue 1 item 3): run it data-parallel, each "
+            f"rank holding the whole model on one card")
 
 
 def barrier(mesh: Optional[DataMesh]) -> None:
-    """Wait for every rank (a one-element all-reduce, which every backend
-    implements on every device)."""
-    if mesh is not None and mesh.group is not None:
-        dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+    """Wait for every rank (a one-element all-reduce over each axis, which
+    every backend implements on every device: a rank passes the model
+    axis's only once its model peers passed the data axis's)."""
+    if mesh is None:
+        return
+    for group in (mesh.group, mesh.model_group):
+        if group is not None:
+            dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +267,21 @@ def gather_batch(x: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _sum(buf: torch.Tensor, mesh: DataMesh, group) -> None:
+    """SUM all-reduce of `buf` in place over `group`, counted (and timed
+    when `mesh.timed`) in `mesh.stats`."""
+    if mesh.timed and mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    dist.all_reduce(buf, group=group)
+    if mesh.timed:
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        mesh.stats["seconds"] += time.perf_counter() - t0
+    mesh.stats["calls"] += 1
+    mesh.stats["bytes"] += buf.numel() * buf.element_size()
+
+
 def pmean(tensors, mesh: Optional[DataMesh]):
     """The mean over the ranks of each tensor of a list, tuple or dict (same
     structure back, each tensor in its own dtype and shape), through one
@@ -222,16 +297,7 @@ def pmean(tensors, mesh: Optional[DataMesh]):
     flat = torch.cat([t.detach().reshape(-1).to(device=mesh.device,
                                                 dtype=torch.float32)
                       for _, t in items])
-    if mesh.timed and mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(flat, group=mesh.group)
-    if mesh.timed:
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-        mesh.stats["seconds"] += time.perf_counter() - t0
-    mesh.stats["calls"] += 1
-    mesh.stats["bytes"] += flat.numel() * 4
+    _sum(flat, mesh, mesh.group)
     flat.div_(mesh.world)
     # each result a tensor of its own with its input's strides (autograd
     # gives some gradients in another memory order): a later reduction over
@@ -264,6 +330,41 @@ def pmean_pass(loss, auxes, grads, mesh: Optional[DataMesh]):
     for (i, k), v in zip(scalar, reduced[1:1 + len(scalar)]):
         auxes[i][k] = v
     return reduced[0], auxes, dict(zip(names, reduced[1 + len(scalar):]))
+
+
+# ---------------------------------------------------------------------------
+# The model axis
+# ---------------------------------------------------------------------------
+
+
+def model_all_gather(x: torch.Tensor, mesh: DataMesh, dim: int = -1
+                     ) -> torch.Tensor:
+    """The model ranks' parts `x` (each as large) concatenated along `dim`
+    in model-rank order, contiguous, on every rank of the model group: the
+    channels of NHWC activations and of per-channel statistics (dim -1),
+    the features of (B, S, C). A SUM all-reduce of the zeroed whole in
+    which this rank wrote its part, as bytes: exact for any dtype."""
+    if mesh.n_model == 1:
+        return x
+    dim %= x.ndim
+    k = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = k * mesh.n_model
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out.narrow(dim, mesh.model_rank * k, k).copy_(x)
+    _sum(out.view(-1).view(torch.uint8), mesh, mesh.model_group)
+    return out
+
+
+def model_all_reduce(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The sum of the model ranks' partial results `x` on every rank of the
+    model group, added in fp32 and rounded once to x's dtype (a row-parallel
+    product's partial sums, each already rounded to x's dtype)."""
+    if mesh.n_model == 1:
+        return x
+    acc = x.to(torch.float32, copy=True).contiguous()
+    _sum(acc, mesh, mesh.model_group)
+    return acc.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +429,8 @@ def replicate(tree, mesh: Optional[DataMesh]):
                   torch.zeros(-b.numel() % 8, dtype=torch.uint8,
                               device=mesh.device)]
     bucket = torch.cat(parts)
-    dist.broadcast(bucket, 0, group=mesh.group)
+    dist.broadcast(bucket, dist.get_global_rank(mesh.group, 0),
+                   group=mesh.group)
     off = 0
     for t, n in zip(leaves + [counts], spans):
         t.copy_(bucket[off:off + n].view(t.dtype).view(t.shape))

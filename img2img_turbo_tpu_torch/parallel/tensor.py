@@ -1,0 +1,160 @@
+"""The model axis: the UNet's weights sharded over the model ranks
+(counterpart of `img2img_turbo_tpu/parallel/mesh.py:162-201`, `_tp_spec_for`
+and `param_shardings`).
+
+JAX's rule, on the port's diffusers names and torch layouts (a JAX `(in,
+out)` linear kernel is the port's `(out, in)` weight, a JAX HWIO conv
+kernel the port's `(Co, Ci, kh, kw)`):
+- attention `to_q` / `to_k` / `to_v` and the GEGLU `proj` are sharded on
+  their output dim (port dim 0);
+- attention `to_out` and the feed-forward `out` (`ff.net.2`) on their input
+  dim (port dim 1); their biases stay whole;
+- every 4-D conv weight whose output channels are even is sharded on them
+  (port dim 0);
+- everything else stays whole on every rank (norms, `proj_in` /
+  `proj_out`, the time embedding, `time_emb_proj`), as does a dim that does
+  not divide by the model axis.
+
+Where the port departs from JAX's layout, and why:
+(a) the GEGLU `proj`'s output is `[value | gate]` (split at
+    `img2img_turbo_tpu/models/layers.py:801-803`); JAX's contiguous shard
+    would put all of the value on the first rank and all of the gate on
+    the second. Rank r holds `cat(value_r, gate_r)`, so its gated K3 launch
+    computes slice r of `value * gelu(gate)`, which slice r of `out`'s input
+    dim takes; its bias is sliced alike (JAX keeps every 1-D leaf whole);
+(b) an attention layer whose heads do not divide by n_model stays whole on
+    every rank (q, k, v and out): ranks that exchange only whole heads
+    cannot split one (XLA splits SD-Turbo's 5-head level-0 layers 160/160
+    and reshards at the head reshape);
+(c) a sharded conv's bias is sharded with its output channels (JAX keeps
+    every 1-D leaf whole): each rank stores the slice it adds.
+
+`shard_module` applies the rule to a module in place and marks each
+module it sharded (`tp_sharded`); the layer functions of
+`models/layers.py` read that mark when they are given the mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+_QKV = (".to_q.weight", ".to_k.weight", ".to_v.weight")   # bias-free
+_OUT = ".to_out.0.weight"
+_GEGLU = (".ff.net.0.proj.weight", ".ff.net.0.proj.bias")
+_FF_OUT = ".ff.net.2.weight"
+
+
+def head_dim(cfg) -> int:
+    """The UNet's per-head width, the same at every level (unet.py:395)."""
+    return cfg.block_out_channels[0] // cfg.attention_head_dim[0]
+
+
+def _is_conv_bias(name: str) -> bool:
+    """A conv's bias by its module's name: conv_in, conv1, conv2,
+    conv_shortcut, the samplers' conv, conv_out, the TwinConv halves (not
+    the GroupNorm conv_norm_out)."""
+    if not name.endswith(".bias") or "." not in name:
+        return False
+    module = name[:-len(".bias")].rsplit(".", 1)[-1]
+    return module.startswith("conv") and module != "conv_norm_out"
+
+
+def tp_spec_for(name: str, shape: Sequence[int], n_model: int,
+                head_dim: int = 64) -> Optional[int]:
+    """The dim of the port's tensor `name` (a diffusers UNet name) of the
+    whole `shape` that a model axis of n_model ranks shards, or None when
+    every rank holds it whole. head_dim: the UNet's per-head width (64 in
+    SD-Turbo), which decides departure (b)."""
+    if n_model == 1:
+        return None
+    key = "." + name
+    if key.endswith(_QKV) or key.endswith(_OUT):
+        # (b) whole heads only: to_q's outputs, to_out's inputs
+        width = shape[1] if key.endswith(_OUT) else shape[0]
+        if width % head_dim or (width // head_dim) % n_model:
+            return None
+        return 1 if key.endswith(_OUT) else 0
+    if key.endswith(_GEGLU):
+        # (a) each rank a slice of the value and the same slice of the gate
+        return 0 if shape[0] % (2 * n_model) == 0 else None
+    if key.endswith(_FF_OUT):
+        return 1 if shape[1] % n_model == 0 else None
+    if len(shape) == 4 or (len(shape) == 1 and _is_conv_bias(name)):
+        # JAX's conv rule (an even Co, then one that divides), and (c)
+        co = shape[0]
+        return 0 if co % 2 == 0 and co % n_model == 0 else None
+    return None
+
+
+def param_shardings(state_dict: Mapping[str, object], n_model: int,
+                    head_dim: int = 64) -> Dict[str, Optional[int]]:
+    """{name: the sharded dim of the port's tensor, or None} for every
+    tensor of a UNet state dict (tensors, or anything with a `.shape`)."""
+    return {k: tp_spec_for(k, tuple(v.shape), n_model, head_dim)
+            for k, v in state_dict.items()}
+
+
+def _slice(name: str, t: torch.Tensor, dim: Optional[int], m: int, n: int):
+    if dim is None:
+        return t
+    if ("." + name).endswith(_GEGLU):
+        value, gate = t.chunk(2, dim=0)
+        k = value.shape[0] // n
+        return torch.cat([value[m * k:(m + 1) * k], gate[m * k:(m + 1) * k]])
+    k = t.shape[dim] // n
+    return t.narrow(dim, m * k, k)
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor], mesh,
+                     head_dim: int = 64) -> Dict[str, torch.Tensor]:
+    """This model rank's tensors of a whole UNet state dict: its slice of
+    every sharded tensor, the others as they are."""
+    specs = param_shardings(state_dict, mesh.n_model, head_dim)
+    return {k: _slice(k, v, specs[k], mesh.model_rank, mesh.n_model)
+            for k, v in state_dict.items()}
+
+
+def unshard_state_dict(shards: List[Mapping[str, torch.Tensor]],
+                       specs: Mapping[str, Optional[int]]
+                       ) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every model rank's `shard_state_dict`, in
+    model-rank order, and the whole's `param_shardings`: its exact inverse
+    (a shard's shape alone cannot say whether it is a slice)."""
+    out = {}
+    for k, dim in specs.items():
+        parts = [s[k] for s in shards]
+        if dim is None:
+            out[k] = parts[0]
+        elif ("." + k).endswith(_GEGLU):
+            halves = [p.chunk(2, dim=0) for p in parts]
+            out[k] = torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+        else:
+            out[k] = torch.cat(parts, dim=dim)
+    return out
+
+
+@torch.no_grad()
+def shard_module(model: nn.Module, mesh, head_dim: int = 64) -> nn.Module:
+    """`model` (a whole UNet, before `prepare_kernels`) holding only this
+    model rank's shards, in place: each sharded parameter is replaced by a
+    copy of its slice (the whole is freed with its last reference), and
+    each module whose parameters were sliced is marked `tp_sharded`."""
+    if mesh is None or mesh.n_model == 1:
+        return model
+    whole = dict(model.named_parameters())
+    specs = param_shardings(whole, mesh.n_model, head_dim)
+    local = shard_state_dict(whole, mesh, head_dim)
+    for name, p in whole.items():
+        if specs[name] is None:
+            continue
+        owner, attr = name.rsplit(".", 1)
+        module = model.get_submodule(owner)
+        part = local[name].detach().clone(memory_format=torch
+                                          .contiguous_format)
+        setattr(module, attr, nn.Parameter(part,
+                                           requires_grad=p.requires_grad))
+        module.tp_sharded = True
+    return model

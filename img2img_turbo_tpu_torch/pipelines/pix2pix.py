@@ -32,14 +32,16 @@ class GeneratorConfigs:
 def generate_unclamped(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod, c_t,
                        caption_enc, *, kernels: bool, noise=None,
                        generator: Optional[torch.Generator] = None,
-                       remat: bool = False, r=None, noise_map=None):
+                       remat: bool = False, r=None, noise_map=None,
+                       tp=None):
     """The generator core on (B, H, W, 3) input. Returns {"z": the scaled
     latent, "x0": the denoised latent, "img": the decoded image before the
     clamp} (the serving engine rounds "img" to uint8). remat recomputes
     each UNet block in the backward (training). With r (a float or 0-d
     tensor) the stochastic path's blends: unet_in = z*r + noise_map*(1-r),
     the UNet's TwinConv at r and decoder gamma = r (pix2pix.py:72-81); the
-    caller has merged LoRA at r."""
+    caller has merged LoRA at r. tp: the model axis's mesh of a UNet
+    sharded over it (`UNet2DConditionModel.forward`)."""
     s = cfgs.vae.scaling_factor
     z, skips = vae.encode(c_t, kernels=kernels, noise=noise,
                           generator=generator)
@@ -51,7 +53,8 @@ def generate_unclamped(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod, c_t,
         gamma = r
     t = torch.full((c_t.shape[0],), scheduler.ONE_STEP_T, dtype=torch.long,
                    device=c_t.device)
-    eps = unet(unet_in, t, caption_enc, kernels=kernels, remat=remat, r=r)
+    eps = unet(unet_in, t, caption_enc, kernels=kernels, remat=remat, r=r,
+               tp=tp)
     x0 = scheduler.ddpm_x0_step(eps, unet_in, t, alphas_cumprod)
     img = vae.decode(x0 / s, skips, gamma=gamma, kernels=kernels)
     return {"z": z, "x0": x0, "img": img}

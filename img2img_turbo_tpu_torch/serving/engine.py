@@ -25,6 +25,14 @@ mode the noise map) for the global batch from the same generator, computes
 its contiguous rows through its own kernels, and `gather_batch` returns the
 global batch on every rank. Each rank's rows are then the one-process
 engine's output on those rows with that noise.
+
+With a model axis (`mesh.n_model` above 1; "edge_to_image" and "image"),
+the engine shards its UNet over the model ranks at construction
+(`parallel.tensor.shard_module`, JAX's rule): each rank holds only its
+shards and runs the kernels on them, the VAE stays whole on every rank, and
+the ranks of a model group serve the same rows, each returning them whole.
+The sketch mode merges LoRA per request and is not ported to shards: it
+raises (ROADMAP, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from img2img_turbo_tpu_torch.models.layers import prepare_kernels
 from img2img_turbo_tpu_torch.ops import canny as canny_mod
 from img2img_turbo_tpu_torch.ops import image as image_mod
 from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
                                                        generate_unclamped,
                                                        lora_merged_at)
@@ -48,28 +57,29 @@ MODES = ("edge_to_image", "image", "sketch")
 
 def _serve_edge(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
                 caption_enc, low: float, high: float, *, kernels: bool,
-                noise=None, generator=None) -> Dict[str, torch.Tensor]:
+                noise=None, generator=None, tp=None
+                ) -> Dict[str, torch.Tensor]:
     """uint8 RGB -> canny control -> one-step generator -> uint8 RGB.
     Returns the uint8 output under "out", with the scaled latent "z", the
     denoised latent "x0" and the decoded image before the uint8 cast
-    "img"."""
+    "img". tp: the model axis's mesh of a sharded UNet."""
     c_t = canny_mod.canny_3ch_unit(image_u8, low, high).to(caption_enc.dtype)
     res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
                              kernels=kernels, noise=noise,
-                             generator=generator)
+                             generator=generator, tp=tp)
     res["out"] = image_mod.signed_to_uint8(res["img"])
     return res
 
 
 def _serve_image(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
                  caption_enc, *, kernels: bool, noise=None,
-                 generator=None) -> Dict[str, torch.Tensor]:
+                 generator=None, tp=None) -> Dict[str, torch.Tensor]:
     """uint8 RGB -> [-1, 1] -> one-step generator -> uint8 RGB; returns
     as `_serve_edge`."""
     c_t = image_mod.uint8_to_signed(image_u8).to(caption_enc.dtype)
     res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
                              kernels=kernels, noise=noise,
-                             generator=generator)
+                             generator=generator, tp=tp)
     res["out"] = image_mod.signed_to_uint8(res["img"])
     return res
 
@@ -100,7 +110,9 @@ class ServingEngine:
     weights, and their factored adapters {"unet", "vae"}. Modules are moved
     to `device` (the CUDA card unless the caller names another; without a
     card the caller must pass device="cpu") and cast to `dtype` once, here;
-    the merged modes' modules also get their kernel layouts here."""
+    the merged modes' modules also get their kernel layouts here. With a
+    model axis in `mesh`, the UNet module is sharded in place (as `.to()`
+    moves it in place) before its layouts are packed."""
 
     def __init__(self, params: Optional[Dict[str, torch.nn.Module]] = None,
                  cfgs: Optional[GeneratorConfigs] = None,
@@ -116,6 +128,12 @@ class ServingEngine:
                              "the runtime r)")
         if mode != "sketch" and params is None:
             raise ValueError(f"{mode} mode takes params (merged weights)")
+        self.tp = mesh if mesh is not None and mesh.n_model > 1 else None
+        if self.tp is not None and mode == "sketch":
+            raise NotImplementedError(
+                "sketch mode under a model axis: its per-request LoRA merge "
+                "(pipelines/pix2pix.py lora_merged_at) on shards is not "
+                "ported (ROADMAP, Queue 1 item 3)")
         self.cfgs = cfgs or GeneratorConfigs()
         self.mode, self.dtype = mode, dtype
         self.canny_low, self.canny_high = canny_low, canny_high
@@ -132,9 +150,11 @@ class ServingEngine:
                     for f, t in e.items()}
                 for n, e in v["modules"].items()}) for k, v in lora.items()}
         else:
-            self.unet, self.vae = (prepare_kernels(
-                params[k].to(device=self.device, dtype=dtype).eval())
-                for k in ("unet", "vae"))
+            unet = tensor_mod.shard_module(
+                params["unet"].to(device=self.device, dtype=dtype),
+                self.tp, tensor_mod.head_dim(self.cfgs.unet))
+            self.unet, self.vae = (prepare_kernels(m.eval()) for m in (
+                unet, params["vae"].to(device=self.device, dtype=dtype)))
         self.alphas = scheduler.make_alphas_cumprod(device=self.device)
 
     @classmethod
@@ -167,8 +187,9 @@ class ServingEngine:
         torch.Generator on the engine's device; seed 0 when None). Sketch
         mode only: r (float or 0-d tensor) and the noise map
         (B, H/8, W/8, 4), drawn from `generator` before the posterior noise
-        when not given. With a mesh of W ranks, B must divide by W; the
-        returned tensors are the global batch on every rank."""
+        when not given. With a mesh whose data axis has W ranks, B must
+        divide by W; the returned tensors are the global batch on every
+        rank."""
         if not isinstance(image_u8, torch.Tensor):
             image_u8 = torch.from_numpy(np.asarray(image_u8))
         image_u8 = image_u8.to(self.device)
@@ -216,10 +237,10 @@ class ServingEngine:
         if self.mode == "edge_to_image":
             return _serve_edge(self.unet, self.vae, self.cfgs, self.alphas,
                                image_u8, caption_enc, self.canny_low,
-                               self.canny_high, **common)
+                               self.canny_high, tp=self.tp, **common)
         if self.mode == "image":
             return _serve_image(self.unet, self.vae, self.cfgs, self.alphas,
-                                image_u8, caption_enc, **common)
+                                image_u8, caption_enc, tp=self.tp, **common)
         r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
         return _serve_sketch(self.unet, self.vae, self.lora, self.cfgs,
                              self.alphas, image_u8, caption_enc, r,

@@ -183,7 +183,8 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     every rank. Pass 2's images stay on their rank for its discriminator
     passes; the spectral-norm vectors advance on each rank from the same
     heads and are not reduced. The returned pass-1 gradients are the
-    averaged ones."""
+    averaged ones. A mesh with a model axis raises (not ported)."""
+    mesh_mod.refuse_model_axis(mesh, "the paired train step")
     for m in (models.unet, models.vae):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "

@@ -97,15 +97,15 @@ def clip_config(args) -> clip_vit.CLIPViTConfig:
 
 
 def refuse_unported(args) -> None:
-    """Stop a run whose flags ask for a model axis above 1: the model axis
-    (tensor parallelism) is not ported; each rank of a data-parallel run
-    holds the whole model on one card."""
+    """Stop a run whose flags ask for a model axis above 1: training under
+    the model axis (tensor parallelism) is not ported, only serving is;
+    each rank of a data-parallel run holds the whole model on one card."""
     if getattr(args, "tensor_parallel", 1) > 1:
         raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: the model axis "
-            f"(tensor parallelism) is not ported; each rank holds the whole "
-            f"model on one card (data parallelism: torchrun "
-            f"--nproc_per_node N)")
+            f"--tensor_parallel {args.tensor_parallel}: training under the "
+            f"model axis (tensor parallelism) is not ported (ROADMAP, Queue "
+            f"1 item 3); each rank holds the whole model on one card (data "
+            f"parallelism: torchrun --nproc_per_node N)")
 
 
 def activation_dtype(mixed_precision: Optional[str], device) -> torch.dtype:

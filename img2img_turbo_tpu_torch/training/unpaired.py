@@ -170,7 +170,9 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
     `paired.make_paired_train_step` (JAX unpaired.py:128-135): the five
     passes' losses, scalar metrics and gradients are averaged over the
     ranks before each optimizer update; pass 2's fakes stay on their rank
-    for the discriminator passes."""
+    for the discriminator passes. A mesh with a model axis raises (not
+    ported)."""
+    mesh_mod.refuse_model_axis(mesh, "the unpaired train step")
     for m in (models.unet, models.vae_a2b, models.vae_b2a):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "

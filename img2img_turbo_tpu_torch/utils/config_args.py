@@ -7,11 +7,12 @@ plus the port's own:
   `<output_dir>/state` (`training/checkpoint.py`);
 - `--tiny_model` takes the TINY configs (smoke runs and tests);
 - `--sd_turbo_path`, `--lpips_weights`, `--clip_weights` and
-  `--inception_weights` name pretrained files, whose loaders the port does
-  not have yet: a run given one stops with an error rather than train
-  on random weights in their place;
-- `--tensor_parallel` exists for launch-command parity; the port trains on
-  one card, and a value above 1 stops the run;
+  `--inception_weights` name pretrained files, which the run loads;
+- `--tensor_parallel` exists for launch-command parity: the port trains
+  each rank on one card (data-parallel under `torchrun --nproc_per_node
+  N`), and a value above 1 stops the run. The model axis is ported for
+  serving only (`ServingEngine(mesh=make_mesh(n_data, n_model))`); the
+  training steps under it are not (ROADMAP, Queue 1 item 3);
 - `--allow_tf32` lets cuBLAS use TF32 for the fp32 matmuls left in a run
   (as the reference sets it); `--enable_xformers_memory_efficient_attention`
   is accepted and changes nothing (the port's attention is its own kernel).

@@ -637,6 +637,7 @@ class TestWrapperRules:
 # conversion CLIs, which both import tests must see imported
 PORT_MODULES = [
     "img2img_turbo_tpu_torch.parallel.mesh",
+    "img2img_turbo_tpu_torch.parallel.tensor",
     "img2img_turbo_tpu_torch.utils.profiling",
     "img2img_turbo_tpu_torch.serving.demo",
     "img2img_turbo_tpu_torch.serving.web_demo",

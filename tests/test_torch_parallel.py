@@ -25,7 +25,8 @@ intra-op thread, as the one-process runs it is held against:
   step) against the one-process run of the same flags: only rank 0
   writes, the output directory holds the same files, the metrics rows and
   the last pkl agree within the tolerances above;
-- the mesh's refusals: a model axis, a batch that does not divide.
+- the mesh's refusals: a model axis without the ranks for it, a batch
+  that does not divide.
 """
 
 import json
@@ -116,7 +117,9 @@ def test_shard_batch_rows_equal_jax_data_shards():
 
 
 def test_mesh_refuses_a_model_axis_and_runs_alone_without_a_group():
-    with pytest.raises(NotImplementedError, match="model axis"):
+    """Without a process group there is one rank: a model axis of 2 has
+    too few (the model axis itself: tests/test_torch_tensor_parallel.py)."""
+    with pytest.raises(ValueError, match="model axis needs a divisor"):
         tmesh.make_mesh(n_model=2, device="cpu")
     assert tmesh.init_distributed(device="cpu") is True
     m = tmesh.make_mesh(device="cpu")

@@ -1,0 +1,262 @@
+"""The port's model axis (`parallel/tensor.py`, the `tp` path of
+`models/layers.py`, `ServingEngine(mesh=...)`) on the CPU, in fp32, with
+two gloo ranks spawned once for the module (`torch_dp.Ranks`, one intra-op
+thread each):
+
+- the sharding rule at full SD-Turbo width, on shapes alone (a `meta`
+  UNet), equals the JAX package's `param_shardings` on the 8 virtual CPU
+  devices leaf for leaf at n_model = 2 and 4, after the name map and the
+  transposes, except the departures of `parallel/tensor.py`, asserted
+  exactly: (b) the attention layers whose heads do not divide by n_model,
+  (a) the GEGLU proj's bias and (c) the sharded convs' biases, which the
+  port slices with their weights;
+- `shard_state_dict` then `unshard_state_dict` is exact, the GEGLU proj's
+  value and gate halves sliced alike;
+- the 2-rank (1, 2) UNet forward, kernel and plain path, at MICRO and at a
+  config with 3 heads at level 0 (kept whole) and 4 in the mid block,
+  against JAX's `unet_forward` jitted with `in_shardings=param_shardings`
+  and kernels off (as `__graft_entry__.py:309-316` lowers it), within 1e-4
+  of max|ref|, both ranks equal;
+- the engine under (1, 2) in edge_to_image and image mode against the
+  one-process engine: within 1 uint8 level on at most 0.1% of values;
+- `make_mesh`'s subgroups for (2, 2) and (4, 2) are JAX's grid columns
+  and rows (rank arithmetic, no spawn);
+- the training steps, `refuse_unported` and the sketch mode refuse a model
+  axis.
+"""
+
+import argparse
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.sharding import NamedSharding
+
+import torch_dp
+from img2img_turbo_tpu import configs as jconfigs
+from img2img_turbo_tpu.models import unet as junet
+from img2img_turbo_tpu.parallel import mesh as jmesh
+from img2img_turbo_tpu.weights import torch_import as ti
+from img2img_turbo_tpu_torch import configs as tconfigs
+from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+from img2img_turbo_tpu_torch.parallel import mesh as tmesh
+from img2img_turbo_tpu_torch.parallel import tensor as ttp
+from img2img_turbo_tpu_torch.weights import from_jax
+
+WORLD = 2
+TOL = 1e-4          # max|err| / max|ref|, fp32
+# 3 heads at level 0 (head dim 16, kept whole at n_model = 2), 4 in the mid
+ODD = dict(block_out_channels=(48, 64), layers_per_block=1,
+           attention_head_dim=(3, 4), cross_attention_dim=32,
+           transformer_levels=(True, False), norm_num_groups=8)
+CONFIGS = {"micro": (tconfigs.MICRO_UNET, jconfigs.MICRO_UNET),
+           "odd_heads": (tconfigs.UNetConfig(**ODD),
+                         jconfigs.UNetConfig(**ODD))}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    r = torch_dp.Ranks(WORLD, tmp_path_factory.mktemp("rendezvous"))
+    yield r
+    r.close()
+
+
+def _mesh(m, n, n_data=1):
+    return tmesh.DataMesh(0, n_data, torch.device("cpu"), model_rank=m,
+                          n_model=n)
+
+
+# ---------------------------------------------------------------------------
+# the rule at SD-Turbo width, on shapes
+# ---------------------------------------------------------------------------
+
+
+def _jax_dims(n_model):
+    """{port name: the port dim JAX's rule shards, or None}, through a
+    marker tree (2 on JAX's sharded dim, 1 elsewhere) sent through the
+    port's name map and transposes; and JAX's leaf count and share of
+    parameters sharded."""
+    shapes = jax.eval_shape(
+        lambda k: junet.init_unet(k, jconfigs.SD_TURBO_UNET),
+        jax.random.PRNGKey(0))
+    jm = jmesh.make_mesh(n_data=8 // n_model, n_model=n_model)
+    specs = jax.tree_util.tree_leaves(
+        jmesh.param_shardings(shapes, jm, tensor_parallel=True),
+        is_leaf=lambda x: isinstance(x, NamedSharding))
+    leaves, treedef = jax.tree_util.tree_flatten(shapes)
+    markers, n_sharded, p_sharded = [], 0, 0
+    for leaf, sh in zip(leaves, specs):
+        shape = [1] * leaf.ndim
+        for d, axis in enumerate(sh.spec):
+            if axis is not None:
+                shape[d] = 2
+        if 2 in shape:
+            n_sharded += 1
+            p_sharded += leaf.size
+        markers.append(np.zeros(shape, np.int8))
+    tree = jax.tree_util.tree_unflatten(treedef, markers)
+    dims = {k: (v.shape.index(2) if 2 in v.shape else None)
+            for k, v in from_jax.unet_state_dict(tree).items()}
+    total = sum(leaf.size for leaf in leaves)
+    return dims, n_sharded, p_sharded / total
+
+
+def _whole_heads(n_model):
+    """Departure (b) at SD-Turbo width: the attention weights of the levels
+    whose 5, 10 or 20 heads do not divide by n_model."""
+    levels = [("down_blocks.0", 2, 5), ("up_blocks.3", 3, 5),
+              ("down_blocks.1", 2, 10), ("up_blocks.2", 3, 10)]
+    return {f"{blk}.attentions.{j}.transformer_blocks.0.attn{a}.{p}.weight"
+            for blk, n_layers, heads in levels if heads % n_model
+            for j in range(n_layers) for a in (1, 2)
+            for p in ("to_q", "to_k", "to_v", "to_out.0")}
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_rule_equals_jax_param_shardings_at_sd_turbo_width(n_model):
+    with torch.device("meta"):
+        sd = UNet2DConditionModel(tconfigs.SD_TURBO_UNET).state_dict()
+    got = ttp.param_shardings(sd, n_model)
+    want, n_sharded, share = _jax_dims(n_model)
+    assert set(got) == set(want)
+    differ = {k for k in got if got[k] != want[k]}
+    whole = _whole_heads(n_model)
+    biases = {k for k in got if k.endswith(".bias") and (
+        (len(sd[k[:-5] + ".weight"].shape) == 4
+         and want[k[:-5] + ".weight"] == 0)
+        or k.endswith(".ff.net.0.proj.bias"))}
+    assert differ == whole | biases
+    assert all(got[k] is None and want[k] is not None for k in whole)
+    assert all(got[k] == 0 and want[k] is None for k in biases)
+    assert len(whole) == (40 if n_model == 2 else 80)
+    if n_model == 2:
+        assert (n_sharded, round(share, 3)) == (226, 0.939)
+        total = sum(v.numel() for v in sd.values())
+        mine = sum(sd[k].numel() for k, d in got.items() if d is not None)
+        assert round(mine / total, 3) == 0.932
+
+
+def test_shard_then_unshard_is_exact():
+    sd = from_jax.random_params(tconfigs.MICRO_UNET,
+                                torch.Generator().manual_seed(1))
+    hd = ttp.head_dim(tconfigs.MICRO_UNET)
+    for n in (2, 4):
+        specs = ttp.param_shardings(sd, n, hd)
+        shards = [ttp.shard_state_dict(sd, _mesh(m, n), hd) for m in range(n)]
+        back = ttp.unshard_state_dict(shards, specs)
+        assert set(back) == set(sd)
+        for k, v in sd.items():
+            assert torch.equal(back[k], v), k
+        proj = "mid_block.attentions.0.transformer_blocks.0.ff.net.0.proj"
+        for suffix in (".weight", ".bias"):
+            whole = sd[proj + suffix]
+            value, gate = whole.chunk(2)
+            k = value.shape[0] // n
+            for m, s in enumerate(shards):
+                assert torch.equal(s[proj + suffix], torch.cat(
+                    [value[m * k:(m + 1) * k], gate[m * k:(m + 1) * k]]))
+
+
+# ---------------------------------------------------------------------------
+# the 2-rank UNet forward against JAX's sharded forward
+# ---------------------------------------------------------------------------
+
+
+def _jax_sharded_eps(jcfg, usd, x, t, ctx):
+    tree = jax.tree_util.tree_map(
+        np.asarray, ti.convert_unet_state_dict(usd, jcfg))
+    jm = jmesh.make_mesh(n_data=1, n_model=WORLD,
+                         devices=jax.devices()[:WORLD])
+    rep = jmesh.replicated(jm)
+    with jmesh.kernels_scope(jm):
+        fwd = jax.jit(lambda p, x, t, c: junet.unet_forward(p, jcfg, x, t, c),
+                      in_shardings=(jmesh.param_shardings(
+                          tree, jm, tensor_parallel=True), rep, rep, rep))
+        return np.asarray(fwd(tree, x, t.astype(np.int32), ctx))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_two_rank_unet_equals_jax_sharded_forward(ranks, name):
+    cfg, jcfg = CONFIGS[name]
+    usd = {k: v.numpy() for k, v in from_jax.random_params(
+        cfg, torch.Generator().manual_seed(11)).items()}
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 16, 16, 4).astype(np.float32)
+    t = np.full((2,), 999, np.int64)
+    ctx = (rng.randn(2, 77, 32) * 0.5).astype(np.float32)
+    ranks.submit(torch_dp.tp_unet, cfg, usd, x, t, ctx)
+    want = _jax_sharded_eps(jcfg, usd, x, t, ctx)
+    out = ranks.collect()
+    scale = np.abs(want).max()
+    for res in out:
+        for path, eps in res["eps"].items():
+            err = np.abs(eps - want).max() / scale
+            assert err <= TOL, (name, path, err)
+        assert res["numel"] < sum(v.size for v in usd.values())
+    for path in (True, False):
+        np.testing.assert_array_equal(out[0]["eps"][path],
+                                      out[1]["eps"][path])
+    # (b): 3 heads stay whole at level 0; MICRO's 2 heads are split
+    level0 = "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q"
+    assert (level0 in out[0]["sharded"]) == (name == "micro")
+    assert "mid_block.attentions.0.transformer_blocks.0.attn1.to_q" \
+        in out[0]["sharded"]
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+def test_engine_model_axis_matches_one_process_engine(ranks):
+    out = ranks.run(torch_dp.engine_tp)
+    for mode in ("edge_to_image", "image"):
+        for res in out:
+            r = res[mode]
+            diff = np.abs(r["tp"].astype(np.int32) - r["one"].astype(np.int32))
+            assert diff.max() <= 1, mode
+            assert (diff > 0).mean() <= 1e-3, (mode, (diff > 0).mean())
+            assert r["numel"] < r["whole"]
+        np.testing.assert_array_equal(out[0][mode]["tp"], out[1][mode]["tp"])
+        assert out[0][mode]["tp"].shape == (2, torch_dp.RES, torch_dp.RES, 3)
+
+
+# ---------------------------------------------------------------------------
+# the mesh's groups and the refusals
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 2), (4, 2)])
+def test_mesh_groups_are_jax_grid_columns_and_rows(n_data, n_model):
+    jm = jmesh.make_mesh(n_data=n_data, n_model=n_model,
+                         devices=jax.devices()[:n_data * n_model])
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    data, model = tmesh.mesh_groups(n_data, n_model)
+    assert data == [list(ids[:, m]) for m in range(n_model)]
+    assert model == [list(ids[d, :]) for d in range(n_data)]
+
+
+def test_training_and_sketch_refuse_a_model_axis():
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    from img2img_turbo_tpu_torch.training import paired, runner, unpaired
+    m = _mesh(0, 2)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        paired.make_paired_train_step(None, None, None, None, mesh=m)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        unpaired.make_unpaired_train_step(None, None, None, None, mesh=m)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        runner.refuse_unported(argparse.Namespace(tensor_parallel=2))
+    with pytest.raises(NotImplementedError, match=re.escape("lora_merged_at")):
+        ServingEngine(mode="sketch", base={"unet": None, "vae": None},
+                      lora={}, device="cpu", mesh=m)

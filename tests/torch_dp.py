@@ -1,6 +1,6 @@
-"""Two gloo ranks on the CPU for the port's data-parallel tests, and the
-work each rank runs (kept apart from the test modules so that a rank
-imports only torch and the port).
+"""Two gloo ranks on the CPU for the port's data- and model-parallel tests,
+and the work each rank runs (kept apart from the test modules so that a
+rank imports only torch and the port).
 
 `Ranks(world, tmp_path)` spawns `world` processes once, each joined to a
 gloo group through a `file://` rendezvous under `tmp_path` (no TCP port,
@@ -379,3 +379,73 @@ def given_step(mesh, models, cfgs, meta, init, batch, noise):
     return {"metrics": _metrics(m), "grads": arrays(grads),
             "gen": arrays(state.gen), "disc": arrays(state.disc),
             "disc_sn": arrays(state.disc_sn)}
+
+
+# ---------------------------------------------------------------------------
+# the model axis
+# ---------------------------------------------------------------------------
+
+_TP_MESHES: dict = {}
+
+
+def tp_mesh(mesh):
+    """This rank's (1, W) mesh over the spawned world (W = its ranks), made
+    once a process (`make_mesh` makes its subgroups collectively)."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    if mesh.world not in _TP_MESHES:
+        _TP_MESHES[mesh.world] = mesh_mod.make_mesh(1, mesh.world,
+                                                    device="cpu")
+    return _TP_MESHES[mesh.world]
+
+
+def tp_unet(mesh, cfg, usd, x, t, ctx):
+    """The UNet at `cfg` with the whole state dict `usd` sharded over the
+    ranks' model axis: its eps on (x, t, ctx) in fp32 on the CPU, kernel
+    path and plain path, and the parameters this rank holds."""
+    from img2img_turbo_tpu_torch.models.layers import prepare_kernels
+    from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+    from img2img_turbo_tpu_torch.weights import from_jax
+    tp = tp_mesh(mesh)
+    model = from_jax.load(UNet2DConditionModel(cfg), usd)
+    prepare_kernels(tensor_mod.shard_module(model, tp,
+                                            tensor_mod.head_dim(cfg)))
+    x, t, ctx = (torch.as_tensor(a) for a in (x, t, ctx))
+    with torch.no_grad():
+        eps = {k: model(x, t, ctx, kernels=k, tp=tp).numpy()
+               for k in (True, False)}
+    return {"eps": eps, "numel": sum(p.numel() for p in model.parameters()),
+            "sharded": sorted(n for n, m in model.named_modules()
+                              if getattr(m, "tp_sharded", False))}
+
+
+def engine_tp(mesh):
+    """`ServingEngine(mesh=(1, W))` in edge_to_image and image mode at
+    MICRO configs, a batch of 2 at RES x RES, against the engine without a
+    mesh on the same weights (built first, from the same seed), noise and
+    images: each mode's uint8 outputs, and the UNet parameters the sharded
+    engine holds against the whole UNet's."""
+    from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+    from img2img_turbo_tpu_torch.weights import from_jax
+    cfgs, _ = _configs()
+    tp = tp_mesh(mesh)
+    rng = np.random.RandomState(5)
+    imgs = torch.tensor(rng.randint(0, 256, (2, RES, RES, 3)),
+                        dtype=torch.uint8)
+    caption = torch.tensor(rng.randn(1, 77, 32), dtype=torch.float32)
+    out = {}
+    for mode in ("edge_to_image", "image"):
+        g = torch.Generator().manual_seed(7)
+        params = {"unet": from_jax.random_model(cfgs.unet, g),
+                  "vae": from_jax.random_model(cfgs.vae, g)}
+        whole = sum(p.numel() for p in params["unet"].parameters())
+        one = ServingEngine(params, cfgs, mode=mode, dtype=torch.float32,
+                            device="cpu").run(
+            imgs, caption, torch.Generator().manual_seed(0))
+        eng = ServingEngine(params, cfgs, mode=mode, dtype=torch.float32,
+                            device="cpu", mesh=tp)
+        got = eng.run(imgs, caption, torch.Generator().manual_seed(0))
+        out[mode] = {"one": one["out"].numpy(), "tp": got["out"].numpy(),
+                     "numel": sum(p.numel() for p in eng.unet.parameters()),
+                     "whole": whole}
+    return out
