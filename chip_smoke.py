@@ -1,9 +1,9 @@
 """Chip smoke for the PyTorch port: the three serving modes, the paired
 (pix2pix-turbo) and unpaired (CycleGAN-Turbo) training steps, the weight
 loaders and both inference CLIs, both training CLIs, the public attention
-op, data parallelism and the model axis on torch.distributed, the
-profiling helpers, the web demo and the parity and conversion CLIs on one
-GPU.
+op, data parallelism and the model axis (serving and both training steps)
+on torch.distributed, the profiling helpers, the web demo and the parity
+and conversion CLIs on one GPU.
 
     python3 chip_smoke.py    # one CUDA card
 
@@ -180,6 +180,29 @@ Phases, each fatal on failure:
    each launch shape of the ranks that the one-process requests and no
    case ran (the shards' channel counts) against its `*_ref`, part
    "model_axis" of the kernels line.
+13. model-axis training phase (after phase 12): two gloo ranks sharing the
+   card at mesh (1, 2), spawned likewise. Each rank builds phase 6's
+   paired run (seed 4321, 512x512 b1) and then phase 7's unpaired run
+   (seed 5432, 256x256 b1), shards the UNet
+   (`runner.shard_for_training`: conv_in whole) and runs the step on that
+   phase's first row and noise, then TRAIN_STEPS more (their p50) and one
+   with the collectives timed.
+   Checked: the UNet holds only the rank's shards (shapes by
+   `parallel.tensor`'s rule, bytes beside the whole's); every trainable, head, spectral-norm
+   vector and AdamW moment bit-identical across the model ranks after the
+   first and the last step (`mesh.differing` over the model group); the
+   losses, first-pass gradients and the state after the first step
+   against phases 6 and 7's one-process kernel-path first step from the
+   same state (TP_LOSS_TOL, GRAD_REL_L2_TOL overall and per part, and the
+   trainables' rule beside TP_FLIP_FRAC); the launch table that step's and
+   EXPECTED_TRAIN_LAUNCHES / EXPECTED_UNPAIRED_LAUNCHES, the du's launches
+   by shape the one-process table's with the UNet's Co halved (conv_out's
+   Co = 2 among them) and K7's with the UNet's heads halved where they
+   split. Each prints UNet bytes a rank, step p50, peak memory and the
+   collectives a step (calls, bytes, time). Then every kernel runs each
+   launch shape of the ranks that no case ran against its `*_ref` (part
+   "model_axis"; the du's "du_model_axis"), K8's du at Co = 2 and K7 on
+   local heads among them.
 Each of these phases prints its numbers with the card's name and power
 limit.
 
@@ -500,10 +523,8 @@ def kernel_phase(dev, results: list):
     conv_lib.conv_dgrad_plan.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
     form = (ctypes.c_int * 6)()
-    for (case, B, H, W, C, Co, _), part in (
-            [(c, "du") for c in DU_CASES]
-            + [(c, "du_unpaired") for c in _unseen(DU_UNPAIRED, DU_CASES, 1,
-                                                    6)]):
+
+    def du_case(case, B, H, W, C, Co, part):
         conv_lib.conv_dgrad_plan(B, H, W, C, Co, form)
         gy = rn(B, H, W, Co)
         w = rn(Co, C, 3, 3, scale=1 / math.sqrt(9 * C))   # nn.Conv2d's
@@ -528,6 +549,12 @@ def kernel_phase(dev, results: list):
         record(*k1, case, err, rel, REL_TOL, ms, pms, flops, nbytes, lms,
                "F.conv_transpose2d", part=part, device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, H, W, C, Co))
+
+    for (case, B, H, W, C, Co, _), part in (
+            [(c, "du") for c in DU_CASES]
+            + [(c, "du_unpaired") for c in _unseen(DU_UNPAIRED, DU_CASES, 1,
+                                                    6)]):
+        du_case(case, B, H, W, C, Co, part)
 
     # ---- K4: every upsample of the paths (K4_CASES), each with its form,
     # against the exact version with its stats, a repeat bit-identical;
@@ -881,11 +908,8 @@ def kernel_phase(dev, results: list):
           "img2img_turbo_tpu_torch/csrc/attention_bwd.cu",
           "img2img_turbo_tpu/ops/attention.py:390")
     k7_splits, k7_bands = set(), set()
-    for case, B, Sq, Skv, H, hd, part in (
-            [(*c[:6], None) for c in K7_CASES]
-            + [(*c, "edge") for c in K7_EDGE_CASES]
-            + [(*c[:6], "unpaired")
-               for c in _unseen(K7_UNPAIRED, K7_CASES, 1, 6)]):
+
+    def k7_case(case, B, Sq, Skv, H, hd, part):
         q, k, v = (rn(B, s, H * hd) for s in (Sq, Skv, Skv))
         do = rn(B, Sq, H * hd)
         o, lse = attention.flash_attention_folded(q, k, v, H,
@@ -937,6 +961,13 @@ def kernel_phase(dev, results: list):
                f"sdpa[{backend}] backward", part=part, device_ms=dev_ms,
                library_device_ms=lib_dev, shape=(B, Sq, Skv, H, hd),
                plan=plan)
+
+    for case, B, Sq, Skv, H, hd, part in (
+            [(*c[:6], None) for c in K7_CASES]
+            + [(*c, "edge") for c in K7_EDGE_CASES]
+            + [(*c[:6], "unpaired")
+               for c in _unseen(K7_UNPAIRED, K7_CASES, 1, 6)]):
+        k7_case(case, B, Sq, Skv, H, hd, part)
     if k7_splits != {False, True}:
         _fail(f"K7's hd-64 cases did not run both a split and an unsplit "
               f"dk/dv walk (split seen: {sorted(k7_splits)})")
@@ -998,9 +1029,9 @@ def kernel_phase(dev, results: list):
         """A kernel at a path's launch shape (as its wrapper counts it in
         `_build.launch_shapes`) that no case above runs, with that kernel's
         checks, recorded under `part`: K1, K4, K6 (timed without stats, as
-        the UNet calls it), K3, K2, K5 on an input of that (B, S, C), and
-        the combine on fp32 partial sums of that (B, tiles, C) over tiles
-        of 64 rows."""
+        the UNet calls it), K3, K2, K7, K8's du (recorded under "du_" +
+        part), K5 on an input of that (B, S, C), and the combine on fp32
+        partial sums of that (B, tiles, C) over tiles of 64 rows."""
         case = f"{part} " + "x".join(
             str(int(v) if isinstance(v, bool) else v) for v in shape)
         if kernel == "fused_gn_silu_conv3x3":
@@ -1013,6 +1044,10 @@ def kernel_phase(dev, results: list):
             k3_case(tuple(shape), part)
         elif kernel == "flash_attention_folded":
             k2_case(case, *shape, part)
+        elif kernel == "flash_attention_folded_bwd":
+            k7_case(case, *shape, part)
+        elif kernel == "conv3x3_input_grad":
+            du_case(case, *shape, "du_" + part)
         elif kernel == "group_norm_stats":
             b, rows, c = shape
             k5_case(f"{part} {b}x{rows}x{c}", (b, rows, c), part)
@@ -1026,6 +1061,17 @@ def kernel_phase(dev, results: list):
             _fail(f"no case for the kernel {kernel}")
 
     return path_case
+
+
+def _have(results, kernel: str) -> set:
+    """The launch shapes (as a wrapper counts them) that a case of
+    `results` ran for `kernel`; K8's du is recorded under K1's name."""
+    if kernel == "conv3x3_input_grad":
+        return {tuple(r["shape"]) for r in results
+                if r["name"] == "fused_gn_silu_conv3x3" and "shape" in r
+                and (r["part"] or "").startswith("du")}
+    return {tuple(r["shape"]) for r in results
+            if r["name"] == kernel and "shape" in r}
 
 
 def _summed(rs):
@@ -1132,7 +1178,7 @@ def main():
     summary: dict = {"paths": {}, "k1_shapes": {}, "k2_shapes": {},
                      "k3_shapes": {}, "k4_shapes": {}, "k5_shapes": {},
                      "k5c_shapes": {}, "k6_shapes": {}, "k7_shapes": {},
-                     "du_shapes": {}}
+                     "du_shapes": {}, "tp_reference": {}}
     attention_path(dev, summary)
     engine_phase(dev, summary)
     modes_phase(dev, summary)
@@ -1150,18 +1196,19 @@ def main():
     dp_phase(dev, summary)
     # the model axis, and every kernel at the shard shapes it launched that
     # no case ran, checked against its *_ref (part "model_axis")
-    t0 = time.perf_counter()
-    tp_shapes = tp_phase(dev, summary)
-    n_new = 0
-    for kernel, shapes in tp_shapes.items():
-        have = {tuple(r["shape"]) for r in results
-                if r["name"] == kernel and "shape" in r}
-        for shape in sorted(shapes - have, key=str):
-            path_case(kernel, shape, "model_axis")
-            n_new += 1
-    torch.cuda.synchronize()
-    print(f"model-axis phase with its {n_new} new kernel cases: "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    # then training under it (phase 13), and its new shapes likewise (the
+    # du's part "du_model_axis")
+    for phase, what in ((tp_phase, "model-axis phase"),
+                        (tp_train_phase, "model-axis training phase")):
+        t0 = time.perf_counter()
+        n_new = 0
+        for kernel, shapes in phase(dev, summary).items():
+            for shape in sorted(shapes - _have(results, kernel), key=str):
+                path_case(kernel, shape, "model_axis")
+                n_new += 1
+        torch.cuda.synchronize()
+        print(f"{what} with its {n_new} new kernel cases: "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     with tempfile.TemporaryDirectory() as root:
         snap = weights_phase(dev, summary, root)
         cli_phase(dev, summary, snap)
@@ -1169,7 +1216,7 @@ def main():
     paths = {p: summary["paths"][p] for p in (
         "serve", "image", "sketch", "train", "default_attention",
         "unpaired", "cli_pix2pix", "cli_pix2pix_resume", "cli_cyclegan",
-        "model_axis")}
+        "model_axis", "model_axis_paired", "model_axis_unpaired")}
     kernels = _per_kernel(results, paths)
     k2 = next(e for e in kernels if e["name"] == "flash_attention_folded")
     k2_cases = [r for r in results if r["name"] == k2["name"]]
@@ -1331,6 +1378,7 @@ def main():
                       "weights": summary["weights"],
                       "cli": summary["cli"], "dp": summary["dp"],
                       "model_axis": summary["model_axis"],
+                      "model_axis_train": summary["model_axis_train"],
                       "tools": summary["tools"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1774,6 +1822,18 @@ SHAPE_KEYS = (("k1", "fused_gn_silu_conv3x3"),
               ("du", "conv3x3_input_grad"))
 
 
+def _reference(run, state0) -> dict:
+    """The kernel path's first step of a `_run_steps` run from `state0` on
+    the host, for the model-axis training phase: its metrics, its first
+    pass's gradients and the state's tensors before and after it (fp32)."""
+    def host(d):
+        return {n: v.detach().float().cpu() for n, v in d.items()}
+    return {"metrics": run["first_metrics"], "counts": run["counts"],
+            "grads": host(run["grads"][True]),
+            "start": host(_state_tensors(state0)),
+            "after": host(_state_tensors(run["after_first"]))}
+
+
 def _run_steps(steps, state0, batch, noise, dev, summary, path):
     """A warm-up step and TRAIN_STEPS timed steps (CUDA events) of the
     kernel and the plain path (`steps`, {kernels: step}) from copies of
@@ -1929,6 +1989,7 @@ def train_phase(dev, summary):
           f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB; "
           f"eval {val}", flush=True)
     summary["paths"]["train"] = counts
+    summary["tp_reference"]["paired"] = _reference(run, state0)
     summary["train"] = {
         "step_ms": {("kernels" if k else "plain"): v
                     for k, v in run["times"].items()},
@@ -1940,6 +2001,29 @@ def train_phase(dev, summary):
 
 
 UNPAIRED_HW = 256   # the repo's CycleGAN-Turbo recipe: 256x256 crops
+
+
+def _unpaired_inputs(cfgs, dev):
+    """The unpaired phase's 256x256 b1 batch (synth images 7 and 8, caption
+    embeddings from a generator seeded 5433) and noise(i), step i's
+    posterior noise of the eight forwards (a generator seeded 2000 + i)."""
+    import torch
+    from img2img_turbo_tpu_torch.training import paired, unpaired
+    h = w = UNPAIRED_HW
+    g = torch.Generator(device=dev).manual_seed(5433)
+    d = cfgs.unet.cross_attention_dim
+    batch = {"pixel_values_src": torch.as_tensor(
+                 synth_image(h, w, 7), device=dev).float() / 127.5 - 1.0,
+             "pixel_values_tgt": torch.as_tensor(
+                 synth_image(h, w, 8), device=dev).float() / 127.5 - 1.0,
+             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
+             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
+
+    def noise(step_i):
+        gn_ = torch.Generator(device=dev).manual_seed(2000 + step_i)
+        return tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
+                     for _ in range(unpaired.NUM_NOISE))
+    return batch, noise
 
 
 def unpaired_phase(dev, summary):
@@ -1958,8 +2042,7 @@ def unpaired_phase(dev, summary):
     import torch
     from img2img_turbo_tpu_torch.models import clip_vit
     from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
-    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
-                                                  unpaired)
+    from img2img_turbo_tpu_torch.training import losses, runner, unpaired
 
     t0 = time.perf_counter()
     cfgs = GeneratorConfigs()
@@ -1975,20 +2058,7 @@ def unpaired_phase(dev, summary):
     n_frozen = sum(p.numel() for m in frozen.values() for p in m.parameters())
 
     h = w = UNPAIRED_HW
-    g = torch.Generator(device=dev).manual_seed(5433)
-    d = cfgs.unet.cross_attention_dim
-    batch = {"pixel_values_src": torch.as_tensor(
-                 synth_image(h, w, 7), device=dev).float() / 127.5 - 1.0,
-             "pixel_values_tgt": torch.as_tensor(
-                 synth_image(h, w, 8), device=dev).float() / 127.5 - 1.0,
-             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
-             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
-
-    def noise(step_i):
-        gn_ = torch.Generator(device=dev).manual_seed(2000 + step_i)
-        return tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
-                     for _ in range(unpaired.NUM_NOISE))
-
+    batch, noise = _unpaired_inputs(cfgs, dev)
     torch.cuda.synchronize()
     print(f"unpaired phase: SD-Turbo UNet (3 LoRA adapters, rank "
           f"{meta.rank_unet}) + vae_a2b/vae_b2a (LoRA rank {meta.rank_vae}), "
@@ -2073,6 +2143,7 @@ def unpaired_phase(dev, summary):
           f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB",
           flush=True)
     summary["paths"]["unpaired"] = counts
+    summary["tp_reference"]["unpaired"] = _reference(run, state0)
     summary["unpaired"] = {
         "step_ms": {("kernels" if k else "plain"): v
                     for k, v in run["times"].items()},
@@ -2970,8 +3041,7 @@ def _dp_unpaired(mesh, dev) -> dict:
     from img2img_turbo_tpu_torch.models import clip_vit
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
-    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
-                                                  unpaired)
+    from img2img_turbo_tpu_torch.training import losses, runner, unpaired
     cfgs = GeneratorConfigs()
     t0 = time.perf_counter()
     models, state0, meta = runner.build_unpaired_run(
@@ -2980,18 +3050,8 @@ def _dp_unpaired(mesh, dev) -> dict:
         {n: getattr(models, n) for n in ("unet", "vae_a2b", "vae_b2a",
                                          "lpips", "disc_backbone")}, mesh),
         "trainable": sum(v.numel() for v in state0.gen.values())}
-    h = w = UNPAIRED_HW
-    g = torch.Generator(device=dev).manual_seed(5433)
-    d = cfgs.unet.cross_attention_dim
-    batch = {"pixel_values_src": torch.as_tensor(
-                 synth_image(h, w, 7), device=dev).float() / 127.5 - 1.0,
-             "pixel_values_tgt": torch.as_tensor(
-                 synth_image(h, w, 8), device=dev).float() / 127.5 - 1.0,
-             "emb_a2b": torch.randn(1, 77, d, generator=g, device=dev),
-             "emb_b2a": torch.randn(1, 77, d, generator=g, device=dev)}
-    gn_ = torch.Generator(device=dev).manual_seed(2000)
-    noise = tuple(paired.draw_noise(gn_, 1, h, w, cfgs, torch.bfloat16)
-                  for _ in range(unpaired.NUM_NOISE))
+    batch, noise_of = _unpaired_inputs(cfgs, dev)
+    noise = noise_of(0)
     out["setup_s"] = time.perf_counter() - t0
 
     def make(m):
@@ -3451,6 +3511,302 @@ def tp_phase(dev, summary) -> dict:
          for mode in expected} for res in ranks]}
     return {k: {sh for sh in v if (k, sh) not in one_process}
             for k, v in shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# model-axis training phase: both train steps with the UNet sharded over two
+# model ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# The gate of the model-axis step against the one-process kernel-path step
+# at the same seeds (phases 6 and 7's first step), stated before the first
+# chip run; its yardstick is phase 6's kernel-vs-plain gap (losses within
+# 1.3e-3 relative, pass-1 gradients 4.6e-2 rel L2 against GRAD_REL_L2_TOL).
+TP_LOSS_TOL = 1e-2      # each loss of the step, relative
+# the trainables and heads after the step: AdamW's first updates move an
+# element by about lr, of either sign where its gradient is near zero; the
+# gate is that fewer than TP_FLIP_FRAC of them are off the one-process
+# value by more than one lr. Every element within 2.1 lr an update is a
+# sanity bound only: two first AdamW updates cannot differ by more than
+# about 2 lr each. change_rel_l2 (the change's rel L2 against the
+# one-process change) is reported, not gated.
+TP_FLIP_FRAC = 0.05
+TP_GEN_UPDATES = {"paired": 2, "unpaired": 3}   # the heads: 2 in both
+
+
+def _tp_expected(kind: str) -> dict:
+    """The du's and K7's launches by shape in a model-axis step at a
+    (1, 2) mesh: the one-process step's (tools/time_kernels.py's DU and K7
+    tables), the UNet's du on Co slices and its K7 on the local heads
+    where they split (SD-Turbo's level 0 has 5 heads: whole)."""
+    import collections
+    from img2img_turbo_tpu_torch.tools.time_kernels import (
+        DU_CASES, DU_UNPAIRED, K7_CASES, K7_UNPAIRED)
+    du, k7 = collections.Counter(), collections.Counter()
+    rows = ((DU_CASES, K7_CASES) if kind == "paired"
+            else (DU_UNPAIRED, K7_UNPAIRED))
+    for c in rows[0]:
+        b, h, w, ci, co, n = c[1:7]
+        if n:
+            unet = c[0].startswith("du unet")
+            du[(b, h, w, ci, co // TP_WORLD if unet else co)] += n
+    for c in rows[1]:
+        b, sq, skv, heads, hd, n = c[1:7]
+        if c[0].startswith("unet") and heads % TP_WORLD == 0:
+            heads //= TP_WORLD
+        k7[(b, sq, skv, heads, hd)] += n
+    return {"du": dict(du), "k7": dict(k7)}
+
+
+def _tp_train_step(kind: str, tp, dev, out_dir: str) -> dict:
+    """One kind of model-axis step on this rank: the run built from the
+    phase-6 (paired, seed 4321, 512x512) or phase-7 (unpaired, seed 5432,
+    256x256) seeds, its UNet sharded
+    (`runner.shard_for_training`), then the step from the fresh state on
+    that phase's first row and noise (the compared step: its metrics,
+    first-pass gradients and state after it saved to `out_dir` by model
+    rank 0, launches by shape, the collectives' calls and bytes), then
+    TRAIN_STEPS more (CUDA events; the step p50 is theirs, as in
+    `_run_steps`) and a last one with the collectives timed (each one
+    synchronised, so that step is not among the p50's); the state checked
+    bit-identical across the model ranks after the
+    first and the last step."""
+    import gc
+    import os
+    import torch
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.ops import _build
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
+    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
+                                                  unpaired)
+    cfgs = GeneratorConfigs()
+    t0 = time.perf_counter()
+    if kind == "paired":
+        models, state, meta = runner.build_paired_run(
+            cfgs, clip_vit.CLIP_VIT_B32, seed=4321, device=dev)
+        batch = _paired_row(cfgs, dev, 0)
+
+        def noise(i):
+            g = torch.Generator(device=dev).manual_seed(1000 + i)
+            return tuple(paired.draw_noise(g, 1, TRAIN_HW, TRAIN_HW, cfgs,
+                                           torch.bfloat16) for _ in range(2))
+        make, loss_cfg = (paired.make_paired_train_step,
+                          losses.PairedLossConfig())
+    else:
+        models, state, meta = runner.build_unpaired_run(
+            cfgs, clip_vit.CLIP_VIT_B32, seed=5432, device=dev)
+        batch, noise = _unpaired_inputs(cfgs, dev)
+        make, loss_cfg = (unpaired.make_unpaired_train_step,
+                          losses.UnpairedLossConfig())
+    whole_bytes = _param_bytes(models.unet)
+    runner.shard_for_training(models, tp, state)
+    out = {"setup_s": time.perf_counter() - t0, "whole_bytes": whole_bytes,
+           "unet_bytes": _param_bytes(models.unet),
+           "shard_mismatch": _shard_mismatch(models.unet, cfgs, tp.n_model)}
+    step = make(models, cfgs, loss_cfg, meta, kernels=True, remat=True,
+                dtype=torch.bfloat16, mesh=tp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, stats = [], []
+    for i in range(2 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        tp.reset_stats()
+        tp.timed = i == 1 + TRAIN_STEPS
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        m, grads = step(state, batch, noise(i), keep_grads=i == 0)
+        e_ev.record()
+        e_ev.synchronize()
+        tp.timed = False
+        times.append(s_ev.elapsed_time(e_ev))
+        stats.append(dict(tp.stats))
+        if i == 0:
+            out["metrics"] = {n: float(v) for n, v in m.items()}
+            out["counts"] = dict(_build.launch_counts)
+            out["shapes"] = [[k, list(sh), n] for (k, sh), n in
+                             _build.launch_shapes.items()]
+            out["du"] = [[list(sh), n] for sh, n in
+                         _shapes("conv3x3_input_grad").items()]
+            out["k7"] = [[list(sh), n] for sh, n in
+                         _shapes("flash_attention_folded_bwd").items()]
+            out["differ_first"] = mesh_mod.differing(
+                {"state": _state_all(state)}, tp, axis="model")
+            if tp.model_rank == 0:
+                torch.save({"grads": {n: v.detach().float().cpu()
+                                      for n, v in grads.items()},
+                            "after": {n: v.detach().float().cpu() for n, v
+                                      in _state_tensors(state).items()}},
+                           os.path.join(out_dir, f"tp_{kind}.pt"))
+            del grads
+    out["differ_last"] = mesh_mod.differing({"state": _state_all(state)}, tp,
+                                            axis="model")
+    out.update(ms=times, collectives=stats,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               wall_s=time.perf_counter() - t0)
+    del models, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train_rank(rank: int, world: int, init_file: str, out_dir: str):
+    """One spawned rank of the model-axis training phase: the paired step,
+    then the unpaired one, its results written as JSON for the parent."""
+    import os
+    import torch.distributed as dist
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    dev, _ = _dp_setup(rank, world, init_file)
+    tp = mesh_mod.make_mesh(1, world, device=dev)
+    res = {"model_rank": tp.model_rank, "n_model": tp.n_model}
+    for kind in ("paired", "unpaired"):
+        res[kind] = _tp_train_step(kind, tp, dev, out_dir)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _tp_compare(kind: str, ref: dict, got: dict, metrics: dict) -> dict:
+    """The model-axis step (`got`: model rank 0's first-pass gradients and
+    state after the step, `metrics`) against the one-process kernel-path
+    step from the same state (`ref`, `_reference`), by TP_LOSS_TOL,
+    GRAD_REL_L2_TOL and the trainables' rule; fails the run outside."""
+    import torch
+    from img2img_turbo_tpu_torch.training import runner
+    lr = runner.LEARNING_RATE
+    loss_rel = {n: abs(metrics[n] - v) / max(abs(v), 1e-3)
+                for n, v in ref["metrics"].items()}
+    if set(metrics) != set(ref["metrics"]) or \
+            not max(loss_rel.values()) <= TP_LOSS_TOL:
+        _fail(f"model-axis {kind} step: losses {metrics} against the "
+              f"one-process step's {ref['metrics']} (tol {TP_LOSS_TOL})")
+    parts = sorted({n.rsplit(":", 1)[0] if n.startswith("unet_lora:")
+                    else n.split(":")[0] for n in ref["grads"]})
+    grad_rel, by_part = _grad_agreement(
+        got["grads"], ref["grads"], parts,
+        "model-axis " + ("pass-1" if kind == "paired" else "cycle-pass"),
+        vs="model axis vs one process, kernel path")
+    out = {"loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+           "grad_rel_l2_by_part": by_part}
+    for what, prefix, updates in (
+            ("trainables", "gen.", TP_GEN_UPDATES[kind]),
+            ("heads", "disc.", 2)):
+        names = [n for n in ref["after"] if n.startswith(prefix)]
+        diff = torch.cat([(got["after"][n] - ref["after"][n]).abs()
+                          .reshape(-1) for n in names])
+        d_ref = torch.cat([(ref["after"][n] - ref["start"][n]).reshape(-1)
+                           for n in names])
+        d_got = torch.cat([(got["after"][n] - ref["start"][n]).reshape(-1)
+                           for n in names])
+        r = {"max_lr": float(diff.max() / lr),
+             "frac_over_lr": float((diff > lr).float().mean()),
+             "change_rel_l2": float((d_got - d_ref).norm()
+                                    / max(float(d_ref.norm()), 1e-30))}
+        if not (r["max_lr"] <= 2.1 * updates
+                and r["frac_over_lr"] < TP_FLIP_FRAC):
+            _fail(f"model-axis {kind} step: the {what} after the step are "
+                  f"off the one-process step's: {r} (every element within "
+                  f"{2.1 * updates:.1f} lr, fewer than "
+                  f"{TP_FLIP_FRAC:.0%} off by more than lr)")
+        out[what] = r
+    return out
+
+
+def tp_train_phase(dev, summary) -> dict:
+    """The model-axis training phase (module docstring, phase 13): TP_WORLD
+    gloo ranks sharing the card at a (1, TP_WORLD) mesh, spawned as phase
+    12's; every check's failure fails the smoke. Returns {kernel: the
+    launch shapes the ranks ran}, for the kernel cases no case ran yet."""
+    import gc
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_tp_train_rank, args=(TP_WORLD, os.path.join(d, "rdv"), d),
+                 nprocs=TP_WORLD, join=True)
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        saved = {kind: torch.load(os.path.join(d, f"tp_{kind}.pt"))
+                 for kind in ("paired", "unpaired")}
+    wall = time.perf_counter() - t0
+    print(f"model-axis training phase: mesh (1, {TP_WORLD}), {TP_WORLD} gloo "
+          f"ranks sharing one card (the exchange goes through the host; "
+          f"not NCCL), spawned, wall {wall:.1f}s; {smi}", flush=True)
+    expected = {"paired": EXPECTED_TRAIN_LAUNCHES,
+                "unpaired": EXPECTED_UNPAIRED_LAUNCHES}
+    hw = {"paired": TRAIN_HW, "unpaired": UNPAIRED_HW}
+    shapes: dict = {}
+    report = {}
+    for kind, want in expected.items():
+        ref = summary["tp_reference"].pop(kind)
+        cmp = _tp_compare(kind, ref, saved[kind], ranks[0][kind]["metrics"])
+        tables = _tp_expected(kind)
+        for r, res in enumerate(ranks):
+            m = res[kind]
+            what = f"model axis rank {r} {kind} step"
+            if m["shard_mismatch"] or not m["unet_bytes"] < \
+                    0.6 * m["whole_bytes"]:
+                _fail(f"{what}: the UNet holds {m['unet_bytes']} bytes of "
+                      f"{m['whole_bytes']}, not only its shards: "
+                      f"{m['shard_mismatch'][:8]}")
+            if m["differ_first"] or m["differ_last"]:
+                _fail(f"{what}: the state differs across the model ranks: "
+                      f"{m['differ_first']} {m['differ_last']}")
+            if m["metrics"] != ranks[0][kind]["metrics"]:
+                _fail(f"{what}: metrics differ from rank 0's")
+            if not m["counts"] == ref["counts"] == want:
+                _fail(f"{what}: launches {m['counts']}, one-process "
+                      f"{ref['counts']}, expected {want}")
+            for key in ("du", "k7"):
+                got = {tuple(sh): n for sh, n in m[key]}
+                if got != tables[key]:
+                    _fail(f"{what}: {key} launches by shape {got} are not "
+                          f"the one-process table's on Co slices and local "
+                          f"heads {tables[key]}")
+            if not any(sh[4] == 2 for sh, _ in m["du"]):
+                _fail(f"{what}: K8's du never ran conv_out's Co = 2 slice")
+            for k, sh, n in m["shapes"]:
+                shapes.setdefault(k, set()).add(tuple(sh))
+            first, times, timed_ms = (m["ms"][0], m["ms"][1:-1],
+                                      m["ms"][-1])
+            col = m["collectives"][0]
+            timed = m["collectives"][-1]
+            print(f"  rank {r} {kind} {hw[kind]}x{hw[kind]} b1: UNet "
+                  f"parameters {m['unet_bytes'] / 1e9:.3f} GB of the whole "
+                  f"{m['whole_bytes'] / 1e9:.3f} GB (fp32 masters), only its "
+                  f"shards; step p50 {sorted(times)[len(times) // 2]:.2f} ms "
+                  f"over {len(times)} steps {[round(t, 2) for t in times]} "
+                  f"after the compared first step ({first:.2f} ms); "
+                  f"collectives a step {col['calls']} calls, "
+                  f"{col['bytes'] / 1e6:.2f} MB, "
+                  f"{1e3 * timed['seconds']:.2f} ms on a separate step with "
+                  f"each timed (that step {timed_ms:.2f} ms); peak "
+                  f"{m['peak_gib']:.2f} GiB; "
+                  f"launches {m['counts']} (the one-process step's; the du "
+                  f"on Co slices, K7 on the local heads); state "
+                  f"bit-identical across the model ranks; set-up "
+                  f"{m['setup_s']:.1f}s, wall {m['wall_s']:.1f}s", flush=True)
+        print(f"  {kind}: vs the one-process kernel-path step at the same "
+              f"seeds: losses rel max {max(cmp['loss_rel'].values()):.3e} "
+              f"(tol {TP_LOSS_TOL:.0e}); trainables "
+              f"{cmp['trainables']}, heads {cmp['heads']} (lr units)",
+              flush=True)
+        summary["paths"]["model_axis_" + kind] = ranks[0][kind]["counts"]
+        report[kind] = {**cmp, "ranks": [
+            {k: res[kind][k] for k in ("unet_bytes", "whole_bytes", "ms",
+                                       "collectives", "peak_gib", "setup_s",
+                                       "wall_s")} for res in ranks]}
+    summary["model_axis_train"] = {"wall_s": wall, "card": smi, **report}
+    return shapes
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Unpaired (CycleGAN-Turbo) training CLI on one card or data-parallel
-over several (counterpart of `cli/train_cyclegan_turbo.py`; reference
+"""Unpaired (CycleGAN-Turbo) training CLI on one card or over several,
+data-parallel and with the UNet sharded over a model axis (counterpart of `cli/train_cyclegan_turbo.py`; reference
 `accelerate launch src/train_cyclegan_turbo.py`,
 train_cyclegan_turbo.py:25-390), with resume:
 
@@ -8,7 +8,8 @@ train_cyclegan_turbo.py:25-390), with resume:
         --tracker_project_name h2z --train_img_prep \\
         resize_286_randomcrop_256x256_hflip --val_img_prep resize_256
     torchrun --nproc_per_node N -m \\
-        img2img_turbo_tpu_torch.cli.train_cyclegan_turbo ...
+        img2img_turbo_tpu_torch.cli.train_cyclegan_turbo ... \\
+        [--tensor_parallel M]
 
 Under torchrun, as in the paired CLI: each rank on `cuda:LOCAL_RANK`,
 --train_batch_size the global batch (each rank its contiguous rows of the
@@ -17,15 +18,20 @@ losses and gradients averaged over the ranks before its update, the
 frozen modules and the caption embeddings checked to agree across ranks,
 a fresh state broadcast from rank 0; rank 0 alone logs, validates (FID and
 DINO-Struct), writes viz panels, checkpoints and pkls while the others
-wait at a barrier.
+wait at a barrier. --tensor_parallel M shards the UNet over a model axis
+of M ranks, as in the paired CLI: the batch split over the data axis
+only, the frozen modules and the state checked over the model group
+before the UNet is sharded (`runner.shard_for_training`), the state whole
+on every rank; the model ranks of data rank 0 run the validation and viz
+translations together (the others translate the same images in the same
+order), and global rank 0 alone scores, logs and writes.
 
 In the JAX CLI's order: seeds; the UNet with its three adapters at
 --lora_rank_unet, the two VAEs with adapters at --lora_rank_vae, LPIPS and
 two discriminators on one CLIP backbone (SD-Turbo and its text encoder and
 BPE tokenizer from the --sd_turbo_path snapshot, the backbone from
 --clip_weights, LPIPS from --lpips_weights, seeded random weights for what
-no flag names; --tensor_parallel above 1 stops the run,
-`runner.refuse_unported`); the fixed caption embeddings, computed once by
+no flag names); the fixed caption embeddings, computed once by
 the text encoder from the dataset's fixed prompts (the encoder is dropped
 after); AdamW from the --adam_*, --lr_* and --max_grad_norm flags;
 --resume from the newest checkpoint in <output_dir>/state; the six-
@@ -73,12 +79,11 @@ def main(args, device=None):
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import runner
 
-    runner.refuse_unported(args)
     dev = mesh_mod.local_device(device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
-    with mesh_mod.distributed(device) as mesh:
+    with mesh_mod.distributed(device, args.tensor_parallel) as mesh:
         # The tracker is made here, apart from the run's models: a wandb
         # init that fails (no API key) keeps its exception, whose traceback
         # holds this frame and so would hold the models until the process
@@ -171,6 +176,8 @@ def _train(args, dev, dtype, log, mesh):
         lambda_cycle_lpips=args.lambda_cycle_lpips,
         lambda_idt_lpips=args.lambda_idt_lpips,
         gan_loss_type=args.gan_loss_type)
+    runner.shard_for_training(models, mesh, state)
+    tp = paired.model_axis(mesh, models.unet)
     step_fn = unpaired.make_unpaired_train_step(
         models, cfgs, loss_cfg, meta, kernels=True,
         remat=args.gradient_checkpointing or not args.tiny_model,
@@ -193,9 +200,10 @@ def _train(args, dev, dtype, log, mesh):
             with lora_mod.swap_params(models.unet, params["unet"]), \
                     lora_mod.swap_params(models.vae_a2b, params["vae_a2b"]), \
                     lora_mod.swap_params(models.vae_b2a, params["vae_b2a"]):
-                return forward_with_params(mods, cfgs, alphas, x.to(dtype),
-                                           e.contiguous(), direction,
-                                           kernels=True, generator=g)
+                return forward_with_params(mods, cfgs, alphas,
+                                           x.to(dev, dtype), e.contiguous(),
+                                           direction, kernels=True,
+                                           generator=g, tp=tp)
         return f
 
     # validation set-up: cached reference FID stats and DINO
@@ -203,8 +211,9 @@ def _train(args, dev, dtype, log, mesh):
     test_a = _images(os.path.join(args.dataset_folder, "test_A"))
     test_b = _images(os.path.join(args.dataset_folder, "test_B"))
     val = None
+    val_T = (data.build_transform(args.val_img_prep) if test_a and test_b
+             else None)
     if test_a and test_b and mesh.is_main:
-        val_T = data.build_transform(args.val_img_prep)
         inception = runner.init_inception(
             args, torch.Generator(device=dev).manual_seed(7))
         dino = DinoStructureLoss(cfg=dino_mod.TINY_DINO if args.tiny_model
@@ -221,13 +230,21 @@ def _train(args, dev, dtype, log, mesh):
                                       ("b2a", test_b, emb_b2a)):
             with torch.no_grad():
                 params = unpaired.build_gen_params(state.gen, models, meta,
-                                                   dtype)
-            m.update(eval_unpaired.evaluate_direction(
-                translator(params, direction, emb), paths, val["T"],
-                val["inception"], val["ref"][direction], val["dino"],
-                args.output_dir, direction, step_now,
-                max_images=args.validation_num_images))
-            del params   # the merged weights, before the next direction
+                                                   dtype, tp)
+            fwd = translator(params, direction, emb)
+            if val is None:   # a model rank beside global rank 0
+                for _ in eval_unpaired.translations(
+                        fwd, paths, val_T, dev, args.validation_num_images):
+                    pass
+            else:
+                m.update(eval_unpaired.evaluate_direction(
+                    fwd, paths, val["T"], val["inception"],
+                    val["ref"][direction], val["dino"], args.output_dir,
+                    direction, step_now,
+                    max_images=args.validation_num_images))
+            del params, fwd   # the merged weights, before the next one
+        if val is None:
+            return
         log(m, step_now)
         print(f"validation @ {step_now}: " +
               " ".join(f"{k}={v:.3f}" for k, v in m.items()), flush=True)
@@ -259,23 +276,25 @@ def _train(args, dev, dtype, log, mesh):
             print(f"step {step_i + 1}: " +
                   " ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
 
-        # validation and viz on rank 0 (its rows start with the global
-        # batch's first pair) while the others wait
+        # validation and viz on data rank 0 (its rows start with the
+        # global batch's first pair), every model rank of it translating
+        # and global rank 0 alone writing, while the others wait
         if test_a and test_b and (step_i + 1) % args.validation_steps == 0:
             t0 = time.time()
-            if mesh.is_main:
+            if mesh.rank == 0:
                 run_validation(step_i + 1)
             mesh_mod.barrier(mesh)
             eval_s += time.time() - t0
 
         if (step_i + 1) % args.viz_freq == 0:
-            if mesh.is_main:
+            if mesh.rank == 0:
                 with torch.no_grad():
                     params = unpaired.build_gen_params(state.gen, models,
-                                                       meta, dtype)
+                                                       meta, dtype, tp)
                 _save_viz(args.output_dir, step_i + 1, dev_batch,
                           {d: translator(params, d, e) for d, e in
-                           (("a2b", emb_a2b), ("b2a", emb_b2a))})
+                           (("a2b", emb_a2b), ("b2a", emb_b2a))},
+                          write=mesh.is_main)
                 del params
             mesh_mod.barrier(mesh)
 
@@ -295,9 +314,10 @@ def _train(args, dev, dtype, log, mesh):
             "steps_run": steps_run, "eval_seconds": eval_s}
 
 
-def _save_viz(out_dir, step, dev_batch, fwd):
+def _save_viz(out_dir, step, dev_batch, fwd, write=True):
     """src | fake | rec for both directions, from the batch's first pair
-    (train_cyclegan_turbo.py:276-289); fwd: {"a2b", "b2a"} translators."""
+    (train_cyclegan_turbo.py:276-289); fwd: {"a2b", "b2a"} translators.
+    Saved when `write`."""
     import numpy as np
     from PIL import Image
     a = dev_batch["pixel_values_src"][:1]
@@ -306,6 +326,8 @@ def _save_viz(out_dir, step, dev_batch, fwd):
     rec_a = fwd["b2a"](fake_b)
     fake_a = fwd["b2a"](b)
     rec_b = fwd["a2b"](fake_a)
+    if not write:
+        return
     rows = [np.concatenate([t[0].float().cpu().numpy() for t in row], 1)
             for row in ((a, fake_b, rec_a), (b, fake_a, rec_b))]
     grid = np.concatenate(rows, 0)

@@ -1,5 +1,5 @@
-"""Paired (pix2pix-turbo) training CLI on one card or data-parallel over
-several (counterpart of `cli/train_pix2pix_turbo.py`; reference
+"""Paired (pix2pix-turbo) training CLI on one card or over several,
+data-parallel and with the UNet sharded over a model axis (counterpart of `cli/train_pix2pix_turbo.py`; reference
 `accelerate launch src/train_pix2pix_turbo.py`,
 train_pix2pix_turbo.py:27-307), with resume:
 
@@ -7,6 +7,9 @@ train_pix2pix_turbo.py:27-307), with resume:
         --dataset_folder data/edges --output_dir out --mixed_precision bf16
     torchrun --nproc_per_node N -m \\
         img2img_turbo_tpu_torch.cli.train_pix2pix_turbo ...
+    torchrun --nproc_per_node N -m \\
+        img2img_turbo_tpu_torch.cli.train_pix2pix_turbo ... \\
+        --tensor_parallel M
 
 Under torchrun each rank joins the process group from the environment
 (`parallel.mesh.distributed`: NCCL when each rank has a card of its own,
@@ -22,11 +25,22 @@ every rank and checked. Rank 0 alone logs, writes checkpoints, pkls and
 viz panels and runs eval (val_fid included) while the others wait at a
 barrier.
 
+--tensor_parallel M (M dividing N) adds the model axis, as the JAX CLI's
+`make_mesh(n_model=M)` does: a (N / M, M) mesh, global rank d * M + m on
+data rank d and model rank m. The batch is split over the data axis only
+(the M ranks of a model group take the same rows); once the frozen modules
+and the state are checked to agree over the model group, the UNet's
+frozen base weights are sharded over it (`runner.shard_for_training`; the
+VAE and the other modules stay whole), and the step runs every kernel on
+the rank's shards, forward and backward (`training/paired.py`). The state
+stays whole on every rank, so checkpoints and pkls hold no slice; the
+model ranks of data rank 0 run eval and viz together, and global rank 0
+alone logs and writes.
+
 In the JAX CLI's order: seeds; the models with LoRA at --lora_rank_*
 (SD-Turbo from the --sd_turbo_path snapshot with its BPE tokenizer, CLIP
 from --clip_weights, LPIPS from --lpips_weights; seeded random weights for
-what no flag names; --tensor_parallel above 1 stops the run,
-`runner.refuse_unported`); AdamW from the
+what no flag names); AdamW from the
 --adam_*, --lr_* and --max_grad_norm flags; --resume from the newest
 checkpoint in <output_dir>/state; the training set through the loader,
 micro-batch accumulation and a prefetch thread; the four-pass step with
@@ -85,12 +99,11 @@ def main(args, device=None):
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import runner
 
-    runner.refuse_unported(args)
     dtype = runner.activation_dtype(args.mixed_precision,
                                     mesh_mod.local_device(device))
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
-    with mesh_mod.distributed(device) as mesh:
+    with mesh_mod.distributed(device, args.tensor_parallel) as mesh:
         # The tracker is made here, apart from the run's models: a wandb
         # init that fails (no API key) keeps its exception, whose traceback
         # holds this frame and so would hold the models until the process
@@ -163,7 +176,8 @@ def _train(args, dev, dtype, log, mesh):
     except FileNotFoundError:
         val_dataset = None
 
-    # step ----------------------------------------------------------------
+    # step (the UNet sharded first under a model axis) --------------------
+    runner.shard_for_training(models, mesh, state)
     loss_cfg = losses_mod.PairedLossConfig(
         lambda_gan=args.lambda_gan, lambda_lpips=args.lambda_lpips,
         lambda_l2=args.lambda_l2, lambda_clipsim=args.lambda_clipsim,
@@ -174,7 +188,7 @@ def _train(args, dev, dtype, log, mesh):
         dtype=dtype, accum_steps=args.gradient_accumulation_steps,
         mesh=mesh)
     eval_fn = paired.make_eval_step(models, cfgs, meta, kernels=True,
-                                    dtype=dtype)
+                                    dtype=dtype, mesh=mesh)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     if mesh.is_main:
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -218,19 +232,20 @@ def _train(args, dev, dtype, log, mesh):
         if (step_i + 1) % args.checkpointing_steps == 0:
             _save(state_dir, ckpt_dir, step_i + 1, state, meta, mesh)
 
-        # viz and eval on rank 0 (its rows start with the global batch's
-        # first pair) while the others wait
+        # viz and eval on data rank 0 (its rows start with the global
+        # batch's first pair), every model rank of it computing and global
+        # rank 0 alone writing, while the others wait
         if (step_i + 1) % args.viz_freq == 0:
-            if mesh.is_main:
+            if mesh.rank == 0:
                 _save_viz(args.output_dir, step_i + 1, dev_batch, state,
-                          eval_fn, cfgs, dtype)
+                          eval_fn, cfgs, dtype, write=mesh.is_main)
             mesh_mod.barrier(mesh)
 
         if val_dataset is not None and (step_i + 1) % args.eval_freq == 0:
             t0 = time.time()
-            if mesh.is_main:
+            if mesh.rank == 0:
                 _run_eval(eval_fn, state, val_dataset, args, log, step_i + 1,
-                          dev, cfgs, dtype, fid_ctx)
+                          dev, cfgs, dtype, fid_ctx, mesh.is_main)
             mesh_mod.barrier(mesh)
             eval_s += time.time() - t0
 
@@ -252,10 +267,11 @@ def _save(state_dir, ckpt_dir, step, state, meta, mesh):
 
 
 def _run_eval(eval_fn, state, val_dataset, args, log, step, dev, cfgs, dtype,
-              fid_ctx=None):
+              fid_ctx=None, write=True):
     """Mean validation metrics over the first --num_samples_eval test pairs
     (train_pix2pix_turbo.py:259-301), val_fid against the test targets
-    under --track_val_fid."""
+    under --track_val_fid; logged and printed when `write` (the other
+    model ranks compute alongside)."""
     import numpy as np
     import torch
     from img2img_turbo_tpu_torch.training import data, paired
@@ -281,14 +297,16 @@ def _run_eval(eval_fn, state, val_dataset, args, log, step, dev, cfgs, dtype,
                                                     preds)
         means["val_fid"] = fid_ctx["fid"].fid_from_feats(
             feats, fid_ctx["ref_feats"])
-    log(means, step)
-    print(f"eval @ {step}: " +
-          " ".join(f"{k}={v:.4f}" for k, v in means.items()), flush=True)
+    if write:
+        log(means, step)
+        print(f"eval @ {step}: " +
+              " ".join(f"{k}={v:.4f}" for k, v in means.items()), flush=True)
 
 
-def _save_viz(out_dir, step, dev_batch, state, eval_fn, cfgs, dtype):
+def _save_viz(out_dir, step, dev_batch, state, eval_fn, cfgs, dtype,
+              write=True):
     """input | prediction | target of the batch's first pair
-    (train_pix2pix_turbo.py:244-251)."""
+    (train_pix2pix_turbo.py:244-251), saved when `write`."""
     import numpy as np
     import torch
     from PIL import Image
@@ -298,6 +316,8 @@ def _save_viz(out_dir, step, dev_batch, state, eval_fn, cfgs, dtype):
     g = torch.Generator(device=batch1["input_ids"].device).manual_seed(0)
     pred, _ = eval_fn(state.gen, batch1,
                       paired.draw_noise(g, 1, h, w, cfgs, dtype))
+    if not write:
+        return
     cond = batch1["conditioning_pixel_values"][0].float().cpu().numpy()
     tgt = batch1["output_pixel_values"][0].float().cpu().numpy()
     row = np.concatenate([cond * 2 - 1, pred[0].float().cpu().numpy(), tgt],

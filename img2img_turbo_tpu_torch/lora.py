@@ -29,6 +29,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+
 # reference target lists (pix2pix_turbo.py:137-152)
 PIX2PIX_UNET_TARGETS = (
     "to_k", "to_q", "to_v", "to_out.0", "conv", "conv1", "conv2",
@@ -95,31 +97,44 @@ def lora_delta(a, b, weight_shape):
 
 
 def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
-               dtype=None) -> Dict[str, torch.Tensor]:
+               dtype=None, specs: Optional[Dict] = None, tp=None
+               ) -> Dict[str, torch.Tensor]:
     """{"<name>.weight": W + scale * alpha/rank * delta} for every adapted
     module, from `base` ({"<name>.weight": weight}): the scaled delta is
     formed in fp32 and cast to W's dtype before the add, and the sum is
     cast to `dtype` when given. `scale` may be a 0-d tensor (the sketch
     path's runtime r: one merge serves every r, read on the device).
-    Differentiable in the factors and in W."""
+    Differentiable in the factors and in W.
+
+    Under a model axis, `base` holds this rank's shards of a UNet and
+    `specs` its sharded dims by parameter name (the model's `tp_specs`,
+    `parallel.tensor.shard_module`): each pair is sliced to its weight's
+    shard (`parallel.tensor.shard_lora`, through the mesh `tp`), so a
+    rank forms only its slice of each delta."""
     s = lora["alpha"] / lora["rank"]
     out = {}
     for name, entry in lora["modules"].items():
         w = base[name + ".weight"]
-        merged = w + (scale * s * lora_delta(entry["a"], entry["b"],
-                                             w.shape)).to(w.dtype)
+        a, b = entry["a"], entry["b"]
+        if specs is not None:
+            a, b = tensor_mod.shard_lora(name, a, b, specs[name + ".weight"],
+                                         tp)
+        merged = w + (scale * s * lora_delta(a, b, w.shape)).to(w.dtype)
         out[name + ".weight"] = merged if dtype is None else merged.to(dtype)
     return out
 
 
 def merge_multi(base: Dict[str, torch.Tensor], loras: Sequence[Dict],
-                scale=1.0, dtype=None) -> Dict[str, torch.Tensor]:
+                scale=1.0, dtype=None, specs: Optional[Dict] = None,
+                tp=None) -> Dict[str, torch.Tensor]:
     """Several adapters merged one after the other (CycleGAN's encoder /
     decoder / others trio, lora.py:293): {"<name>.weight": merged} for
-    every module any of them adapts, cast to `dtype` when given."""
+    every module any of them adapts, cast to `dtype` when given; on a
+    model axis's shards with `specs` and `tp`, as `merge_lora`."""
     out: Dict[str, torch.Tensor] = {}
     for lora in loras:
-        out.update(merge_lora({**base, **out}, lora, scale))
+        out.update(merge_lora({**base, **out}, lora, scale, specs=specs,
+                              tp=tp))
     return out if dtype is None else {k: v.to(dtype) for k, v in out.items()}
 
 
@@ -129,7 +144,8 @@ def swap_params(model: nn.Module,
     """Within the block, `model`'s parameters named in `tensors` are those
     tensors (which may carry autograd history); the originals come back on
     exit. Run the forward and the backward inside the block, so that
-    activation checkpointing recomputes with the same weights."""
+    activation checkpointing recomputes with the same weights. Each tensor
+    must have its parameter's shape (a sharded model's: its shard's)."""
     mods = dict(model.named_modules())
     saved = []
     try:
@@ -138,6 +154,10 @@ def swap_params(model: nn.Module,
             mod = mods[mod_name]
             if leaf not in mod._parameters:
                 raise KeyError(f"{key} is not a parameter of the model")
+            old = mod._parameters[leaf]
+            if old is not None and t.shape != old.shape:
+                raise ValueError(f"{key}: {tuple(t.shape)} in place of the "
+                                 f"parameter's {tuple(old.shape)}")
             saved.append((mod, leaf, mod._parameters[leaf]))
             mod._parameters[leaf] = t
         yield model

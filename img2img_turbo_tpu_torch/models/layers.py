@@ -30,19 +30,36 @@ their plain version, recomputed from the saved inputs (`KernelFn`), and
 attention's is K7 (`ops.attention.FlashAttention`). The plain path needs
 no Function: autograd runs through its PyTorch ops.
 
-The model axis (serving): the entry points take `tp`, a mesh
-(`parallel.mesh.DataMesh`) with n_model above 1, and act on the modules
-that `parallel.tensor.shard_module` sharded (`tp_sharded`); without `tp`,
-or on a whole module, they are the one-process code. A sharded conv is
-column-parallel: each rank runs K1 / K4 / K6 on the whole input with its
-slice of the output channels (its slices of the bias, the time embedding's
-extra bias, the residual and the 1x1 skip weight), then gathers the output
-and K1's per-channel statistics over the model ranks, so that every rank
-computes the next GroupNorm's coefficients from the whole channels. An
-attention block is head-parallel (K3's LN + q/k/v columns and K2 on the
-rank's heads) and the GEGLU feed-forward column-parallel; both end
-row-parallel (K3 on the rank's input slice of `to_out` / `out`, the bias
-and residual on model rank 0 alone, then a sum over the ranks).
+The model axis (serving and training): the entry points take `tp`, a
+mesh (`parallel.mesh.DataMesh`) with n_model above 1, and act on the
+modules that `parallel.tensor.shard_module` sharded (`tp_sharded`);
+without `tp`, or on a whole module, they are the one-process code. A
+sharded conv is column-parallel: each rank runs K1 / K4 / K6 on the whole
+input with its slice of the output channels (its slices of the bias, the
+time embedding's extra bias, the residual and the 1x1 skip weight), then
+gathers the output and K1's per-channel statistics over the model ranks,
+so that every rank computes the next GroupNorm's coefficients from the
+whole channels. An attention block is head-parallel (K3's LN + q/k/v
+columns and K2 on the rank's heads) and the GEGLU feed-forward
+column-parallel; both end row-parallel (`RowParallelFn`: K3 on the rank's
+input slice of `to_out` / `out`, the bias and residual on model rank 0
+alone, then a sum over the ranks).
+
+Under autograd the same code trains, every kernel running forward and
+backward on the rank's shards (K1 / K8's du, K3, K2 / K7, K4, K6 on Co
+slices and local heads), through the model axis's operators
+(`parallel/mesh.py`): a column-parallel layer's replicated inputs (x, a
+skip's x, the cross-attention context) enter through `model_copy`, whose
+backward sums the ranks' partial input gradients; its whole residual and
+extra bias through `model_scatter`; its output leaves through
+`model_gather`, whose backward takes this rank's slice of the whole
+gradient. K1's gathered statistics take no gradient. `RowParallelFn`'s
+backward gives the residual and the bias the whole output gradient on
+every rank. So every replicated activation and every replicated tensor
+that trains gets a whole gradient, the same on every rank, and the ranks
+run their collectives in one order (the same code in the same order,
+each block's recompute under `remat` included). The norm affines that
+feed a sharded layer are frozen (a sharded layer raises if one trains).
 """
 
 from __future__ import annotations
@@ -137,7 +154,8 @@ def conv2d(conv: nn.Conv2d, x, stride: int = 1, padding="SAME", tp=None):
     """NHWC cross-correlation. padding: 'SAME', 'VALID' or explicit
     ((lo, hi), (lo, hi)) for the two spatial dims."""
     if _tp_on(tp, conv):
-        return _gathered(tp, conv2d(conv, x, stride, padding), False)
+        return _gathered(tp, conv2d(conv, _copied(tp, x), stride, padding),
+                         False)
     kh = conv.weight.shape[2]
     if padding == "SAME":
         padding = ((kh // 2, kh // 2), (kh // 2, kh // 2))
@@ -227,42 +245,100 @@ def _tp_on(tp, module) -> bool:
 
 
 def _channels(tp, t):
-    """This model rank's contiguous slice of the last dim of a whole `t`
-    (a residual or an extra bias of a column-parallel conv), or None."""
-    if t is None:
-        return None
-    k = t.shape[-1] // tp.n_model
-    return t[..., tp.model_rank * k:(tp.model_rank + 1) * k].contiguous()
+    """This model rank's slice of the last dim of a whole `t` (a residual
+    or an extra bias of a column-parallel conv), or None."""
+    return None if t is None else mesh_mod.model_scatter(t, tp)
+
+
+def _copied(tp, x, *norms):
+    """A column-parallel layer's replicated input `x` (or None) through
+    `model_copy`; the frozen `norms` that feed the layer are checked."""
+    for norm in norms:
+        if torch.is_grad_enabled() and norm is not None and (
+                norm.weight.requires_grad or norm.bias.requires_grad):
+            raise NotImplementedError(
+                "a norm affine that trains feeds a sharded layer: its "
+                "gradient would be this rank's part alone")
+    return None if x is None else mesh_mod.model_copy(x, tp)
 
 
 def _gathered(tp, out, emit_stats: bool):
     """A column-parallel conv's output (and its per-channel statistics,
     when emitted) gathered over the model ranks on the channel axis."""
     if not emit_stats:
-        return mesh_mod.model_all_gather(out.contiguous(), tp)
+        return mesh_mod.model_gather(out, tp)
     y, stats = out
-    return (mesh_mod.model_all_gather(y.contiguous(), tp),
-            None if stats is None else mesh_mod.model_all_gather(stats, tp))
+    return (mesh_mod.model_gather(y, tp),
+            None if stats is None else mesh_mod.model_gather(stats, tp))
+
+
+class RowParallelFn(torch.autograd.Function):
+    """lin(x) + residual with lin's weight w (Co, C_r) sharded on its input
+    dim and x (..., C_r) this rank's matching slice. Forward: this rank's
+    partial product by `fwd` (K3, or the plain version), the bias b and the
+    residual added on model rank 0 alone, then summed over the model ranks
+    in fp32 and rounded once (`model_reduce`). Backward: x and w by
+    autograd through `plain` (the partial product recomputed from the
+    saved inputs, as `KernelFn`); the residual takes the output gradient
+    and the bias its sum over rows, on every rank alike, since the whole
+    output depends on them once."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, tp, x, w, b, res):
+        first = tp.model_rank == 0
+        with torch.no_grad():
+            (y,) = fwd(x, w, b if first else None, res if first else None)
+            y = mesh_mod.model_reduce(y, tp)
+        ctx.plain = plain
+        ctx.b_dtype = None if b is None else b.dtype
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        nx, nw, nb, nres = ctx.needs_input_grad[3:]
+        gx = gw = gb = None
+        if nx or nw:
+            with torch.enable_grad():
+                xi = x.detach().requires_grad_(nx)
+                wi = w.detach().requires_grad_(nw)
+                (p,) = ctx.plain(xi, wi, None, None)
+            grads = iter(torch.autograd.grad(
+                p, [t for t, n in ((xi, nx), (wi, nw)) if n], gy))
+            gx = next(grads) if nx else None
+            gw = next(grads) if nw else None
+        if nb:
+            gb = gy.float().reshape(-1, gy.shape[-1]).sum(0).to(ctx.b_dtype)
+        return (None, None, None, gx, gw, gb, gy if nres else None)
+
+
+def _rowpar_fns(kernels: bool):
+    """(fwd, plain) of `RowParallelFn` over (x, w, b, residual): K3 and its
+    exact plain version with kernels, else the plain engine's."""
+    def kernel(x, w, b, res):
+        return fused_matmul.fused(
+            x.contiguous(), (w.contiguous(),), (_bias_f32(b, w.shape[0], x),),
+            residual=None if res is None else res.contiguous())
+
+    def ref(x, w, b, res):
+        return fused_matmul.fused_ref(x, (w,), (_bias_f32(b, w.shape[0], x),),
+                                      residual=res)
+
+    def plain(x, w, b, res):
+        return fused_matmul.fused_plain(x, (w,), (b,), residual=res)
+    return (kernel, ref) if kernels else (plain, plain)
 
 
 def _row_parallel(lin: Linear, x, residual, tp, *, kernels: bool):
     """lin(x) + residual with `lin`'s weight sharded on its input dim and x
-    this rank's matching slice: each rank's partial product (the bias and
-    the residual on model rank 0 alone), summed over the model ranks."""
-    first = tp.model_rank == 0
-    if not kernels:
-        (y,) = fused_matmul.fused_plain(
-            x, (lin.weight,), (lin.bias if first else None,),
-            residual=residual if first else None)
-    elif has_kernel_layouts(lin):
-        (y,) = fused_matmul.fused(
-            x.contiguous(), (lin.weight.detach(),),
-            (lin.kb if first else torch.zeros_like(lin.kb),),
-            residual=residual.contiguous() if first else None)
-    else:
-        raise ValueError("the model axis runs modules with kernel layouts "
-                         "(prepare_kernels) on the kernel path")
-    return mesh_mod.model_all_reduce(y, tp)
+    this rank's matching slice, summed over the model ranks
+    (`RowParallelFn`), on the module's kernel layouts or its live weights
+    (training)."""
+    prepared = kernels and has_kernel_layouts(lin)
+    w = lin.weight.detach() if prepared else lin.weight.to(x.dtype)
+    return RowParallelFn.apply(*_rowpar_fns(kernels), tp, x, w,
+                               lin.kb if prepared else lin.bias, residual)
 
 
 class Skip(NamedTuple):
@@ -577,9 +653,11 @@ def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
     stats are None. With `tp` and a sharded conv: column-parallel (module
     docstring), the output and stats gathered."""
     if _tp_on(tp, conv):
+        if skip is not None:
+            skip = skip._replace(x=_copied(tp, skip.x))
         return _gathered(tp, gn_silu_conv(
-            norm, conv, x, num_groups, eps, kernels=kernels,
-            extra_bias=_channels(tp, extra_bias),
+            norm, conv, _copied(tp, x, norm), num_groups, eps,
+            kernels=kernels, extra_bias=_channels(tp, extra_bias),
             residual=_channels(tp, residual), x_stats=x_stats,
             emit_stats=emit_stats, skip=skip, bias=bias), emit_stats)
     if not kernels:
@@ -616,7 +694,7 @@ def plain_conv3x3(conv: Conv2d, x, emit_stats: bool = False, *,
                   kernels: bool, tp=None):
     """Stride-1 SAME conv3x3 with no norm prologue (conv_in)."""
     if _tp_on(tp, conv):
-        return _gathered(tp, plain_conv3x3(conv, x, emit_stats,
+        return _gathered(tp, plain_conv3x3(conv, _copied(tp, x), emit_stats,
                                            kernels=kernels), emit_stats)
     if not kernels:
         y = fused_conv.gn_silu_conv3x3_plain(x, conv.weight, conv.bias)
@@ -636,8 +714,11 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
     """conv3x3(nearest_upsample_2x(x)) [+ skip] (diffusers Upsample2D);
     K4 with kernels."""
     if _tp_on(tp, conv):
-        return _gathered(tp, upsample2x_conv(conv, x, emit_stats, skip,
-                                             kernels=kernels), emit_stats)
+        if skip is not None:
+            skip = skip._replace(x=_copied(tp, skip.x))
+        return _gathered(tp, upsample2x_conv(conv, _copied(tp, x), emit_stats,
+                                             skip, kernels=kernels),
+                         emit_stats)
     if not kernels:
         y = fused_conv.upsample2x_conv3x3_plain(x, conv.weight, conv.bias,
                                                 *_plain_skip(skip))
@@ -667,8 +748,9 @@ def downsample2x_conv(conv: Conv2d, x, pad_lo: int, emit_stats: bool = False,
     strided conv backward, as `_make_fused_downconv`). Plain path: the
     strided conv, stats None."""
     if _tp_on(tp, conv):
-        return _gathered(tp, downsample2x_conv(conv, x, pad_lo, emit_stats,
-                                               kernels=kernels), emit_stats)
+        return _gathered(tp, downsample2x_conv(conv, _copied(tp, x), pad_lo,
+                                               emit_stats, kernels=kernels),
+                         emit_stats)
     if not kernels:
         y, _ = fused_conv.downsample2x_conv3x3_plain(x, conv.weight,
                                                      conv.bias, pad_lo)
@@ -746,13 +828,16 @@ def attention_block(attn: Attention, norm: LayerNorm, x, context=None, *,
     (cross), K2, and the out projection with the residual fused (K3). With
     `tp` and sharded heads: this rank's heads, `to_out` row-parallel."""
     sharded = _tp_on(tp, attn.to_q)
+    xin = x
     if sharded:
         num_heads //= tp.n_model
+        xin, context = _copied(tp, x, norm), _copied(tp, context)
     if context is None:
-        q, k, v = fused_linears((attn.to_q, attn.to_k, attn.to_v), x, norm,
+        q, k, v = fused_linears((attn.to_q, attn.to_k, attn.to_v), xin, norm,
                                 kernels=kernels, eps=eps)
     else:
-        (q,) = fused_linears((attn.to_q,), x, norm, kernels=kernels, eps=eps)
+        (q,) = fused_linears((attn.to_q,), xin, norm, kernels=kernels,
+                             eps=eps)
         k, v = fused_linears((attn.to_k, attn.to_v), context,
                              kernels=kernels)
     o = multihead_attention(q, k, v, num_heads, kernels=kernels)
@@ -783,9 +868,10 @@ def geglu_ff_block(ff: FeedForward, norm: LayerNorm, x, *, kernels: bool,
     `tp` and a sharded `proj` (this rank's value and gate slices): `out`
     row-parallel."""
     proj, out = ff.net[0].proj, ff.net[2]
-    (u,) = fused_linears((proj,), x, norm, kernels=kernels, gate=True,
-                         eps=eps)
-    if _tp_on(tp, proj):
+    sharded = _tp_on(tp, proj)
+    (u,) = fused_linears((proj,), _copied(tp, x, norm) if sharded else x,
+                         norm, kernels=kernels, gate=True, eps=eps)
+    if sharded:
         return _row_parallel(out, u, x, tp, kernels=kernels)
     return linear_fused(out, u, residual=x, kernels=kernels)
 

@@ -160,7 +160,11 @@ class UNet2DConditionModel(nn.Module):
         conv_in is a TwinConv and unused otherwise, as in the JAX
         package. tp: the mesh of a model axis over which
         `parallel.tensor.shard_module` sharded this UNet (every rank of the
-        model group calls forward alike and gets the whole eps)."""
+        model group calls forward alike and gets the whole eps; under
+        autograd its backward, and with remat each block's recompute, runs
+        the same collectives in the same order on every rank, so the
+        gradients reaching replicated inputs and trainables are whole and
+        the same on every rank: `models/layers.py`)."""
         cfg = self.cfg
         temb = L.timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)

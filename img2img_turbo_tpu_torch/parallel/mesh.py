@@ -25,8 +25,14 @@ process a rank:
   checks through one all-reduce of fingerprints that every rank of the data
   axis holds the same tensors (frozen modules are built on each rank from
   the same seed or files and checked, never broadcast);
-- `model_all_gather` and `model_all_reduce` are the model axis's two
-  collectives, which the sharded UNet's layers call (`models/layers.py`).
+- the model axis's four operators, each a `torch.autograd.Function` over
+  the model group, which the sharded UNet's layers call
+  (`models/layers.py`): `model_copy` (identity forward, a SUM all-reduce
+  of the gradient backward), `model_reduce` (a SUM all-reduce forward,
+  identity backward), `model_gather` (an all-gather forward, this rank's
+  slice of the gradient backward) and `model_scatter` (this rank's slice
+  forward, an all-gather of the gradient backward). Under `no_grad`
+  (serving) they run their forward alone.
 
 The backend is NCCL when each rank has a CUDA card of its own and gloo
 otherwise (ranks sharing a card, or on the CPU). gloo implements only
@@ -37,11 +43,12 @@ for every dtype and a -0.0 keeps its sign); the model axis's sum adds the
 ranks' partial results in fp32. Nothing here falls back to another device
 or catches a collective's failure.
 
-Serving: `torchrun --nproc_per_node N` runs N ranks; each builds its
+`torchrun --nproc_per_node N` runs N ranks. Serving: each builds its
 `ServingEngine(mesh=make_mesh(n_data, n_model))` (N = n_data * n_model),
-which shards the UNet over the model axis. Under a model axis the VAE
-stays whole on every rank, and the sketch mode and both training steps are
-not ported (they raise).
+which shards the UNet over the model axis. Training: both training CLIs'
+`--tensor_parallel n_model` make that mesh (`distributed(n_model=...)`),
+and both steps take it (`training/paired.py`). Under a model axis the VAE
+stays whole on every rank; the sketch mode is not ported (it raises).
 """
 
 from __future__ import annotations
@@ -199,15 +206,6 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
                     model_group=made["model"])
 
 
-def refuse_model_axis(mesh: Optional[DataMesh], what: str) -> None:
-    """Raise when `mesh` has a model axis, which `what` does not run."""
-    if mesh is not None and mesh.n_model > 1:
-        raise NotImplementedError(
-            f"{what} under a model axis (n_model={mesh.n_model}) is not "
-            f"ported (ROADMAP, Queue 1 item 3): run it data-parallel, each "
-            f"rank holding the whole model on one card")
-
-
 def barrier(mesh: Optional[DataMesh]) -> None:
     """Wait for every rank (a one-element all-reduce over each axis, which
     every backend implements on every device: a rank passes the model
@@ -337,16 +335,10 @@ def pmean_pass(loss, auxes, grads, mesh: Optional[DataMesh]):
 # ---------------------------------------------------------------------------
 
 
-def model_all_gather(x: torch.Tensor, mesh: DataMesh, dim: int = -1
-                     ) -> torch.Tensor:
+def _gather(x: torch.Tensor, mesh: DataMesh, dim: int) -> torch.Tensor:
     """The model ranks' parts `x` (each as large) concatenated along `dim`
-    in model-rank order, contiguous, on every rank of the model group: the
-    channels of NHWC activations and of per-channel statistics (dim -1),
-    the features of (B, S, C). A SUM all-reduce of the zeroed whole in
-    which this rank wrote its part, as bytes: exact for any dtype."""
-    if mesh.n_model == 1:
-        return x
-    dim %= x.ndim
+    in model-rank order, contiguous: a SUM all-reduce of the zeroed whole
+    in which this rank wrote its part, as bytes, so exact for any dtype."""
     k = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = k * mesh.n_model
@@ -356,15 +348,122 @@ def model_all_gather(x: torch.Tensor, mesh: DataMesh, dim: int = -1
     return out
 
 
-def model_all_reduce(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """The sum of the model ranks' partial results `x` on every rank of the
-    model group, added in fp32 and rounded once to x's dtype (a row-parallel
-    product's partial sums, each already rounded to x's dtype)."""
-    if mesh.n_model == 1:
-        return x
+def _reduce(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The sum of the model ranks' `x`, added in fp32 and rounded once to
+    x's dtype."""
     acc = x.to(torch.float32, copy=True).contiguous()
     _sum(acc, mesh, mesh.model_group)
     return acc.to(x.dtype)
+
+
+def model_part(x: torch.Tensor, m: int, n: int, dim: int, halves: bool):
+    """Model rank m's slice of a whole `x` along `dim` over n ranks, a new
+    contiguous tensor: the m-th of n equal parts, or with `halves` the
+    m-th part of each of x's two halves, concatenated (the GEGLU `[value |
+    gate]` layout of `parallel/tensor.py`, departure (a))."""
+    pieces = x.chunk(2, dim) if halves else (x,)
+    k = pieces[0].shape[dim] // n
+    return torch.cat([p.narrow(dim, m * k, k) for p in pieces], dim)
+
+
+def _part(x: torch.Tensor, mesh: DataMesh, dim: int, halves: bool):
+    return model_part(x, mesh.model_rank, mesh.n_model, dim, halves)
+
+
+def _whole(x: torch.Tensor, mesh: DataMesh, dim: int, halves: bool):
+    """`_part`'s inverse over the model ranks: every rank's part gathered
+    along `dim` and put back in the whole's layout."""
+    out = _gather(x.contiguous(), mesh, dim)
+    if not halves:
+        return out
+    pieces = out.chunk(2 * mesh.n_model, dim)   # value_0, gate_0, value_1, ...
+    return torch.cat(pieces[0::2] + pieces[1::2], dim)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _gather(x.contiguous(), mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _part(g, ctx.mesh, ctx.dim, False), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, halves):
+        ctx.mesh, ctx.dim, ctx.halves = mesh, dim, halves
+        return _part(x, mesh, dim, halves)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.mesh, ctx.dim, ctx.halves), None, None, None
+
+
+def model_copy(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """`x`, a tensor every model rank holds whole (a column-parallel
+    layer's input, a shared LoRA factor), as it is; backward, the sum of
+    the ranks' partial gradients (fp32, rounded once), so that the
+    gradient is whole and the same on every rank."""
+    if mesh.n_model == 1:
+        return x
+    return _Copy.apply(x, mesh)
+
+
+def model_reduce(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The sum of the model ranks' partial results `x` on every rank of
+    the model group, added in fp32 and rounded once to x's dtype (a
+    row-parallel product's partial sums); backward, the gradient as it
+    is."""
+    if mesh.n_model == 1:
+        return x
+    return _Reduce.apply(x, mesh)
+
+
+def model_gather(x: torch.Tensor, mesh: DataMesh, dim: int = -1
+                 ) -> torch.Tensor:
+    """The model ranks' parts `x` (each as large) concatenated along `dim`
+    in model-rank order, contiguous, on every rank of the model group: the
+    channels of NHWC activations and of per-channel statistics (dim -1),
+    the features of (B, S, C). Exact for any dtype. Backward, this rank's
+    slice of the whole gradient, contiguous."""
+    if mesh.n_model == 1:
+        return x
+    return _Gather.apply(x, mesh, dim % x.ndim)
+
+
+def model_scatter(x: torch.Tensor, mesh: DataMesh, dim: int = -1,
+                  halves: bool = False) -> torch.Tensor:
+    """This model rank's contiguous slice of `x`, which every rank holds
+    whole, along `dim` (with `halves`, its slice of each half: the GEGLU
+    layout); backward, every rank's gradient slice gathered into the whole
+    gradient, the same on every rank."""
+    if mesh.n_model == 1:
+        return x
+    return _Scatter.apply(x, mesh, dim % x.ndim, halves)
 
 
 # ---------------------------------------------------------------------------
@@ -463,43 +562,49 @@ def fingerprint(tensors: Iterable[torch.Tensor], device) -> torch.Tensor:
     return acc
 
 
-def differing(groups: Mapping[str, object], mesh: Optional[DataMesh]
-              ) -> List[str]:
+def differing(groups: Mapping[str, object], mesh: Optional[DataMesh],
+              axis: str = "data") -> List[str]:
     """The names of `groups` ({name: a tree of tensors, e.g. a module or a
-    train state}) whose tensors are not the same on every rank, by one MAX
-    all-reduce of each rank's fingerprints and their negatives."""
-    if mesh is None or mesh.group is None or mesh.world == 1:
+    train state}) whose tensors are not the same on every rank of the
+    mesh's `axis` ("data" or "model"), by one MAX all-reduce of each
+    rank's fingerprints and their negatives."""
+    group = None if mesh is None else {
+        "data": mesh.group, "model": mesh.model_group}[axis]
+    if group is None:
         return []
     names = list(groups)
     fp = torch.stack([fingerprint(_leaves(groups[n]), mesh.device)
                       for n in names])
     both = torch.cat([fp, -fp])
-    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
     hi, neg_lo = both[:len(names)], both[len(names):]
     same = (hi == -neg_lo).all(dim=1).tolist()
     return [n for n, s in zip(names, same) if not s]
 
 
 def assert_replicated(groups: Mapping[str, object],
-                      mesh: Optional[DataMesh], what: str = "state") -> None:
-    """Raise unless every rank holds the same tensors in each group."""
-    bad = differing(groups, mesh)
+                      mesh: Optional[DataMesh], what: str = "state",
+                      axis: str = "data") -> None:
+    """Raise unless every rank of the mesh's `axis` holds the same tensors
+    in each group."""
+    bad = differing(groups, mesh, axis)
     if bad:
-        raise RuntimeError(f"{what} differs across the {mesh.world} ranks: "
-                           f"{bad}")
+        raise RuntimeError(f"{what} differs across the ranks of the {axis} "
+                           f"axis: {bad}")
 
 
 @contextlib.contextmanager
-def distributed(device=None):
-    """The data mesh of an entry point: joins torchrun's process group when
-    its environment names one (`init_distributed`) and leaves it on exit;
-    a group that exists already (made by the caller) is used and kept;
+def distributed(device=None, n_model: int = 1):
+    """The mesh of an entry point: joins torchrun's process group when its
+    environment names one (`init_distributed`) and leaves it on exit; a
+    group that exists already (made by the caller) is used and kept;
     without either, a one-process mesh. Yields the `DataMesh` on `device`
-    (this rank's card when None)."""
+    (this rank's card when None), with a model axis of `n_model` ranks
+    (`make_mesh`; the data axis takes the rest)."""
     made = not dist.is_initialized() and "WORLD_SIZE" in os.environ
     init_distributed(device=device)
     try:
-        yield make_mesh(device=device)
+        yield make_mesh(n_model=n_model, device=device)
     finally:
         if made:
             dist.destroy_process_group()

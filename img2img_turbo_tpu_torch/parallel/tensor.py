@@ -27,11 +27,27 @@ Where the port departs from JAX's layout, and why:
     cannot split one (XLA splits SD-Turbo's 5-head level-0 layers 160/160
     and reshards at the head reshape);
 (c) a sharded conv's bias is sharded with its output channels (JAX keeps
-    every 1-D leaf whole): each rank stores the slice it adds.
+    every 1-D leaf whole): each rank stores the slice it adds;
+(d) `conv_in` stays whole on every rank. It is a trainable of both
+    training steps (the JAX steps pop it out of the frozen tree,
+    `img2img_turbo_tpu/training/paired.py:54-59`, so JAX's dry run keeps it
+    replicated with the rest of the trainable state): a whole conv_in needs
+    no collective and its gradient is whole where it is computed. It is 4
+    channels in, so in serving its slice saves little and would cost a
+    gather of its output.
 
-`shard_module` applies the rule to a module in place and marks each
-module it sharded (`tp_sharded`); the layer functions of
-`models/layers.py` read that mark when they are given the mesh.
+`shard_module` applies the rule to a module in place, marks each module
+it sharded (`tp_sharded`) and keeps the rule's dims on the model
+(`tp_specs`); the layer functions of `models/layers.py` read the mark when
+they are given the mesh.
+
+Training: the trainables stay whole and the same on every model rank.
+Where one replaces or adapts a sharded base weight, the rank takes its
+slice through the model axis's operators (`parallel/mesh.py`), so that
+the gradient reaching the whole tensor is whole on every rank:
+`shard_lora` slices a LoRA pair's factors (the factor on the sharded side
+through `model_scatter`, the shared one through `model_copy`), so no rank
+forms the whole delta of a sharded weight.
 """
 
 from __future__ import annotations
@@ -41,10 +57,18 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+
 _QKV = (".to_q.weight", ".to_k.weight", ".to_v.weight")   # bias-free
 _OUT = ".to_out.0.weight"
 _GEGLU = (".ff.net.0.proj.weight", ".ff.net.0.proj.bias")
 _FF_OUT = ".ff.net.2.weight"
+
+
+def _geglu(name: str) -> bool:
+    """The GEGLU proj's weight or bias, or the proj module itself."""
+    return ("." + name).endswith(_GEGLU) or ("." + name).endswith(
+        ".ff.net.0.proj")
 
 
 def head_dim(cfg) -> int:
@@ -68,8 +92,8 @@ def tp_spec_for(name: str, shape: Sequence[int], n_model: int,
     whole `shape` that a model axis of n_model ranks shards, or None when
     every rank holds it whole. head_dim: the UNet's per-head width (64 in
     SD-Turbo), which decides departure (b)."""
-    if n_model == 1:
-        return None
+    if n_model == 1 or name.startswith("conv_in."):
+        return None                                     # (d)
     key = "." + name
     if key.endswith(_QKV) or key.endswith(_OUT):
         # (b) whole heads only: to_q's outputs, to_out's inputs
@@ -100,12 +124,7 @@ def param_shardings(state_dict: Mapping[str, object], n_model: int,
 def _slice(name: str, t: torch.Tensor, dim: Optional[int], m: int, n: int):
     if dim is None:
         return t
-    if ("." + name).endswith(_GEGLU):
-        value, gate = t.chunk(2, dim=0)
-        k = value.shape[0] // n
-        return torch.cat([value[m * k:(m + 1) * k], gate[m * k:(m + 1) * k]])
-    k = t.shape[dim] // n
-    return t.narrow(dim, m * k, k)
+    return mesh_mod.model_part(t, m, n, dim, _geglu(name))
 
 
 def shard_state_dict(state_dict: Mapping[str, torch.Tensor], mesh,
@@ -128,7 +147,7 @@ def unshard_state_dict(shards: List[Mapping[str, torch.Tensor]],
         parts = [s[k] for s in shards]
         if dim is None:
             out[k] = parts[0]
-        elif ("." + k).endswith(_GEGLU):
+        elif _geglu(k):
             halves = [p.chunk(2, dim=0) for p in parts]
             out[k] = torch.cat([h[0] for h in halves] + [h[1] for h in halves])
         else:
@@ -140,8 +159,9 @@ def unshard_state_dict(shards: List[Mapping[str, torch.Tensor]],
 def shard_module(model: nn.Module, mesh, head_dim: int = 64) -> nn.Module:
     """`model` (a whole UNet, before `prepare_kernels`) holding only this
     model rank's shards, in place: each sharded parameter is replaced by a
-    copy of its slice (the whole is freed with its last reference), and
-    each module whose parameters were sliced is marked `tp_sharded`."""
+    copy of its slice (the whole is freed with its last reference), each
+    module whose parameters were sliced is marked `tp_sharded`, and the
+    model keeps the rule's dims by parameter name (`tp_specs`)."""
     if mesh is None or mesh.n_model == 1:
         return model
     whole = dict(model.named_parameters())
@@ -152,9 +172,29 @@ def shard_module(model: nn.Module, mesh, head_dim: int = 64) -> nn.Module:
             continue
         owner, attr = name.rsplit(".", 1)
         module = model.get_submodule(owner)
-        part = local[name].detach().clone(memory_format=torch
-                                          .contiguous_format)
+        part = local[name].detach()
         setattr(module, attr, nn.Parameter(part,
                                            requires_grad=p.requires_grad))
         module.tp_sharded = True
+    model.tp_specs = specs
     return model
+
+
+def shard_lora(name: str, a: torch.Tensor, b: torch.Tensor,
+               dim: Optional[int], mesh):
+    """This model rank's factors of the LoRA pair (a (kh, kw, in, r) or
+    (in, r), b (r, out)) that adapts module `name`, whose weight the rule
+    shards on `dim` (None: whole): on the output dim (0) b's columns are
+    sliced (the GEGLU proj's by departure (a)'s layout) and a is shared;
+    on the input dim (1, a linear) a's rows are sliced and b is shared.
+    The slice goes through `model_scatter` and the shared factor through
+    `model_copy`, so the factors' gradients are whole and the same on
+    every rank; `lora.lora_delta` of the pair is the slice of the whole
+    delta that this rank's weight slice takes."""
+    if dim is None:
+        return a, b
+    if dim == 0:
+        return (mesh_mod.model_copy(a, mesh),
+                mesh_mod.model_scatter(b, mesh, 1, halves=_geglu(name)))
+    return (mesh_mod.model_scatter(a, mesh, a.ndim - 2),
+            mesh_mod.model_copy(b, mesh))

@@ -60,17 +60,19 @@ def forward_with_params(params: Dict, cfgs: GeneratorConfigs, alphas_cumprod,
                         x, caption_enc, direction: str, *, kernels: bool,
                         noise=None,
                         generator: Optional[torch.Generator] = None,
-                        remat: bool = False):
+                        remat: bool = False, tp=None):
     """One translation (cyclegan.py:68-83): params {"unet", "vae_a2b",
     "vae_b2a"} modules; x (B, H, W, 3) in [-1, 1]; direction "a2b" routes
     through vae_a2b, "b2a" through vae_b2a; remat recomputes each UNet
-    block in the backward (training). Returns (B, H, W, 3) in [-1, 1]."""
+    block in the backward (training); tp: the model axis's mesh of a UNet
+    sharded over it (`generate_unclamped`). Returns (B, H, W, 3) in
+    [-1, 1]."""
     if direction not in ("a2b", "b2a"):
         raise ValueError(f"direction {direction!r} is not 'a2b' or 'b2a'")
     img = generate_unclamped(params["unet"], params["vae_" + direction], cfgs,
                              alphas_cumprod, x, caption_enc, kernels=kernels,
                              noise=noise, generator=generator,
-                             remat=remat)["img"]
+                             remat=remat, tp=tp)["img"]
     return torch.clamp(img, -1.0, 1.0)
 
 

@@ -64,14 +64,14 @@ def generate_deterministic(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod,
                            c_t, caption_enc, *, kernels: bool = True,
                            noise=None,
                            generator: Optional[torch.Generator] = None,
-                           remat: bool = False):
+                           remat: bool = False, tp=None):
     """unet / vae: the LoRA-merged modules. c_t: (B, H, W, 3) in [0, 1]
     (edge map) or [-1, 1]; caption_enc: (B, 77, cross_dim). Returns
-    (B, H, W, 3) in [-1, 1]. remat: as in `generate_unclamped`
+    (B, H, W, 3) in [-1, 1]. remat and tp: as in `generate_unclamped`
     (pix2pix.py:31-57)."""
     img = generate_unclamped(unet, vae, cfgs, alphas_cumprod, c_t,
                              caption_enc, kernels=kernels, noise=noise,
-                             generator=generator, remat=remat)["img"]
+                             generator=generator, remat=remat, tp=tp)["img"]
     return torch.clamp(img, -1.0, 1.0)
 
 

@@ -90,9 +90,11 @@ def restore_train_state(directory: str, state: TrainState,
     """Load checkpoint `step` (the newest when None) of `directory` into
     `state` in place: the same keys and shapes, the values copied into its
     own tensors (which its optimizers hold), the optimizers' moments and
-    counts loaded. Returns `state`. With a data mesh every rank reads the
-    file, then a fingerprint all-reduce checks that all ranks restored the
-    same state (`parallel.mesh.assert_replicated`)."""
+    counts loaded. Returns `state`. With a mesh every rank reads the
+    file, then a fingerprint all-reduce over each axis checks that all
+    ranks restored the same state (`parallel.mesh.assert_replicated`). The
+    state is whole on every rank under a model axis too (only the frozen
+    UNet is sharded), so no checkpoint holds a slice."""
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -113,7 +115,9 @@ def restore_train_state(directory: str, state: TrainState,
     state.gen_opt.load_state_dict(saved["gen_opt"])
     state.disc_opt.load_state_dict(saved["disc_opt"])
     state.step = saved["step"]
-    mesh_mod.assert_replicated({"restored state": state}, mesh)
+    for axis in ("data", "model"):
+        mesh_mod.assert_replicated({"restored state": state}, mesh,
+                                   axis=axis)
     return state
 
 

@@ -41,6 +41,27 @@ def cache_reference_fid_stats(inception, image_paths: List[str], transform,
                                                               imgs))
 
 
+def translations(fwd_fn: Callable, image_paths: List[str], transform,
+                 device, max_images: int = -1):
+    """(path, the val-transformed source image, its translation as uint8)
+    for the sorted test images (the first `max_images` when positive), in
+    that order; fwd_fn as in `evaluate_direction`. Under a model axis the
+    ranks that score nothing run it too, so that every rank of the model
+    group makes the same UNet calls."""
+    from PIL import Image
+    paths = sorted(image_paths)
+    if max_images > 0:
+        paths = paths[:max_images]
+    for path in paths:
+        src = transform(Image.open(path).convert("RGB"))
+        arr = np.asarray(src, np.float32) / 127.5 - 1.0
+        with torch.no_grad():
+            out = fwd_fn(torch.from_numpy(arr)[None].to(device))
+        out = out[0].float().cpu().numpy()
+        yield path, src, np.clip((out * 0.5 + 0.5) * 255.0, 0,
+                                 255).astype(np.uint8)
+
+
 def evaluate_direction(fwd_fn: Callable, image_paths: List[str], transform,
                        inception, ref_stats, dino, out_dir: str, tag: str,
                        step: int, max_images: int = -1
@@ -54,16 +75,8 @@ def evaluate_direction(fwd_fn: Callable, image_paths: List[str], transform,
     viz_dir = os.path.join(out_dir, f"fid-{step}", f"samples_{tag}")
     os.makedirs(viz_dir, exist_ok=True)
     outputs, dino_scores = [], []
-    paths = sorted(image_paths)
-    if max_images > 0:
-        paths = paths[:max_images]
-    for path in paths:
-        src = transform(Image.open(path).convert("RGB"))
-        arr = np.asarray(src, np.float32) / 127.5 - 1.0
-        with torch.no_grad():
-            out = fwd_fn(torch.from_numpy(arr)[None].to(device))
-        out = out[0].float().cpu().numpy()
-        out_u8 = np.clip((out * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    for path, src, out_u8 in translations(fwd_fn, image_paths, transform,
+                                          device, max_images):
         Image.fromarray(out_u8).save(os.path.join(
             viz_dir, os.path.basename(path).replace(".jpg", ".png")))
         outputs.append(out_u8)

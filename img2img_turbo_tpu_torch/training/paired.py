@@ -22,6 +22,26 @@ runs the forward and its backward inside `lora.swap_params`, so the
 kernels pack those live weights and the UNet's per-block recompute reads
 the same ones. The posterior noise of the two generator forwards is an
 input of the step: a recompute never redraws it.
+
+Under a model axis (a mesh with n_model above 1; both steps here and in
+`training/unpaired.py`) the UNet's frozen base weights are this rank's
+shards (`runner.shard_for_training`: `parallel.tensor`'s rule, which
+keeps the trainable conv_in whole, departure (d)); the VAE and every other module
+stay whole. The steps keep four invariants, which the tests check:
+- replicated state: every trainable (the LoRA factors, conv_in, the skip
+  convs, the discriminator heads) and every AdamW state is whole and
+  bit-identical on every model rank after each update;
+- gradients: the gradient that reaches every replicated tensor is whole
+  and the same on every model rank, by the model axis's operators alone
+  (`models/layers.py`; the LoRA factors through `parallel.tensor.
+  shard_lora`); there is no separate gradient reduction over the model
+  group, and the data axis's `pmean_pass` reduces over the data group
+  only;
+- collective order: every rank runs the same collectives in the same
+  order, the UNet blocks' recompute under remat included (the same code
+  on the same graph);
+- no fallback: on a CUDA tensor a sharded layer runs its kernel or
+  raises.
 """
 
 from __future__ import annotations
@@ -113,11 +133,20 @@ def _lora_of(gen, part: str, rank: int, alpha: float) -> Dict:
     return {"rank": rank, "alpha": alpha, "modules": lora_modules(gen, part)}
 
 
-def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None) -> Dict:
+def shard_specs(module, tp):
+    """The sharded dims by parameter name of a module that
+    `parallel.tensor.shard_module` sharded over the model axis of `tp`
+    (None without a model axis, or for a whole module)."""
+    return None if tp is None else getattr(module, "tp_specs", None)
+
+
+def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None,
+                     tp=None) -> Dict:
     """{"unet": {param name: tensor}, "vae": {...}}: the trainables in
     place of their base weights, then LoRA merged (training/paired.py:
     69-79); merged weights are cast to `dtype` when given. Differentiable
-    in `gen`."""
+    in `gen`. tp: the model axis's mesh of a sharded UNet, whose LoRA is
+    merged on its shards (`lora.merge_lora`)."""
     out = {}
     for model, module, rank, alpha in (
             ("unet", unet, meta.rank_unet, meta.alpha_unet),
@@ -126,9 +155,23 @@ def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None) -> Dict:
                 if k.startswith(model + ":")}
         base = {**dict(module.named_parameters()), **over}
         merged = lora_mod.merge_lora(
-            base, _lora_of(gen, model + "_lora", rank, alpha), dtype=dtype)
+            base, _lora_of(gen, model + "_lora", rank, alpha), dtype=dtype,
+            specs=shard_specs(module, tp), tp=tp)
         out[model] = {**over, **merged}
     return out
+
+
+def model_axis(mesh, unet):
+    """The step's `tp`: `mesh` when it has a model axis, else None. A
+    model axis needs the UNet sharded (`runner.shard_for_training`)."""
+    if mesh is None or mesh.n_model == 1:
+        return None
+    if getattr(unet, "tp_specs", None) is None:
+        raise ValueError(
+            f"a model axis of {mesh.n_model} ranks trains a UNet sharded "
+            f"for training: call runner.shard_for_training(models, mesh) "
+            f"before building the step")
+    return mesh
 
 
 def draw_noise(generator: torch.Generator, batch: int, height: int,
@@ -183,8 +226,10 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     every rank. Pass 2's images stay on their rank for its discriminator
     passes; the spectral-norm vectors advance on each rank from the same
     heads and are not reduced. The returned pass-1 gradients are the
-    averaged ones. A mesh with a model axis raises (not ported)."""
-    mesh_mod.refuse_model_axis(mesh, "the paired train step")
+    averaged ones. With a model axis (the module docstring's invariants)
+    the ranks of a model group take the same rows and run the UNet on
+    their shards, which `runner.shard_for_training` made."""
+    tp = model_axis(mesh, models.unet)
     for m in (models.unet, models.vae):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -196,13 +241,14 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     def gen_pass(gen, data, loss_fn):
         """loss_fn(micro data, pred) -> (loss, aux); returns (loss, the
         auxes, grads over gen), LoRA merged once for the pass."""
-        params = build_gen_params(gen, models.unet, models.vae, meta, dtype)
+        params = build_gen_params(gen, models.unet, models.vae, meta, dtype,
+                                  tp)
 
         def micro_loss(mb):
             pred = generate_deterministic(
                 models.unet, models.vae, cfgs, alphas, mb["c_t"],
                 mb["caption_enc"], kernels=kernels, noise=mb["noise"],
-                remat=remat)
+                remat=remat, tp=tp)
             return loss_fn(mb, pred)
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae, params["vae"]):
@@ -284,11 +330,14 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
 
 def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
                    meta: LoraMeta, *, kernels: bool = True,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, mesh=None):
     """Validation metrics L2, LPIPS and, when the run has a CLIP-sim model
     (`models.clip`, None when lambda_clipsim is 0), CLIP-sim of the current
     generator (reference train_pix2pix_turbo.py:259-301). Returns
-    eval_step(gen, batch, noise) -> (pred, metrics)."""
+    eval_step(gen, batch, noise) -> (pred, metrics). With a model axis in
+    `mesh`, every rank of the model group calls it alike on a sharded
+    UNet (`make_paired_train_step`) and gets the whole result."""
+    tp = model_axis(mesh, models.unet)
     dev = next(models.unet.parameters()).device
     alphas = scheduler.make_alphas_cumprod(device=dev)
 
@@ -298,12 +347,13 @@ def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
         x_tgt = batch["output_pixel_values"].to(dtype)
         ids = batch["input_ids"]
         caption_enc = models.text(ids).to(dtype)
-        params = build_gen_params(gen, models.unet, models.vae, meta, dtype)
+        params = build_gen_params(gen, models.unet, models.vae, meta, dtype,
+                                  tp)
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae, params["vae"]):
             pred = generate_deterministic(models.unet, models.vae, cfgs,
                                           alphas, c_t, caption_enc,
-                                          kernels=kernels, noise=noise)
+                                          kernels=kernels, noise=noise, tp=tp)
         out = {"val_l2": losses_mod.l2_loss(pred, x_tgt),
                "val_lpips": losses_mod.lpips_loss(models.lpips, pred, x_tgt)}
         if models.clip is not None:

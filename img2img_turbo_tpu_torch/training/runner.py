@@ -96,16 +96,25 @@ def clip_config(args) -> clip_vit.CLIPViTConfig:
     return clip_vit.CLIP_VIT_B32
 
 
-def refuse_unported(args) -> None:
-    """Stop a run whose flags ask for a model axis above 1: training under
-    the model axis (tensor parallelism) is not ported, only serving is;
-    each rank of a data-parallel run holds the whole model on one card."""
-    if getattr(args, "tensor_parallel", 1) > 1:
-        raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: training under the "
-            f"model axis (tensor parallelism) is not ported (ROADMAP, Queue "
-            f"1 item 3); each rank holds the whole model on one card (data "
-            f"parallelism: torchrun --nproc_per_node N)")
+def shard_for_training(models, mesh, state=None):
+    """Shard `models.unet` over the model axis of `mesh` in place
+    (`parallel.tensor.shard_module`, JAX's rule with departures (a)-(d):
+    the trainable conv_in is whole), once every rank of the model group
+    is checked to hold the same frozen modules and train state (the CLIs
+    check the data group before). Call it before building a step under
+    that mesh; without a model axis it does nothing. Returns `models`."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+    if mesh is None or mesh.n_model == 1:
+        return models
+    whole = {k: v for k, v in vars(models).items()
+             if isinstance(v, nn.Module)}
+    mesh_mod.assert_replicated({**whole, "train state": state}, mesh,
+                               "the frozen modules or the train state",
+                               axis="model")
+    tensor_mod.shard_module(models.unet, mesh,
+                            tensor_mod.head_dim(models.unet.cfg))
+    return models
 
 
 def activation_dtype(mixed_precision: Optional[str], device) -> torch.dtype:
@@ -163,15 +172,17 @@ class SmokeTokenizer:
 
 
 def check_tokenizer(tok, mesh) -> None:
-    """Under data parallelism, stop unless every rank's tokenizer gives the
+    """Over several ranks, stop unless every rank's tokenizer gives the
     same ids: `SmokeTokenizer`'s come from hash(), which differs between
     processes unless PYTHONHASHSEED is fixed for all of them."""
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     ids = torch.as_tensor(np.asarray(tok("a photo of a red bird")))
-    mesh_mod.assert_replicated(
-        {"prompt ids": ids}, mesh,
-        "the tokenizer's ids (without --sd_turbo_path the word-hash "
-        "SmokeTokenizer needs the same PYTHONHASHSEED on every rank)")
+    for axis in ("data", "model"):
+        mesh_mod.assert_replicated(
+            {"prompt ids": ids}, mesh,
+            "the tokenizer's ids (without --sd_turbo_path the word-hash "
+            "SmokeTokenizer needs the same PYTHONHASHSEED on every rank)",
+            axis)
 
 
 @torch.no_grad()

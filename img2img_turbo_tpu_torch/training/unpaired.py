@@ -106,12 +106,14 @@ def split_trainable(unet, vae_a2b, vae_b2a, unet_adapters: Dict,
 
 
 def build_gen_params(gen, models: UnpairedModels, meta: CycleLoraMeta,
-                     dtype=None) -> Dict[str, Dict[str, torch.Tensor]]:
+                     dtype=None, tp=None
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"unet", "vae_a2b", "vae_b2a"}: {param name: tensor}, the trainables
     in place of their base weights, then LoRA merged on top of them
     (unpaired.py:72-90: the UNet trio at alpha = rank, one after the other,
     each VAE's adapter at its own alpha); merged weights cast to `dtype`
-    when given. Differentiable in `gen`."""
+    when given. Differentiable in `gen`. tp: the model axis's mesh of a
+    sharded UNet, whose trio is merged on its shards."""
     out = {}
     for model in ("unet",) + VAES:
         module = getattr(models, model)
@@ -122,7 +124,7 @@ def build_gen_params(gen, models: UnpairedModels, meta: CycleLoraMeta,
             merged = lora_mod.merge_multi(
                 base, [_lora_of(gen, f"unet_lora:{a}", meta.rank_unet,
                                 float(meta.rank_unet)) for a in ADAPTERS],
-                dtype=dtype)
+                dtype=dtype, specs=paired.shard_specs(module, tp), tp=tp)
         else:
             merged = lora_mod.merge_lora(
                 base, _lora_of(gen, model + "_lora", meta.rank_vae,
@@ -170,9 +172,10 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
     `paired.make_paired_train_step` (JAX unpaired.py:128-135): the five
     passes' losses, scalar metrics and gradients are averaged over the
     ranks before each optimizer update; pass 2's fakes stay on their rank
-    for the discriminator passes. A mesh with a model axis raises (not
-    ported)."""
-    mesh_mod.refuse_model_axis(mesh, "the unpaired train step")
+    for the discriminator passes. With a model axis, the UNet runs on this
+    rank's shards (`runner.shard_for_training`), with the invariants of
+    `training/paired.py`'s docstring."""
+    tp = paired.model_axis(mesh, models.unet)
     for m in (models.unet, models.vae_a2b, models.vae_b2a):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -186,7 +189,8 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
 
     def fwd(x, emb, noise, direction):
         return forward_with_params(mods, cfgs, alphas, x, emb, direction,
-                                   kernels=kernels, noise=noise, remat=remat)
+                                   kernels=kernels, noise=noise, remat=remat,
+                                   tp=tp)
 
     def rec_loss(pred, target, w_l1, w_lpips):
         return (w_l1 * losses_mod.l1_loss(pred, target) + w_lpips
@@ -195,7 +199,7 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
     def gen_pass(gen, data, loss_fn):
         """loss_fn(micro data) -> (loss, aux) on the merged generators;
         returns (loss, the auxes, grads over gen), LoRA merged once."""
-        params = build_gen_params(gen, models, meta, dtype)
+        params = build_gen_params(gen, models, meta, dtype, tp)
         with lora_mod.swap_params(models.unet, params["unet"]), \
                 lora_mod.swap_params(models.vae_a2b, params["vae_a2b"]), \
                 lora_mod.swap_params(models.vae_b2a, params["vae_b2a"]):

@@ -8,11 +8,12 @@ plus the port's own:
 - `--tiny_model` takes the TINY configs (smoke runs and tests);
 - `--sd_turbo_path`, `--lpips_weights`, `--clip_weights` and
   `--inception_weights` name pretrained files, which the run loads;
-- `--tensor_parallel` exists for launch-command parity: the port trains
-  each rank on one card (data-parallel under `torchrun --nproc_per_node
-  N`), and a value above 1 stops the run. The model axis is ported for
-  serving only (`ServingEngine(mesh=make_mesh(n_data, n_model))`); the
-  training steps under it are not (ROADMAP, Queue 1 item 3);
+- `--tensor_parallel M` is the model axis's size, as in the JAX CLIs:
+  under `torchrun --nproc_per_node N` the ranks form a (N / M, M) mesh
+  (`parallel.mesh.make_mesh(n_model=M)`), the batch split over the N / M
+  data ranks and the UNet's frozen weights sharded over the M model ranks
+  of each (`runner.shard_for_training`); 1 (the default) is data
+  parallelism alone;
 - `--allow_tf32` lets cuBLAS use TF32 for the fp32 matmuls left in a run
   (as the reference sets it); `--enable_xformers_memory_efficient_attention`
   is accepted and changes nothing (the port's attention is its own kernel).
@@ -49,8 +50,9 @@ def _add_common_optim(parser):
                         help="resume from the newest torch.save checkpoint "
                              "in output_dir/state")
     parser.add_argument("--tensor_parallel", type=int, default=1,
-                        help="model-axis size; the port trains on one card "
-                             "and stops on a value above 1")
+                        help="model-axis size: the UNet sharded over this "
+                             "many of the torchrun ranks (it must divide "
+                             "them); the rest is the data axis")
     parser.add_argument("--tiny_model", action="store_true",
                         help="tiny configs for smoke tests (no pretrained)")
     parser.add_argument("--lpips_weights", type=str, default="",

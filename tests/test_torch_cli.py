@@ -591,10 +591,15 @@ def test_weight_flags_stop_the_run(cli, flag, datasets, tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["pix2pix", "cyclegan"])
-def test_tensor_parallel_stops_the_run(cli):
-    main, args = _args(cli, ["--tensor_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="one card"):
+def test_tensor_parallel_stops_the_run(cli, tmp_path):
+    """--tensor_parallel 2 in one process stops the run before it writes:
+    a model axis needs ranks that it divides (the CLIs under two ranks
+    with --tensor_parallel 2: tests/test_torch_parallel.py)."""
+    main, args = _args(cli, ["--tensor_parallel", "2", "--output_dir",
+                             str(tmp_path / "out")])
+    with pytest.raises(ValueError, match="model axis needs a divisor"):
         main(args, device="cpu")
+    assert not os.path.exists(str(tmp_path / "out"))
 
 
 @pytest.mark.parametrize("precision", [None, "no", "fp16"])

@@ -1,5 +1,5 @@
 """The port's data parallelism (`parallel/mesh.py`) on the CPU, with two
-gloo ranks spawned once for the module (`torch_dp.Ranks`), each with one
+gloo ranks spawned once a test process (`torch_dp.shared`), each with one
 intra-op thread, as the one-process runs it is held against:
 
 - `shard_batch` takes the rows JAX's `P(data)` places on each shard of a
@@ -22,9 +22,10 @@ intra-op thread, as the one-process runs it is held against:
 - both training CLIs under two ranks at a global batch of 2 (pix2pix: a
   step with a checkpoint and eval, then --resume to step 2; CycleGAN: a
   step with a checkpoint, then a --resume that restores and takes no
-  step) against the one-process run of the same flags: only rank 0
-  writes, the output directory holds the same files, the metrics rows and
-  the last pkl agree within the tolerances above;
+  step), data-parallel and with --tensor_parallel 2, against the
+  one-process run of the same flags: only rank 0 writes, the output
+  directory holds the same files, the metrics rows and the last pkl agree
+  within the tolerances above;
 - the mesh's refusals: a model axis without the ranks for it, a batch
   that does not divide.
 """
@@ -57,10 +58,8 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    r = torch_dp.Ranks(WORLD, tmp_path_factory.mktemp("rendezvous"))
-    yield r
-    r.close()
+def ranks():
+    return torch_dp.shared(WORLD)
 
 
 def _mesh(rank, world=WORLD):
@@ -285,44 +284,72 @@ CLI_FLAGS = {
 }
 
 
-@pytest.mark.parametrize("which", ["pix2pix", "cyclegan"])
-def test_training_cli_data_parallel(ranks, which, datasets, tiny_snapshot,
-                                    tmp_path):
-    """At a global --train_batch_size of 2, under two ranks and in one
-    process: a step with a checkpoint (pix2pix: and eval on rank 0), then
-    --resume (pix2pix: to step 2; cyclegan, on the training images alone:
-    at step 1, a restore that takes no step, as chip_smoke's CycleGAN run
-    resumes)."""
-    common, first, second, last = CLI_FLAGS[which]
-    folder = datasets[0]
-    if which == "cyclegan":
-        # the training half only: no test sets, so no validation set-up
-        folder = str(tmp_path / "unpaired_train")
-        for name in ("train_A", "train_B", "fixed_prompt_a.txt",
-                     "fixed_prompt_b.txt"):
-            src = os.path.join(datasets[1], name)
-            (shutil.copytree if os.path.isdir(src) else shutil.copy)(
-                src, os.path.join(folder, name))
+@pytest.fixture(scope="module")
+def cli_runs(datasets, tiny_snapshot, tmp_path_factory):
+    """run(which, out) -> each CLI run's argv list for output directory
+    `out`; one(which) -> (the one-process run's output directory, its
+    mains' results), run once a CLI for the module. pix2pix on the paired
+    dataset; cyclegan on the unpaired dataset's training half alone (no
+    test sets, so no validation set-up)."""
+    folders = {"pix2pix": datasets[0],
+               "cyclegan": str(tmp_path_factory.mktemp("unpaired_train"))}
+    for name in ("train_A", "train_B", "fixed_prompt_a.txt",
+                 "fixed_prompt_b.txt"):
+        src = os.path.join(datasets[1], name)
+        (shutil.copytree if os.path.isdir(src) else shutil.copy)(
+            src, os.path.join(folders["cyclegan"], name))
 
-    def argv(out):
-        base = ["--dataset_folder", folder,
-                "--output_dir", out, "--tiny_model", "--report_to", "none",
-                "--sd_turbo_path", tiny_snapshot[0], "--train_batch_size",
-                "2", "--checkpointing_steps", "1"] + common
+    def argv(which, out, tp=1):
+        common, first, second, last = CLI_FLAGS[which]
+        base = ["--dataset_folder", folders[which], "--output_dir", out,
+                "--tiny_model", "--report_to", "none", "--sd_turbo_path",
+                tiny_snapshot[0], "--train_batch_size", "2",
+                "--checkpointing_steps", "1", "--tensor_parallel",
+                str(tp)] + common
         return [base + ["--max_train_steps", "1"] + first,
                 base + ["--max_train_steps", str(last), "--resume"]
                 + second]
 
-    dp_out, one_out = str(tmp_path / "dp"), str(tmp_path / "one")
-    ranks.submit(torch_dp.run_cli, which, argv(dp_out))
-    main = (train_pix2pix_turbo.main if which == "pix2pix"
-            else train_cyclegan_turbo.main)
-    parse = (targs.parse_args_paired_training if which == "pix2pix"
-             else targs.parse_args_unpaired_training)
-    # the one-process run; a resume that takes no step writes no file that
-    # the first run did not, so the one-process run needs it only to step
-    one = [main(parse(a), device="cpu")
-           for a in argv(one_out)[:1 if last == 1 else 2]]
+    done = {}
+
+    def one(which):
+        # a resume that takes no step writes no file that the first run
+        # did not, so the one-process run needs it only to step
+        if which not in done:
+            out = str(tmp_path_factory.mktemp(f"one_{which}"))
+            main, parse = ((train_pix2pix_turbo.main,
+                            targs.parse_args_paired_training)
+                           if which == "pix2pix" else
+                           (train_cyclegan_turbo.main,
+                            targs.parse_args_unpaired_training))
+            last = CLI_FLAGS[which][3]
+            done[which] = (out, [main(parse(a), device="cpu")
+                                 for a in argv(which, out)[
+                                     :1 if last == 1 else 2]])
+        return done[which]
+    return argv, one
+
+
+@pytest.mark.parametrize("which,tp", [
+    pytest.param("pix2pix", 1, id="pix2pix"),
+    pytest.param("cyclegan", 1, id="cyclegan"),
+    pytest.param("pix2pix", 2, id="pix2pix-tensor_parallel_2"),
+    pytest.param("cyclegan", 2, id="cyclegan-tensor_parallel_2")])
+def test_training_cli_data_parallel(ranks, which, tp, cli_runs, tmp_path):
+    """At a global --train_batch_size of 2, under two ranks and in one
+    process: a step with a checkpoint (pix2pix: and eval, on rank 0), then
+    --resume (pix2pix: to step 2; cyclegan, on the training images alone:
+    at step 1, a restore that takes no step, as chip_smoke's CycleGAN run
+    resumes). The two ranks are a (2, 1) mesh, or with --tensor_parallel 2
+    a (1, 2) one: both take the whole batch, the UNet sharded over them,
+    eval on both and rank 0 alone writing. The metrics rows within rtol
+    2e-4 and the last pkl within the discipline of `_assert_discipline` at
+    the CLIs' lr 5e-6, in both cases."""
+    argv, one = cli_runs
+    last = CLI_FLAGS[which][3]
+    dp_out = str(tmp_path / "ranks")
+    ranks.submit(torch_dp.run_cli, which, argv(which, dp_out, tp))
+    one_out, one_res = one(which)
     (res0, wrote0), (res1, wrote1) = ranks.collect()
 
     # what each rank wrote among the test's files (torch may make its own
@@ -332,7 +359,7 @@ def test_training_cli_data_parallel(ranks, which, datasets, tiny_snapshot,
     assert mine[1] == [] and mine[0]
     assert all(p.startswith(dp_out) for p in mine[0])
     runs = [(0, 1, 1), (1, last, last - 1)]
-    for res in (res0, res1, one):
+    for res in (res0, res1, one_res):
         assert [(r["start_step"], r["end_step"], r["steps_run"])
                 for r in res] == runs[:len(res)]
     assert _files(dp_out) == _files(one_out)

@@ -1,7 +1,7 @@
 """The port's model axis (`parallel/tensor.py`, the `tp` path of
 `models/layers.py`, `ServingEngine(mesh=...)`) on the CPU, in fp32, with
-two gloo ranks spawned once for the module (`torch_dp.Ranks`, one intra-op
-thread each):
+two gloo ranks spawned once a test process (`torch_dp.shared`, one
+intra-op thread each):
 
 - the sharding rule at full SD-Turbo width, on shapes alone (a `meta`
   UNet), equals the JAX package's `param_shardings` on the 8 virtual CPU
@@ -21,11 +21,20 @@ thread each):
   one-process engine: within 1 uint8 level on at most 0.1% of values;
 - `make_mesh`'s subgroups for (2, 2) and (4, 2) are JAX's grid columns
   and rows (rank arithmetic, no spawn);
-- the training steps, `refuse_unported` and the sketch mode refuse a model
-  axis.
+- training (the steps themselves against JAX: tests/test_torch_train.py
+  and tests/test_torch_unpaired.py): the one rule keeps conv_in whole,
+  departure (d); each model-axis operator's
+  forward and gradient on two ranks against whole-tensor autograd,
+  exactly, in fp32 and bf16; a sharded ResnetBlock2D (extra bias,
+  residual, 1x1 skip, stats) and Transformer2DModel (self and cross
+  attention, GEGLU) at MICRO and the odd-head config, their output and
+  input, context and weight gradients within 1e-5 of the whole module's,
+  every kernel wrapper called as often as by the whole module (no
+  fallback);
+  both steps build under a (1, 2) mesh once the UNet is sharded, and the
+  sketch mode still refuses one.
 """
 
-import argparse
 import re
 
 import numpy as np
@@ -66,10 +75,8 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    r = torch_dp.Ranks(WORLD, tmp_path_factory.mktemp("rendezvous"))
-    yield r
-    r.close()
+def ranks():
+    return torch_dp.shared(WORLD)
 
 
 def _mesh(m, n, n_data=1):
@@ -132,12 +139,14 @@ def test_rule_equals_jax_param_shardings_at_sd_turbo_width(n_model):
     assert set(got) == set(want)
     differ = {k for k in got if got[k] != want[k]}
     whole = _whole_heads(n_model)
+    conv_in = {"conv_in.weight"}                    # (d)
     biases = {k for k in got if k.endswith(".bias") and (
         (len(sd[k[:-5] + ".weight"].shape) == 4
-         and want[k[:-5] + ".weight"] == 0)
-        or k.endswith(".ff.net.0.proj.bias"))}
-    assert differ == whole | biases
-    assert all(got[k] is None and want[k] is not None for k in whole)
+         and want[k[:-5] + ".weight"] == 0 and k[:-5] + ".weight" not in
+         conv_in) or k.endswith(".ff.net.0.proj.bias"))}
+    assert differ == whole | biases | conv_in
+    assert all(got[k] is None and want[k] is not None
+               for k in whole | conv_in)
     assert all(got[k] == 0 and want[k] is None for k in biases)
     assert len(whole) == (40 if n_model == 2 else 80)
     if n_model == 2:
@@ -248,15 +257,94 @@ def test_mesh_groups_are_jax_grid_columns_and_rows(n_data, n_model):
 
 
 def test_training_and_sketch_refuse_a_model_axis():
+    """The sketch mode still refuses a model axis; both training steps
+    build under a (1, 2) mesh once `runner.shard_for_training` sharded the
+    UNet (rank 0's shards here, without a process group), and refuse one
+    on a whole UNet."""
+    from img2img_turbo_tpu_torch.models import clip_vit
+    from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
     from img2img_turbo_tpu_torch.serving.engine import ServingEngine
-    from img2img_turbo_tpu_torch.training import paired, runner, unpaired
+    from img2img_turbo_tpu_torch.training import (losses, paired, runner,
+                                                  unpaired)
     m = _mesh(0, 2)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        paired.make_paired_train_step(None, None, None, None, mesh=m)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        unpaired.make_unpaired_train_step(None, None, None, None, mesh=m)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        runner.refuse_unported(argparse.Namespace(tensor_parallel=2))
     with pytest.raises(NotImplementedError, match=re.escape("lora_merged_at")):
         ServingEngine(mode="sketch", base={"unet": None, "vae": None},
                       lora={}, device="cpu", mesh=m)
+    cfgs = GeneratorConfigs(tconfigs.MICRO_UNET, tconfigs.MICRO_VAE,
+                            tconfigs.TINY_TEXT)
+    for build, make, loss_cfg in (
+            (runner.build_paired_run, paired.make_paired_train_step,
+             losses.PairedLossConfig()),
+            (runner.build_unpaired_run, unpaired.make_unpaired_train_step,
+             losses.UnpairedLossConfig())):
+        models, state, meta = build(cfgs, clip_vit.TINY_CLIP_VIT,
+                                    device="cpu")
+        with pytest.raises(ValueError, match="shard_for_training"):
+            make(models, cfgs, loss_cfg, meta, mesh=m)
+        whole = sum(p.numel() for p in models.unet.parameters())
+        runner.shard_for_training(models, m, state)
+        assert callable(make(models, cfgs, loss_cfg, meta, mesh=m))
+        assert sum(p.numel() for p in models.unet.parameters()) < whole
+        assert models.unet.conv_in.weight.shape[0] == \
+            tconfigs.MICRO_UNET.block_out_channels[0]
+
+
+def test_training_rule_keeps_conv_in_whole():
+    """Departure (d): the one rule, for serving and training alike, keeps
+    conv_in's weight and bias whole at SD-Turbo width (where the conv
+    rule would shard its 320 output channels), and `shard_module` leaves
+    the module whole and unmarked while it slices conv_out."""
+    with torch.device("meta"):
+        sd = UNet2DConditionModel(tconfigs.SD_TURBO_UNET).state_dict()
+    for n in (2, 4):
+        specs = ttp.param_shardings(sd, n)
+        assert sd["conv_in.weight"].shape[0] % n == 0
+        assert specs["conv_in.weight"] is None
+        assert specs["conv_in.bias"] is None
+        assert specs["conv_out.weight"] == 0
+    unet = from_jax.random_params(tconfigs.MICRO_UNET,
+                                  torch.Generator().manual_seed(2))
+    model = UNet2DConditionModel(tconfigs.MICRO_UNET)
+    model.load_state_dict(unet)
+    ttp.shard_module(model, _mesh(1, 2), ttp.head_dim(tconfigs.MICRO_UNET))
+    assert torch.equal(model.conv_in.weight, unet["conv_in.weight"])
+    assert not getattr(model.conv_in, "tp_sharded", False)
+    assert model.conv_out.weight.shape[0] * 2 == \
+        unet["conv_out.weight"].shape[0]
+
+
+def test_model_axis_operators_are_exact(ranks):
+    out = ranks.run(torch_dp.tp_ops)
+    for res in out:
+        assert len(res) == 10
+        for op, (fwd, grad) in res.items():
+            assert fwd and grad, op
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_sharded_layers_gradients_match_one_process(ranks, name):
+    """Output, input / time-embedding / context gradients and every
+    weight gradient (a sharded weight's against its slice of the whole's)
+    within 1e-5 of max|ref| on both ranks; at the odd-head config the
+    level-0 attention stays whole (departure (b)) and its GEGLU splits.
+    No fallback: the sharded layers call every kernel wrapper (K1 and K8's
+    du in a resnet, K3, K2 and K7 in a transformer) as often as the whole
+    ones, forward and backward."""
+    out = ranks.run(torch_dp.tp_layers, CONFIGS[name][0])
+    for res in out:
+        for block, r in res.items():
+            worst = max(r["err"], key=r["err"].get)
+            assert r["err"][worst] <= 1e-5, (name, block, worst,
+                                             r["err"][worst])
+            assert r["sharded"], block
+            assert r["calls"]["tp"] == r["calls"]["whole"], block
+            need = (("fused_gn_silu_conv3x3", "conv3x3_input_grad")
+                    if block.startswith("resnet") else
+                    ("fused", "flash_attention_folded",
+                     "flash_attention_folded_bwd"))
+            assert all(r["calls"]["tp"].get(k) for k in need), (block, r)
+            attn = "transformer_blocks.0.attn1.to_q"
+            if block == "transformer_level0":
+                assert (attn in r["sharded"]) == (name == "micro")
+                assert "transformer_blocks.0.ff.net.0.proj" in r["sharded"]
+    assert out[0].keys() == out[1].keys()

@@ -7,7 +7,10 @@
   stats; the K3, K4, K5 and prologue-free conv Functions likewise;
 - one whole paired step at MICRO_UNET / MICRO_VAE / TINY_TEXT /
   TINY_CLIP_VIT: the losses of all four passes, the pass-1 gradients and
-  the trainables and spectral-norm vectors after the step;
+  the trainables and spectral-norm vectors after the step; the same step
+  on two gloo ranks, data-parallel (tiled) and on a (1, 2) mesh with the
+  UNet sharded over the model axis, on both ranks, the model axis's state
+  bit-identical across its ranks;
 - the per-step launch table of chip_smoke.py, by counting the kernel
   wrappers' calls in a step at the TINY configs (SD-Turbo's topology).
 
@@ -20,6 +23,7 @@ change where Adam's step is not dominated by gradient noise.
 """
 
 import collections
+import copy
 import importlib.util
 import os
 
@@ -29,6 +33,8 @@ import jax
 import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
+
+import torch_dp
 
 from img2img_turbo_tpu import configs as jcfg
 from img2img_turbo_tpu.models import clip_text as jclip_text
@@ -526,8 +532,6 @@ def paired_setup():
         new_state, metrics = step(state, frozen, aux, batch, key)
         return new_state, metrics, jax.grad(recon)(state["gen"])
 
-    new_state, metrics, grads1 = jax.jit(step_and_grads)(
-        state, jax.tree_util.tree_map(jnp.asarray, batch))
     lat = (1, RES // 2, RES // 2, 4)
     noise = tuple(np.asarray(jax.random.normal(r, lat, jnp.float32))
                   for r in (r1, r2))
@@ -538,7 +542,21 @@ def paired_setup():
             dict(sn))
     port_state = tpaired.make_state(gen_t, heads, sn, sched_t, sched_t)
     models = tpaired.PairedModels(unet, vae, text, lpips, backbone, clip)
-    return dict(init=init,gen0=from_jax.gen_trainables(_np_tree(gen)),
+    # the two-rank steps start now, beside the JAX step's compile, and
+    # their tests collect them (dp_port_step, tp_port_step). They take
+    # copies: torch moves a tensor it sends to the ranks into shared
+    # memory, under the numpy views the JAX trees were made from, and
+    # port_step updates the trainables in place
+    ranks = torch_dp.shared(2)
+    given = copy.deepcopy((models, cfgs, meta_t, init,
+                           *_rank_inputs(batch, noise)))
+    tickets = {"dp": ranks.submit(torch_dp.given_step, *given),
+               "tp": ranks.submit(torch_dp.given_step, *given, "paired",
+                                  True)}
+    new_state, metrics, grads1 = jax.jit(step_and_grads)(
+        state, jax.tree_util.tree_map(jnp.asarray, batch))
+    return dict(init=init, tickets=tickets,
+                gen0=from_jax.gen_trainables(_np_tree(gen)),
                 gen1=from_jax.gen_trainables(_np_tree(new_state["gen"])),
                 grads1=from_jax.gen_trainables(_np_tree(grads1)),
                 disc1=from_jax.disc_heads(_np_tree(new_state["disc"]),
@@ -626,29 +644,38 @@ def test_paired_step_trainables_match_jax(paired_setup, port_step):
 
 
 # ---------------------------------------------------------------------------
-# the step data-parallel over two gloo ranks, against the JAX step
+# the step data-parallel over two gloo ranks, and under a model axis of two,
+# against the JAX step
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def dp_port_step(paired_setup, tmp_path_factory):
-    """The port's paired step under two gloo ranks (`torch_dp.Ranks`, one
-    intra-op thread each), tiled: both ranks take paired_setup's row and
-    noise. JAX's TestShardMapDP::test_exact_vs_single_device pins its own
-    tiled DP step to the single step these tests hold the port to."""
-    import torch_dp
-    s = paired_setup
-    batch = {k: torch.from_numpy(v) for k, v in s["batch"].items()}
+def _rank_inputs(batch, noise):
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     batch["input_ids"] = batch["input_ids"].long()
-    noise = tuple(torch.from_numpy(n) for n in s["noise"])
-    gen0 = s["init"][0]
-    ranks = torch_dp.Ranks(2, tmp_path_factory.mktemp("rendezvous"))
-    try:
-        out = ranks.run(torch_dp.given_step, s["models"], s["cfgs"],
-                        s["meta"], s["init"], batch, noise)
-    finally:
-        ranks.close()
-    return dict(out=out, gen0=gen0)
+    return batch, tuple(torch.from_numpy(n) for n in noise)
+
+
+@pytest.fixture(scope="module")
+def dp_port_step(paired_setup):
+    """The port's paired step under two gloo ranks (`torch_dp.shared`, one
+    intra-op thread each), tiled: both ranks take paired_setup's row and
+    noise (started by paired_setup). JAX's
+    TestShardMapDP::test_exact_vs_single_device pins its own tiled DP step
+    to the single step these tests hold the port to."""
+    s = paired_setup
+    out = torch_dp.shared(2).collect(s["tickets"]["dp"])
+    return dict(out=out, gen0=s["init"][0])
+
+
+@pytest.fixture(scope="module")
+def tp_port_step(paired_setup):
+    """The port's paired step on a (1, 2) mesh of the two ranks: the UNet
+    sharded over the model axis (`runner.shard_for_training`), both ranks
+    paired_setup's row and noise, the UNet blocks recomputed (remat), so
+    the recompute's collectives run in the backward."""
+    s = paired_setup
+    out = torch_dp.shared(2).collect(s["tickets"]["tp"])
+    return dict(out=out, gen0=s["init"][0])
 
 
 @pytest.mark.parametrize("check", ["losses", "pass1_gradients",
@@ -664,6 +691,34 @@ def test_paired_dp_step_tiled_matches_jax(paired_setup, dp_port_step,
         else:
             _assert_trainables(paired_setup, dp_port_step["gen0"],
                                res["gen"], res["disc"], res["disc_sn"])
+
+
+@pytest.mark.parametrize("check", ["losses", "pass1_gradients",
+                                   "trainables", "replicated"])
+def test_paired_tp_step_matches_jax(paired_setup, tp_port_step, check):
+    """Under the model axis, on both ranks, at the tolerances of
+    test_paired_step_*_match_jax; "replicated": every trainable, head,
+    spectral-norm vector and AdamW moment bit-identical on the two model
+    ranks, each rank holding only its shards of the UNet."""
+    out = tp_port_step["out"]
+    for res in out:
+        if check == "losses":
+            _assert_losses(paired_setup, res["metrics"])
+        elif check == "pass1_gradients":
+            _assert_grads(paired_setup, res["grads"])
+        elif check == "trainables":
+            _assert_trainables(paired_setup, tp_port_step["gen0"],
+                               res["gen"], res["disc"], res["disc_sn"])
+        else:
+            assert res["differ"] == []
+            whole = sum(p.numel() for p in
+                        paired_setup["models"].unet.parameters())
+            assert res["unet_numel"] < 0.6 * whole
+    if check == "replicated":
+        a, b = out[0]["state"], out[1]["state"]
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ CPU, in fp32.
   the unpaired trainer's ranks (UNet trio 128, VAEs 4) and random B factors
   (B = 0 at init would hide the A factors' gradients): the eight losses,
   every trainable's cycle-pass gradient, the trainables after the step and
-  both discriminators' heads and spectral-norm vectors; the converters
+  both discriminators' heads and spectral-norm vectors; the same step on
+  a (1, 2) mesh of two gloo ranks with the UNet sharded over the model
+  axis, on both ranks, its state bit-identical across them; the converters
   `from_jax.cycle_trainables` and `disc_heads_pair` pinned to the port's
   own layout;
 - gradient accumulation: accum_steps=2 on a batch of 2 against
@@ -46,6 +48,8 @@ import jax
 import jax.numpy as jnp
 import torch
 from PIL import Image
+
+import torch_dp
 
 from img2img_turbo_tpu import configs as jcfg
 from img2img_turbo_tpu.models import clip_vit as jclip_vit
@@ -261,6 +265,19 @@ def unpaired_setup():
     lat = (1, RES // 2, RES // 2, jcfg.MICRO_VAE.latent_channels)
     noise = tuple(np.asarray(jax.random.normal(k, lat, jnp.float32))
                   for k in keys)
+    # the two-rank step under the model axis starts now, beside the JAX
+    # step's compile, from the state port_step starts from; tp_port_step
+    # collects it. It takes copies: torch moves a tensor it sends to the
+    # ranks into shared memory, under the numpy views the JAX trees were
+    # made from, and port_step updates the trainables in place
+    init = ({k: v.detach() for k, v in state.gen.items()}, state.disc,
+            state.disc_sn)
+    tp_ticket = torch_dp.shared(2).submit(
+        torch_dp.given_step, *copy.deepcopy((
+            models, cfgs, meta, init,
+            {k: torch.from_numpy(v) for k, v in batch.items()},
+            tuple(torch.from_numpy(n) for n in noise))),
+        "unpaired", True, {"eps": EPS})
     with pytest.MonkeyPatch.context() as mp:
         _jit_pieces(mp, jcfgs)
         step = junpaired.make_unpaired_train_step(
@@ -278,7 +295,7 @@ def unpaired_setup():
                                        _np_tree(new_state["disc_sn"])),
         metrics={k: float(v) for k, v in metrics.items()},
         batch=batch, noise=noise, cfgs=cfgs, models=models, state=state,
-        meta=meta)
+        meta=meta, tp_ticket=tp_ticket)
 
 
 @pytest.fixture(scope="module")
@@ -314,11 +331,13 @@ def test_converters_pin_the_port_layout(unpaired_setup, port_step):
         np.testing.assert_array_equal(v, sn0[k].numpy(), err_msg=k)
 
 
-def test_unpaired_step_losses_match_jax(unpaired_setup, port_step):
-    """All eight losses within 1e-4 relative (fp32, same weights, same
-    posterior noise)."""
-    want = unpaired_setup["metrics"]
-    got = {k: float(v) for k, v in port_step["metrics"].items()}
+def _np(t):
+    return t.detach().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _assert_losses(s, metrics):
+    want = s["metrics"]
+    got = {k: float(v) for k, v in metrics.items()}
     assert set(got) == set(want) == {
         "cycle_a", "cycle_b", "gan_a", "gan_b", "idt_a", "idt_b",
         "disc_fake", "disc_real"}
@@ -327,16 +346,47 @@ def test_unpaired_step_losses_match_jax(unpaired_setup, port_step):
             (k, got[k], want[k])
 
 
+def _assert_grads(s, got):
+    want = s["grads_c"]
+    assert set(got) == set(want)
+    errs = {k: _rel_l2(_np(got[k]), want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= MODEL_TOL, (worst, errs[worst])
+
+
+def _assert_trainables(s, got0, gen):
+    want0, want1 = s["gen0"], s["gen1"]
+    g = s["grads_c"]
+    for k in want1:
+        d_want = want1[k] - want0[k]
+        d_got = _np(gen[k]) - _np(got0[k])
+        diff = np.abs(d_got - d_want)
+        assert diff.max() <= 5e-4, (k, diff.max())
+        strong = np.abs(g[k]) >= 1e-2 * np.abs(g[k]).max()
+        err = _rel_l2(d_got[strong], d_want[strong])
+        assert err <= 1e-4, (k, err, strong.mean())
+
+
+def _assert_discriminators(s, disc, disc_sn):
+    heads, sn = s["disc1"]
+    assert set(heads) == set(disc) and set(sn) == set(disc_sn)
+    for got, want in ((disc, heads), (disc_sn, sn)):
+        for k, v in want.items():
+            np.testing.assert_allclose(_np(got[k]), v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_unpaired_step_losses_match_jax(unpaired_setup, port_step):
+    """All eight losses within 1e-4 relative (fp32, same weights, same
+    posterior noise)."""
+    _assert_losses(unpaired_setup, port_step["metrics"])
+
+
 def test_unpaired_step_cycle_gradients_match_jax(unpaired_setup, port_step):
     """Every trainable's cycle-pass gradient (through both hops of each
     cycle, into both VAEs, the three UNet adapters, conv_in and the skip
     convs) within relative L2 2e-4 of jax.grad of the step's cycle loss."""
-    want = unpaired_setup["grads_c"]
-    got = port_step["grads"]
-    assert set(got) == set(want)
-    errs = {k: _rel_l2(got[k].numpy(), want[k]) for k in want}
-    worst = max(errs, key=errs.get)
-    assert errs[worst] <= MODEL_TOL, (worst, errs[worst])
+    _assert_grads(unpaired_setup, port_step["grads"])
 
 
 def test_unpaired_step_trainables_match_jax(unpaired_setup, port_step):
@@ -345,29 +395,56 @@ def test_unpaired_step_trainables_match_jax(unpaired_setup, port_step):
     the elements whose cycle-pass gradient is at least 1e-2 of the
     tensor's largest, and every element within one update, 5e-4, of the
     JAX value (the paired test's rule)."""
-    want0, want1 = unpaired_setup["gen0"], unpaired_setup["gen1"]
-    g = unpaired_setup["grads_c"]
-    got0, state = port_step["gen0"], port_step["state"]
-    for k in want1:
-        d_want = want1[k] - want0[k]
-        d_got = state.gen[k].detach().numpy() - got0[k].numpy()
-        diff = np.abs(d_got - d_want)
-        assert diff.max() <= 5e-4, (k, diff.max())
-        strong = np.abs(g[k]) >= 1e-2 * np.abs(g[k]).max()
-        err = _rel_l2(d_got[strong], d_want[strong])
-        assert err <= 1e-4, (k, err, strong.mean())
+    _assert_trainables(unpaired_setup, port_step["gen0"],
+                       port_step["state"].gen)
 
 
 def test_unpaired_step_discriminators_match_jax(unpaired_setup, port_step):
     """Both discriminators' heads after the two updates, and their
     spectral-norm vectors after the three advances, within 1e-5."""
-    heads, sn = unpaired_setup["disc1"]
     state = port_step["state"]
-    assert set(heads) == set(state.disc) and set(sn) == set(state.disc_sn)
-    for got, want in ((state.disc, heads), (state.disc_sn, sn)):
-        for k, v in want.items():
-            np.testing.assert_allclose(got[k].detach().numpy(), v,
-                                       rtol=1e-5, atol=1e-5, err_msg=k)
+    _assert_discriminators(unpaired_setup, state.disc, state.disc_sn)
+
+
+@pytest.fixture(scope="module")
+def tp_port_step(unpaired_setup):
+    """The port's unpaired step on a (1, 2) mesh of two gloo ranks
+    (`torch_dp.shared`, one intra-op thread each), started by
+    unpaired_setup: the UNet sharded over the model axis
+    (`runner.shard_for_training`), both ranks the fixture's row and noise,
+    from the state `port_step` starts from (Adam's eps EPS), the UNet
+    blocks recomputed (remat)."""
+    return torch_dp.shared(2).collect(unpaired_setup["tp_ticket"])
+
+
+@pytest.mark.parametrize("check", ["losses", "cycle_gradients",
+                                   "trainables", "discriminators",
+                                   "replicated"])
+def test_unpaired_tp_step_matches_jax(unpaired_setup, port_step,
+                                      tp_port_step, check):
+    """Under the model axis, on both ranks, at the tolerances of
+    test_unpaired_step_*_match_jax; "replicated": every trainable, head,
+    spectral-norm vector and AdamW moment bit-identical on the two model
+    ranks, each rank holding only its shards of the UNet."""
+    s = unpaired_setup
+    for res in tp_port_step:
+        if check == "losses":
+            _assert_losses(s, res["metrics"])
+        elif check == "cycle_gradients":
+            _assert_grads(s, res["grads"])
+        elif check == "trainables":
+            _assert_trainables(s, port_step["gen0"], res["gen"])
+        elif check == "discriminators":
+            _assert_discriminators(s, res["disc"], res["disc_sn"])
+        else:
+            assert res["differ"] == []
+            whole = sum(p.numel() for p in s["models"].unet.parameters())
+            assert res["unet_numel"] < 0.6 * whole
+    if check == "replicated":
+        a, b = tp_port_step[0]["state"], tp_port_step[1]["state"]
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_checkpoint_restore_then_step_is_bit_identical(port_step, tmp_path):

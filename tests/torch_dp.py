@@ -4,27 +4,39 @@ rank imports only torch and the port).
 
 `Ranks(world, tmp_path)` spawns `world` processes once, each joined to a
 gloo group through a `file://` rendezvous under `tmp_path` (no TCP port,
-so pytest-xdist workers cannot collide) and holding one intra-op thread.
-`submit(fn, *args)` hands `fn(mesh, *args)` to every rank; `collect()`
-returns each rank's result in rank order, or raises with the traceback of
-a rank that failed. Every `fn` here is a module-level function, so that it
+so pytest-xdist workers cannot collide), holding one intra-op thread and
+running at the lowest scheduling priority from its start (its imports
+included). `shared(world)` is the one pool of a test process: the test
+modules that run in it (pytest-xdist hands each worker whole files) share
+its ranks, spawned on first use and closed at exit.
+`submit(fn, *args)` hands `fn(mesh, *args)` to every rank, its arguments
+pickled at once, and returns the job's ticket; `collect(ticket)` returns
+each rank's result of that job (by default the last one submitted) in
+rank order, or raises with the traceback of a rank that failed. A test
+module can so start the ranks' work early (before a long JAX compile)
+and collect it later. Every `fn` here is a module-level function, so that it
 pickles by reference.
 """
 
 from __future__ import annotations
 
+import atexit
 import builtins
 import contextlib
 import os
+import pickle
 import queue
+import shutil
+import tempfile
 import traceback
+from multiprocessing.reduction import ForkingPickler
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
 
 
-def _serve(rank, world, init_file, tasks, results):
+def _serve(rank, world, init_file, tasks, results, parent):
     import torch.distributed as dist
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     torch.set_num_threads(1)
@@ -32,14 +44,20 @@ def _serve(rank, world, init_file, tasks, results):
                               device="cpu")
     mesh = mesh_mod.make_mesh(device="cpu")
     while True:
-        item = tasks.get()
+        try:
+            item = tasks.get(timeout=5)
+        except queue.Empty:
+            if os.getppid() != parent:      # the test process is gone
+                break
+            continue
         if item is None:
             break
-        fn, args = item
+        ticket, payload = item
         try:
-            results.put((rank, True, fn(mesh, *args)))
+            fn, args = pickle.loads(payload)
+            results.put((ticket, rank, True, fn(mesh, *args)))
         except Exception:
-            results.put((rank, False, traceback.format_exc()))
+            results.put((ticket, rank, False, traceback.format_exc()))
     dist.destroy_process_group()
 
 
@@ -49,32 +67,47 @@ class Ranks:
         self.world = world
         self.results = ctx.Queue()
         self.tasks = [ctx.Queue() for _ in range(world)]
+        self.tickets = 0
+        self.early = {}         # {ticket: {rank: (ok, result)}} not collected
         init = os.path.join(str(tmp_path), "rendezvous")
         self.procs = [ctx.Process(target=_serve, args=(
-            r, world, init, self.tasks[r], self.results), daemon=True)
+            r, world, init, self.tasks[r], self.results, os.getpid()),
+            daemon=True)
             for r in range(world)]
         for p in self.procs:
             p.start()
+            # the ranks yield the cores to the test workers running beside
+            # them (the suite runs several at once), from before their
+            # imports of torch and the port
+            os.setpriority(os.PRIO_PROCESS, p.pid, 19)
 
-    def submit(self, fn, *args):
+    def submit(self, fn, *args) -> int:
+        # pickled here, not later by the queue's feeder thread, so the
+        # ranks get the arguments as they are at the call (a tensor's
+        # storage is shared with the ranks, not copied: while they run,
+        # change none in place)
+        self.tickets += 1
         for q in self.tasks:
-            q.put((fn, args))
+            q.put((self.tickets, bytes(ForkingPickler.dumps((fn, args)))))
+        return self.tickets
 
-    def collect(self, timeout: float = 900.0):
-        out = [None] * self.world
-        for _ in range(self.world):
+    def collect(self, ticket=None, timeout: float = 900.0):
+        ticket = self.tickets if ticket is None else ticket
+        got = self.early.pop(ticket, {})
+        while len(got) < self.world:
             try:
-                rank, ok, res = self.results.get(timeout=timeout)
+                t, rank, ok, res = self.results.get(timeout=timeout)
             except queue.Empty:
                 raise TimeoutError(f"a rank gave no result in {timeout}s")
+            (got if t == ticket else self.early.setdefault(t, {}))[rank] = (
+                ok, res)
+        for rank, (ok, res) in sorted(got.items()):
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{res}")
-            out[rank] = res
-        return out
+        return [got[r][1] for r in range(self.world)]
 
     def run(self, fn, *args):
-        self.submit(fn, *args)
-        return self.collect()
+        return self.collect(self.submit(fn, *args))
 
     def close(self):
         for q in self.tasks:
@@ -83,6 +116,20 @@ class Ranks:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
+
+
+_SHARED = {}
+
+
+def shared(world: int) -> Ranks:
+    """This process's pool of `world` ranks, spawned on first use (its
+    rendezvous in a temporary directory) and closed at exit."""
+    if world not in _SHARED:
+        root = tempfile.mkdtemp(prefix="ranks")
+        _SHARED[world] = ranks = Ranks(world, root)
+        atexit.register(shutil.rmtree, root, True)
+        atexit.register(ranks.close)
+    return _SHARED[world]
 
 
 # ---------------------------------------------------------------------------
@@ -359,26 +406,46 @@ def engine_dp(mesh):
     return out
 
 
-def given_step(mesh, models, cfgs, meta, init, batch, noise):
-    """The paired step with `mesh` on the given models, a state made from
+def given_step(mesh, models, cfgs, meta, init, batch, noise,
+               kind="paired", model_axis=False, adam=None):
+    """The paired (or unpaired) step on the given models, a state made from
     `init` (trainables, heads, spectral-norm vectors; constant lr 5e-4,
-    broadcast from rank 0), row and noise, in fp32; returns its metrics,
-    pass-1 gradients and the state's trainables, heads and spectral-norm
-    vectors after it."""
+    AdamW's `adam` keywords, broadcast from rank 0), row and noise, in
+    fp32; returns its metrics, first-pass gradients and the state's
+    trainables, heads and spectral-norm vectors after it. With
+    `model_axis`: on the ranks' (1, W) mesh, the UNet sharded
+    (`runner.shard_for_training`) and its blocks recomputed (remat), with
+    every tensor of the state after the step, the names `differing` finds
+    across the model ranks and the UNet's parameter count; else the data
+    mesh of the spawned world, without remat."""
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
-    from img2img_turbo_tpu_torch.training import losses, optim, paired
+    from img2img_turbo_tpu_torch.training import (losses, optim, paired,
+                                                  runner, unpaired)
     sched = optim.make_lr_schedule("constant", LR, 0, 100)
-    state = paired.make_state({k: v.clone().requires_grad_(True)
-                               for k, v in init[0].items()}, init[1],
-                              init[2], sched, sched)
+    state = (paired if kind == "paired" else unpaired).make_state(
+        {k: v.clone().requires_grad_(True) for k, v in init[0].items()},
+        init[1], init[2], sched, sched, **(adam or {}))
     mesh_mod.replicate(state, mesh)
-    step = paired.make_paired_train_step(
-        models, cfgs, losses.PairedLossConfig(), meta, kernels=True,
-        remat=False, dtype=torch.float32, mesh=mesh)
+    if model_axis:
+        mesh = tp_mesh(mesh)
+        runner.shard_for_training(models, mesh, state)
+    make, loss_cfg = ((paired.make_paired_train_step,
+                       losses.PairedLossConfig()) if kind == "paired" else
+                      (unpaired.make_unpaired_train_step,
+                       losses.UnpairedLossConfig()))
+    step = make(models, cfgs, loss_cfg, meta, kernels=True,
+                remat=model_axis, dtype=torch.float32, mesh=mesh)
     m, grads = step(state, batch, noise, keep_grads=True)
-    return {"metrics": _metrics(m), "grads": arrays(grads),
-            "gen": arrays(state.gen), "disc": arrays(state.disc),
-            "disc_sn": arrays(state.disc_sn)}
+    out = {"metrics": _metrics(m), "grads": arrays(grads),
+           "gen": arrays(state.gen), "disc": arrays(state.disc),
+           "disc_sn": arrays(state.disc_sn)}
+    if model_axis:
+        out.update(state=state_arrays(state),
+                   differ=mesh_mod.differing({"state": state}, mesh,
+                                             axis="model"),
+                   unet_numel=sum(p.numel()
+                                  for p in models.unet.parameters()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -448,4 +515,181 @@ def engine_tp(mesh):
         out[mode] = {"one": one["out"].numpy(), "tp": got["out"].numpy(),
                      "numel": sum(p.numel() for p in eng.unet.parameters()),
                      "whole": whole}
+    return out
+
+
+def tp_ops(mesh):
+    """Each model-axis operator on the ranks' (1, W) mesh against
+    whole-tensor autograd in this process, in fp32 and bf16 (inputs drawn
+    alike on every rank): {"<op> <dtype>": (forward equal, gradient
+    equal)}, every comparison exact."""
+    from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+    tp = tp_mesh(mesh)
+    n, r = tp.n_model, tp.model_rank
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(0)
+
+        def rn(width=4 * n):
+            return torch.randn(3, 5, width, generator=g).to(dtype)
+        whole, grad_out = rn(), rn()
+        parts = [rn() for _ in range(n)]        # rank r's own tensor
+        k = whole.shape[-1] // n
+        mine = slice(r * k, (r + 1) * k)
+        name = str(dtype).split(".")[-1]
+
+        def leaf(t):
+            return t.clone().requires_grad_(True)
+
+        # copy: the same x on every rank, each rank's loss its own part
+        x = leaf(whole)
+        y = mesh_mod.model_copy(x, tp)
+        (gx,) = torch.autograd.grad((y * parts[r]).sum(), x)
+        xw = leaf(whole)
+        (gw,) = torch.autograd.grad(sum((xw * p).sum() for p in parts), xw)
+        out[f"copy {name}"] = (torch.equal(y, whole), torch.equal(gx, gw))
+        # reduce: each rank its partial result, the whole output's gradient
+        x = leaf(parts[r])
+        y = mesh_mod.model_reduce(x, tp)
+        (gx,) = torch.autograd.grad((y * grad_out).sum(), x)
+        xs = [leaf(p) for p in parts]
+        yw = xs[0]
+        for t in xs[1:]:
+            yw = yw + t
+        (gw,) = torch.autograd.grad((yw * grad_out).sum(), xs[r])
+        out[f"reduce {name}"] = (torch.equal(y, yw), torch.equal(gx, gw))
+        # gather: each rank its slice, the whole output's gradient
+        x = leaf(whole[..., mine])
+        y = mesh_mod.model_gather(x, tp)
+        (gx,) = torch.autograd.grad((y * grad_out).sum(), x)
+        xw = leaf(whole)
+        (gw,) = torch.autograd.grad((xw * grad_out).sum(), xw)
+        out[f"gather {name}"] = (torch.equal(y, whole),
+                                 torch.equal(gx, gw[..., mine]))
+        # scatter, plain and in halves: each rank's loss on its slice
+        for halves in (False, True):
+            x = leaf(whole)
+            y = mesh_mod.model_scatter(x, tp, halves=halves)
+            if halves:
+                v, gt = whole.chunk(2, -1)
+                kk = v.shape[-1] // n
+                want = torch.cat([v[..., r * kk:(r + 1) * kk],
+                                  gt[..., r * kk:(r + 1) * kk]], -1)
+                go = torch.cat([t[..., r * kk:(r + 1) * kk]
+                                for t in grad_out.chunk(2, -1)], -1)
+            else:
+                want, go = whole[..., mine], grad_out[..., mine]
+            (gx,) = torch.autograd.grad((y * go).sum(), x)
+            xw = leaf(whole)
+            (gw,) = torch.autograd.grad((xw * grad_out).sum(), xw)
+            key = f"scatter{' halves' if halves else ''} {name}"
+            out[key] = (torch.equal(y, want), torch.equal(gx, gw))
+    return out
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Counts the calls of each kernel wrapper of `ops/` that the layers
+    reach (K1, K8's du, K3, K2, K7, K5 and its combine) in the yielded
+    Counter, by patching the wrappers in their modules for the block."""
+    import collections
+    from img2img_turbo_tpu_torch.ops import (attention, fused_conv,
+                                             fused_matmul, groupnorm)
+    seen = collections.Counter()
+    slots = [(fused_conv, "fused_gn_silu_conv3x3"),
+             (fused_conv, "conv3x3_input_grad"), (fused_matmul, "fused"),
+             (attention, "flash_attention_folded"),
+             (attention, "flash_attention_folded_bwd"),
+             (groupnorm, "group_norm_coeffs"), (groupnorm, "combine_stats")]
+    real = [getattr(mod, name) for mod, name in slots]
+
+    def counted(name, fn):
+        def f(*a, **k):
+            seen[name] += 1
+            return fn(*a, **k)
+        return f
+    for (mod, name), fn in zip(slots, real):
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in zip(slots, real):
+            setattr(mod, name, fn)
+
+
+def tp_layers(mesh, cfg):
+    """A ResnetBlock2D with a 1x1 shortcut, one with a residual, and a
+    Transformer2DModel at level 0 and at the deepest level of UNet config
+    `cfg` (each whole, then sharded over the ranks' (1, W) mesh by
+    `parallel.tensor`'s rule), on the kernel path with live fp32 weights, the norms
+    frozen: the output and the gradients of the input, of the time
+    embedding or the context and of every weight under an output
+    gradient, against the whole module in this process. Returns {block:
+    {"sharded": the module names sharded, "err": {what: max|err| /
+    max|ref|}, "calls": {"whole", "tp"}: the kernel wrappers' calls of
+    each (`kernel_calls`)}}; a sharded weight's gradient is held against
+    its slice of the whole's."""
+    import copy
+    from img2img_turbo_tpu_torch.models import layers as L
+    from img2img_turbo_tpu_torch.models.unet import Transformer2DModel
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+    from img2img_turbo_tpu_torch.training import runner
+    tp = tp_mesh(mesh)
+    hd = tensor_mod.head_dim(cfg)
+    c0, c1 = cfg.block_out_channels[0], cfg.block_out_channels[-1]
+    gn, eps, td = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim
+    blocks = {
+        "resnet_skip": (lambda: L.ResnetBlock2D(c0, c1, gn, eps, td), c0),
+        "resnet_residual": (lambda: L.ResnetBlock2D(c1, c1, gn, eps, td),
+                            c1),
+        "transformer_level0": (lambda: Transformer2DModel(c0, c0 // hd, cfg),
+                               c0),
+        "transformer_deepest": (lambda: Transformer2DModel(c1, c1 // hd,
+                                                           cfg), c1)}
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for name, (build, c) in blocks.items():
+        whole = runner.random_init(build, g)
+        for m in whole.modules():
+            if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+                with torch.no_grad():    # norms that are not 1 and 0
+                    m.weight.uniform_(0.5, 1.5, generator=g)
+                    m.bias.uniform_(-0.5, 0.5, generator=g)
+                m.requires_grad_(False)
+        part = tensor_mod.shard_module(copy.deepcopy(whole), tp, hd)
+        x = torch.randn(2, 8, 8, c, generator=g)
+        cond = (torch.randn(2, td, generator=g) if name.startswith("resnet")
+                else torch.randn(2, 77, cfg.cross_attention_dim,
+                                 generator=g) * 0.5)
+        res, calls = {}, {}
+        for which, module in (("whole", whole), ("tp", part)):
+            xi, ci = x.clone().requires_grad_(), cond.clone().requires_grad_()
+            with kernel_calls() as seen:
+                if name.startswith("resnet"):
+                    y, _ = module(xi, ci, kernels=True, emit_stats=True,
+                                  tp=tp if which == "tp" else None)
+                else:
+                    y = module(xi, ci, kernels=True,
+                               tp=tp if which == "tp" else None)
+                go = torch.randn(y.shape, generator=torch.Generator()
+                                 .manual_seed(5))
+                params = {k: p for k, p in module.named_parameters()
+                          if p.requires_grad}
+                grads = torch.autograd.grad((y * go).sum(),
+                                            [xi, ci, *params.values()])
+            calls[which] = dict(seen)
+            res[which] = {"out": y, "x": grads[0], "cond": grads[1],
+                          **dict(zip(params, grads[2:]))}
+        specs = part.tp_specs
+        err = {}
+        for k, want in res["whole"].items():
+            if k in specs:
+                want = tensor_mod._slice(k, want, specs[k], tp.model_rank,
+                                         tp.n_model)
+            got = res["tp"][k]
+            err[k] = float((got - want).abs().max().detach()
+                           / want.abs().max())
+        out[name] = {"err": err, "calls": calls, "sharded": sorted(
+            n for n, m in part.named_modules()
+            if getattr(m, "tp_sharded", False))}
     return out
