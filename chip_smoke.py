@@ -183,11 +183,13 @@ Phases, each fatal on failure:
 13. model-axis training phase (after phase 12): two gloo ranks sharing the
    card at mesh (1, 2), spawned likewise. Each rank builds phase 6's
    paired run (seed 4321, 512x512 b1) and then phase 7's unpaired run
-   (seed 5432, 256x256 b1), shards the UNet
-   (`runner.shard_for_training`: conv_in whole) and runs the step on that
-   phase's first row and noise, then TRAIN_STEPS more (their p50) and one
-   with the collectives timed.
-   Checked: the UNet holds only the rank's shards (shapes by
+   (seed 5432, 256x256 b1), shards the UNet and the VAE(s)
+   (`runner.shard_for_training`: conv_in, the skip convs and the VAE's
+   one-head mid attentions whole) and runs the step on that
+   phase's first row and noise, then TP_TRAIN_STEPS more (one: a step
+   moves 12.7 / 14.1 GB through the host) and one with the collectives
+   timed.
+   Checked: the UNet and each VAE hold only the rank's shards (shapes by
    `parallel.tensor`'s rule, bytes beside the whole's); every trainable, head, spectral-norm
    vector and AdamW moment bit-identical across the model ranks after the
    first and the last step (`mesh.differing` over the model group); the
@@ -196,13 +198,17 @@ Phases, each fatal on failure:
    same state (TP_LOSS_TOL, GRAD_REL_L2_TOL overall and per part, and the
    trainables' rule beside TP_FLIP_FRAC); the launch table that step's and
    EXPECTED_TRAIN_LAUNCHES / EXPECTED_UNPAIRED_LAUNCHES, the du's launches
-   by shape the one-process table's with the UNet's Co halved (conv_out's
-   Co = 2 among them) and K7's with the UNet's heads halved where they
-   split. Each prints UNet bytes a rank, step p50, peak memory and the
-   collectives a step (calls, bytes, time). Then every kernel runs each
-   launch shape of the ranks that no case ran against its `*_ref` (part
-   "model_axis"; the du's "du_model_axis"), K8's du at Co = 2 and K7 on
-   local heads among them.
+   by shape the one-process table's with the UNet's and the VAE's Co
+   halved (the UNet conv_out's Co = 2 and the VAE encoder conv_out's
+   Co = 4 among them; the VAE decoder's conv_out, Co = 3, whole) and K7's
+   with the UNet's heads halved where they split. Each prints UNet and
+   VAE bytes a rank, the time of the untimed step (a p50 if
+   TP_TRAIN_STEPS > 1), peak memory and the collectives a step
+   (calls, bytes, time). Then every kernel runs each launch shape of the
+   ranks that no case ran against its `*_ref` (part "model_axis"; the
+   du's "du_model_axis"): K1 on the VAE's Co slices (4 to 256, with and
+   without a 1x1 skip sliced to them), K4 with a sliced skip, K6 at Co
+   64 to 256, K8's du at Co = 2 and 4 and K7 on local heads among them.
 Each of these phases prints its numbers with the card's name and power
 limit.
 
@@ -753,8 +759,10 @@ def kernel_phase(dev, results: list):
         call = lambda: gn.combine_stats(st, scale, bias, 32,  # noqa: E731
                                         1e-6, count)
         ms, dev_ms = _time_ms(call), device_ms(call)
-        pms = _time_ms(lambda: gn.combine_stats_ref(st, scale, bias, 32,
-                                                    1e-6, count))
+        # the plain time: the combine in fp32, as the plain engine would
+        # take it (the fp64 reference above is the yardstick of the error)
+        pms = _time_ms(lambda: gn.combine_stats_ref(
+            st, scale, bias, 32, 1e-6, count, acc=torch.float32))
         print(f"  {'':26s} combine {case}: {st.shape[1]} stats tiles",
               flush=True)
         record(*kc, case, max(err_a, err_b), max(rel_a, rel_b), STATS_TOL,
@@ -3273,19 +3281,24 @@ def _sha(t) -> str:
     return hashlib.sha256(b.tobytes()).hexdigest()
 
 
-def _shard_mismatch(unet, cfgs, n_model: int) -> list:
-    """Names of `unet`'s parameters whose shape is not this rank's shard of
-    the whole SD-Turbo UNet's (a meta model) by `parallel.tensor`'s rule,
-    or whose module is sharded and not marked so."""
+def _shard_mismatch(model, cfgs, n_model: int, vae: bool = False) -> list:
+    """Names of `model`'s parameters (the SD-Turbo UNet's, or with `vae` a
+    VAE's) whose shape is not this rank's shard of the whole model's (a
+    meta model) by `parallel.tensor`'s rule, or whose module is sharded
+    and not marked so."""
     import torch
     from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+    from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
     from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
     with torch.device("meta"):
-        whole = dict(UNet2DConditionModel(cfgs.unet).named_parameters())
-    specs = tensor_mod.param_shardings(whole, n_model)
-    modules = dict(unet.named_modules())
+        whole = dict((AutoencoderKL(cfgs.vae) if vae else
+                      UNet2DConditionModel(cfgs.unet)).named_parameters())
+    specs = tensor_mod.param_shardings(
+        whole, n_model, tensor_mod.vae_head_dim(cfgs.vae) if vae else
+        tensor_mod.head_dim(cfgs.unet))
+    modules = dict(model.named_modules())
     bad = []
-    for name, p in unet.named_parameters():
+    for name, p in model.named_parameters():
         shape, dim = list(whole[name].shape), specs[name]
         if dim is not None:
             shape[dim] //= n_model
@@ -3532,13 +3545,19 @@ TP_LOSS_TOL = 1e-2      # each loss of the step, relative
 # one-process change) is reported, not gated.
 TP_FLIP_FRAC = 0.05
 TP_GEN_UPDATES = {"paired": 2, "unpaired": 3}   # the heads: 2 in both
+# untimed steps after the compared one: with the VAE sharded too, a step
+# moves 12.7 GB (paired) / 14.1 GB (unpaired) through the host (counted by
+# `DataMesh.stats`), so one keeps the smoke well inside its time limit
+TP_TRAIN_STEPS = 1
 
 
 def _tp_expected(kind: str) -> dict:
     """The du's and K7's launches by shape in a model-axis step at a
     (1, 2) mesh: the one-process step's (tools/time_kernels.py's DU and K7
-    tables), the UNet's du on Co slices and its K7 on the local heads
-    where they split (SD-Turbo's level 0 has 5 heads: whole)."""
+    tables), the du on the UNet's and the VAE's Co slices (every conv the
+    rule shards: an even Co; the VAE decoder's conv_out, Co = 3, whole)
+    and K7 on the UNet's local heads where they split (SD-Turbo's level 0
+    has 5 heads: whole; the VAE's one head: whole)."""
     import collections
     from img2img_turbo_tpu_torch.tools.time_kernels import (
         DU_CASES, DU_UNPAIRED, K7_CASES, K7_UNPAIRED)
@@ -3548,8 +3567,8 @@ def _tp_expected(kind: str) -> dict:
     for c in rows[0]:
         b, h, w, ci, co, n = c[1:7]
         if n:
-            unet = c[0].startswith("du unet")
-            du[(b, h, w, ci, co // TP_WORLD if unet else co)] += n
+            split = co % 2 == 0 and co % TP_WORLD == 0
+            du[(b, h, w, ci, co // TP_WORLD if split else co)] += n
     for c in rows[1]:
         b, sq, skv, heads, hd, n = c[1:7]
         if c[0].startswith("unet") and heads % TP_WORLD == 0:
@@ -3566,9 +3585,9 @@ def _tp_train_step(kind: str, tp, dev, out_dir: str) -> dict:
     that phase's first row and noise (the compared step: its metrics,
     first-pass gradients and state after it saved to `out_dir` by model
     rank 0, launches by shape, the collectives' calls and bytes), then
-    TRAIN_STEPS more (CUDA events; the step p50 is theirs, as in
-    `_run_steps`) and a last one with the collectives timed (each one
-    synchronised, so that step is not among the p50's); the state checked
+    TP_TRAIN_STEPS more (CUDA events; the step time is theirs: one step's,
+    or their p50 when there are more) and a last one with the collectives timed (each one
+    synchronised, so that step is not among them); the state checked
     bit-identical across the model ranks after the
     first and the last step."""
     import gc
@@ -3599,22 +3618,28 @@ def _tp_train_step(kind: str, tp, dev, out_dir: str) -> dict:
         batch, noise = _unpaired_inputs(cfgs, dev)
         make, loss_cfg = (unpaired.make_unpaired_train_step,
                           losses.UnpairedLossConfig())
+    vaes = [n for n in runner.VAE_MODULES if hasattr(models, n)]
     whole_bytes = _param_bytes(models.unet)
+    vae_whole = {n: _param_bytes(getattr(models, n)) for n in vaes}
     runner.shard_for_training(models, tp, state)
     out = {"setup_s": time.perf_counter() - t0, "whole_bytes": whole_bytes,
            "unet_bytes": _param_bytes(models.unet),
-           "shard_mismatch": _shard_mismatch(models.unet, cfgs, tp.n_model)}
+           "vae_whole_bytes": vae_whole,
+           "vae_bytes": {n: _param_bytes(getattr(models, n)) for n in vaes},
+           "shard_mismatch": _shard_mismatch(models.unet, cfgs, tp.n_model)
+           + [f"{n}.{k}" for n in vaes for k in _shard_mismatch(
+               getattr(models, n), cfgs, tp.n_model, vae=True)]}
     step = make(models, cfgs, loss_cfg, meta, kernels=True, remat=True,
                 dtype=torch.bfloat16, mesh=tp)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     times, stats = [], []
-    for i in range(2 + TRAIN_STEPS):
+    for i in range(2 + TP_TRAIN_STEPS):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         tp.reset_stats()
-        tp.timed = i == 1 + TRAIN_STEPS
+        tp.timed = i == 1 + TP_TRAIN_STEPS
         s_ev = torch.cuda.Event(enable_timing=True)
         e_ev = torch.cuda.Event(enable_timing=True)
         s_ev.record()
@@ -3754,9 +3779,12 @@ def tp_train_phase(dev, summary) -> dict:
             m = res[kind]
             what = f"model axis rank {r} {kind} step"
             if m["shard_mismatch"] or not m["unet_bytes"] < \
-                    0.6 * m["whole_bytes"]:
+                    0.6 * m["whole_bytes"] or not all(
+                        m["vae_bytes"][n] < 0.6 * w
+                        for n, w in m["vae_whole_bytes"].items()):
                 _fail(f"{what}: the UNet holds {m['unet_bytes']} bytes of "
-                      f"{m['whole_bytes']}, not only its shards: "
+                      f"{m['whole_bytes']} and the VAEs {m['vae_bytes']} of "
+                      f"{m['vae_whole_bytes']}, not only their shards: "
                       f"{m['shard_mismatch'][:8]}")
             if m["differ_first"] or m["differ_last"]:
                 _fail(f"{what}: the state differs across the model ranks: "
@@ -3772,27 +3800,37 @@ def tp_train_phase(dev, summary) -> dict:
                     _fail(f"{what}: {key} launches by shape {got} are not "
                           f"the one-process table's on Co slices and local "
                           f"heads {tables[key]}")
-            if not any(sh[4] == 2 for sh, _ in m["du"]):
-                _fail(f"{what}: K8's du never ran conv_out's Co = 2 slice")
+            if not any(sh[4] == 2 for sh, _ in m["du"]) or \
+                    not any(sh[4] == 4 for sh, _ in m["du"]):
+                _fail(f"{what}: K8's du never ran the UNet conv_out's Co = 2 "
+                      f"or the VAE encoder conv_out's Co = 4 slice")
             for k, sh, n in m["shapes"]:
                 shapes.setdefault(k, set()).add(tuple(sh))
             first, times, timed_ms = (m["ms"][0], m["ms"][1:-1],
                                       m["ms"][-1])
             col = m["collectives"][0]
             timed = m["collectives"][-1]
+            step_time = (f"one step {times[0]:.2f} ms" if len(times) == 1
+                         else f"step p50 "
+                              f"{sorted(times)[len(times) // 2]:.2f} ms over "
+                              f"{len(times)} steps "
+                              f"{[round(t, 2) for t in times]}")
+            vae_gb = ", ".join(
+                f"{n} {m['vae_bytes'][n] / 1e9:.3f} GB of "
+                f"{w / 1e9:.3f}" for n, w in m["vae_whole_bytes"].items())
             print(f"  rank {r} {kind} {hw[kind]}x{hw[kind]} b1: UNet "
                   f"parameters {m['unet_bytes'] / 1e9:.3f} GB of the whole "
-                  f"{m['whole_bytes'] / 1e9:.3f} GB (fp32 masters), only its "
-                  f"shards; step p50 {sorted(times)[len(times) // 2]:.2f} ms "
-                  f"over {len(times)} steps {[round(t, 2) for t in times]} "
-                  f"after the compared first step ({first:.2f} ms); "
+                  f"{m['whole_bytes'] / 1e9:.3f} GB, {vae_gb} (fp32 "
+                  f"masters), only their shards; {step_time} after the "
+                  f"compared first step ({first:.2f} ms); "
                   f"collectives a step {col['calls']} calls, "
                   f"{col['bytes'] / 1e6:.2f} MB, "
                   f"{1e3 * timed['seconds']:.2f} ms on a separate step with "
                   f"each timed (that step {timed_ms:.2f} ms); peak "
                   f"{m['peak_gib']:.2f} GiB; "
                   f"launches {m['counts']} (the one-process step's; the du "
-                  f"on Co slices, K7 on the local heads); state "
+                  f"on the UNet's and VAE's Co slices, K7 on the local "
+                  f"heads); state "
                   f"bit-identical across the model ranks; set-up "
                   f"{m['setup_s']:.1f}s, wall {m['wall_s']:.1f}s", flush=True)
         print(f"  {kind}: vs the one-process kernel-path step at the same "
@@ -3802,7 +3840,8 @@ def tp_train_phase(dev, summary) -> dict:
               flush=True)
         summary["paths"]["model_axis_" + kind] = ranks[0][kind]["counts"]
         report[kind] = {**cmp, "ranks": [
-            {k: res[kind][k] for k in ("unet_bytes", "whole_bytes", "ms",
+            {k: res[kind][k] for k in ("unet_bytes", "whole_bytes",
+                                       "vae_bytes", "vae_whole_bytes", "ms",
                                        "collectives", "peak_gib", "setup_s",
                                        "wall_s")} for res in ranks]}
     summary["model_axis_train"] = {"wall_s": wall, "card": smi, **report}

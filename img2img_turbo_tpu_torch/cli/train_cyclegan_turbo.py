@@ -1,5 +1,6 @@
 """Unpaired (CycleGAN-Turbo) training CLI on one card or over several,
-data-parallel and with the UNet sharded over a model axis (counterpart of `cli/train_cyclegan_turbo.py`; reference
+data-parallel and with the UNet and the VAE sharded over a model axis
+(counterpart of `cli/train_cyclegan_turbo.py`; reference
 `accelerate launch src/train_cyclegan_turbo.py`,
 train_cyclegan_turbo.py:25-390), with resume:
 
@@ -18,13 +19,15 @@ losses and gradients averaged over the ranks before its update, the
 frozen modules and the caption embeddings checked to agree across ranks,
 a fresh state broadcast from rank 0; rank 0 alone logs, validates (FID and
 DINO-Struct), writes viz panels, checkpoints and pkls while the others
-wait at a barrier. --tensor_parallel M shards the UNet over a model axis
-of M ranks, as in the paired CLI: the batch split over the data axis
-only, the frozen modules and the state checked over the model group
-before the UNet is sharded (`runner.shard_for_training`), the state whole
-on every rank; the model ranks of data rank 0 run the validation and viz
-translations together (the others translate the same images in the same
-order), and global rank 0 alone scores, logs and writes.
+wait at a barrier. --tensor_parallel M shards the UNet and both VAEs
+over a model axis of M ranks, as in the paired CLI: the batch split over
+the data axis only, the frozen modules and the state checked over the
+model group before they are sharded (`runner.shard_for_training`), the
+state whole on every rank; the model ranks of data rank 0 run the
+validation and viz translations together on the sharded models (the
+others translate the same images in the same order), and global rank 0
+alone scores, logs and writes; the pkl holds the whole VAEs, gathered
+over the model group.
 
 In the JAX CLI's order: seeds; the UNet with its three adapters at
 --lora_rank_unet, the two VAEs with adapters at --lora_rank_vae, LPIPS and
@@ -177,7 +180,7 @@ def _train(args, dev, dtype, log, mesh):
         lambda_idt_lpips=args.lambda_idt_lpips,
         gan_loss_type=args.gan_loss_type)
     runner.shard_for_training(models, mesh, state)
-    tp = paired.model_axis(mesh, models.unet)
+    tp = paired.model_axis(mesh, models)
     step_fn = unpaired.make_unpaired_train_step(
         models, cfgs, loss_cfg, meta, kernels=True,
         remat=args.gradient_checkpointing or not args.tiny_model,
@@ -299,11 +302,12 @@ def _train(args, dev, dtype, log, mesh):
             mesh_mod.barrier(mesh)
 
         if (step_i + 1) % args.checkpointing_steps == 0:
-            if mesh.is_main:
-                ckpt_mod.export_cyclegan_pkl(
-                    os.path.join(ckpt_dir, f"model_{step_i + 1}.pkl"),
-                    state.gen, {"vae_a2b": models.vae_a2b,
-                                "vae_b2a": models.vae_b2a}, meta)
+            # every rank: a model axis gathers the VAEs' shards (the main
+            # process alone writes)
+            ckpt_mod.export_cyclegan_pkl(
+                os.path.join(ckpt_dir, f"model_{step_i + 1}.pkl"),
+                state.gen, {"vae_a2b": models.vae_a2b,
+                            "vae_b2a": models.vae_b2a}, meta, mesh)
             ckpt_mod.save_train_state(state_dir, step_i + 1, state,
                                       mesh=mesh)
 

@@ -1,5 +1,6 @@
 """Paired (pix2pix-turbo) training CLI on one card or over several,
-data-parallel and with the UNet sharded over a model axis (counterpart of `cli/train_pix2pix_turbo.py`; reference
+data-parallel and with the UNet and the VAE sharded over a model axis
+(counterpart of `cli/train_pix2pix_turbo.py`; reference
 `accelerate launch src/train_pix2pix_turbo.py`,
 train_pix2pix_turbo.py:27-307), with resume:
 
@@ -30,9 +31,11 @@ barrier.
 data rank d and model rank m. The batch is split over the data axis only
 (the M ranks of a model group take the same rows); once the frozen modules
 and the state are checked to agree over the model group, the UNet's
-frozen base weights are sharded over it (`runner.shard_for_training`; the
-VAE and the other modules stay whole), and the step runs every kernel on
-the rank's shards, forward and backward (`training/paired.py`). The state
+and the VAE's frozen base weights are sharded over it
+(`runner.shard_for_training`; the trainable conv_in and skip convs, the
+VAE's one-head mid attentions and the other modules stay whole), and the
+step runs every kernel on the rank's shards, forward and backward, as
+eval and viz do forward (`training/paired.py`). The state
 stays whole on every rank, so checkpoints and pkls hold no slice; the
 model ranks of data rank 0 run eval and viz together, and global rank 0
 alone logs and writes.

@@ -36,7 +36,9 @@ modules that `parallel.tensor.shard_module` sharded (`tp_sharded`);
 without `tp`, or on a whole module, they are the one-process code. A
 sharded conv is column-parallel: each rank runs K1 / K4 / K6 on the whole
 input with its slice of the output channels (its slices of the bias, the
-time embedding's extra bias, the residual and the 1x1 skip weight), then
+time embedding's extra bias, the residual and the 1x1 skip weight: a
+sharded resnet shortcut's own, a whole VAE skip conv's columns through
+`model_scatter`), then
 gathers the output and K1's per-channel statistics over the model ranks,
 so that every rank computes the next GroupNorm's coefficients from the
 whole channels. An attention block is head-parallel (K3's LN + q/k/v
@@ -372,6 +374,32 @@ def group_norm(norm: nn.GroupNorm, x, num_groups: int, eps: float,
     return _apply_affine(x, *_gn_coeffs(norm, x, num_groups, eps, x_stats))
 
 
+class _SkipSlice(NamedTuple):
+    """This model rank's output columns of a whole 1x1 skip conv (the VAE's
+    skip convs, departure (e) of `parallel/tensor.py`), standing in for the
+    conv in a column-parallel conv's `Skip`: its weight (Co_r, Csk, 1, 1)
+    and bias (or None) taken through `model_scatter`."""
+    weight: torch.Tensor
+    bias: Optional[torch.Tensor]
+
+
+def _skip_part(tp, skip: Optional[Skip]) -> Optional[Skip]:
+    """A column-parallel conv's epilogue skip on this model rank: its x
+    through `model_copy`; its conv as it is when the rule sharded it (the
+    resnet shortcut, whose Co slice matches the conv's), else this rank's
+    output columns of the whole skip conv through `model_scatter`, so that
+    a whole skip conv's gradient is whole on every rank."""
+    if skip is None:
+        return None
+    conv = skip.conv
+    if not getattr(conv, "tp_sharded", False):
+        conv = _SkipSlice(
+            mesh_mod.model_scatter(conv.weight, tp, 0),
+            None if conv.bias is None else mesh_mod.model_scatter(
+                conv.bias, tp, 0))
+    return Skip(_copied(tp, skip.x), conv, skip.gamma)
+
+
 def _skip_weights(skip: Skip):
     """(skip_w, skip_w_packed) with gamma folded in: per call unless gamma
     is the float 1.0 (a 0-d tensor gamma is folded without reading it back
@@ -653,13 +681,12 @@ def gn_silu_conv(norm: nn.GroupNorm, conv: Conv2d, x, num_groups: int,
     stats are None. With `tp` and a sharded conv: column-parallel (module
     docstring), the output and stats gathered."""
     if _tp_on(tp, conv):
-        if skip is not None:
-            skip = skip._replace(x=_copied(tp, skip.x))
         return _gathered(tp, gn_silu_conv(
             norm, conv, _copied(tp, x, norm), num_groups, eps,
             kernels=kernels, extra_bias=_channels(tp, extra_bias),
             residual=_channels(tp, residual), x_stats=x_stats,
-            emit_stats=emit_stats, skip=skip, bias=bias), emit_stats)
+            emit_stats=emit_stats, skip=_skip_part(tp, skip), bias=bias),
+            emit_stats)
     if not kernels:
         a, b = gn_ops.group_norm_coeffs_plain(x, norm.weight, norm.bias,
                                               num_groups, eps)
@@ -714,11 +741,9 @@ def upsample2x_conv(conv: Upsample2xConv, x, emit_stats: bool = False,
     """conv3x3(nearest_upsample_2x(x)) [+ skip] (diffusers Upsample2D);
     K4 with kernels."""
     if _tp_on(tp, conv):
-        if skip is not None:
-            skip = skip._replace(x=_copied(tp, skip.x))
         return _gathered(tp, upsample2x_conv(conv, _copied(tp, x), emit_stats,
-                                             skip, kernels=kernels),
-                         emit_stats)
+                                             _skip_part(tp, skip),
+                                             kernels=kernels), emit_stats)
     if not kernels:
         y = fused_conv.upsample2x_conv3x3_plain(x, conv.weight, conv.bias,
                                                 *_plain_skip(skip))
@@ -946,7 +971,7 @@ class ResnetBlock2D(nn.Module):
             residual, skip = None, Skip(x, self.conv_shortcut)
             bias = getattr(self, "kb2", None)
         else:
-            residual = (conv2d(self.conv_shortcut, x)
+            residual = (conv2d(self.conv_shortcut, x, tp=tp)
                         if hasattr(self, "conv_shortcut") else x)
             skip = epilogue_skip
         return gn_silu_conv(self.norm2, self.conv2, h, self.groups, self.eps,

@@ -7,6 +7,14 @@ returns its four skip taps (the inputs of its down blocks); the decoder
 adds `skip_conv_i(skip * gamma)` before each up block, fused into the
 epilogue of the kernel that produces that point (mid res2 for block 0, the
 upsample kernel for blocks 1-3).
+
+The model axis (training): every entry point takes `tp`, the mesh of a VAE
+that `parallel.tensor.shard_module` sharded, and hands it to the layer
+functions, which act on the modules it marked (`tp_sharded`): every conv
+but the decoder's conv_out (3 output channels) is column-parallel on the
+rank's output channels, the mid attentions and the skip convs stay whole
+(departures (b) and (e) of `parallel/tensor.py`). On a whole VAE (the
+serving engine's) `tp` changes nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ class VAEAttention(nn.Module):
         self.to_out = nn.ModuleList([L.Linear(ch, ch)])
 
     def forward(self, x, *, kernels: bool, x_stats=None):
+        """Whole on every rank under a model axis (its one head cannot be
+        split, departure (b)): it takes no `tp`."""
         b, h, w, c = x.shape
         hidden = L.group_norm(self.group_norm, x, self.cfg.norm_num_groups,
                               self.cfg.norm_eps, x_stats, kernels=kernels)
@@ -54,12 +64,12 @@ class MidBlock(nn.Module):
         self.attentions = nn.ModuleList([VAEAttention(ch, cfg)])
 
     def forward(self, x, *, kernels: bool, x_stats=None,
-                emit_stats: bool = False, epilogue_skip=None):
+                emit_stats: bool = False, epilogue_skip=None, tp=None):
         x, s = self.resnets[0](x, kernels=kernels, x_stats=x_stats,
-                               emit_stats=True)
+                               emit_stats=True, tp=tp)
         x = self.attentions[0](x, kernels=kernels, x_stats=s)
         return self.resnets[1](x, kernels=kernels, emit_stats=emit_stats,
-                               epilogue_skip=epilogue_skip)
+                               epilogue_skip=epilogue_skip, tp=tp)
 
 
 class Encoder(nn.Module):
@@ -84,12 +94,12 @@ class Encoder(nn.Module):
         self.conv_norm_out = L.GroupNorm(g, chans[-1], eps)
         self.conv_out = L.Conv2d(chans[-1], 2 * cfg.latent_channels, 3)
 
-    def forward(self, x, *, kernels: bool):
+    def forward(self, x, *, kernels: bool, tp=None):
         """-> (moments (B, H/8, W/8, 2*latent), skips[4]); skips[i] is the
         input of down block i."""
         cfg = self.cfg
         sample, stats = L.plain_conv3x3(self.conv_in, x, emit_stats=True,
-                                        kernels=kernels)
+                                        kernels=kernels, tp=tp)
         skips = []
         for block in self.down_blocks:
             skips.append(sample)
@@ -100,18 +110,18 @@ class Encoder(nn.Module):
                 # block's last resnet emits stats only when mid comes next
                 emit = not (has_down and j == n_res - 1)
                 out = res(sample, kernels=kernels, x_stats=stats,
-                          emit_stats=emit)
+                          emit_stats=emit, tp=tp)
                 sample, stats = out if emit else (out, None)
             if has_down:
                 # K6 emits the stats of its output for the next GroupNorm
                 sample, stats = L.downsample2x_conv(
                     block.downsamplers[0].conv, sample, pad_lo=0,
-                    emit_stats=True, kernels=kernels)
+                    emit_stats=True, kernels=kernels, tp=tp)
         sample, stats = self.mid_block(sample, kernels=kernels,
-                                       x_stats=stats, emit_stats=True)
+                                       x_stats=stats, emit_stats=True, tp=tp)
         sample = L.gn_silu_conv(self.conv_norm_out, self.conv_out, sample,
                                 cfg.norm_num_groups, cfg.norm_eps,
-                                kernels=kernels, x_stats=stats)
+                                kernels=kernels, x_stats=stats, tp=tp)
         return sample, skips
 
 
@@ -142,7 +152,7 @@ class Decoder(nn.Module):
                         L.Conv2d(ic, oc, 1, bias=False))
 
     def forward(self, z, skips: Optional[List[torch.Tensor]] = None,
-                gamma=1.0, *, kernels: bool):
+                gamma=1.0, *, kernels: bool, tp=None):
         """gamma scales each skip before its zero-conv: a float, or a 0-d
         tensor (the sketch path's runtime r)."""
         cfg = self.cfg
@@ -155,25 +165,25 @@ class Decoder(nn.Module):
                           gamma)
 
         sample, stats = L.plain_conv3x3(self.conv_in, z, emit_stats=True,
-                                        kernels=kernels)
+                                        kernels=kernels, tp=tp)
         sample, stats = self.mid_block(sample, kernels=kernels,
                                        x_stats=stats, emit_stats=True,
-                                       epilogue_skip=mk_skip(0))
+                                       epilogue_skip=mk_skip(0), tp=tp)
         for i, block in enumerate(self.up_blocks):
             has_up = hasattr(block, "upsamplers")
             n_res = len(block.resnets)
             for j, res in enumerate(block.resnets):
                 emit = not (has_up and j == n_res - 1)
                 out = res(sample, kernels=kernels, x_stats=stats,
-                          emit_stats=emit)
+                          emit_stats=emit, tp=tp)
                 sample, stats = out if emit else (out, None)
             if has_up:
                 sample, stats = L.upsample2x_conv(
                     block.upsamplers[0].conv, sample, emit_stats=True,
-                    skip=mk_skip(i + 1), kernels=kernels)
+                    skip=mk_skip(i + 1), kernels=kernels, tp=tp)
         return L.gn_silu_conv(self.conv_norm_out, self.conv_out, sample,
                               cfg.norm_num_groups, cfg.norm_eps,
-                              kernels=kernels, x_stats=stats)
+                              kernels=kernels, x_stats=stats, tp=tp)
 
 
 class AutoencoderKL(nn.Module):
@@ -188,12 +198,13 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x, *, kernels: bool, noise=None,
                generator: Optional[torch.Generator] = None,
-               sample_posterior: bool = True):
+               sample_posterior: bool = True, tp=None):
         """x (B,H,W,3) -> (latents (B,H/8,W/8,4) unscaled, skips). The
         posterior sample takes `noise` when given (shape of the mean), or
-        draws it from `generator` on x's device."""
-        moments, skips = self.encoder(x, kernels=kernels)
-        moments = L.conv2d(self.quant_conv, moments)
+        draws it from `generator` on x's device. tp: the model axis's mesh
+        of a sharded VAE (module docstring)."""
+        moments, skips = self.encoder(x, kernels=kernels, tp=tp)
+        moments = L.conv2d(self.quant_conv, moments, tp=tp)
         mean, logvar = moments.chunk(2, dim=-1)
         if not sample_posterior:
             return mean.contiguous(), skips
@@ -204,8 +215,8 @@ class AutoencoderKL(nn.Module):
                                 device=mean.device, dtype=mean.dtype)
         return mean + std * noise.to(mean.dtype), skips
 
-    def decode(self, z, skips=None, gamma=1.0, *, kernels: bool):
+    def decode(self, z, skips=None, gamma=1.0, *, kernels: bool, tp=None):
         """Unscaled latents -> image in [-1, 1] range (unclamped). gamma:
-        the skip weight, a float or a 0-d tensor."""
-        z = L.conv2d(self.post_quant_conv, z)
-        return self.decoder(z, skips, gamma, kernels=kernels)
+        the skip weight, a float or a 0-d tensor. tp: as in `encode`."""
+        z = L.conv2d(self.post_quant_conv, z, tp=tp)
+        return self.decoder(z, skips, gamma, kernels=kernels, tp=tp)

@@ -110,10 +110,15 @@ def _oihw(w_hwio):
     return w_hwio.permute(3, 2, 0, 1)
 
 
-def output_stats(y):
-    """(B, H, W, C) -> (B, 1, 2, C) fp32 sum and sum of squares: one tile."""
-    yf = y.float()
-    return torch.stack([yf.sum((1, 2)), (yf * yf).sum((1, 2))], dim=1)[:, None]
+def output_stats(y, acc=torch.float32):
+    """(B, H, W, C) -> (B, 1, 2, C) fp32 sum and sum of squares: one tile,
+    accumulated in `acc`. The plain versions (`*_ref`) take fp64, rounded
+    once to fp32, which frees the sums from their order and so from the
+    call's other channels: a column-parallel conv's (`models/layers.py`)
+    equal the whole conv's. The plain engine keeps fp32."""
+    ya = y.to(acc)
+    return torch.stack([ya.sum((1, 2)), (ya * ya).sum((1, 2))],
+                       dim=1)[:, None].float()
 
 
 def conv3x3_ref(x, w, bias, a=None, b=None, extra_bias=None, residual=None,
@@ -134,7 +139,8 @@ def conv3x3_ref(x, w, bias, a=None, b=None, extra_bias=None, residual=None,
     if residual is not None:
         y = y + residual.float()
     y = y.to(x.dtype)
-    return y, (output_stats(y) if emit_stats else None)
+    return y, (output_stats(y, torch.float64) if emit_stats
+                else None)
 
 
 def upsample2x_conv3x3_ref(x, w, bias, skip_x=None, skip_w=None,
@@ -146,7 +152,8 @@ def upsample2x_conv3x3_ref(x, w, bias, skip_x=None, skip_w=None,
     if skip_x is not None:
         y = y + skip_x.float() @ skip_w.float()
     y = y.to(x.dtype)
-    return y, (output_stats(y) if emit_stats else None)
+    return y, (output_stats(y, torch.float64) if emit_stats
+                else None)
 
 
 def downsample_size(n: int, pad_lo: int) -> int:
@@ -168,7 +175,8 @@ def downsample2x_conv3x3_ref(x, w, bias, pad_lo: int,
                  _oihw(w.float()), stride=2).permute(0, 2, 3, 1) \
         + bias.float()
     y = y.to(x.dtype)
-    return y, (output_stats(y) if emit_stats else None)
+    return y, (output_stats(y, torch.float64) if emit_stats
+                else None)
 
 
 def downsample2x_conv3x3_plain(x, w, bias, pad_lo: int,

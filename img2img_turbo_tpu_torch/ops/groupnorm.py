@@ -64,21 +64,23 @@ def partial_stats_ref(x):
 
 
 def combine_stats_ref(partials, scale, bias, num_groups: int, eps: float,
-                      count: int):
+                      count: int, acc=torch.float64):
     """Plain version of the combine: (B, n_tiles, 2, C) partial sums ->
     folded GroupNorm affine (a, b), each (B, C) fp32. count = elements per
-    channel (H*W of the stats source)."""
+    channel (H*W of the stats source). The group moments and the variance
+    (E[x^2] - E[x]^2, which cancels) are taken in `acc`, fp64 unless the
+    caller asks for fp32, a and b rounded once to fp32."""
     bsz, _, _, c = partials.shape
     cg = c // num_groups
-    m = partials.sum(dim=1).view(bsz, 2, num_groups, cg).sum(dim=-1) \
-        / (count * cg)                                           # (B, 2, G)
+    m = partials.to(acc).sum(dim=1).view(bsz, 2, num_groups, cg) \
+        .sum(dim=-1) / (count * cg)                              # (B, 2, G)
     mean, ex2 = m[:, 0], m[:, 1]
     inv = torch.addcmul(ex2, mean, mean, value=-1.0).clamp_(min=0.0) \
         .add_(eps).rsqrt_()
-    a = inv[..., None] * scale.float().view(num_groups, cg)      # (B, G, cg)
-    bterm = torch.addcmul(bias.float().view(num_groups, cg), mean[..., None],
-                          a, value=-1.0)
-    return a.view(bsz, c), bterm.view(bsz, c)
+    a = inv[..., None] * scale.to(acc).view(num_groups, cg)      # (B, G, cg)
+    bterm = torch.addcmul(bias.to(acc).view(num_groups, cg),
+                          mean[..., None], a, value=-1.0)
+    return a.view(bsz, c).float(), bterm.view(bsz, c).float()
 
 
 def _check_x(what, x):

@@ -47,8 +47,9 @@ or catches a collective's failure.
 `ServingEngine(mesh=make_mesh(n_data, n_model))` (N = n_data * n_model),
 which shards the UNet over the model axis. Training: both training CLIs'
 `--tensor_parallel n_model` make that mesh (`distributed(n_model=...)`),
-and both steps take it (`training/paired.py`). Under a model axis the VAE
-stays whole on every rank; the sketch mode is not ported (it raises).
+and both steps take it (`training/paired.py`). Under a model axis training
+shards the VAE too, serving keeps it whole on every rank
+(`parallel/tensor.py`); the sketch mode is not ported (it raises).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""The model axis: the UNet's weights sharded over the model ranks
-(counterpart of `img2img_turbo_tpu/parallel/mesh.py:162-201`, `_tp_spec_for`
-and `param_shardings`).
+"""The model axis: the UNet's and the VAE's weights sharded over the model
+ranks (counterpart of `img2img_turbo_tpu/parallel/mesh.py:162-201`,
+`_tp_spec_for` and `param_shardings`).
 
 JAX's rule, on the port's diffusers names and torch layouts (a JAX `(in,
 out)` linear kernel is the port's `(out, in)` weight, a JAX HWIO conv
@@ -23,9 +23,13 @@ Where the port departs from JAX's layout, and why:
     computes slice r of `value * gelu(gate)`, which slice r of `out`'s input
     dim takes; its bias is sliced alike (JAX keeps every 1-D leaf whole);
 (b) an attention layer whose heads do not divide by n_model stays whole on
-    every rank (q, k, v and out): ranks that exchange only whole heads
-    cannot split one (XLA splits SD-Turbo's 5-head level-0 layers 160/160
-    and reshards at the head reshape);
+    every rank (q, k, v and out, with their biases): ranks that exchange
+    only whole heads cannot split one (XLA splits SD-Turbo's 5-head
+    level-0 layers 160/160 and reshards at the head reshape). The VAE's
+    two mid-block attentions have one head of the mid block's width
+    (`vae_head_dim`), so they are whole at every n_model above 1, where
+    JAX shards their to_q / to_k / to_v and to_out kernels (its rule keeps
+    every 1-D leaf whole) and XLA splits the one head;
 (c) a sharded conv's bias is sharded with its output channels (JAX keeps
     every 1-D leaf whole): each rank stores the slice it adds;
 (d) `conv_in` stays whole on every rank. It is a trainable of both
@@ -34,12 +38,28 @@ Where the port departs from JAX's layout, and why:
     replicated with the rest of the trainable state): a whole conv_in needs
     no collective and its gradient is whole where it is computed. It is 4
     channels in, so in serving its slice saves little and would cost a
-    gather of its output.
+    gather of its output;
+(e) the VAE decoder's skip convs (`decoder.skip_conv_1` .. `_4`) stay whole
+    on every rank. They are trainables of both training steps too (the JAX
+    steps pop them out of the frozen tree, `img2img_turbo_tpu/training/
+    paired.py:56-58`), as conv_in is under (d). Where a skip conv rides a
+    column-parallel conv's epilogue, the rank takes its output columns of
+    the skip weight through `model_scatter` (`models/layers.py`), so the
+    skip conv's gradient is whole on every rank.
 
-`shard_module` applies the rule to a module in place, marks each module
-it sharded (`tp_sharded`) and keeps the rule's dims on the model
-(`tp_specs`); the layer functions of `models/layers.py` read the mark when
-they are given the mesh.
+Serving keeps the VAE whole (`ServingEngine(mesh=...)` shards the UNet
+alone): the JAX serving engine has no model axis, and a sharded VAE would
+add about 1.57 GB of gathers to every 512x512 request (counted from its
+shapes at two ranks) to save about 0.08 GB of bf16 weights a rank.
+Training shards every VAE of the run (`training/runner.
+shard_for_training`), as the JAX dry run shards its frozen tree
+(`__graft_entry__.py:148-163`).
+
+`shard_module` applies the rule to a module (a UNet or a VAE) in place,
+marks each module it sharded (`tp_sharded`) and keeps the rule's dims on
+the model (`tp_specs`); the layer functions of `models/layers.py` read the
+mark when they are given the mesh. `gather_state_dict` puts a sharded
+module's whole state dict back together on every model rank.
 
 Training: the trainables stay whole and the same on every model rank.
 Where one replaces or adapts a sharded base weight, the rank takes its
@@ -63,6 +83,7 @@ _QKV = (".to_q.weight", ".to_k.weight", ".to_v.weight")   # bias-free
 _OUT = ".to_out.0.weight"
 _GEGLU = (".ff.net.0.proj.weight", ".ff.net.0.proj.bias")
 _FF_OUT = ".ff.net.2.weight"
+_SKIP = ".decoder.skip_conv_"
 
 
 def _geglu(name: str) -> bool:
@@ -76,25 +97,34 @@ def head_dim(cfg) -> int:
     return cfg.block_out_channels[0] // cfg.attention_head_dim[0]
 
 
+def vae_head_dim(cfg) -> int:
+    """The VAE's per-head width: its mid attentions' one head spans the
+    mid block's channels (`models/vae.py`, `VAEAttention`)."""
+    return cfg.block_out_channels[-1]
+
+
 def _is_conv_bias(name: str) -> bool:
     """A conv's bias by its module's name: conv_in, conv1, conv2,
-    conv_shortcut, the samplers' conv, conv_out, the TwinConv halves (not
-    the GroupNorm conv_norm_out)."""
-    if not name.endswith(".bias") or "." not in name:
+    conv_shortcut, the samplers' conv, conv_out, the TwinConv halves, the
+    VAE's quant_conv and post_quant_conv (not the GroupNorm
+    conv_norm_out)."""
+    if not name.endswith(".bias"):
         return False
     module = name[:-len(".bias")].rsplit(".", 1)[-1]
-    return module.startswith("conv") and module != "conv_norm_out"
+    return (module.startswith("conv") and module != "conv_norm_out") or \
+        module.endswith("quant_conv")
 
 
 def tp_spec_for(name: str, shape: Sequence[int], n_model: int,
                 head_dim: int = 64) -> Optional[int]:
-    """The dim of the port's tensor `name` (a diffusers UNet name) of the
-    whole `shape` that a model axis of n_model ranks shards, or None when
-    every rank holds it whole. head_dim: the UNet's per-head width (64 in
-    SD-Turbo), which decides departure (b)."""
-    if n_model == 1 or name.startswith("conv_in."):
-        return None                                     # (d)
+    """The dim of the port's tensor `name` (a diffusers UNet or VAE name)
+    of the whole `shape` that a model axis of n_model ranks shards, or None
+    when every rank holds it whole. head_dim: the model's per-head width
+    (64 in SD-Turbo's UNet, `head_dim`; the VAE's `vae_head_dim`), which
+    decides departure (b)."""
     key = "." + name
+    if n_model == 1 or name.startswith("conv_in.") or _SKIP in key:
+        return None                                     # (d), (e)
     if key.endswith(_QKV) or key.endswith(_OUT):
         # (b) whole heads only: to_q's outputs, to_out's inputs
         width = shape[1] if key.endswith(_OUT) else shape[0]
@@ -116,7 +146,8 @@ def tp_spec_for(name: str, shape: Sequence[int], n_model: int,
 def param_shardings(state_dict: Mapping[str, object], n_model: int,
                     head_dim: int = 64) -> Dict[str, Optional[int]]:
     """{name: the sharded dim of the port's tensor, or None} for every
-    tensor of a UNet state dict (tensors, or anything with a `.shape`)."""
+    tensor of a UNet or VAE state dict (tensors, or anything with a
+    `.shape`)."""
     return {k: tp_spec_for(k, tuple(v.shape), n_model, head_dim)
             for k, v in state_dict.items()}
 
@@ -129,8 +160,8 @@ def _slice(name: str, t: torch.Tensor, dim: Optional[int], m: int, n: int):
 
 def shard_state_dict(state_dict: Mapping[str, torch.Tensor], mesh,
                      head_dim: int = 64) -> Dict[str, torch.Tensor]:
-    """This model rank's tensors of a whole UNet state dict: its slice of
-    every sharded tensor, the others as they are."""
+    """This model rank's tensors of a whole UNet or VAE state dict: its
+    slice of every sharded tensor, the others as they are."""
     specs = param_shardings(state_dict, mesh.n_model, head_dim)
     return {k: _slice(k, v, specs[k], mesh.model_rank, mesh.n_model)
             for k, v in state_dict.items()}
@@ -157,11 +188,12 @@ def unshard_state_dict(shards: List[Mapping[str, torch.Tensor]],
 
 @torch.no_grad()
 def shard_module(model: nn.Module, mesh, head_dim: int = 64) -> nn.Module:
-    """`model` (a whole UNet, before `prepare_kernels`) holding only this
-    model rank's shards, in place: each sharded parameter is replaced by a
-    copy of its slice (the whole is freed with its last reference), each
-    module whose parameters were sliced is marked `tp_sharded`, and the
-    model keeps the rule's dims by parameter name (`tp_specs`)."""
+    """`model` (a whole UNet or VAE, before `prepare_kernels`; head_dim its
+    per-head width) holding only this model rank's shards, in place: each
+    sharded parameter is replaced by a copy of its slice (the whole is
+    freed with its last reference), each module whose parameters were
+    sliced is marked `tp_sharded`, and the model keeps the rule's dims by
+    parameter name (`tp_specs`)."""
     if mesh is None or mesh.n_model == 1:
         return model
     whole = dict(model.named_parameters())
@@ -178,6 +210,29 @@ def shard_module(model: nn.Module, mesh, head_dim: int = 64) -> nn.Module:
         module.tp_sharded = True
     model.tp_specs = specs
     return model
+
+
+@torch.no_grad()
+def gather_state_dict(model: nn.Module, mesh) -> Dict[str, torch.Tensor]:
+    """The whole state dict of `model`, which `shard_module` sharded over
+    the model axis of `mesh`, on every rank of the model group: each
+    sharded tensor's parts gathered over the model ranks (one collective
+    a tensor, so every rank of the group must call it) and put back by
+    `unshard_state_dict`. A module that holds no shards gives its own
+    state dict."""
+    specs = getattr(model, "tp_specs", None)
+    sd = model.state_dict()
+    if specs is None or mesh is None or mesh.n_model == 1:
+        return sd
+    n = mesh.n_model
+    dims = {k: specs.get(k) for k in sd}
+    shards = [{} for _ in range(n)]
+    for k, v in sd.items():
+        parts = ([v] * n if dims[k] is None else
+                 mesh_mod.model_gather(v, mesh, dims[k]).chunk(n, dims[k]))
+        for shard, part in zip(shards, parts):
+            shard[k] = part
+    return unshard_state_dict(shards, dims)
 
 
 def shard_lora(name: str, a: torch.Tensor, b: torch.Tensor,

@@ -41,10 +41,11 @@ def generate_unclamped(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod, c_t,
     tensor) the stochastic path's blends: unet_in = z*r + noise_map*(1-r),
     the UNet's TwinConv at r and decoder gamma = r (pix2pix.py:72-81); the
     caller has merged LoRA at r. tp: the model axis's mesh of a UNet
-    sharded over it (`UNet2DConditionModel.forward`)."""
+    sharded over it (`UNet2DConditionModel.forward`), and of the VAE when
+    that is sharded too (training; a whole VAE ignores it)."""
     s = cfgs.vae.scaling_factor
     z, skips = vae.encode(c_t, kernels=kernels, noise=noise,
-                          generator=generator)
+                          generator=generator, tp=tp)
     z = z * s
     unet_in, gamma = z, 1.0
     if r is not None:
@@ -56,7 +57,7 @@ def generate_unclamped(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod, c_t,
     eps = unet(unet_in, t, caption_enc, kernels=kernels, remat=remat, r=r,
                tp=tp)
     x0 = scheduler.ddpm_x0_step(eps, unet_in, t, alphas_cumprod)
-    img = vae.decode(x0 / s, skips, gamma=gamma, kernels=kernels)
+    img = vae.decode(x0 / s, skips, gamma=gamma, kernels=kernels, tp=tp)
     return {"z": z, "x0": x0, "img": img}
 
 

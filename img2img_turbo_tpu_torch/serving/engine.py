@@ -29,8 +29,11 @@ engine's output on those rows with that noise.
 With a model axis (`mesh.n_model` above 1; "edge_to_image" and "image"),
 the engine shards its UNet over the model ranks at construction
 (`parallel.tensor.shard_module`, JAX's rule): each rank holds only its
-shards and runs the kernels on them, the VAE stays whole on every rank, and
-the ranks of a model group serve the same rows, each returning them whole.
+shards and runs the kernels on them, the VAE stays whole on every rank
+(the JAX engine has no model axis; a sharded VAE would gather about
+1.57 GB a 512x512 request, counted from its shapes, to save about 0.08 GB
+of bf16 weights a rank), and the ranks of a model group serve the same
+rows, each returning them whole.
 The sketch mode merges LoRA per request and is not ported to shards: it
 raises (ROADMAP, Queue 1 item 3).
 """

@@ -158,7 +158,8 @@ def export_pix2pix_pkl(outf: str, gen: Dict[str, torch.Tensor], meta
 
 
 def export_cyclegan_pkl(outf: str, gen: Dict[str, torch.Tensor],
-                        vaes: Dict[str, torch.nn.Module], meta) -> None:
+                        vaes: Dict[str, torch.nn.Module], meta,
+                        mesh=None) -> None:
     """The reference CycleGAN-Turbo pkl (train_cyclegan_turbo.py:293-307)
     from an unpaired run's trainables and its two VAE modules (`vaes`,
     {"vae_a2b", "vae_b2a"}): the three UNet adapters' state dicts (no
@@ -166,12 +167,23 @@ def export_cyclegan_pkl(outf: str, gen: Dict[str, torch.Tensor],
     sd_vae_enc = sd_vae_dec = both whole VAEs under "vae." and "vae_b2a.",
     the trained skip convs in place, every targeted module peft-wrapped
     (`.base_layer.`, LoRA under "vae_skip"), so that the reference's strict
-    `load_state_dict` takes them."""
+    `load_state_dict` takes them.
+
+    Under a model axis (`mesh` with n_model above 1) the VAEs hold this
+    rank's shards (`runner.shard_for_training`): every rank calls the
+    export, each VAE's shards are gathered over the model group into the
+    whole (`parallel.tensor.gather_state_dict`), and the main process
+    alone writes the file."""
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
     from img2img_turbo_tpu_torch.pipelines.cyclegan import ADAPTERS
+    whole = {part: tensor_mod.gather_state_dict(vaes[part], mesh)
+             for part in ("vae_a2b", "vae_b2a")}
+    if mesh is not None and not mesh.is_main:
+        return
     unet = {a: lora_modules(gen, f"unet_lora:{a}") for a in ADAPTERS}
     sd_vae: Dict[str, torch.Tensor] = {}
     for prefix, part in (("vae.", "vae_a2b"), ("vae_b2a.", "vae_b2a")):
-        sd = {**vaes[part].state_dict(), **_own(gen, part)}
+        sd = {**whole[part], **_own(gen, part)}
         sd = peft_wrap_state_dict(sd, lora_modules(gen, part + "_lora"),
                                   lora_mod.CYCLEGAN_VAE_TARGETS, "vae_skip")
         sd_vae.update({prefix + k: v for k, v in sd.items()})

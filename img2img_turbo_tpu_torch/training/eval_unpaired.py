@@ -47,7 +47,7 @@ def translations(fwd_fn: Callable, image_paths: List[str], transform,
     for the sorted test images (the first `max_images` when positive), in
     that order; fwd_fn as in `evaluate_direction`. Under a model axis the
     ranks that score nothing run it too, so that every rank of the model
-    group makes the same UNet calls."""
+    group makes the same calls of the sharded UNet and VAE."""
     from PIL import Image
     paths = sorted(image_paths)
     if max_images > 0:

@@ -24,17 +24,20 @@ the same ones. The posterior noise of the two generator forwards is an
 input of the step: a recompute never redraws it.
 
 Under a model axis (a mesh with n_model above 1; both steps here and in
-`training/unpaired.py`) the UNet's frozen base weights are this rank's
-shards (`runner.shard_for_training`: `parallel.tensor`'s rule, which
-keeps the trainable conv_in whole, departure (d)); the VAE and every other module
-stay whole. The steps keep four invariants, which the tests check:
+`training/unpaired.py`) the UNet's and the VAE's frozen base weights are
+this rank's shards (`runner.shard_for_training`: `parallel.tensor`'s rule,
+which keeps the trainable conv_in and skip convs whole, departures (d) and
+(e), and the VAE's one-head mid attentions whole, (b)); every other module
+stays whole. The steps keep four invariants, which the tests check:
 - replicated state: every trainable (the LoRA factors, conv_in, the skip
   convs, the discriminator heads) and every AdamW state is whole and
   bit-identical on every model rank after each update;
 - gradients: the gradient that reaches every replicated tensor is whole
   and the same on every model rank, by the model axis's operators alone
   (`models/layers.py`; the LoRA factors through `parallel.tensor.
-  shard_lora`); there is no separate gradient reduction over the model
+  shard_lora`, the skip convs through the column-parallel conv's
+  `model_scatter` of their columns); there is no separate gradient
+  reduction over the model
   group, and the data axis's `pmean_pass` reduces over the data group
   only;
 - collective order: every rank runs the same collectives in the same
@@ -145,8 +148,8 @@ def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None,
     """{"unet": {param name: tensor}, "vae": {...}}: the trainables in
     place of their base weights, then LoRA merged (training/paired.py:
     69-79); merged weights are cast to `dtype` when given. Differentiable
-    in `gen`. tp: the model axis's mesh of a sharded UNet, whose LoRA is
-    merged on its shards (`lora.merge_lora`)."""
+    in `gen`. tp: the model axis's mesh of a sharded UNet and VAE, whose
+    LoRA is merged on their shards (`lora.merge_lora`)."""
     out = {}
     for model, module, rank, alpha in (
             ("unet", unet, meta.rank_unet, meta.alpha_unet),
@@ -161,16 +164,23 @@ def build_gen_params(gen, unet, vae, meta: LoraMeta, dtype=None,
     return out
 
 
-def model_axis(mesh, unet):
+def model_axis(mesh, models):
     """The step's `tp`: `mesh` when it has a model axis, else None. A
-    model axis needs the UNet sharded (`runner.shard_for_training`)."""
+    model axis needs the run's UNet and VAE(s) (`models`, a
+    `PairedModels` or an `UnpairedModels`) sharded
+    (`runner.shard_for_training`)."""
+    from img2img_turbo_tpu_torch.training.runner import VAE_MODULES
     if mesh is None or mesh.n_model == 1:
         return None
-    if getattr(unet, "tp_specs", None) is None:
+    names = ("unet",) + tuple(n for n in VAE_MODULES if hasattr(models, n))
+    whole = [n for n in names
+             if getattr(getattr(models, n), "tp_specs", None) is None]
+    if whole:
         raise ValueError(
-            f"a model axis of {mesh.n_model} ranks trains a UNet sharded "
-            f"for training: call runner.shard_for_training(models, mesh) "
-            f"before building the step")
+            f"a model axis of {mesh.n_model} ranks trains a UNet and VAE "
+            f"sharded for training, and {whole} are whole: call "
+            f"runner.shard_for_training(models, mesh) before building the "
+            f"step")
     return mesh
 
 
@@ -227,9 +237,9 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     passes; the spectral-norm vectors advance on each rank from the same
     heads and are not reduced. The returned pass-1 gradients are the
     averaged ones. With a model axis (the module docstring's invariants)
-    the ranks of a model group take the same rows and run the UNet on
-    their shards, which `runner.shard_for_training` made."""
-    tp = model_axis(mesh, models.unet)
+    the ranks of a model group take the same rows and run the UNet and
+    the VAE on their shards, which `runner.shard_for_training` made."""
+    tp = model_axis(mesh, models)
     for m in (models.unet, models.vae):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "
@@ -336,8 +346,8 @@ def make_eval_step(models: PairedModels, cfgs: GeneratorConfigs,
     generator (reference train_pix2pix_turbo.py:259-301). Returns
     eval_step(gen, batch, noise) -> (pred, metrics). With a model axis in
     `mesh`, every rank of the model group calls it alike on a sharded
-    UNet (`make_paired_train_step`) and gets the whole result."""
-    tp = model_axis(mesh, models.unet)
+    UNet and VAE (`make_paired_train_step`) and gets the whole result."""
+    tp = model_axis(mesh, models)
     dev = next(models.unet.parameters()).device
     alphas = scheduler.make_alphas_cumprod(device=dev)
 

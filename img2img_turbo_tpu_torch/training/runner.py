@@ -96,13 +96,20 @@ def clip_config(args) -> clip_vit.CLIPViTConfig:
     return clip_vit.CLIP_VIT_B32
 
 
+# the VAE modules of a paired run (`vae`) and of an unpaired one
+VAE_MODULES = ("vae", "vae_a2b", "vae_b2a")
+
+
 def shard_for_training(models, mesh, state=None):
-    """Shard `models.unet` over the model axis of `mesh` in place
-    (`parallel.tensor.shard_module`, JAX's rule with departures (a)-(d):
-    the trainable conv_in is whole), once every rank of the model group
-    is checked to hold the same frozen modules and train state (the CLIs
-    check the data group before). Call it before building a step under
-    that mesh; without a model axis it does nothing. Returns `models`."""
+    """Shard `models.unet` and every VAE of the run (`models.vae`, or
+    `models.vae_a2b` and `models.vae_b2a`) over the model axis of `mesh`
+    in place (`parallel.tensor.shard_module`, JAX's rule with departures
+    (a)-(e): the trainable conv_in and skip convs and the VAE's one-head
+    mid attentions whole), as the JAX dry run shards its frozen UNet and
+    VAE, once every rank of the model group is checked to hold the same
+    frozen modules and train state (the CLIs check the data group before).
+    Call it before building a step under that mesh; without a model axis
+    it does nothing. Returns `models`."""
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
     if mesh is None or mesh.n_model == 1:
@@ -114,6 +121,11 @@ def shard_for_training(models, mesh, state=None):
                                axis="model")
     tensor_mod.shard_module(models.unet, mesh,
                             tensor_mod.head_dim(models.unet.cfg))
+    for name in VAE_MODULES:
+        vae = getattr(models, name, None)
+        if vae is not None:
+            tensor_mod.shard_module(vae, mesh,
+                                    tensor_mod.vae_head_dim(vae.cfg))
     return models
 
 

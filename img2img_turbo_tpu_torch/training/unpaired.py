@@ -113,7 +113,8 @@ def build_gen_params(gen, models: UnpairedModels, meta: CycleLoraMeta,
     (unpaired.py:72-90: the UNet trio at alpha = rank, one after the other,
     each VAE's adapter at its own alpha); merged weights cast to `dtype`
     when given. Differentiable in `gen`. tp: the model axis's mesh of a
-    sharded UNet, whose trio is merged on its shards."""
+    sharded UNet and VAEs, whose adapters are merged on their shards
+    (each rank its slice of each delta; the skip convs' whole)."""
     out = {}
     for model in ("unet",) + VAES:
         module = getattr(models, model)
@@ -128,7 +129,8 @@ def build_gen_params(gen, models: UnpairedModels, meta: CycleLoraMeta,
         else:
             merged = lora_mod.merge_lora(
                 base, _lora_of(gen, model + "_lora", meta.rank_vae,
-                               meta.alpha_vae), dtype=dtype)
+                               meta.alpha_vae), dtype=dtype,
+                specs=paired.shard_specs(module, tp), tp=tp)
         out[model] = {**over, **merged}
     return out
 
@@ -172,10 +174,10 @@ def make_unpaired_train_step(models: UnpairedModels, cfgs: GeneratorConfigs,
     `paired.make_paired_train_step` (JAX unpaired.py:128-135): the five
     passes' losses, scalar metrics and gradients are averaged over the
     ranks before each optimizer update; pass 2's fakes stay on their rank
-    for the discriminator passes. With a model axis, the UNet runs on this
-    rank's shards (`runner.shard_for_training`), with the invariants of
-    `training/paired.py`'s docstring."""
-    tp = paired.model_axis(mesh, models.unet)
+    for the discriminator passes. With a model axis, the UNet and both
+    VAEs run on this rank's shards (`runner.shard_for_training`), with the
+    invariants of `training/paired.py`'s docstring."""
+    tp = paired.model_axis(mesh, models)
     for m in (models.unet, models.vae_a2b, models.vae_b2a):
         if any(has_kernel_layouts(sub) for sub in m.modules()):
             raise ValueError("train the modules unprepared: kernel layouts "

@@ -341,10 +341,12 @@ def test_training_cli_data_parallel(ranks, which, tp, cli_runs, tmp_path):
     --resume (pix2pix: to step 2; cyclegan, on the training images alone:
     at step 1, a restore that takes no step, as chip_smoke's CycleGAN run
     resumes). The two ranks are a (2, 1) mesh, or with --tensor_parallel 2
-    a (1, 2) one: both take the whole batch, the UNet sharded over them,
-    eval on both and rank 0 alone writing. The metrics rows within rtol
-    2e-4 and the last pkl within the discipline of `_assert_discipline` at
-    the CLIs' lr 5e-6, in both cases."""
+    a (1, 2) one: both take the whole batch, the UNet and the VAE(s)
+    sharded over them, eval on both and rank 0 alone writing. The metrics
+    rows within rtol 2e-4 and the last pkl within the discipline of
+    `_assert_discipline` at the CLIs' lr 5e-6, in both cases; the CycleGAN
+    pkl's VAEs whole (every `sd_vae_enc` tensor at the one-process run's
+    shape, its frozen ones equal)."""
     argv, one = cli_runs
     last = CLI_FLAGS[which][3]
     dp_out = str(tmp_path / "ranks")
@@ -371,6 +373,17 @@ def test_training_cli_data_parallel(ranks, which, tp, cli_runs, tmp_path):
         _assert_metrics({k: v for k, v in g.items() if k not in drop},
                         {k: v for k, v in w.items() if k not in drop})
     pkl = os.path.join("checkpoints", f"model_{last}.pkl")
-    _assert_discipline(_pkl_tensors(os.path.join(dp_out, pkl)),
-                       _pkl_tensors(os.path.join(one_out, pkl)),
-                       lr=5e-6, what=which)
+    got_pkl, want_pkl = (_pkl_tensors(os.path.join(out, pkl))
+                         for out in (dp_out, one_out))
+    if which == "cyclegan":
+        # both VAEs whole in the pkl (under --tensor_parallel 2 gathered
+        # from the ranks' shards): every tensor at the whole's shape, the
+        # frozen ones equal to the one-process run's
+        vae = [k for k in want_pkl if k.startswith("sd_vae_enc.")]
+        assert vae
+        for k in vae:
+            assert got_pkl[k].shape == want_pkl[k].shape, k
+            if "lora_" not in k and "skip_conv" not in k:
+                np.testing.assert_array_equal(got_pkl[k], want_pkl[k],
+                                              err_msg=k)
+    _assert_discipline(got_pkl, want_pkl, lr=5e-6, what=which)

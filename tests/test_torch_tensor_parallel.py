@@ -10,8 +10,18 @@ intra-op thread each):
   exactly: (b) the attention layers whose heads do not divide by n_model,
   (a) the GEGLU proj's bias and (c) the sharded convs' biases, which the
   port slices with their weights;
+- the same for the VAE at SD-Turbo width against JAX's rule on the
+  frozen VAE tree (the skip convs popped, as `split_trainable` leaves it),
+  at n_model = 2 and 4, with departures (b) (the one-head mid
+  attentions whole), (c) and (e) (the skip convs whole) asserted
+  exactly;
 - `shard_state_dict` then `unshard_state_dict` is exact, the GEGLU proj's
-  value and gate halves sliced alike;
+  value and gate halves sliced alike, for a UNet and a VAE;
+- the 2-rank (1, 2) VAE encode (posterior mean) and skip-fused decode, on
+  live weights and the plain path, at MICRO and TINY, against JAX's
+  `encode` / `decode` jitted with `in_shardings=param_shardings` and
+  kernels off, within 1e-4 of max|ref|, both ranks equal to the whole VAE
+  bit for bit;
 - the 2-rank (1, 2) UNet forward, kernel and plain path, at MICRO and at a
   config with 3 heads at level 0 (kept whole) and 4 in the mid block,
   against JAX's `unet_forward` jitted with `in_shardings=param_shardings`
@@ -47,10 +57,12 @@ from jax.sharding import NamedSharding
 import torch_dp
 from img2img_turbo_tpu import configs as jconfigs
 from img2img_turbo_tpu.models import unet as junet
+from img2img_turbo_tpu.models import vae as jvae
 from img2img_turbo_tpu.parallel import mesh as jmesh
 from img2img_turbo_tpu.weights import torch_import as ti
 from img2img_turbo_tpu_torch import configs as tconfigs
 from img2img_turbo_tpu_torch.models.unet import UNet2DConditionModel
+from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
 from img2img_turbo_tpu_torch.parallel import mesh as tmesh
 from img2img_turbo_tpu_torch.parallel import tensor as ttp
 from img2img_turbo_tpu_torch.weights import from_jax
@@ -89,14 +101,23 @@ def _mesh(m, n, n_data=1):
 # ---------------------------------------------------------------------------
 
 
-def _jax_dims(n_model):
+def _jax_dims(n_model, model="unet"):
     """{port name: the port dim JAX's rule shards, or None}, through a
     marker tree (2 on JAX's sharded dim, 1 elsewhere) sent through the
     port's name map and transposes; and JAX's leaf count and share of
-    parameters sharded."""
-    shapes = jax.eval_shape(
-        lambda k: junet.init_unet(k, jconfigs.SD_TURBO_UNET),
-        jax.random.PRNGKey(0))
+    parameters sharded. model "vae": the frozen VAE tree of the JAX
+    training steps (its skip convs popped, `split_trainable`)."""
+    if model == "unet":
+        shapes = jax.eval_shape(
+            lambda k: junet.init_unet(k, jconfigs.SD_TURBO_UNET),
+            jax.random.PRNGKey(0))
+        to_port = from_jax.unet_state_dict
+    else:
+        shapes = jax.eval_shape(
+            lambda k: jvae.init_vae(k, jconfigs.SD_TURBO_VAE),
+            jax.random.PRNGKey(0))
+        shapes["decoder"].pop("skip_convs")
+        to_port = from_jax.vae_state_dict
     jm = jmesh.make_mesh(n_data=8 // n_model, n_model=n_model)
     specs = jax.tree_util.tree_leaves(
         jmesh.param_shardings(shapes, jm, tensor_parallel=True),
@@ -114,7 +135,7 @@ def _jax_dims(n_model):
         markers.append(np.zeros(shape, np.int8))
     tree = jax.tree_util.tree_unflatten(treedef, markers)
     dims = {k: (v.shape.index(2) if 2 in v.shape else None)
-            for k, v in from_jax.unet_state_dict(tree).items()}
+            for k, v in to_port(tree).items()}
     total = sum(leaf.size for leaf in leaves)
     return dims, n_sharded, p_sharded / total
 
@@ -156,6 +177,43 @@ def test_rule_equals_jax_param_shardings_at_sd_turbo_width(n_model):
         assert round(mine / total, 3) == 0.932
 
 
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_vae_rule_equals_jax_param_shardings_at_sd_turbo_width(n_model):
+    """Every VAE tensor JAX's frozen tree holds gets JAX's dim, except
+    (b) the two one-head mid attentions' q / k / v and to_out weights
+    (JAX shards them, the port keeps them whole) and (c) the sharded
+    convs' biases, quant_conv's and post_quant_conv's among them; (e) the
+    four skip convs, trainables that JAX's frozen tree lacks, are whole.
+    Every conv but the decoder's conv_out (3 output channels) is
+    sharded, quant_conv and post_quant_conv included."""
+    cfg = tconfigs.SD_TURBO_VAE
+    with torch.device("meta"):
+        sd = AutoencoderKL(cfg).state_dict()
+    got = ttp.param_shardings(sd, n_model, ttp.vae_head_dim(cfg))
+    want, n_sharded, share = _jax_dims(n_model, "vae")
+    skips = {f"decoder.skip_conv_{i}.weight" for i in range(1, 5)}
+    assert set(got) == set(want) | skips
+    assert all(got[k] is None for k in skips)                   # (e)
+    differ = {k for k in want if got[k] != want[k]}
+    heads = {f"{part}.mid_block.attentions.0.{p}.weight"
+             for part in ("encoder", "decoder")
+             for p in ("to_q", "to_k", "to_v", "to_out.0")}
+    biases = {k for k in want if k.endswith(".bias")
+              and len(sd[k[:-5] + ".weight"].shape) == 4
+              and want[k[:-5] + ".weight"] == 0}
+    assert differ == heads | biases
+    assert all(got[k] is None and want[k] is not None for k in heads)
+    assert all(got[k] == 0 and want[k] is None for k in biases)
+    convs = {k for k in sd if k.endswith(".weight") and sd[k].ndim == 4}
+    assert {k for k in convs if got[k] is None} == \
+        skips | {"decoder.conv_out.weight"}
+    if n_model == 2:
+        assert (n_sharded, round(share, 3)) == (71, 0.999)
+        total = sum(v.numel() for v in sd.values())
+        mine = sum(sd[k].numel() for k, d in got.items() if d is not None)
+        assert round(mine / total, 3) == 0.969
+
+
 def test_shard_then_unshard_is_exact():
     sd = from_jax.random_params(tconfigs.MICRO_UNET,
                                 torch.Generator().manual_seed(1))
@@ -175,6 +233,26 @@ def test_shard_then_unshard_is_exact():
             for m, s in enumerate(shards):
                 assert torch.equal(s[proj + suffix], torch.cat(
                     [value[m * k:(m + 1) * k], gate[m * k:(m + 1) * k]]))
+
+
+def test_vae_shard_then_unshard_is_exact():
+    """As for the UNet, on a TINY VAE at n_model 2 and 4: the skip convs
+    whole on every rank (e), a conv's weight the rank's output channels."""
+    cfg = tconfigs.TINY_VAE
+    hd = ttp.vae_head_dim(cfg)
+    sd = from_jax.random_params(cfg, torch.Generator().manual_seed(1))
+    for n in (2, 4):
+        specs = ttp.param_shardings(sd, n, hd)
+        shards = [ttp.shard_state_dict(sd, _mesh(m, n), hd) for m in range(n)]
+        back = ttp.unshard_state_dict(shards, specs)
+        assert set(back) == set(sd)
+        for k, v in sd.items():
+            assert torch.equal(back[k], v), k
+        for m, shard in enumerate(shards):
+            assert torch.equal(shard["decoder.skip_conv_1.weight"],
+                               sd["decoder.skip_conv_1.weight"])
+            assert torch.equal(shard["encoder.conv_in.weight"],
+                               sd["encoder.conv_in.weight"].chunk(n)[m])
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +299,69 @@ def test_two_rank_unet_equals_jax_sharded_forward(ranks, name):
     assert (level0 in out[0]["sharded"]) == (name == "micro")
     assert "mid_block.attentions.0.transformer_blocks.0.attn1.to_q" \
         in out[0]["sharded"]
+
+
+VAES = {"micro": (tconfigs.MICRO_VAE, jconfigs.MICRO_VAE),
+        "tiny": (tconfigs.TINY_VAE, jconfigs.TINY_VAE)}
+
+
+def _jax_sharded_vae(jcfg, vsd, x):
+    # the converter's skip-conv list assumes SD-Turbo's four levels
+    tree = ti.convert_vae_state_dict(vsd, jcfg, with_skip_convs=False)
+    tree["decoder"]["skip_convs"] = [
+        {"kernel": vsd[f"decoder.skip_conv_{i + 1}.weight"].transpose(
+            2, 3, 1, 0)} for i in range(jcfg.num_levels)]
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    jm = jmesh.make_mesh(n_data=1, n_model=WORLD,
+                         devices=jax.devices()[:WORLD])
+    rep = jmesh.replicated(jm)
+
+    def fwd(p, x):
+        z, skips = jvae.encode(p, jcfg, x, sample_posterior=False)
+        return z, jvae.decode(p, jcfg, z, skips)
+    with jmesh.kernels_scope(jm):
+        run = jax.jit(fwd, in_shardings=(jmesh.param_shardings(
+            tree, jm, tensor_parallel=True), rep))
+        return tuple(np.asarray(t) for t in run(tree, x))
+
+
+@pytest.mark.parametrize("name", list(VAES))
+def test_two_rank_vae_equals_jax_sharded_vae(ranks, name):
+    """Encode (the posterior mean) and decode with the skips (one a level)
+    through random skip convs (not the 1e-5 zero-convs, so the skips count), the
+    VAE sharded over two ranks, on live weights (the kernel path as
+    training runs it) and the plain path, against JAX's sharded jit: the latent and the image each
+    within 1e-4 of max|ref|; both ranks bit-equal, and equal to the whole
+    VAE's in one process; each rank below 0.6 of the whole's parameters,
+    the mid attentions and skip convs whole."""
+    cfg, jcfg = VAES[name]
+    g = torch.Generator().manual_seed(21)
+    vsd = from_jax.random_params(cfg, g)
+    for k in [k for k in vsd if ".skip_conv_" in k]:
+        vsd[k] = torch.randn(vsd[k].shape, generator=g) * 0.2
+    vsd = {k: v.numpy() for k, v in vsd.items()}
+    x = np.random.RandomState(22).uniform(-1, 1, (1, 32, 32, 3)).astype(
+        np.float32)
+    ranks.submit(torch_dp.tp_vae, cfg, vsd, x)
+    want = dict(zip(("z", "img"), _jax_sharded_vae(jcfg, vsd, x)))
+    out = ranks.collect()
+    for res in out:
+        for path, got in res["out"].items():
+            for k, w in want.items():
+                err = np.abs(got[k] - w).max() / np.abs(w).max()
+                assert err <= TOL, (name, path, k, err)
+        assert res["numel"] < 0.6 * sum(v.size for v in vsd.values())
+        assert not any(".attentions." in n or "skip_conv" in n
+                       for n in res["sharded"]), res["sharded"]
+        assert "decoder.up_blocks.0.upsamplers.0.conv" in res["sharded"]
+    for path in out[0]["out"]:
+        for k in want:
+            np.testing.assert_array_equal(out[0]["out"][path][k],
+                                          out[1]["out"][path][k])
+            # a column-parallel conv computes the whole conv's channels,
+            # statistics included (fp64-accumulated in the plain versions)
+            np.testing.assert_array_equal(out[0]["out"][path][k],
+                                          out[0]["whole"][path][k])
 
 
 # ---------------------------------------------------------------------------

@@ -239,3 +239,27 @@ def test_device_helpers_find_nothing_without_a_card():
                                      (torch.ones(3),), iters=3)
     assert out == {} and len(calls) == 4
     assert tprof.device_memory_stats() == {}
+
+
+def test_quickstart_runs_the_three_modes_on_the_cpu():
+    """examples/quickstart_torch.py, the port's counterpart of
+    examples/quickstart.py, runs edge_to_image, sketch and image mode
+    through the port's API on the CPU: each output (1, 64, 64, 3), the
+    pipelines' in [-1, 1], the engine's uint8; it imports nothing of the
+    JAX package."""
+    path = os.path.join(REPO, "examples", "quickstart_torch.py")
+    with open(path) as f:
+        src = f.read()
+    assert "jax" not in src and "img2img_turbo_tpu." not in src
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main("cpu")
+    assert set(out) == {"edge_to_image", "sketch", "image"}
+    for name, y in out.items():
+        assert tuple(y.shape) == (1, 64, 64, 3), name
+    for name in ("edge_to_image", "sketch"):
+        y = out[name]
+        assert y.dtype == torch.float32 and torch.isfinite(y).all()
+        assert float(y.abs().max()) <= 1.0
+    assert out["image"].dtype == torch.uint8

@@ -670,7 +670,8 @@ def dp_port_step(paired_setup):
 @pytest.fixture(scope="module")
 def tp_port_step(paired_setup):
     """The port's paired step on a (1, 2) mesh of the two ranks: the UNet
-    sharded over the model axis (`runner.shard_for_training`), both ranks
+    and the VAE sharded over the model axis (`runner.shard_for_training`),
+    both ranks
     paired_setup's row and noise, the UNet blocks recomputed (remat), so
     the recompute's collectives run in the backward."""
     s = paired_setup
@@ -699,7 +700,8 @@ def test_paired_tp_step_matches_jax(paired_setup, tp_port_step, check):
     """Under the model axis, on both ranks, at the tolerances of
     test_paired_step_*_match_jax; "replicated": every trainable, head,
     spectral-norm vector and AdamW moment bit-identical on the two model
-    ranks, each rank holding only its shards of the UNet."""
+    ranks, each rank holding only its shards of the UNet and of the VAE
+    (below 0.6 of each whole's parameters)."""
     out = tp_port_step["out"]
     for res in out:
         if check == "losses":
@@ -711,9 +713,11 @@ def test_paired_tp_step_matches_jax(paired_setup, tp_port_step, check):
                                res["gen"], res["disc"], res["disc_sn"])
         else:
             assert res["differ"] == []
-            whole = sum(p.numel() for p in
-                        paired_setup["models"].unet.parameters())
-            assert res["unet_numel"] < 0.6 * whole
+            models = paired_setup["models"]
+            for name in ("unet", "vae"):
+                whole = sum(p.numel() for p in
+                            getattr(models, name).parameters())
+                assert res["numel"][name] < 0.6 * whole, name
     if check == "replicated":
         a, b = out[0]["state"], out[1]["state"]
         assert set(a) == set(b)

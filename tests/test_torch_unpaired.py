@@ -410,7 +410,7 @@ def test_unpaired_step_discriminators_match_jax(unpaired_setup, port_step):
 def tp_port_step(unpaired_setup):
     """The port's unpaired step on a (1, 2) mesh of two gloo ranks
     (`torch_dp.shared`, one intra-op thread each), started by
-    unpaired_setup: the UNet sharded over the model axis
+    unpaired_setup: the UNet and both VAEs sharded over the model axis
     (`runner.shard_for_training`), both ranks the fixture's row and noise,
     from the state `port_step` starts from (Adam's eps EPS), the UNet
     blocks recomputed (remat)."""
@@ -425,7 +425,8 @@ def test_unpaired_tp_step_matches_jax(unpaired_setup, port_step,
     """Under the model axis, on both ranks, at the tolerances of
     test_unpaired_step_*_match_jax; "replicated": every trainable, head,
     spectral-norm vector and AdamW moment bit-identical on the two model
-    ranks, each rank holding only its shards of the UNet."""
+    ranks, each rank holding only its shards of the UNet and of both VAEs
+    (below 0.6 of each whole's parameters)."""
     s = unpaired_setup
     for res in tp_port_step:
         if check == "losses":
@@ -438,8 +439,10 @@ def test_unpaired_tp_step_matches_jax(unpaired_setup, port_step,
             _assert_discriminators(s, res["disc"], res["disc_sn"])
         else:
             assert res["differ"] == []
-            whole = sum(p.numel() for p in s["models"].unet.parameters())
-            assert res["unet_numel"] < 0.6 * whole
+            for name in ("unet", "vae_a2b", "vae_b2a"):
+                whole = sum(p.numel() for p in
+                            getattr(s["models"], name).parameters())
+                assert res["numel"][name] < 0.6 * whole, name
     if check == "replicated":
         a, b = tp_port_step[0]["state"], tp_port_step[1]["state"]
         assert set(a) == set(b)

@@ -169,6 +169,7 @@ def collectives(mesh):
     out = {"rows": {k: v.float().numpy() for k, v in rows.items()},
            "gathered": {k: mesh_mod.gather_batch(v, mesh).float().numpy()
                         for k, v in rows.items()}}
+    mesh.reset_stats()      # this process's earlier jobs counted theirs
     mesh.timed = True
     mean = mesh_mod.pmean({"a": torch.tensor(1.0 + r),
                            "b": torch.full((2, 2), float(r)),
@@ -413,11 +414,12 @@ def given_step(mesh, models, cfgs, meta, init, batch, noise,
     AdamW's `adam` keywords, broadcast from rank 0), row and noise, in
     fp32; returns its metrics, first-pass gradients and the state's
     trainables, heads and spectral-norm vectors after it. With
-    `model_axis`: on the ranks' (1, W) mesh, the UNet sharded
-    (`runner.shard_for_training`) and its blocks recomputed (remat), with
-    every tensor of the state after the step, the names `differing` finds
-    across the model ranks and the UNet's parameter count; else the data
-    mesh of the spawned world, without remat."""
+    `model_axis`: on the ranks' (1, W) mesh, the UNet and the VAE(s)
+    sharded (`runner.shard_for_training`) and the UNet's blocks recomputed
+    (remat), with every tensor of the state after the step, the names
+    `differing` finds across the model ranks and the parameter count of
+    the UNet and of each VAE ("numel"); else the data mesh of the spawned
+    world, without remat."""
     from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
     from img2img_turbo_tpu_torch.training import (losses, optim, paired,
                                                   runner, unpaired)
@@ -443,8 +445,9 @@ def given_step(mesh, models, cfgs, meta, init, batch, noise,
         out.update(state=state_arrays(state),
                    differ=mesh_mod.differing({"state": state}, mesh,
                                              axis="model"),
-                   unet_numel=sum(p.numel()
-                                  for p in models.unet.parameters()))
+                   numel={name: sum(p.numel() for p in m.parameters())
+                          for name, m in vars(models).items()
+                          if name == "unet" or name.startswith("vae")})
     return out
 
 
@@ -483,6 +486,36 @@ def tp_unet(mesh, cfg, usd, x, t, ctx):
                for k in (True, False)}
     return {"eps": eps, "numel": sum(p.numel() for p in model.parameters()),
             "sharded": sorted(n for n, m in model.named_modules()
+                              if getattr(m, "tp_sharded", False))}
+
+
+def tp_vae(mesh, cfg, vsd, x):
+    """The VAE at `cfg` with the whole state dict `vsd` sharded over the
+    ranks' model axis: the posterior mean of `x` (encode with
+    sample_posterior=False) decoded with the encoder's skips through the
+    skip convs, in fp32 on the CPU, on the kernel path with live weights
+    (as training runs it) and on the plain path; the same of the whole VAE
+    in this process ("whole"); and the parameters and modules this rank
+    holds."""
+    from img2img_turbo_tpu_torch.models.vae import AutoencoderKL
+    from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+    from img2img_turbo_tpu_torch.weights import from_jax
+    tp = tp_mesh(mesh)
+    whole = from_jax.load(AutoencoderKL(cfg), vsd)
+    vae = tensor_mod.shard_module(from_jax.load(AutoencoderKL(cfg), vsd), tp,
+                                  tensor_mod.vae_head_dim(cfg))
+    x = torch.as_tensor(x)
+    out, one = {}, {}
+    with torch.no_grad():
+        for path, kernels in (("live", True), ("plain", False)):
+            for res, model, t in ((out, vae, tp), (one, whole, None)):
+                z, skips = model.encode(x, kernels=kernels,
+                                        sample_posterior=False, tp=t)
+                res[path] = {"z": z.numpy(), "img": model.decode(
+                    z, skips, kernels=kernels, tp=t).numpy()}
+    return {"out": out, "whole": one,
+            "numel": sum(p.numel() for p in vae.parameters()),
+            "sharded": sorted(n for n, m in vae.named_modules()
                               if getattr(m, "tp_sharded", False))}
 
 
