@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
+from img2img_turbo_tpu_torch.utils import profiling
 
 # reference target lists (pix2pix_turbo.py:137-152)
 PIX2PIX_UNET_TARGETS = (
@@ -121,6 +122,7 @@ def merge_lora(base: Dict[str, torch.Tensor], lora: Dict, scale=1.0,
                                          tp)
         merged = w + (scale * s * lora_delta(a, b, w.shape)).to(w.dtype)
         out[name + ".weight"] = merged if dtype is None else merged.to(dtype)
+    profiling.count("lora_merged_weights", len(out))
     return out
 
 

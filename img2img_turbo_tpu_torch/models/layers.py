@@ -77,6 +77,7 @@ from img2img_turbo_tpu_torch.ops import attention as attn_ops
 from img2img_turbo_tpu_torch.ops import fused_conv, fused_matmul
 from img2img_turbo_tpu_torch.ops import groupnorm as gn_ops
 from img2img_turbo_tpu_torch.parallel import mesh as mesh_mod
+from img2img_turbo_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +442,7 @@ def _packed(w_hwio, fold: bool = False):
         return None
     if fold:
         w_hwio = fused_conv.fold_upsample_weights(w_hwio)
+    profiling.count("weight_packs")
     return fused_conv.pack_weights(w_hwio)
 
 
@@ -471,6 +473,7 @@ class KernelFn(torch.autograd.Function):
     def backward(ctx, *gouts):
         args = ctx.saved_tensors
         needs = ctx.needs_input_grad[3:]
+        profiling.count("plain_recomputes")
         with torch.enable_grad():
             inp = [a.detach().requires_grad_(n) if a is not None else None
                    for a, n in zip(args, needs)]
@@ -511,6 +514,7 @@ class GnSiluConvFn(torch.autograd.Function):
                 a, b = gn_ops.group_norm_coeffs(x.contiguous(), scale, bias,
                                                 num_groups, eps)
             w_hwio = _hwio(w)
+            profiling.count("weight_packs")
             w_packed = fused_conv.pack_weights(w_hwio)
             y, stats = fused_conv.fused_gn_silu_conv3x3(
                 x.contiguous(), w_hwio, cb.float(), a, b,

@@ -21,6 +21,7 @@ from img2img_turbo_tpu_torch import resolve_device, scheduler
 from img2img_turbo_tpu_torch.models.layers import (has_kernel_layouts,
                                                    prepare_kernels)
 from img2img_turbo_tpu_torch.models.unet import make_twin_conv_in
+from img2img_turbo_tpu_torch.utils import profiling
 
 
 class GeneratorConfigs:
@@ -44,20 +45,23 @@ def generate_unclamped(unet, vae, cfgs: GeneratorConfigs, alphas_cumprod, c_t,
     sharded over it (`UNet2DConditionModel.forward`), and of the VAE when
     that is sharded too (training; a whole VAE ignores it)."""
     s = cfgs.vae.scaling_factor
-    z, skips = vae.encode(c_t, kernels=kernels, noise=noise,
-                          generator=generator, tp=tp)
-    z = z * s
-    unet_in, gamma = z, 1.0
-    if r is not None:
-        r_ = torch.as_tensor(r, dtype=z.dtype, device=z.device)
-        unet_in = z * r_ + noise_map.to(z.dtype) * (1.0 - r_)
-        gamma = r
-    t = torch.full((c_t.shape[0],), scheduler.ONE_STEP_T, dtype=torch.long,
-                   device=c_t.device)
-    eps = unet(unet_in, t, caption_enc, kernels=kernels, remat=remat, r=r,
-               tp=tp)
-    x0 = scheduler.ddpm_x0_step(eps, unet_in, t, alphas_cumprod)
-    img = vae.decode(x0 / s, skips, gamma=gamma, kernels=kernels, tp=tp)
+    with profiling.span("i2i.gen.encode"):
+        z, skips = vae.encode(c_t, kernels=kernels, noise=noise,
+                              generator=generator, tp=tp)
+        z = z * s
+    with profiling.span("i2i.gen.unet"):
+        unet_in, gamma = z, 1.0
+        if r is not None:
+            r_ = torch.as_tensor(r, dtype=z.dtype, device=z.device)
+            unet_in = z * r_ + noise_map.to(z.dtype) * (1.0 - r_)
+            gamma = r
+        t = torch.full((c_t.shape[0],), scheduler.ONE_STEP_T,
+                       dtype=torch.long, device=c_t.device)
+        eps = unet(unet_in, t, caption_enc, kernels=kernels, remat=remat,
+                   r=r, tp=tp)
+        x0 = scheduler.ddpm_x0_step(eps, unet_in, t, alphas_cumprod)
+    with profiling.span("i2i.gen.decode"):
+        img = vae.decode(x0 / s, skips, gamma=gamma, kernels=kernels, tp=tp)
     return {"z": z, "x0": x0, "img": img}
 
 

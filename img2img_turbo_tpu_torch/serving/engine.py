@@ -54,8 +54,16 @@ from img2img_turbo_tpu_torch.parallel import tensor as tensor_mod
 from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
                                                        generate_unclamped,
                                                        lora_merged_at)
+from img2img_turbo_tpu_torch.utils import profiling
 
 MODES = ("edge_to_image", "image", "sketch")
+
+
+def _output(res: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """res with its image rounded to uint8 under "out"."""
+    with profiling.span("i2i.serve.output"):
+        res["out"] = image_mod.signed_to_uint8(res["img"])
+    return res
 
 
 def _serve_edge(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
@@ -66,12 +74,13 @@ def _serve_edge(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
     Returns the uint8 output under "out", with the scaled latent "z", the
     denoised latent "x0" and the decoded image before the uint8 cast
     "img". tp: the model axis's mesh of a sharded UNet."""
-    c_t = canny_mod.canny_3ch_unit(image_u8, low, high).to(caption_enc.dtype)
+    with profiling.span("i2i.serve.input"):
+        c_t = canny_mod.canny_3ch_unit(image_u8, low, high).to(
+            caption_enc.dtype)
     res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
                              kernels=kernels, noise=noise,
                              generator=generator, tp=tp)
-    res["out"] = image_mod.signed_to_uint8(res["img"])
-    return res
+    return _output(res)
 
 
 def _serve_image(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
@@ -79,12 +88,12 @@ def _serve_image(unet, vae, cfgs: GeneratorConfigs, alphas, image_u8,
                  generator=None, tp=None) -> Dict[str, torch.Tensor]:
     """uint8 RGB -> [-1, 1] -> one-step generator -> uint8 RGB; returns
     as `_serve_edge`."""
-    c_t = image_mod.uint8_to_signed(image_u8).to(caption_enc.dtype)
+    with profiling.span("i2i.serve.input"):
+        c_t = image_mod.uint8_to_signed(image_u8).to(caption_enc.dtype)
     res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
                              kernels=kernels, noise=noise,
                              generator=generator, tp=tp)
-    res["out"] = image_mod.signed_to_uint8(res["img"])
-    return res
+    return _output(res)
 
 
 def _serve_sketch(unet, vae, lora, cfgs: GeneratorConfigs, alphas, image_u8,
@@ -93,14 +102,15 @@ def _serve_sketch(unet, vae, lora, cfgs: GeneratorConfigs, alphas, image_u8,
     """uint8 sketch -> threshold < 0.5 -> the stochastic generator with
     LoRA merged at r -> uint8 (reference inference_paired.py:55-63 and
     pix2pix_turbo.py:204-218); returns as `_serve_edge`."""
-    c_t = (image_mod.uint8_to_unit(image_u8) < 0.5).to(caption_enc.dtype)
+    with profiling.span("i2i.serve.input"):
+        c_t = (image_mod.uint8_to_unit(image_u8) < 0.5).to(
+            caption_enc.dtype)
     with lora_merged_at(unet, vae, lora, r):
         res = generate_unclamped(unet, vae, cfgs, alphas, c_t, caption_enc,
                                  kernels=kernels, noise=noise,
                                  generator=generator, r=r,
                                  noise_map=noise_map)
-    res["out"] = image_mod.signed_to_uint8(res["img"])
-    return res
+    return _output(res)
 
 
 class ServingEngine:
@@ -182,6 +192,7 @@ class ServingEngine:
                    lora=loaded["lora"], **kw)
 
     @torch.no_grad()
+    @profiling.spanned("i2i.serve.run", unit=True)
     def run(self, image_u8, caption_enc, generator=None, noise=None,
             r: float = 0.4, noise_map=None) -> Dict[str, torch.Tensor]:
         """image_u8: (B, H, W, 3) uint8 (numpy or tensor), H and W

@@ -17,6 +17,8 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from img2img_turbo_tpu_torch.utils import profiling
+
 
 def split_micro(data: Dict[str, torch.Tensor], k: int
                 ) -> List[Dict[str, torch.Tensor]]:
@@ -57,18 +59,22 @@ def accumulated_grads(loss_fn: Callable, params: Dict[str, torch.Tensor],
     micro-batch shares with the others (a weight merge done once, before
     the loop) is kept until the last backward."""
     if k == 1:
-        loss, aux = loss_fn(data)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with profiling.span("i2i.train.forward"):
+            loss, aux = loss_fn(data)
+        with profiling.span("i2i.train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), [aux], dict(zip(params, grads))
     acc = {n: torch.zeros_like(p, dtype=torch.float32)
            for n, p in params.items()}
     losses, auxes = [], []
     for i, micro in enumerate(split_micro(data, k)):
-        loss, aux = loss_fn(micro)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    retain_graph=i < k - 1)
-        for g, s in zip(grads, acc.values()):
-            s.add_(g.float())
+        with profiling.span("i2i.train.forward"):
+            loss, aux = loss_fn(micro)
+        with profiling.span("i2i.train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        retain_graph=i < k - 1)
+            for g, s in zip(grads, acc.values()):
+                s.add_(g.float())
         losses.append(loss.detach())
         auxes.append(aux)
         del loss, grads

@@ -63,6 +63,7 @@ from img2img_turbo_tpu_torch.pipelines.pix2pix import (GeneratorConfigs,
 from img2img_turbo_tpu_torch.training import accum
 from img2img_turbo_tpu_torch.training import losses as losses_mod
 from img2img_turbo_tpu_torch.training.optim import AdamW
+from img2img_turbo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +207,7 @@ def make_state(gen, disc, disc_sn, gen_schedule, disc_schedule,
                             **adam_kwargs))
 
 
+@profiling.spanned("i2i.train.optim")
 def _apply(opt: AdamW, params: Dict, grads: Dict) -> None:
     for k, p in params.items():
         p.grad = grads[k]
@@ -251,8 +253,9 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
     def gen_pass(gen, data, loss_fn):
         """loss_fn(micro data, pred) -> (loss, aux); returns (loss, the
         auxes, grads over gen), LoRA merged once for the pass."""
-        params = build_gen_params(gen, models.unet, models.vae, meta, dtype,
-                                  tp)
+        with profiling.span("i2i.train.lora_merge"):
+            params = build_gen_params(gen, models.unet, models.vae, meta,
+                                      dtype, tp)
 
         def micro_loss(mb):
             pred = generate_deterministic(
@@ -269,12 +272,14 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
         return mesh_mod.pmean_pass(*accum.accumulated_grads(
             lambda mb: (loss_fn(mb), None), heads, data, accum_steps), mesh)
 
+    @profiling.spanned("i2i.train.step", unit=True)
     def train_step(state: TrainState, batch, noise, keep_grads=False):
-        c_t = batch["conditioning_pixel_values"].to(dtype)
-        x_tgt = batch["output_pixel_values"].to(dtype)
-        ids = batch["input_ids"]
-        with torch.no_grad():
-            caption_enc = models.text(ids).to(dtype)
+        with profiling.span("i2i.train.text"):
+            c_t = batch["conditioning_pixel_values"].to(dtype)
+            x_tgt = batch["output_pixel_values"].to(dtype)
+            ids = batch["input_ids"]
+            with torch.no_grad():
+                caption_enc = models.text(ids).to(dtype)
         metrics = {}
         data = {"c_t": c_t, "x_tgt": x_tgt, "ids": ids,
                 "caption_enc": caption_enc}
@@ -293,10 +298,11 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
                 total = total + cs
             return total, parts
 
-        _, parts, grads1 = gen_pass(state.gen, {**data, "noise": noise[0]},
-                                    recon)
-        _apply(state.gen_opt, state.gen, grads1)
-        metrics.update(accum.mean_aux(parts))
+        with profiling.span("i2i.train.gen_pass1"):
+            _, parts, grads1 = gen_pass(state.gen,
+                                        {**data, "noise": noise[0]}, recon)
+            _apply(state.gen_opt, state.gen, grads1)
+            metrics.update(accum.mean_aux(parts))
 
         # ---- pass 2: generator GAN (fresh forward, updated gen) --------
         sn = state.disc_sn
@@ -306,30 +312,41 @@ def make_paired_train_step(models: PairedModels, cfgs: GeneratorConfigs,
                 models.disc_backbone, state.disc, sn, pred, smooth), \
                 pred.detach()
 
-        loss_g, preds, grads = gen_pass(state.gen,
-                                        {**data, "noise": noise[1]}, gan_g)
-        pred2 = accum.merge_micro(preds)
-        _apply(state.gen_opt, state.gen, grads)
-        metrics["loss_gan_g"] = loss_g
-        sn = disc_mod.sn_step(state.disc, sn)
+        with profiling.span("i2i.train.gen_pass2"):
+            loss_g, preds, grads = gen_pass(
+                state.gen, {**data, "noise": noise[1]}, gan_g)
+            pred2 = accum.merge_micro(preds)
+            _apply(state.gen_opt, state.gen, grads)
+            metrics["loss_gan_g"] = loss_g
+        with profiling.span("i2i.train.sn_step"):
+            sn = disc_mod.sn_step(state.disc, sn)
 
         # ---- pass 3: discriminator on the real images ------------------
-        loss_dr, _, grads = disc_pass(
-            state.disc, {"x_tgt": x_tgt},
-            lambda mb: loss_cfg.lambda_gan * losses_mod.gan_disc_real_loss(
-                models.disc_backbone, state.disc, sn, mb["x_tgt"], smooth))
-        sn = disc_mod.sn_step(state.disc, sn)   # the heads before the update
-        _apply(state.disc_opt, state.disc, grads)
-        metrics["loss_d_real"] = loss_dr
+        def d_real(mb):
+            return loss_cfg.lambda_gan * losses_mod.gan_disc_real_loss(
+                models.disc_backbone, state.disc, sn, mb["x_tgt"], smooth)
+
+        with profiling.span("i2i.train.disc_real"):
+            loss_dr, _, grads = disc_pass(state.disc, {"x_tgt": x_tgt},
+                                          d_real)
+            with profiling.span("i2i.train.sn_step"):
+                # the heads before the update
+                sn = disc_mod.sn_step(state.disc, sn)
+            _apply(state.disc_opt, state.disc, grads)
+            metrics["loss_d_real"] = loss_dr
 
         # ---- pass 4: discriminator on pass 2's images, detached --------
-        loss_df, _, grads = disc_pass(
-            state.disc, {"pred": pred2},
-            lambda mb: loss_cfg.lambda_gan * losses_mod.gan_disc_fake_loss(
-                models.disc_backbone, state.disc, sn, mb["pred"], smooth))
-        sn = disc_mod.sn_step(state.disc, sn)
-        _apply(state.disc_opt, state.disc, grads)
-        metrics["loss_d_fake"] = loss_df
+        def d_fake(mb):
+            return loss_cfg.lambda_gan * losses_mod.gan_disc_fake_loss(
+                models.disc_backbone, state.disc, sn, mb["pred"], smooth)
+
+        with profiling.span("i2i.train.disc_fake"):
+            loss_df, _, grads = disc_pass(state.disc, {"pred": pred2},
+                                          d_fake)
+            with profiling.span("i2i.train.sn_step"):
+                sn = disc_mod.sn_step(state.disc, sn)
+            _apply(state.disc_opt, state.disc, grads)
+            metrics["loss_d_fake"] = loss_df
 
         state.disc_sn = sn
         state.step += 1

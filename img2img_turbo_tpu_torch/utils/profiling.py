@@ -3,8 +3,13 @@
 
 - `trace(log_dir)` records a `torch.profiler` trace (host ops and, on a
   CUDA card, its kernels) and writes it as a Chrome trace into `log_dir`.
-- `StepTimer` tracks step time and images a second, discarding warm-up
-  steps; its `stats` keys and percentiles are the JAX module's.
+- `span(name)` (or the decorator `spanned`) marks a stage of a request
+  or train step (names begin with `i2i.`), `count(name, n)` counts work
+  where it happens, and `recording()` turns the spans on and reads them
+  per request or step. Recording is off by default, and then a span
+  costs one flag check.
+  Under `trace` with recording on, every span is also a range on the
+  host track of the Chrome trace, on the device events' clock.
 - `device_time_per_call(fn, args, iters)` measures a call's device time
   from the profiler's device events: the GPU kernels each call launched,
   summed per call (p50 and p90 over the calls), and the device span a
@@ -15,10 +20,13 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,31 +54,157 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-class StepTimer:
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: List[float] = []
-        self._last: Optional[float] = None
-        self._count = 0
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
 
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._count += 1
-            if self._count > self.warmup:
-                self._times.append(now - self._last)
-        self._last = now
+MAX_SPANS = 1 << 16     # finished spans kept: a server must not grow
+counts: collections.Counter = collections.Counter()
+_NULL = contextlib.nullcontext()
+_recorder: Optional["Recorder"] = None
 
-    def stats(self, batch_size: int = 1) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        t = np.asarray(self._times)
-        return {
-            "step_time_p50_s": float(np.percentile(t, 50)),
-            "step_time_p90_s": float(np.percentile(t, 90)),
-            "steps_per_sec": float(1.0 / t.mean()),
-            "images_per_sec": float(batch_size / t.mean()),
-        }
+
+class Span(NamedTuple):
+    """A finished span: `seq` numbers the spans in the order they opened;
+    `parent` is the parent's `seq` (None at the top); `unit` is the id of
+    the request or step that was running when it opened."""
+    seq: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    unit: int
+    thread: int
+
+
+def span(name: str, unit: bool = False):
+    """A context manager that records the block as the span `name` while
+    `recording()` is on; otherwise one shared null context. unit=True
+    marks the span of a whole request or step: the unit id increments as
+    it opens, and the spans opened until the next one carry it."""
+    rec = _recorder
+    if rec is None:
+        return _NULL
+    return _OpenSpan(rec, name, unit)
+
+
+def spanned(name: str, unit: bool = False):
+    """A decorator: each call of the function runs inside
+    `span(name, unit)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name, unit):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the process-wide counter `counts[name]` (always on)."""
+    counts[name] += n
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "unit", "uid", "seq", "parent", "start",
+                 "child_ns", "range")
+
+    def __init__(self, rec, name, unit):
+        self.rec, self.name, self.unit = rec, name, unit
+
+    def __enter__(self):
+        rec = self.rec
+        stack = rec._stack()
+        # autograd's backward thread has no span of its own open: its
+        # spans belong to the latest-opened one, the caller's
+        self.parent = stack[-1] if stack else next(reversed(rec._open),
+                                                   None)
+        if self.unit:
+            rec.units += 1
+        self.uid = rec.units
+        self.seq, rec._seq = rec._seq, rec._seq + 1
+        self.child_ns = 0
+        stack.append(self)
+        rec._open[self] = None
+        self.range = None
+        if torch._C._autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start = rec.clock()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        end = rec.clock()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        rec._stack().pop()
+        del rec._open[self]
+        dur, parent = end - self.start, self.parent
+        if parent is not None:
+            parent.child_ns += dur
+        agg = rec._agg[self.name]
+        agg[0] += 1
+        agg[1] += dur
+        agg[2] += dur - self.child_ns
+        rec.spans.append(Span(self.seq, self.name, self.start, end,
+                              None if parent is None else parent.seq,
+                              self.uid, threading.get_ident()))
+        return False
+
+
+class Recorder:
+    """What `recording()` collects: `spans`, the last MAX_SPANS finished
+    spans; running totals by span name; the counters."""
+
+    def __init__(self, clock: Callable[[], int]):
+        self.clock = clock
+        self.spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
+        self.units = 0
+        self._seq = 0
+        self._agg = collections.defaultdict(lambda: [0, 0, 0])
+        self._open: Dict[_OpenSpan, None] = {}   # open spans, by start
+        self._local = threading.local()
+        self._counts: Optional[Dict[str, int]] = None
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def counters(self) -> Dict[str, int]:
+        """The counters since recording opened (frozen when it closed)."""
+        return dict(counts if self._counts is None else self._counts)
+
+    def table(self, per: str) -> dict:
+        """Per request or step, `per` naming its span (say
+        "i2i.serve.run"): {"per", "units" (how many closed), "spans":
+        {name: {"count", "host_ms", "self_ms"}}, "counters": {name:
+        value}}. Self time is a span's time less its child spans'."""
+        n = self._agg[per][0] if per in self._agg else 0
+        if not n:
+            return {"per": per, "units": 0, "spans": {}, "counters": {}}
+        return {"per": per, "units": n,
+                "spans": {name: {"count": c / n, "host_ms": t / n / 1e6,
+                                 "self_ms": own / n / 1e6}
+                          for name, (c, t, own) in sorted(self._agg.items())},
+                "counters": {k: v / n
+                             for k, v in sorted(self.counters().items())}}
+
+
+@contextlib.contextmanager
+def recording(clock: Callable[[], int] = time.perf_counter_ns):
+    """Turn spans on for the block, with the counters reset as it opens;
+    yields the Recorder, which keeps what it holds after the block."""
+    global _recorder
+    counts.clear()
+    rec = _recorder = Recorder(clock)
+    try:
+        yield rec
+    finally:
+        _recorder = None
+        rec._counts = dict(counts)
 
 
 def _device_kernels(prof) -> list:

@@ -1,0 +1,10 @@
+"""host_enqueue_pct.serve: the host time of the program's `i2i.serve.run`
+spans (ServingEngine.run, entry to return: the enqueue of a request) over
+the spans window's time, in %. Read from `port_bench/spans.py`'s spans
+window; None in a run without one."""
+
+from port_bench import spans
+
+
+def read(r):
+    return spans.host_share_pct(r, "i2i.serve.run")

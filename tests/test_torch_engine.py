@@ -28,6 +28,7 @@ from img2img_turbo_tpu_torch.ops import (attention, fused_conv, fused_matmul,
                                          groupnorm)
 from img2img_turbo_tpu_torch.pipelines.pix2pix import GeneratorConfigs
 from img2img_turbo_tpu_torch.serving.engine import ServingEngine
+from img2img_turbo_tpu_torch.utils import profiling
 from img2img_turbo_tpu_torch.weights import from_jax
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
@@ -181,6 +182,27 @@ def test_timing_tables_match_launch_tables():
     assert not any(c[7] or c[8] for c in tk.K6_CASES[tk.K6_PATH_CASES:])
     assert sum(c[6] for c in tk.K7_CASES) == smoke.EXPECTED_TRAIN_LAUNCHES[k7]
     assert sum(c[-1] for c in tk.DU_CASES) == smoke.TRAIN_DU_LAUNCHES
+
+
+def test_a_request_records_its_stage_spans(setup):
+    """Under recording, one request is one `i2i.serve.run` span holding
+    the input, the generator's three stages and the output, all under one
+    request id; on prepared layouts it packs no weight."""
+    _, engines, caption = setup
+    img = np.random.RandomState(3).randint(0, 256, (1, 40, 56, 3),
+                                           dtype=np.uint8)
+    with profiling.recording() as rec:
+        engines[True](img, torch.from_numpy(caption),
+                      torch.Generator().manual_seed(0))
+    spans = sorted(rec.spans, key=lambda s: s.seq)
+    root = spans[0]
+    assert root.name == "i2i.serve.run" and root.parent is None
+    assert [s.name for s in spans[1:]] == [
+        "i2i.serve.input", "i2i.gen.encode", "i2i.gen.unet",
+        "i2i.gen.decode", "i2i.serve.output"]
+    assert all(s.parent == root.seq for s in spans[1:])
+    assert {s.unit for s in spans} == {1} and rec.units == 1
+    assert rec.counters().get("weight_packs", 0) == 0
 
 
 def test_rejects_what_it_does_not_serve(setup):

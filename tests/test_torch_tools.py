@@ -12,10 +12,11 @@ tokenizer) headless on port 0; each endpoint's JSON must equal the direct
 call's. LPIPS agrees with JAX's within 1e-5.
 """
 
+import contextlib
 import importlib.util
 import json
 import os
-import time
+import threading
 import urllib.error
 import urllib.request
 
@@ -26,7 +27,6 @@ from PIL import Image
 
 from img2img_turbo_tpu.serving import demo as jdemo
 from img2img_turbo_tpu.serving import web_demo as jweb
-from img2img_turbo_tpu.utils import profiling as jprof
 from img2img_turbo_tpu_torch import configs as tcfg
 from img2img_turbo_tpu_torch.cli import accept_parity
 from img2img_turbo_tpu_torch.models.unet import make_twin_conv_in
@@ -207,20 +207,101 @@ def test_native_reader_refuses_other_files(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_step_timer_stats_equal_jax(monkeypatch):
-    """Both timers on one fake clock: warm-up steps dropped, the same
-    keys, percentiles and rates."""
-    ticks = iter([0.0, 1.0, 1.5, 2.5, 2.75, 3.0, 4.25, 5.0, 5.5, 7.0] * 2)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-    timers = (tprof.StepTimer(warmup=2), jprof.StepTimer(warmup=2))
-    assert timers[0].stats() == {} == timers[1].stats()
-    for timer in timers:
-        for _ in range(10):
-            timer.tick()
-    got, want = (t.stats(batch_size=4) for t in timers)
-    assert got == want and set(got) == {"step_time_p50_s",
-                                        "step_time_p90_s", "steps_per_sec",
-                                        "images_per_sec"}
+def test_spans_off_record_nothing():
+    """Off, every span is one shared null context; a recorder keeps only
+    what ran while it was open."""
+    null = tprof.span("i2i.a")
+    assert isinstance(null, contextlib.nullcontext)
+    assert tprof.span("i2i.b", unit=True) is null
+    with tprof.recording() as rec:
+        with tprof.span("i2i.a", unit=True):
+            pass
+    assert tprof.span("i2i.a") is null
+    with tprof.span("i2i.a", unit=True):
+        pass
+    assert [s.name for s in rec.spans] == ["i2i.a"] and rec.units == 1
+
+
+def _ms_clock():
+    ticks = iter(range(10 ** 6))
+    return lambda: next(ticks) * 10 ** 6
+
+
+def test_spans_nest_with_parents_self_time_and_unit_ids(monkeypatch):
+    """On a clock that advances 1 ms a reading: each request's spans carry
+    its id and their parents; self time leaves the children out; the
+    table divides by the requests; the buffer keeps the last MAX_SPANS
+    spans while the table counts every one."""
+    monkeypatch.setattr(tprof, "MAX_SPANS", 6)
+    with tprof.recording(clock=_ms_clock()) as rec:
+        for _ in range(2):
+            with tprof.span("i2i.req", unit=True):      # 0 .. 7
+                with tprof.span("i2i.a"):               # 1 .. 4
+                    with tprof.span("i2i.b"):           # 2 .. 3
+                        pass
+                with tprof.span("i2i.c"):               # 5 .. 6
+                    pass
+    spans = list(rec.spans)
+    assert len(spans) == 6 and [s.name for s in spans[-4:]] == [
+        "i2i.b", "i2i.a", "i2i.c", "i2i.req"]
+    b, a, c, req = spans[-4:]
+    assert req.parent is None and a.parent == c.parent == req.seq
+    assert b.parent == a.seq and {s.unit for s in spans[-4:]} == {2}
+    assert spans[0].unit == 1 and (req.start_ns, req.end_ns) == (8e6, 15e6)
+    table = rec.table("i2i.req")
+    assert table["units"] == 2
+    assert table["spans"] == {
+        "i2i.req": {"count": 1.0, "host_ms": 7.0, "self_ms": 3.0},
+        "i2i.a": {"count": 1.0, "host_ms": 3.0, "self_ms": 2.0},
+        "i2i.b": {"count": 1.0, "host_ms": 1.0, "self_ms": 1.0},
+        "i2i.c": {"count": 1.0, "host_ms": 1.0, "self_ms": 1.0}}
+
+
+class _Twice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        with tprof.span("i2i.in_backward"):
+            return g * 2
+
+
+def test_a_span_in_the_backward_belongs_to_the_callers_span():
+    """A span opened in a backward, on the caller's thread (the CPU) or
+    on a thread of its own (autograd's device thread on a card), takes
+    the span open around `autograd.grad` as its parent."""
+    x = torch.ones(3, requires_grad=True)
+    with tprof.recording() as rec:
+        with tprof.span("i2i.step", unit=True):
+            y = _Twice.apply(x).sum()
+            with tprof.span("i2i.backward"):
+                torch.autograd.grad(y, [x])
+                worker = threading.Thread(
+                    target=lambda: _Twice.backward(None, torch.ones(1)))
+                worker.start()
+                worker.join()
+    by = {s.seq: s for s in rec.spans}
+    inner = [s for s in rec.spans if s.name == "i2i.in_backward"]
+    assert len(inner) == 2 and len({s.thread for s in inner}) == 2
+    assert all(by[s.parent].name == "i2i.backward" and s.unit == 1
+               for s in inner)
+    assert by[by[inner[0].parent].parent].name == "i2i.step"
+
+
+def test_counters_reset_when_recording_opens():
+    tprof.count("test.items", 5)
+    with tprof.recording() as rec:
+        assert tprof.counts["test.items"] == 0
+        for n in (1, 3):
+            with tprof.span("i2i.req", unit=True):
+                tprof.count("test.items", n)
+    tprof.count("test.items", 7)
+    assert rec.counters() == {"test.items": 4}
+    assert rec.table("i2i.req")["counters"] == {"test.items": 2.0}
+    assert rec.table("i2i.none") == {"per": "i2i.none", "units": 0,
+                                     "spans": {}, "counters": {}}
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -59,6 +59,7 @@ from img2img_turbo_tpu_torch.training import losses as tlosses
 from img2img_turbo_tpu_torch.training import optim as toptim
 from img2img_turbo_tpu_torch.training import paired as tpaired
 from img2img_turbo_tpu_torch.training import runner as trunner
+from img2img_turbo_tpu_torch.utils import profiling
 from img2img_turbo_tpu_torch.weights import from_jax
 
 # The suite runs in several pytest-xdist workers at once on a few cores:
@@ -577,8 +578,10 @@ def port_step(paired_setup):
     noise = tuple(torch.from_numpy(n) for n in s["noise"])
     state = s["state"]
     gen0 = {k: v.detach().clone() for k, v in state.gen.items()}
-    metrics, grads1 = step(state, batch, noise, keep_grads=True)
-    return dict(state=state, metrics=metrics, grads1=grads1, gen0=gen0)
+    with profiling.recording() as rec:
+        metrics, grads1 = step(state, batch, noise, keep_grads=True)
+    return dict(state=state, metrics=metrics, grads1=grads1, gen0=gen0,
+                spans=rec)
 
 
 def _assert_losses(paired_setup, metrics):
@@ -641,6 +644,44 @@ def test_paired_step_trainables_match_jax(paired_setup, port_step):
     state = port_step["state"]
     _assert_trainables(paired_setup, port_step["gen0"], state.gen,
                        state.disc, state.disc_sn)
+
+
+def test_paired_step_records_its_passes(port_step):
+    """The step's spans: the caption encode, then the four passes in order
+    with the spectral-norm steps; a LoRA merge in each generator pass, an
+    optimizer update in every pass, and each pass's backward under it,
+    with the generator's stages under the forward."""
+    rec = port_step["spans"]
+    by = {s.seq: s for s in rec.spans}
+
+    def pass_of(s):
+        while by[s.parent].name != "i2i.train.step":
+            s = by[s.parent]
+        return s.name
+
+    root = [s for s in by.values() if s.name == "i2i.train.step"]
+    assert len(root) == 1 and root[0].parent is None
+    top = [s.name for s in sorted(by.values(), key=lambda s: s.seq)
+           if s.parent == root[0].seq]
+    passes = ["i2i.train.gen_pass1", "i2i.train.gen_pass2",
+              "i2i.train.disc_real", "i2i.train.disc_fake"]
+    assert top == ["i2i.train.text", passes[0], passes[1],
+                   "i2i.train.sn_step", passes[2], passes[3]]
+    table = rec.table("i2i.train.step")
+    n = {k: v["count"] for k, v in table["spans"].items()}
+    assert n["i2i.train.lora_merge"] == 2 and n["i2i.train.optim"] == 4
+    assert n["i2i.train.sn_step"] == 3 and n["i2i.gen.unet"] == 2
+    for name, want in (("i2i.train.backward", passes),
+                       ("i2i.train.optim", passes),
+                       ("i2i.train.lora_merge", passes[:2])):
+        assert [pass_of(s) for s in sorted(by.values(),
+                                           key=lambda s: s.seq)
+                if s.name == name] == want, name
+    assert {by[s.parent].name for s in by.values()
+            if s.name.startswith("i2i.gen.")} == {"i2i.train.forward"}
+    counters = table["counters"]
+    assert counters["lora_merged_weights"] > 0
+    assert counters["weight_packs"] > 0 and counters["plain_recomputes"] > 0
 
 
 # ---------------------------------------------------------------------------
